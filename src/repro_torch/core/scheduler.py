@@ -1,0 +1,698 @@
+"""Scheduler policies: EWSJF (the paper) + FCFS / SJF / static-priority
+baselines, behind one pluggable interface (the vLLM-RFC-style plug point).
+
+`SchedulerPolicy.tick(now, budget)` is the tactical loop — called by the
+engine (or simulator) at every scheduling opportunity; it returns a
+BatchPlan.  `submit(req)` routes arrivals.  The strategic loop runs via
+`maybe_reoptimize(now)`, which (a) refreshes the queue structure with
+Refine-and-Prune on the monitor's window and (b) advances the Bayesian
+meta-optimizer one trial when the trial interval elapses.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from math import log
+from typing import Callable, Optional
+
+import numpy as np
+
+from .batch_builder import BatchBudget, BatchBuilder
+from .cost_model import CostModel, make_cost_fn
+from .meta_optimizer import BayesianMetaOptimizer
+from .monitor import Monitor, RewardWeights, reward, reward_terms
+from .partition import PartitionConfig, refine_and_prune
+from .queues import QueueManager, SchedulerQueue
+from .scoring import QueueProfile, compute_score, weights_for_queue
+from .types import (BatchPlan, MetaParams, QueueBounds, QueueSnapshot,
+                    Request, SchedulerPolicy, SchedulerSnapshot)
+
+
+class BaseScheduler:
+    """Interface every admission policy implements."""
+
+    name = "base"
+    # Monotonic mutation counter: bumped (via ``_publish``) whenever the
+    # queue state visible through ``snapshot()`` changes.  Cluster-level
+    # caches (router cost memos, replica snapshot caches) key on it for
+    # event-driven invalidation instead of rebuilding per arrival.
+    version = 0
+    # Epoch of the last fleet policy adopted from a shared PolicyStore
+    # (−1 = never; only policies implementing ``adopt_global_policy``
+    # participate in fleet-level sync).
+    adopted_epoch = -1
+    # Optional output-length predictor (repro.predict.LengthPredictor),
+    # wired by the cluster simulator.  The scheduler itself never calls it
+    # on the hot path — requests arrive already stamped (work_len); the
+    # attribute exists so the fleet policy store can publish/absorb the
+    # predictor's posterior alongside the scheduling policy.
+    predictor = None
+
+    def _publish(self) -> None:
+        """Delta-publication hook: mark the scheduler state as changed."""
+        self.version = self.version + 1
+
+    def submit(self, req: Request, now: float) -> None:
+        """Enqueue a request that arrived at ``now``."""
+        raise NotImplementedError
+
+    def tick(self, now: float, budget: BatchBudget) -> BatchPlan:
+        """Choose the requests to admit at ``now`` under ``budget``."""
+        raise NotImplementedError
+
+    def on_finish(self, req: Request, now: float) -> None:  # optional hook
+        """Hook called when a request finishes (default: no-op)."""
+        pass
+
+    def waiting(self) -> int:
+        """Number of queued requests."""
+        raise NotImplementedError
+
+    def snapshot(self, now: float) -> SchedulerSnapshot:
+        """Introspection view for cluster-level routing (queue structure +
+        head scores).  The default reports totals only (`waiting()`, no
+        per-queue structure) so any policy stays routable; subclasses
+        should override with real structure — FCFSScheduler reports one
+        pseudo-queue spanning [0, inf), EWSJFScheduler its live partition."""
+        return SchedulerSnapshot(policy=self.name, waiting=self.waiting(),
+                                 waiting_tokens=0, queues=[])
+
+    def snapshot_cached(self, now: float) -> SchedulerSnapshot:
+        """Like ``snapshot`` but allowed to reuse incrementally-maintained
+        state between mutations (same values, cheaper).  Policies without an
+        incremental view fall back to a fresh build."""
+        return self.snapshot(now)
+
+    def drain(self) -> list[Request]:
+        """Remove and return every waiting request.  Required by the
+        cluster layer for replica failure / straggler re-routing; policies
+        that cannot enumerate their queue cannot be failed over."""
+        raise NotImplementedError
+
+    def state_dict(self) -> dict:            # checkpointing hook
+        """Checkpointable scheduler state."""
+        return {}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore state saved by ``state_dict``."""
+        pass
+
+
+# --------------------------------------------------------------------------
+# Baselines
+# --------------------------------------------------------------------------
+
+class FCFSScheduler(BaseScheduler):
+    """vLLM default: single FIFO queue."""
+
+    name = "fcfs"
+
+    def __init__(self):
+        self.queue: list[Request] = []
+        self._tok_sum = 0
+
+    def submit(self, req: Request, now: float) -> None:
+        """Append the request to the arrival-order queue."""
+        req.enqueue_time = now
+        self.queue.append(req)
+        self._tok_sum += int(req.effective_len)
+        self._publish()
+
+    def tick(self, now: float, budget: BatchBudget) -> BatchPlan:
+        """Admit requests in arrival order while the budget allows."""
+        plan = BatchPlan(requests=[])
+        free = budget.kv_blocks_free
+        used = 0
+        while self.queue and len(plan.requests) < budget.max_requests:
+            head = self.queue[0]
+            if plan.requests and plan.total_tokens + head.effective_len \
+                    > budget.max_tokens:
+                break
+            if free is not None:
+                need = budget.blocks_needed(head)
+                if used + need > free:
+                    break
+                used += need
+            plan.requests.append(self.queue.pop(0))
+            plan.total_tokens += int(head.effective_len)
+            self._tok_sum -= int(head.effective_len)
+        if plan.requests:
+            self._publish()
+            from .batch_builder import DEFAULT_BUCKETS, _bucket_edge
+            edge = _bucket_edge(max(int(r.effective_len)
+                                    for r in plan.requests), DEFAULT_BUCKETS)
+            plan.padded_tokens = edge * len(plan.requests)
+        return plan
+
+    def waiting(self) -> int:
+        """Number of queued requests."""
+        return len(self.queue)
+
+    def snapshot(self, now: float) -> SchedulerSnapshot:
+        """Queue-state snapshot for routers and admission control."""
+        tokens = self._tok_sum
+        head = self.queue[0] if self.queue else None
+        mean = tokens / len(self.queue) if self.queue else 0.0
+        q = QueueSnapshot(
+            queue_id=0, index=0, lo=0.0, hi=float("inf"),
+            depth=len(self.queue), tokens=tokens, mean_len=mean,
+            head_len=head.effective_len if head else None,
+            head_wait=head.wait_time(now) if head else 0.0,
+            # FIFO has no density weighting: the head's "score" is its wait.
+            head_score=head.wait_time(now) if head else 0.0)
+        return SchedulerSnapshot(policy=self.name, waiting=len(self.queue),
+                                 waiting_tokens=tokens, queues=[q])
+
+    def drain(self) -> list[Request]:
+        """Remove and return every queued request."""
+        out, self.queue = self.queue, []
+        self._tok_sum = 0
+        self._publish()
+        return out
+
+
+class SJFScheduler(FCFSScheduler):
+    """Greedy shortest-job-first (App. C starvation baseline)."""
+
+    name = "sjf"
+
+    def tick(self, now: float, budget: BatchBudget) -> BatchPlan:
+        """Admit the shortest prompts first while the budget allows."""
+        self.queue.sort(key=lambda r: (r.work_len, r.arrival_time))
+        return super().tick(now, budget)
+
+
+class StaticPriorityScheduler(FCFSScheduler):
+    """Coarse two-class static priority (short first), the 'static queues'
+    strawman from §1."""
+
+    name = "static_priority"
+
+    def __init__(self, short_threshold: int = 256):
+        super().__init__()
+        self.short_threshold = short_threshold
+
+    def tick(self, now: float, budget: BatchBudget) -> BatchPlan:
+        """Admit short requests before long ones, each class in arrival order."""
+        self.queue.sort(key=lambda r: (r.work_len > self.short_threshold,
+                                       r.arrival_time))
+        return super().tick(now, budget)
+
+
+# --------------------------------------------------------------------------
+# EWSJF
+# --------------------------------------------------------------------------
+
+@dataclass
+class EWSJFConfig:
+    """Knobs of the EWSJF scheduler (partitioning, scoring, meta-optimization)."""
+    max_queues: int = 32
+    empty_threshold: int = 50
+    history_cap: int = 200_000
+    reopt_interval: float = 60.0        # strategic Refine-and-Prune period (s)
+    trial_interval: float = 120.0       # Bayesian-optimizer trial length ΔT (s)
+    min_history: int = 64               # don't re-partition before this
+    short_threshold: float = 256.0
+    online_blend: float = 0.25          # online-mode boundary smoothing
+    enable_meta_opt: bool = True
+    enable_bubbles: bool = True
+    reward_weights: RewardWeights = field(default_factory=RewardWeights)
+    seed: int = 0
+
+
+class EWSJFScheduler(BaseScheduler):
+    """The paper's scheduler: Refine-and-Prune queues + density-weighted
+    scoring + bubble routing + Bayesian meta-optimization."""
+
+    name = "ewsjf"
+
+    def __init__(self, cfg: EWSJFConfig | None = None,
+                 cost_model: CostModel | None = None,
+                 initial_policy: Optional[SchedulerPolicy] = None,
+                 partitioner: Optional[Callable] = None):
+        self.cfg = cfg or EWSJFConfig()
+        self.cost_model = cost_model or CostModel()
+        self.c_prefill = make_cost_fn(self.cost_model)
+        self.monitor = Monitor(history_cap=self.cfg.history_cap,
+                               short_threshold=self.cfg.short_threshold)
+        self.meta_opt = BayesianMetaOptimizer(seed=self.cfg.seed,
+                                              max_queues=self.cfg.max_queues)
+        self.partitioner = partitioner  # override for k-means ablations
+        meta = (initial_policy.meta if initial_policy
+                else MetaParams(max_queues=self.cfg.max_queues))
+        bounds = (initial_policy.boundaries if initial_policy
+                  else [QueueBounds(0.0, float("inf"))])
+        self.manager = QueueManager(bounds, meta,
+                                    empty_threshold=self.cfg.empty_threshold)
+        self._last_reopt = 0.0
+        self._trial_start = 0.0
+        self._trial_meta: Optional[MetaParams] = None
+        self._trial_finish_mark = 0
+        self._trial_token_mark = 0
+        self.tick_count = 0
+        self.reopt_count = 0
+        # reopt_count at the moment of the last fleet-policy adoption: the
+        # policy store re-broadcasts (same epoch) once this falls behind,
+        # so local repartitions between epochs still get re-aligned.
+        self._reopt_at_adopt = -1
+        # Incrementally-maintained snapshot (cluster routing cache): rebuilt
+        # only on structural changes, patched in place on submit/dispatch,
+        # head scores refreshed lazily per access time.
+        self._snap: Optional[SchedulerSnapshot] = None
+        self._snap_entries: list[tuple[QueueSnapshot, SchedulerQueue]] = []
+        self._snap_by_id: dict[int, int] = {}        # queue_id -> entry index
+        self._snap_ids: tuple[int, ...] = ()
+        self._snap_profiles: dict[int, QueueProfile] = {}
+        # Per-queue head-score coefficients: the head request only changes on
+        # a published delta, and between deltas its score is *affine in
+        # time* — Φ = qf·(w_base + w_fair·log(b+1)) + qf·w_urg/C(b) · wait —
+        # so refresh is O(1) per queue with no cost-model calls.
+        # Entry: (head_arrival, head_len, base, slope) or None when empty.
+        self._snap_coeffs: list[Optional[tuple[float, float, float, float]]] = []
+        self._snap_time: Optional[float] = None
+
+    # ---- request path ----------------------------------------------------
+
+    def submit(self, req: Request, now: float) -> None:
+        """Route the request to its length queue."""
+        req.enqueue_time = now
+        self.monitor.observe_arrival(req)
+        if self.cfg.enable_bubbles:
+            self.manager.route(req)
+        else:
+            q = self.manager.queues[
+                self.manager._find_interval(req.work_len)]
+            q.push(req)
+            req.queue_id = q.queue_id
+        self._snapshot_delta([req.queue_id] if req.queue_id is not None
+                             else [])
+
+    def on_finish(self, req: Request, now: float) -> None:
+        """Record the finished request in the monitor."""
+        self.monitor.observe_finish(req)
+
+    def waiting(self) -> int:
+        """Number of queued requests across all queues."""
+        return self.manager.waiting_count()
+
+    def snapshot(self, now: float) -> SchedulerSnapshot:
+        """Queue-state snapshot for routers and admission control."""
+        profiles = self.manager.profiles()
+        queues: list[QueueSnapshot] = []
+        total_reqs = 0
+        total_tokens = 0
+        for i, q in enumerate(self.manager.queues):
+            tokens = sum(int(r.work_len) for r in q.requests)
+            head = q.peek()
+            queues.append(QueueSnapshot(
+                queue_id=q.queue_id, index=i,
+                lo=q.bounds.lo, hi=q.bounds.hi,
+                depth=len(q), tokens=tokens, mean_len=q.mean_len,
+                head_len=head.work_len if head else None,
+                head_wait=head.wait_time(now) if head else 0.0,
+                head_score=(compute_score(head, profiles[q.queue_id], now,
+                                          self.c_prefill) if head else 0.0)))
+            total_reqs += len(q)
+            total_tokens += tokens
+        return SchedulerSnapshot(policy=self.name, waiting=total_reqs,
+                                 waiting_tokens=total_tokens, queues=queues)
+
+    def drain(self) -> list[Request]:
+        """Remove and return every queued request."""
+        out: list[Request] = []
+        for q in self.manager.queues:
+            out.extend(q.clear_requests())
+        self._mark_snapshot_dirty()
+        return out
+
+    # ---- incremental snapshot (cluster routing cache) ----------------------
+
+    def _mark_snapshot_dirty(self) -> None:
+        """Structural change (repartition / bubble / prune / drain): the
+        cached snapshot must be rebuilt from scratch on next access."""
+        self._snap = None
+        self._publish()
+
+    def _head_coeff(self, q: SchedulerQueue
+                    ) -> Optional[tuple[float, float, float, float]]:
+        head = q.peek()
+        if head is None:
+            return None
+        p = self._snap_profiles[q.queue_id]
+        w = p.weights
+        b = head.work_len
+        cost = max(self.c_prefill(b), 1e-9)
+        qf = (p.index + 1.0) / (p.mean_len + 1.0)
+        base = qf * (w.w_base + w.w_fairness * log(b + 1.0))
+        slope = qf * w.w_urgency / cost
+        return (head.arrival_time, b, base, slope)
+
+    def _snapshot_delta(self, queue_ids) -> None:
+        """Patch the cached snapshot after a local change (enqueue or
+        dispatch touching ``queue_ids``).  Falls back to a full rebuild flag
+        when the queue *structure* changed underneath (new bubble, prune,
+        repartition)."""
+        self._publish()
+        if self._snap is None:
+            return
+        if tuple(q.queue_id for q in self.manager.queues) != self._snap_ids:
+            self._snap = None
+            return
+        for qid in set(queue_ids):
+            idx = self._snap_by_id.get(qid)
+            if idx is None:
+                self._snap = None
+                return
+            qs, q = self._snap_entries[idx]
+            qs.depth = len(q)
+            qs.tokens = q.tok_sum
+            qs.mean_len = q.mean_len
+            self._snap_profiles[qid] = QueueProfile(
+                index=qs.index, mean_len=q.mean_len,
+                weights=weights_for_queue(self.manager.meta, q.mean_len))
+            self._snap_coeffs[idx] = self._head_coeff(q)
+        self._snap.waiting = sum(qs.depth for qs, _ in self._snap_entries)
+        self._snap.waiting_tokens = sum(qs.tokens
+                                        for qs, _ in self._snap_entries)
+        self._snap_time = None           # heads may have changed → refresh
+
+    def _rebuild_snapshot(self, now: float) -> None:
+        profiles = self.manager.profiles()
+        self._snap_profiles = profiles
+        entries: list[tuple[QueueSnapshot, SchedulerQueue]] = []
+        queues: list[QueueSnapshot] = []
+        total_reqs = 0
+        total_tokens = 0
+        for i, q in enumerate(self.manager.queues):
+            qs = QueueSnapshot(
+                queue_id=q.queue_id, index=i,
+                lo=q.bounds.lo, hi=q.bounds.hi,
+                depth=len(q), tokens=q.tok_sum, mean_len=q.mean_len)
+            entries.append((qs, q))
+            queues.append(qs)
+            total_reqs += len(q)
+            total_tokens += q.tok_sum
+        self._snap = SchedulerSnapshot(policy=self.name, waiting=total_reqs,
+                                       waiting_tokens=total_tokens,
+                                       queues=queues)
+        self._snap_entries = entries
+        self._snap_by_id = {q.queue_id: i for i, (_, q) in enumerate(entries)}
+        self._snap_ids = tuple(q.queue_id for q in self.manager.queues)
+        self._snap_coeffs = [self._head_coeff(q) for _, q in entries]
+        self._snap_time = None
+
+    def _refresh_heads(self, now: float) -> None:
+        for (qs, _), coef in zip(self._snap_entries, self._snap_coeffs):
+            if coef is None:
+                qs.head_len, qs.head_wait, qs.head_score = None, 0.0, 0.0
+            else:
+                arr, blen, base, slope = coef
+                wait = now - arr
+                if wait < 0.0:
+                    wait = 0.0
+                qs.head_len = blen
+                qs.head_wait = wait
+                qs.head_score = base + slope * wait
+        self._snap_time = now
+
+    def snapshot_cached(self, now: float) -> SchedulerSnapshot:
+        """Event-driven snapshot: identical values to ``snapshot(now)`` but
+        O(queues) per access (head-score refresh) instead of O(waiting)
+        (full aggregate rebuild) — rebuilt only after structural changes."""
+        if self._snap is None:
+            self._rebuild_snapshot(now)
+        if self._snap_time != now:
+            self._refresh_heads(now)
+        return self._snap
+
+    # ---- tactical loop (Algorithm 1) --------------------------------------
+
+    def tick(self, now: float, budget: BatchBudget) -> BatchPlan:
+        """Admit from the highest-scoring queues while the budget allows."""
+        self.tick_count += 1
+        profiles = self.manager.profiles()
+        updated_scores: dict[int, float] = {}
+        for q in self.manager.queues:
+            if len(q):
+                req = q.peek()
+                updated_scores[q.queue_id] = compute_score(
+                    req, profiles[q.queue_id], now, self.c_prefill)
+        pruned = self.manager.prune_empty()
+        if not updated_scores:
+            if pruned:
+                self._mark_snapshot_dirty()
+            return BatchPlan(requests=[])
+        primary_id = max(updated_scores, key=updated_scores.get)
+        primary = next(q for q in self.manager.queues
+                       if q.queue_id == primary_id)
+        builder = BatchBuilder(budget)
+        plan = builder.build(self.manager, primary, now)
+        if pruned:
+            self._mark_snapshot_dirty()
+        elif plan.requests:
+            self._snapshot_delta([r.queue_id for r in plan.requests
+                                  if r.queue_id is not None])
+        return plan
+
+    # ---- strategic loop ----------------------------------------------------
+
+    def maybe_reoptimize(self, now: float, force: bool = False) -> bool:
+        """Run the strategic loop if its period elapsed.  Returns True when a
+        new policy was installed."""
+        acted = False
+        if self.cfg.enable_meta_opt:
+            self._advance_trial(now)
+        # Bootstrap: the paper's offline mode installs a baseline policy
+        # before live serving; a cold single-queue start re-partitions as
+        # soon as min_history is available rather than waiting a period.
+        if (len(self.manager.queues) == 1
+                and len(self.monitor.history) >= self.cfg.min_history):
+            force = True
+        if force or now - self._last_reopt >= self.cfg.reopt_interval:
+            lengths = self.monitor.historical_lengths()
+            if len(lengths) >= self.cfg.min_history:
+                self._repartition(lengths)
+                self._last_reopt = now
+                self.reopt_count += 1
+                acted = True
+        return acted
+
+    def _current_meta(self) -> MetaParams:
+        return self._trial_meta or self.manager.meta
+
+    def _repartition(self, lengths: np.ndarray) -> None:
+        meta = self._current_meta()
+        if self.partitioner is not None:
+            bounds = self.partitioner(lengths)
+        else:
+            pcfg = PartitionConfig(alpha_split=meta.alpha_split,
+                                   max_queues=meta.max_queues)
+            bounds = refine_and_prune(lengths, pcfg)
+        self.manager.apply_policy(bounds, meta)
+        self._mark_snapshot_dirty()
+
+    def online_adjust(self, now: float) -> None:
+        """Online (real-time) mode (§3.1): lightweight boundary nudges from
+        the recent window instead of the full Refine-and-Prune — cheap
+        statistical recentering of interior edges toward recent quantiles."""
+        recent = self.monitor.recent_lengths()
+        if len(recent) < 32 or len(self.manager.queues) < 2:
+            return
+        k = len(self.manager.queues)
+        qs = np.quantile(recent, np.linspace(0, 1, k + 1)[1:-1])
+        blend = self.cfg.online_blend
+        for i, q in enumerate(self.manager.queues[:-1]):
+            tgt = float(qs[i]) if i < len(qs) else q.bounds.hi
+            if q.bounds.hi == float("inf"):
+                continue
+            new_hi = (1 - blend) * q.bounds.hi + blend * tgt
+            nxt = self.manager.queues[i + 1]
+            new_hi = min(max(new_hi, q.bounds.lo + 1.0),
+                         nxt.bounds.hi - 1.0 if nxt.bounds.hi != float("inf")
+                         else new_hi)
+            q.bounds = QueueBounds(q.bounds.lo, new_hi)
+            nxt.bounds = QueueBounds(new_hi, nxt.bounds.hi)
+        self._mark_snapshot_dirty()
+
+    # ---- fleet-level strategic plane (shared policy store) -----------------
+
+    def export_observation(self, sample_cap: int = 2048) -> dict:
+        """Strategic observation for the fleet policy store: a recent sample
+        of the local length distribution (weighted upstream by the replica's
+        true arrival count), the local Bayesian posterior, and the currently
+        installed partition edges.  Read-only and cheap — safe to call from
+        a periodic sync loop."""
+        lengths = self.monitor.historical_lengths()
+        if len(lengths) > sample_cap:
+            lengths = lengths[-sample_cap:]
+        return {
+            "lengths": lengths,
+            "n_arrivals": self.monitor.total_arrivals,
+            "trials": self.meta_opt.export_trials(),
+            "edges": [q.bounds.hi for q in self.manager.queues[:-1]],
+            "max_queues": self.cfg.max_queues,
+            # Output-length posterior (prediction plane), pooled fleet-wide
+            # by the store; None when no predictor is wired or it has
+            # nothing to share yet.
+            "predictor": (self.predictor.export_state()
+                          if self.predictor is not None else None),
+        }
+
+    def adopt_global_policy(self, boundaries, meta: MetaParams, trials=(),
+                            local_weight: float = 0.0, now: float = 0.0,
+                            epoch: int = 0) -> None:
+        """Install a fleet-level policy with per-replica adaptation.
+
+        ``local_weight`` w ∈ [0,1] sets how much locally learned structure
+        survives: interior boundary edges become (1−w)·global + w·nearest
+        local edge, and the scoring meta-vector blends the same way.  w=0 is
+        a pure global install (warm start); w=1 keeps local structure and
+        only absorbs the shared posterior.  Global trials are merged into
+        the local Bayesian optimizer either way, so a replica's next trial
+        starts from the pooled fleet posterior instead of random warmup."""
+        w = min(max(float(local_weight), 0.0), 1.0)
+        g_bounds = [QueueBounds(b.lo, b.hi) for b in boundaries]
+        local_edges = [q.bounds.hi for q in self.manager.queues[:-1]
+                       if q.bounds.hi != float("inf")]
+        if w > 0.0 and local_edges and len(self.manager.queues) > 1:
+            bounds = self._blend_boundaries(g_bounds, local_edges, w)
+        else:
+            bounds = g_bounds
+        # Scoring dims blend; the *structural* knobs (queue budget, length
+        # normalizer) stay per-replica — the global meta's as_vector() does
+        # not carry them, so taking meta.max_queues/b_norm here would
+        # silently overwrite the operator's local EWSJFConfig with the
+        # store's defaults.  The blend target is the *installed* meta, not
+        # _current_meta(): mid-trial that would be the optimizer's random
+        # exploration candidate, and w would re-inject exploration noise
+        # into the serving policy on every adoption.
+        local_meta = self.manager.meta
+        gv = np.asarray(meta.as_vector())
+        if w > 0.0:
+            lv = np.asarray(local_meta.as_vector())
+            gv = (1.0 - w) * gv + w * lv
+        blended = MetaParams.from_vector(gv,
+                                         max_queues=self.cfg.max_queues,
+                                         b_norm=local_meta.b_norm)
+        if trials:
+            self.meta_opt.merge_trials(trials)
+        self.manager.apply_policy(bounds, blended)
+        # The adopted policy supersedes any in-flight local trial's Θ; the
+        # trial keeps running but must score the structure actually serving.
+        if self._trial_meta is not None:
+            self._trial_meta = blended
+        self._mark_snapshot_dirty()
+        # Deliberately NOT resetting _last_reopt: the local strategic loop
+        # keeps its own cadence (with sync_interval < reopt_interval a reset
+        # here would postpone local repartitioning forever).  The store
+        # re-broadcasts after a local repartition via reopt_count below.
+        self.adopted_epoch = epoch
+        self._reopt_at_adopt = self.reopt_count
+
+    @staticmethod
+    def _blend_boundaries(g_bounds: list[QueueBounds],
+                          local_edges: list[float],
+                          w: float) -> list[QueueBounds]:
+        """Keep the *global* queue count; pull each global interior edge
+        toward the nearest locally learned edge by ``w``.  Edges that would
+        collapse an interval (non-monotonic after blending) are dropped."""
+        g_edges = [b.hi for b in g_bounds[:-1] if b.hi != float("inf")]
+        le = np.asarray(local_edges, dtype=np.float64)
+        blended: list[float] = []
+        for g in g_edges:
+            nearest = float(le[np.argmin(np.abs(le - g))])
+            e = (1.0 - w) * g + w * nearest
+            if not blended or e > blended[-1]:
+                blended.append(e)
+        edges = [0.0] + blended + [float("inf")]
+        return [QueueBounds(edges[i], edges[i + 1])
+                for i in range(len(edges) - 1)]
+
+    def warm_start_from(self, boundaries, meta: MetaParams, trials=(),
+                        now: float = 0.0, epoch: int = 0) -> None:
+        """Cold-start path for freshly scaled-up replicas: install the
+        current global policy verbatim (no local structure exists to blend)
+        and seed the Bayesian posterior, so the first request already sees
+        the fleet's learned queue structure instead of a single [0, ∞)
+        queue."""
+        self.adopt_global_policy(boundaries, meta, trials=trials,
+                                 local_weight=0.0, now=now, epoch=epoch)
+
+    def _advance_trial(self, now: float) -> None:
+        if self._trial_meta is None:
+            self._trial_meta = self.meta_opt.suggest()
+            self._trial_start = now
+            self._trial_finish_mark = self.monitor.total_finished
+            self._trial_token_mark = self.monitor.total_tokens_out
+            return
+        if now - self._trial_start < self.cfg.trial_interval:
+            return
+        # Close the trial: compute reward over the trial window.
+        elapsed = max(now - self._trial_start, 1e-9)
+        stats = self.monitor.window_stats(elapsed)
+        qlens = [np.asarray([r.work_len for r in q.requests],
+                            dtype=np.float64)
+                 for q in self.manager.queues]
+        terms = reward_terms(qlens, stats, len(self.manager.queues))
+        tokens = self.monitor.total_tokens_out - self._trial_token_mark
+        thr_bonus = tokens / elapsed / 1000.0
+        r = reward(terms, self.cfg.reward_weights, throughput_bonus=thr_bonus)
+        self.meta_opt.observe(self._trial_meta, r)
+        nxt = self.meta_opt.suggest()
+        self._trial_meta = nxt
+        self._trial_start = now
+        self._trial_finish_mark = self.monitor.total_finished
+        self._trial_token_mark = self.monitor.total_tokens_out
+
+    # ---- checkpointing -----------------------------------------------------
+
+    def state_dict(self) -> dict:
+        """Checkpointable scheduler state (partition, meta-parameters, trials)."""
+        return {
+            "meta": self._current_meta().__dict__,
+            "bounds": [(q.bounds.lo, q.bounds.hi, q.is_bubble)
+                       for q in self.manager.queues],
+            "history": list(self.monitor.history)[-10_000:],
+            "trials": [(t.theta.tolist(), t.reward)
+                       for t in self.meta_opt.trials],
+            "waiting": [
+                {"prompt_len": r.prompt_len, "arrival_time": r.arrival_time,
+                 "max_new_tokens": r.max_new_tokens, "request_id": r.request_id}
+                for q in self.manager.queues for r in q.requests],
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore state saved by ``state_dict``."""
+        meta = MetaParams(**state["meta"])
+        bounds = [QueueBounds(lo, hi) for lo, hi, _ in state["bounds"]]
+        self.manager.apply_policy(bounds, meta)
+        self._mark_snapshot_dirty()
+        for i, (_, _, is_bubble) in enumerate(state["bounds"]):
+            self.manager.queues[i].is_bubble = is_bubble
+        self.monitor.history.extend(state["history"])
+        import numpy as _np
+        from .meta_optimizer import Trial
+        self.meta_opt.trials = [Trial(_np.asarray(t), r)
+                                for t, r in state["trials"]]
+        for spec in state["waiting"]:
+            req = Request(prompt_len=spec["prompt_len"],
+                          arrival_time=spec["arrival_time"],
+                          max_new_tokens=spec["max_new_tokens"])
+            # interval-only routing: the restored bounds already include any
+            # bubbles that existed at save time.
+            self.monitor.observe_arrival(req)
+            self.manager.route(req, allow_bubble=False)
+
+
+def make_scheduler(name: str, **kw) -> BaseScheduler:
+    """Build a scheduler by name: ``fcfs``, ``sjf``, ``static_priority`` or
+    ``ewsjf``."""
+    registry = {
+        "fcfs": FCFSScheduler,
+        "sjf": SJFScheduler,
+        "static_priority": StaticPriorityScheduler,
+        "ewsjf": EWSJFScheduler,
+    }
+    if name not in registry:
+        raise ValueError(f"unknown scheduler '{name}'; have {sorted(registry)}")
+    return registry[name](**kw)

@@ -1,0 +1,2 @@
+"""Prefill attention: CUDA kernel ``csrc/flash_attention.cu`` and its plain
+PyTorch version."""

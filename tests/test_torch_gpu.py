@@ -1,0 +1,123 @@
+"""The PyTorch port's CUDA kernels on a GPU: each against its plain version,
+and the engine's kernel path against its CPU run.  Marked ``gpu``; every test
+skips where no CUDA device is visible.  On the card:
+
+    PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import FCFSScheduler, Request
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.paged_attention import ops as paged_ops
+from repro_torch.models import DtypePolicy, init_params
+from repro_torch.serving import EngineConfig, ServingEngine
+
+pytestmark = pytest.mark.gpu
+
+# kernel vs plain version: the two sum in different orders
+TOLS = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,K,hd,causal,window", [
+    (1, 128, 2, 2, 128, True, 0),
+    (2, 256, 4, 2, 128, True, 0),       # GQA
+    (1, 256, 4, 1, 64, True, 0),        # MQA, hd 64
+    (1, 256, 2, 2, 128, True, 64),      # sliding window
+    (2, 128, 4, 4, 128, False, 0),      # bidirectional
+    (1, 77, 2, 2, 128, True, 30),       # ragged S
+])
+def test_flash_kernel_matches_plain(cuda, dtype, B, S, H, K, hd, causal,
+                                    window):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn((B, S, n, hd), generator=g, device=cuda).to(dtype)
+               for n in (H, K, K))
+    before = flash_ops.KERNEL.launches
+    out = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
+    ref = flash_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                    impl="plain")
+    assert flash_ops.KERNEL.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOLS[dtype],
+                               rtol=TOLS[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,K,hd,page,npg,P", [
+    (2, 4, 2, 128, 16, 4, 32),
+    (3, 8, 1, 128, 8, 6, 64),           # MQA (G = 8)
+    (4, 8, 8, 64, 16, 3, 16),
+])
+def test_paged_kernel_matches_plain(cuda, dtype, B, H, K, hd, page, npg, P):
+    rng = np.random.default_rng(0)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn((B, H, hd), generator=g, device=cuda).to(dtype)
+    kp, vp = (torch.randn((P, page, K, hd), generator=g, device=cuda).to(dtype)
+              for _ in range(2))
+    bt = torch.tensor(rng.choice(P, (B, npg), replace=False), dtype=torch.int32,
+                      device=cuda)
+    sl = torch.tensor(rng.integers(1, npg * page + 1, (B,)), dtype=torch.int32,
+                      device=cuda)
+    before = paged_ops.KERNEL.launches
+    out = paged_ops.paged_attention(q, kp, vp, bt, sl)
+    ref = paged_ops.paged_attention(q, kp, vp, bt, sl, impl="plain")
+    assert paged_ops.KERNEL.launches == before + 1
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOLS[dtype],
+                               rtol=TOLS[dtype])
+
+
+def test_kernel_wrappers_refuse_what_they_cannot_take(cuda):
+    q = torch.zeros((1, 16, 2, 32), device=cuda)          # head_dim 32
+    with pytest.raises(ValueError):
+        flash_ops.flash_attention(q, q, q)
+    q = torch.zeros((1, 16, 2, 64), device=cuda)
+    with pytest.raises(ValueError):
+        flash_ops.flash_attention(q, q.half(), q)
+    kp = torch.zeros((2, 8, 2, 64), device=cuda)
+    with pytest.raises(ValueError):                      # int64 block table
+        paged_ops.paged_attention(q[:, 0], kp, kp,
+                                  torch.zeros((1, 2), dtype=torch.long,
+                                              device=cuda),
+                                  torch.ones((1,), dtype=torch.int32,
+                                             device=cuda))
+
+
+def test_engine_kernel_path_matches_cpu_run(cuda):
+    """A small model (head_dim 64) served on the card through both kernels
+    gives the greedy tokens of the same weights served on the CPU."""
+    cfg = ModelConfig(name="gpu-small", family="dense", n_layers=2,
+                      d_model=256, n_heads=4, n_kv_heads=2, d_ff=512,
+                      vocab_size=512, head_dim=64)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    pol = DtypePolicy(torch.float32, torch.float32, torch.float32)
+    outs = {}
+    for dev in ("cpu", cuda):
+        rng = np.random.default_rng(1)
+        reqs = [Request(prompt_len=int(rng.integers(5, 60)), arrival_time=0.0,
+                        max_new_tokens=int(rng.integers(2, 8)),
+                        request_id=70_000 + i) for i in range(8)]
+        eng = ServingEngine(cfg, params.to(dev), FCFSScheduler(),
+                            EngineConfig(max_slots=4, s_max=128,
+                                         kv_pool_tokens=2048,
+                                         buckets=(32, 64)),
+                            policy=pol, device=dev)
+        flash0, paged0 = flash_ops.KERNEL.launches, paged_ops.KERNEL.launches
+        assert len(eng.run(reqs)) == len(reqs)
+        if dev == cuda:
+            assert flash_ops.KERNEL.launches > flash0
+            assert paged_ops.KERNEL.launches > paged0
+        outs[str(dev)] = eng.output_tokens
+    assert outs["cpu"] == outs["cuda"]
