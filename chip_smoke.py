@@ -5,19 +5,20 @@
 
 Phases, in order; any failure raises and exits non-zero:
 
-1. setup: print the card's name and power limit, build both CUDA kernels
-   from ``src/repro_torch/csrc`` (one ``nvcc`` each, in parallel);
-2. kernels: hold flash attention and paged attention against their plain
-   PyTorch versions on the card at the main path's shapes, and time kernel,
-   plain version and ``torch.nn.functional.scaled_dot_product_attention``
-   (a yardstick only: the port never calls it);
-3. parity: llama2-13b at full width and 2 layers, in f32 — one prefill and
-   a few greedy decode steps through the kernels and through the plain
-   versions must give the same tokens and close logits;
-4. serve: ``repro_torch.serving.api.serve`` runs llama2-13b at full width
-   and depth (random bf16 weights from a seed) under EWSJF over a mixed
-   short/long workload; every request must finish and both kernels must
-   have launched;
+1. setup: print the card's name and power limit, build the three CUDA
+   kernels from ``src/repro_torch/csrc`` (one ``nvcc`` each, in parallel);
+2. kernels: hold flash attention, paged attention and the SSD chunk kernel
+   against their plain PyTorch versions on the card at the main paths'
+   shapes, and time kernel, plain version and, for attention,
+   ``torch.nn.functional.scaled_dot_product_attention`` (a yardstick only:
+   the port never calls it; no single PyTorch call computes SSD);
+3. parity: llama2-13b and mamba2-370m at full width and 2 layers, in f32 —
+   one prefill and a few greedy decode steps through the kernels and
+   through the plain versions must give the same tokens and close logits;
+4. serve: ``repro_torch.serving.api.serve`` runs llama2-13b, then
+   mamba2-370m, at full width and depth (random bf16 weights from a seed)
+   under EWSJF over a mixed short/long workload; every request must finish
+   and each path's kernels must have launched in its own run;
 5. summary: one JSON line of per-kernel numbers, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -195,8 +196,116 @@ def paged_bound(B, H, K, hd, elem, lens):
                                        else "operations")
 
 
+def ssd_inputs(b, S, H, P, G, N, dtype, seed):
+    """x (b,S,H,P), dt (b,S,H) f32, A_log (H,), B, C (b,S,G,N) on the card,
+    with mamba2's decay rates (A = 1..16) and softplus step sizes."""
+    import torch
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    x = (torch.randn((b, S, H, P), generator=g, device="cuda") * 0.5).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, S, H), generator=g, device="cuda"))
+    A_log = torch.log(torch.linspace(1.0, 16.0, H, device="cuda"))
+    B, C = ((torch.randn((b, S, G, N), generator=g, device="cuda") * 0.3)
+            .to(dtype) for _ in range(2))
+    return x, dt, A_log, B, C
+
+
+def rel_err(a, b) -> float:
+    """Largest absolute difference over the largest magnitude of ``b``."""
+    return max_err(a, b) / max(float(b.float().abs().max()), 1e-30)
+
+
+def ssd_chunk_case(so, b, S, H, P, G, N, Q, dtype, seed):
+    """One SSD-chunk comparison (S a multiple of Q); returns (largest
+    absolute error of the four outputs, largest error relative to each
+    output's scale, kernel_ms, plain_ms)."""
+    import torch
+    x, dt, A_log, B, C = ssd_inputs(b, S, H, P, G, N, dtype, seed)
+    nc = S // Q
+    args = (x.view(b, nc, Q, H, P), dt.view(b, nc, Q, H), A_log,
+            B.view(b, nc, Q, G, N), C.view(b, nc, Q, G, N))
+    out = so.ssd_chunk(*args)
+    ref = so.ssd_chunk(*args, impl="plain")
+    torch.cuda.synchronize()
+    check(all(bool(torch.isfinite(o).all()) for o in out), "ssd finite")
+    err = max(rel_err(o, r) for o, r in zip(out, ref))
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    check(err <= tol, f"ssd_chunk {dtype} b{b} S{S} Q{Q} rel err {err:.3g} "
+                      f"<= {tol}")
+    kms = time_ms(lambda: so.ssd_chunk(*args))
+    pms = time_ms(lambda: so.ssd_chunk(*args, impl="plain"), iters=5,
+                  warmup=1)
+    return max(max_err(o, r) for o, r in zip(out, ref)), err, kms, pms
+
+
+def ssd_scan_case(so, b, S, H, P, G, N, chunk, dtype, seed):
+    """The whole scan (padded to whole chunks with dt = 0) through the
+    kernel and through the plain version; returns the relative errors of y
+    and of the final state."""
+    import torch
+    x, dt, A_log, B, C = ssd_inputs(b, S, H, P, G, N, dtype, seed)
+    y, h = so.ssd(x, dt, A_log, B, C, chunk=chunk)
+    yp, hp = so.ssd(x, dt, A_log, B, C, chunk=chunk, impl="plain")
+    torch.cuda.synchronize()
+    ey, eh = rel_err(y, yp), rel_err(h, hp)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    check(ey <= tol and eh <= tol, f"ssd scan {dtype} S{S} chunk{chunk} "
+                                   f"rel err y {ey:.3g} state {eh:.3g} <= {tol}")
+    return ey, eh
+
+
+def ssd_bound(b, S, H, P, G, N, Q, elem, peak):
+    """Least time (ms) of one ssd_chunk call, and what bounds it: x, B and C
+    (read by group) in the input type, dt f32 and A_log read once; y,
+    states and decays written once in f32; FLOPs of the causal half of
+    C·Bᵀ and of (C·Bᵀ∘L)·(x·dt) plus the chunk-end state, per cell."""
+    nc = S // Q
+    nbytes = (elem * (b * S * H * P + 2 * b * S * G * N) + 4 * (b * S * H + H)
+              + 4 * (b * S * H * P + b * nc * H * N * P + b * S * H
+                     + b * nc * H))
+    pairs = Q * (Q + 1) // 2
+    flops = b * nc * H * (2.0 * pairs * (N + P) + 2.0 * Q * N * P)
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def phase_ssd_kernel(so) -> dict:
+    """The SSD chunk kernel against its plain version at mamba2-370m's
+    shapes (b=4, S=2048, H=32, P=64, N=128, G=1, Q=256), then the whole
+    scan at a ragged S and an S below one chunk."""
+    import torch
+    b, S, H, P, G, N, Q = 4, 2048, 32, 64, 1, 128, 256
+    row = None
+    for i, dt in enumerate((torch.bfloat16, torch.float32)):
+        aerr, err, kms, pms = ssd_chunk_case(so, b, S, H, P, G, N, Q, dt,
+                                             seed=20 + i)
+        elem = 2 if dt == torch.bfloat16 else 4
+        peak = BF16_PEAK_FLOPS if dt == torch.bfloat16 else F32_PEAK_FLOPS
+        bms, by = ssd_bound(b, S, H, P, G, N, Q, elem, peak)
+        print(f"[kernels] ssd_chunk b{b} S{S} H{H} P{P} G{G} N{N} Q{Q} "
+              f"{str(dt)[6:]} (B, C read per group): max_abs_err {aerr:.3g} "
+              f"max_rel_err {err:.3g} "
+              f"kernel {kms:.4f} ms plain {pms:.4f} ms library n/a (no "
+              f"single PyTorch call computes SSD) bound {bms:.4f} ms ({by})")
+        if row is None:
+            row = dict(max_abs_err=aerr, ms=kms, plain_ms=pms, library_ms=None,
+                       bound_ms=bms, bound_by=by)
+    for i, (S_, dt) in enumerate(((1000, torch.float32),
+                                  (1000, torch.bfloat16),
+                                  (200, torch.float32))):
+        ey, eh = ssd_scan_case(so, b, S_, H, P, G, N, Q, dt, seed=30 + i)
+        padded = -(-S_ // Q) * Q if S_ > Q else S_
+        print(f"[kernels] ssd scan b{b} S{S_} chunk {Q} {str(dt)[6:]} "
+              f"(kernel Q {min(Q, S_)}, padded to {padded}): rel err y "
+              f"{ey:.3g} final state {eh:.3g}")
+    return row
+
+
 def phase_kernels(fa, pa) -> dict:
-    """Both kernels against their plain versions at the main path's shapes."""
+    """Both attention kernels against their plain versions at the main
+    path's shapes."""
     import torch
     rows = {}
     cases = [  # B, S, H, K, hd, dtype, causal, window
@@ -242,7 +351,7 @@ def phase_kernels(fa, pa) -> dict:
     return rows
 
 
-def phase_parity() -> None:
+def phase_parity_llama() -> None:
     """llama2-13b widths at 2 layers, f32: prefill + greedy decode through
     the kernels and through the plain versions."""
     import torch
@@ -291,23 +400,76 @@ def phase_parity() -> None:
     check(all(bool(torch.isfinite(x).all()) for x in lk), "finite logits")
 
 
-def phase_serve(fa, pa) -> dict:
-    """llama2-13b, full width and depth, bf16, EWSJF, on the card."""
+def phase_parity_mamba2() -> None:
+    """mamba2-370m widths at 2 layers, f32: one prefill of rows of
+    different lengths (right-padded, with their true lengths) and greedy
+    decode steps, through the SSD kernel and through its plain version."""
     import torch
-    from repro_torch.launch.serve import card_engine_config, card_requests
+    from repro_torch.configs import get_config
+    from repro_torch.models import (DtypePolicy, decode_step,
+                                    init_decode_caches, init_params, prefill)
+    cfg = get_config("mamba2-370m").scaled(n_layers=2)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = init_params(cfg, gen, device="cuda", dtype=torch.float32)
+    pol = DtypePolicy(torch.float32, torch.float32, torch.float32)
+    rng = np.random.default_rng(1)
+    lens = np.array([1000, 512, 77], dtype=np.int32)   # 1000 % 256 != 0
+    S, steps = int(lens.max()), 4
+    toks = rng.integers(0, cfg.vocab_size, (len(lens), S))
+    for i, n in enumerate(lens):
+        toks[i, n:] = 0
+    tokens = torch.tensor(toks, device="cuda")
+    true_lens = torch.tensor(lens, device="cuda")
+    results = {}
+    for impl in (None, "plain"):
+        logits, caches = prefill(params, {"tokens": tokens}, cfg, policy=pol,
+                                 true_lens=true_lens, impl=impl)
+        dec = init_decode_caches(cfg, len(lens), 2048, dtype=torch.float32,
+                                 device="cuda")
+        for dst, src in zip(dec, caches):
+            for name in ("ssm", "conv"):
+                dst[name].copy_(src[name])
+        tok = logits.argmax(-1).to(torch.int32)
+        seq, all_logits = [tok.cpu()], [logits]
+        pos = lens.copy()
+        for _ in range(steps):
+            logits, dec = decode_step(params, tok, dec, pos, cfg, policy=pol,
+                                      impl=impl)
+            tok = logits.argmax(-1).to(torch.int32)
+            seq.append(tok.cpu())
+            all_logits.append(logits)
+            pos = pos + 1
+        torch.cuda.synchronize()
+        results[impl] = (torch.cat(seq, dim=1), all_logits)
+    (tk, lk), (tp, lp) = results[None], results["plain"]
+    err = max(rel_err(a, b) for a, b in zip(lk, lp))
+    print(f"[parity] mamba2-370m full width, 2 layers, f32, rows of "
+          f"{lens.tolist()} tokens: tokens kernel {tk.tolist()} plain "
+          f"{tp.tolist()}; max logit diff relative to scale {err:.3g}")
+    check(torch.equal(tk, tp), "kernel and plain greedy tokens equal")
+    # 1e-4: two layers of f32 SSD summed in another order
+    check(err <= 1e-4, f"parity logits within 1e-4 of scale (got {err:.3g})")
+    check(all(bool(torch.isfinite(x).all()) for x in lk), "finite logits")
+
+
+def phase_serve(arch: str, ecfg, ops: dict, path: tuple) -> dict:
+    """``arch`` at full width and depth, bf16, EWSJF, on the card.  Every
+    kernel count is set to 0 just before the run and read just after; the
+    kernels in ``path`` must have launched."""
+    import torch
+    from repro_torch.launch.serve import card_requests
     from repro_torch.serving.api import serve
     reqs = card_requests()       # 24 at t=0: 19 short, 5 long
-    ecfg = card_engine_config()
     torch.cuda.reset_peak_memory_stats()
-    fa.KERNEL.launches = 0
-    pa.KERNEL.launches = 0
+    for mod in ops.values():
+        mod.KERNEL.launches = 0
     t0 = time.monotonic()
-    out = serve("llama2-13b", reqs, smoke=False, scheduler="ewsjf",
+    out = serve(arch, reqs, smoke=False, scheduler="ewsjf",
                 engine_config=ecfg, device="cuda", dtype=torch.bfloat16)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    launches = {"flash_attention": fa.KERNEL.launches,
-                "paged_attention": pa.KERNEL.launches}
+    launches = {name: mod.KERNEL.launches for name, mod in ops.items()}
     eng, st = out["engine"], out["stats"]
     fin = out["finished"]
     check(len(fin) == len(reqs), f"all {len(reqs)} requests finished "
@@ -318,11 +480,13 @@ def phase_serve(fa, pa) -> dict:
               f"request {r.request_id} generated all its tokens")
         check(all(0 <= t < eng.cfg.vocab_size for t in toks),
               "token ids inside the vocabulary")
-    for name, n in launches.items():
-        check(n > 0, f"{name} launched on the main path")
+    for name in path:
+        check(launches[name] > 0, f"{name} launched on the {arch} path")
+    cfg = eng.cfg
     short = [r.ttft for r in fin if r.prompt_len <= 128]
     long_ = [r.ttft for r in fin if r.prompt_len > 128]
-    print(f"[serve] llama2-13b 40 layers d5120 bf16 EWSJF: {len(fin)} "
+    print(f"[serve] {arch} {cfg.n_layers} layers d{cfg.d_model} bf16 EWSJF: "
+          f"{len(fin)} "
           f"requests, {sum(r.generated for r in fin)} tokens in "
           f"{st['elapsed_s']:.2f} s engine time ({wall:.2f} s with weight "
           f"init): {st['tok_per_s']:.1f} tok/s; mean TTFT short "
@@ -351,17 +515,33 @@ def main() -> int:
     from repro_torch.kernels import _build as kbuild
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.paged_attention import ops as pa
+    from repro_torch.kernels.ssd_scan import ops as so
+    from repro_torch.launch.serve import (card_engine_config,
+                                          ssm_card_engine_config)
 
     t_start = time.monotonic()
     phase_setup(kbuild)
     rows = phase_kernels(fa, pa)
-    phase_parity()
+    rows["ssd_chunk"] = phase_ssd_kernel(so)
+    phase_parity_llama()
+    phase_parity_mamba2()
     torch.cuda.empty_cache()
-    launches = phase_serve(fa, pa)
+    ops = {"flash_attention": fa, "paged_attention": pa, "ssd_chunk": so}
+    llama = phase_serve("llama2-13b", card_engine_config(), ops,
+                        ("flash_attention", "paged_attention"))
+    torch.cuda.empty_cache()
+    mamba = phase_serve("mamba2-370m", ssm_card_engine_config(), ops,
+                        ("ssd_chunk",))
+    # each kernel's launches come from the run of its own path
+    launches = {"flash_attention": llama["flash_attention"],
+                "paged_attention": llama["paged_attention"],
+                "ssd_chunk": mamba["ssd_chunk"]}
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention/kernel.py:88"),
                "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
-                                   "src/repro/kernels/paged_attention/kernel.py:75")}
+                                   "src/repro/kernels/paged_attention/kernel.py:75"),
+               "ssd_chunk": ("src/repro_torch/csrc/ssd_scan.cu",
+                             "src/repro/kernels/ssd_scan/kernel.py:66")}
     kernels = []
     for name, (source, replaces) in sources.items():
         r = rows[name]

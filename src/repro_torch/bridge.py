@@ -87,11 +87,13 @@ def params_from_jax(tree: dict, cfg: ModelConfig, *,
     dev = resolve_device(device)
     blocks = nn.ModuleList()
     for kind, bp in zip(layer_kinds(cfg), layers_from_tree(tree["blocks"], cfg)):
+        has_mlp = "mlp" in bp                  # SSM blocks have no ln2/mlp
         blocks.append(Block(
             kind, _to_torch(bp["ln1"], dev),
             {k: _to_torch(v, dev) for k, v in bp["mixer"].items()},
-            _to_torch(bp["ln2"], dev),
-            {k: _to_torch(v, dev) for k, v in bp["mlp"].items()}))
+            _to_torch(bp["ln2"], dev) if has_mlp else None,
+            ({k: _to_torch(v, dev) for k, v in bp["mlp"].items()}
+             if has_mlp else None)))
     head = _to_torch(tree["head"], dev) if "head" in tree else None
     return LMParams(blocks, _to_torch(tree["final_norm"], dev),
                     _to_torch(tree["embed"], dev), head)
@@ -99,11 +101,14 @@ def params_from_jax(tree: dict, cfg: ModelConfig, *,
 
 def params_to_numpy(params: LMParams, cfg: ModelConfig) -> dict:
     """Port parameters as the JAX package's parameter tree (numpy leaves)."""
-    layers = [{"ln1": _to_numpy(bp.ln1),
-               "mixer": {k: _to_numpy(v) for k, v in bp.mixer.items()},
-               "ln2": _to_numpy(bp.ln2),
-               "mlp": {k: _to_numpy(v) for k, v in bp.mlp.items()}}
-              for bp in params.blocks]
+    layers = []
+    for bp in params.blocks:
+        layer = {"ln1": _to_numpy(bp.ln1),
+                 "mixer": {k: _to_numpy(v) for k, v in bp.mixer.items()}}
+        if bp.mlp is not None:
+            layer["ln2"] = _to_numpy(bp.ln2)
+            layer["mlp"] = {k: _to_numpy(v) for k, v in bp.mlp.items()}
+        layers.append(layer)
     out = {"blocks": tree_from_layers(layers, cfg),
            "final_norm": _to_numpy(params.final_norm),
            "embed": _to_numpy(params.embed)}
@@ -113,8 +118,8 @@ def params_to_numpy(params: LMParams, cfg: ModelConfig) -> dict:
 
 
 def caches_from_jax(tree: dict, cfg: ModelConfig, *, device="cuda") -> list:
-    """A JAX decode-cache tree (numpy leaves) as the port's per-layer
-    ``{"k", "v"}`` list on ``device``."""
+    """A JAX decode-cache tree (numpy leaves) as the port's per-layer list
+    (``{"k", "v"}`` or ``{"ssm", "conv"}``) on ``device``."""
     check_supported(cfg)
     dev = resolve_device(device)
     return [{k: _to_torch(v, dev) for k, v in layer.items()}

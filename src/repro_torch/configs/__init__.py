@@ -1,8 +1,8 @@
 """Config registry: ``get_config(arch_id)`` / ``get_smoke_config(arch_id)``.
 
 The port registers the architectures its model path supports so far: the
-paper's own evaluation model (llama2-13b) and qwen3-4b (GQA with
-``qk_norm``).  Smoke configs are reduced same-family variants for CPU tests.
+paper's own evaluation model (llama2-13b), qwen3-4b (GQA with ``qk_norm``)
+and mamba2-370m (the SSM family).  Smoke configs are reduced same-family variants for CPU tests.
 """
 
 from __future__ import annotations
@@ -47,7 +47,7 @@ def _ensure_loaded():
     global _loaded
     if _loaded:
         return
-    from . import llama2_13b, qwen3_4b
+    from . import llama2_13b, mamba2_370m, qwen3_4b
     # imported for their registration side effect only
-    _ = (llama2_13b, qwen3_4b)
+    _ = (llama2_13b, mamba2_370m, qwen3_4b)
     _loaded = True

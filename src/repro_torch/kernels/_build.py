@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
-KERNEL_SOURCES = ("flash_attention", "paged_attention")
+KERNEL_SOURCES = ("flash_attention", "paged_attention", "ssd_scan")
 
 # Element type codes of csrc/common.cuh (repro::DType).
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

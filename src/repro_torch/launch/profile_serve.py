@@ -1,13 +1,16 @@
 """Where the time of the full-width card run goes.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_serve [--trace out.json]
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
+        [--arch llama2-13b|mamba2-370m] [--trace out.json]
 
-Serves the ``chip_smoke.py`` workload (llama2-13b, full width and depth,
-random bf16 weights, EWSJF) three times on the GPU: once to warm up (cuBLAS
-handles, first-call allocations), once timed without the profiler, once
-under ``torch.profiler``.  Prints both runs' engine wall times, the device
-time per kernel class (flash attention, paged attention, matrix products,
-the rest), the device busy share against the unprofiled wall time, and the
+Serves the ``chip_smoke.py`` workload (``card_requests``; the architecture
+at full width and depth, random bf16 weights, EWSJF, its card engine
+config) three times on the GPU: once to warm up (cuBLAS handles,
+first-call allocations), once timed without the profiler, once under
+``torch.profiler``.  Prints both runs' engine wall times, the device time
+per kernel class (flash attention, paged attention, SSD chunk, matrix
+products, the rest), the device busy share against the unprofiled wall
+time, and the
 host time spent in prefill (``_admit``) and decode (``_decode_tick``) under
 the profiler.  The profiler adds host overhead to every launch, so its wall
 time is longer than the unprofiled one; the device times are not affected.
@@ -26,10 +29,11 @@ from ..core import EWSJFConfig, EWSJFScheduler
 from ..models import DtypePolicy, init_params
 from ..models.common import resolve_device
 from ..serving import ServingEngine
-from .serve import card_engine_config, card_requests
+from .serve import CARD_ENGINE_CONFIGS, card_requests
 
 _CLASSES = (("flash_attention", ("flash_fwd_kernel",)),
             ("paged_attention", ("paged_decode_kernel",)),
+            ("ssd_chunk", ("ssd_chunk_kernel",)),
             ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "matmul")))
 
 
@@ -43,7 +47,7 @@ def _kernel_class(name: str) -> str:
 
 def _engine(cfg, params, dev) -> ServingEngine:
     sched = EWSJFScheduler(EWSJFConfig(min_history=8, reopt_interval=0.5))
-    return ServingEngine(cfg, params, sched, card_engine_config(),
+    return ServingEngine(cfg, params, sched, CARD_ENGINE_CONFIGS[cfg.name](),
                          policy=DtypePolicy(torch.bfloat16, torch.bfloat16,
                                             torch.float32), device=dev)
 
@@ -51,13 +55,15 @@ def _engine(cfg, params, dev) -> ServingEngine:
 def main() -> None:
     """Warm up, profile one serve run, print the breakdown as JSON."""
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama2-13b",
+                    choices=sorted(CARD_ENGINE_CONFIGS))
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace", default=None,
                     help="write a chrome trace of the profiled run here")
     args = ap.parse_args()
     dev = resolve_device(args.device)
-    cfg = get_config("llama2-13b")
+    cfg = get_config(args.arch)
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     params = init_params(cfg, gen, device=dev, dtype=torch.bfloat16)
@@ -103,6 +109,7 @@ def main() -> None:
     busy = sum(device_us.values()) / 1e6
     kernels.sort(reverse=True)
     print(json.dumps({
+        "arch": cfg.name,
         "device": torch.cuda.get_device_name(dev),
         "requests": len(fin),
         "tokens": sum(r.generated for r in fin),

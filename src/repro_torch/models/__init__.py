@@ -1,5 +1,6 @@
 """Model path of the port: dense attention families (GQA with RoPE,
-optional ``qk_norm``), SwiGLU MLPs, prefill and slot decode."""
+optional ``qk_norm``), SwiGLU MLPs, the Mamba-2 SSM family, prefill and
+slot decode."""
 
 from .common import DtypePolicy
 from .model import LMParams, decode_step, init_decode_caches, init_params, prefill

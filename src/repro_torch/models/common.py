@@ -1,5 +1,5 @@
 """Common model building blocks: dtype policy, device choice, RMSNorm, RoPE,
-initializers.
+initializers, the causal depthwise conv of the SSM mixer.
 
 Plain functions on tensors, ported from the JAX package's ``models/common.py``
 (forward only).  Initializers draw from an explicit ``torch.Generator`` that
@@ -83,3 +83,24 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Causal depthwise conv over time via shifted adds.  x (B, S, D);
+    w (W, D) with ``w[-1]`` multiplying the current step."""
+    W, S = w.shape[0], x.shape[1]
+    out = x * w[-1]
+    for i in range(1, W):
+        shifted = torch.nn.functional.pad(x, (0, 0, i, 0))[:, :S, :]
+        out = out + shifted * w[W - 1 - i]
+    return out
+
+
+def conv_decode_step(x_t: torch.Tensor, conv_state: torch.Tensor,
+                     w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One decode step of the causal depthwise conv.  x_t (B, D);
+    conv_state (B, W-1, D) past inputs, oldest first.  Returns (y (B, D),
+    the new state)."""
+    full = torch.cat([conv_state, x_t[:, None, :]], dim=1)     # (B, W, D)
+    y = torch.einsum("bwd,wd->bd", full, w)
+    return y, full[:, 1:, :]

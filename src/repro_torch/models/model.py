@@ -1,8 +1,8 @@
 """Model facade for serving: parameters, prefill, decode step, decode caches.
 
 Ported from the JAX package's ``models/model.py`` for the dense attention
-families.  ``chunk_step``, ``train_loss`` and the MoE, SSM and RG-LRU
-families come with later steps of the port.
+families and the SSM family.  ``chunk_step``, ``train_loss`` and the MoE
+and RG-LRU families come with later steps of the port.
 """
 
 from __future__ import annotations
@@ -76,16 +76,24 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
 @torch.no_grad()
 def prefill(params: LMParams, batch: dict, cfg: ModelConfig, *,
             policy: DtypePolicy = DtypePolicy.serve(),
-            impl: str | None = None):
-    """Full-prompt forward.  batch {"tokens": (B,S) int}.  Returns
-    (last-position logits (B,1,V) f32, per-layer ``{"k", "v"}`` (B,S,K,hd))."""
+            true_lens=None, impl: str | None = None):
+    """Full-prompt forward.  batch {"tokens": (B,S) int}; ``true_lens``
+    (B,) the real lengths of right-padded rows, or None for all S.  Returns
+    (logits at each row's last real position (B,1,V) f32, per-layer caches:
+    ``{"k", "v"}`` (B,S,K,hd) for attention, ``{"ssm", "conv"}`` after the
+    last real position for SSM layers)."""
     x = _embed_inputs(params, batch, cfg, policy.compute)
     B, S = x.shape[:2]
     h, caches = stack_forward(params.blocks, x, cfg, _positions(B, S, x.device),
-                              want_cache=True, impl=impl)
+                              want_cache=True, true_lens=true_lens, impl=impl)
     h = rms_norm(h, params.final_norm, cfg.norm_eps)
+    if true_lens is None:
+        h_last = h[:, -1:]
+    else:
+        rows = torch.arange(B, device=x.device)
+        h_last = h[rows, true_lens.to(x.device).long() - 1][:, None]
     w_head = _unembed(params, cfg)
-    logits = (h[:, -1:].to(w_head.dtype) @ w_head).float()
+    logits = (h_last.to(w_head.dtype) @ w_head).float()
     return _softcap(logits, cfg), caches
 
 
@@ -95,10 +103,12 @@ def decode_step(params: LMParams, tokens, caches: list, cache_pos,
                 policy: DtypePolicy = DtypePolicy.serve(),
                 impl: str | None = None):
     """One token for every sequence.  tokens (B,1) int; cache_pos an int or
-    (B,) per-row positions (tokens already in each cache, < S_max).  The
-    caches are updated **in place**.  Returns (logits (B,1,V) f32, caches)."""
-    s_max = caches[0]["k"].shape[1]
-    if isinstance(cache_pos, (int, np.integer, np.ndarray)):
+    (B,) per-row positions (tokens already in each cache, < S_max; SSM
+    layers do not read them).  The caches are updated **in place**.
+    Returns (logits (B,1,V) f32, caches)."""
+    s_max = next((c["k"].shape[1] for c in caches if "k" in c), None)
+    if s_max is not None and isinstance(cache_pos, (int, np.integer,
+                                                    np.ndarray)):
         host = np.asarray(cache_pos)
         if np.any(host >= s_max) or np.any(host < 0):
             raise ValueError(f"cache positions must lie in [0, {s_max})")
@@ -117,5 +127,5 @@ def decode_step(params: LMParams, tokens, caches: list, cache_pos,
 
 def init_decode_caches(cfg: ModelConfig, batch: int, s_max: int, *,
                        dtype=torch.bfloat16, device="cuda") -> list[dict]:
-    """Zero per-layer ``{"k", "v"}`` caches of (batch, s_max, K, hd)."""
+    """Zero per-layer decode caches (``transformer.init_block_cache``)."""
     return init_stack_cache(cfg, batch, s_max, dtype, resolve_device(device))

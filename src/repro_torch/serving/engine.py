@@ -15,11 +15,17 @@ The execution model is the JAX engine's legacy path:
   * the **admission policy is pluggable** — any ``core.scheduler``
     ``BaseScheduler`` (FCFS / SJF / EWSJF) drives admission.
 
-Unlike the JAX engine, the KV cache is updated **in place**: prefill K/V are
-copied into the slot (``_write_slot``) and decode writes each new token's
-K/V into its slot row.  PyTorch runs eagerly, so the JAX engine's per-shape
-``jax.jit`` caches become plain calls; ``engine_compile_cache_total`` still
-counts first calls per shape.
+Unlike the JAX engine, the decode caches are updated **in place**: prefill
+K/V (or an SSM layer's state and conv tail) are copied into the slot
+(``_write_slot``) and decode writes each new token's K/V, or the new state,
+into its slot row.  For the SSM family (``pad_prompts`` off, as in the JAX
+engine) a prefill batch is right-padded to its longest prompt; the port
+passes each row's true length into the stack, so a shorter row's state is
+that of the row alone (the JAX engine folds its padding into the state).
+
+PyTorch runs eagerly, so the JAX engine's per-shape ``jax.jit`` caches
+become plain calls; ``engine_compile_cache_total`` still counts first calls
+per shape.
 
 Chunked prefill and engine-side radix prefix reuse are not ported yet
 (``chunk_prefill_tokens`` / ``enable_prefix_cache`` raise).
@@ -167,14 +173,15 @@ class ServingEngine:
     @torch.no_grad()
     def _prefill_fn(self, tokens: torch.Tensor, true_lens: torch.Tensor):
         """Bucketed prefill returning per-row logits at true_lens-1 (n,1,V)
-        f32 and the per-layer (n, bucket, K, hd) caches."""
+        f32 and the per-layer caches (attention: (n, bucket, K, hd) K/V;
+        SSM: the state and conv tail after each row's last real token)."""
         x = _embed_inputs(self.params, {"tokens": tokens}, self.cfg,
                           self.policy.compute)
         B, S = x.shape[:2]
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device)[None].expand(B, S)
         h, caches = stack_forward(self.params.blocks, x, self.cfg, positions,
-                                  want_cache=True)
+                                  want_cache=True, true_lens=true_lens)
         h = rms_norm(h, self.params.final_norm, self.cfg.norm_eps)
         h_last = h[torch.arange(B, device=x.device), true_lens.long() - 1]
         w = _unembed(self.params, self.cfg)
@@ -435,13 +442,17 @@ class ServingEngine:
 
     def _write_slot(self, slot: int, prefill_caches: list, row: int) -> None:
         """Copy row ``row`` of the per-layer prefill caches into the decode
-        slot **in place**, zeroing the slot past the bucket (the JAX engine
-        writes a zero-padded row)."""
+        slot **in place**.  K/V fill the slot's first bucket positions and
+        zero the rest (the JAX engine writes a zero-padded row); SSM state
+        and conv entries have no sequence axis and are copied whole."""
         for dst, src in zip(self.caches, prefill_caches):
-            for name in ("k", "v"):
-                S = src[name].shape[1]
-                dst[name][slot, :S].copy_(src[name][row])
-                dst[name][slot, S:].zero_()
+            for name, t in src.items():
+                if name in ("k", "v"):
+                    S = t.shape[1]
+                    dst[name][slot, :S].copy_(t[row])
+                    dst[name][slot, S:].zero_()
+                else:
+                    dst[name][slot].copy_(t[row])
 
     # ---- decode -------------------------------------------------------------
 

@@ -2,7 +2,11 @@
 
 Both engines serve llama2-13b smoke weights (JAX-initialized, bridged to the
 port) with identical request ids, prompt lengths and token budgets.  Greedy
-tokens, dispatch order and ``BlockPool`` accounting must agree.
+tokens, dispatch order and ``BlockPool`` accounting must agree.  The mamba2
+smoke config is held the same way where the JAX engine is right (one prompt
+length), and per request against a JAX engine that prefills one request at
+a time where it is not (mixed lengths: it folds a shorter row's padding
+into that row's state).
 """
 
 import jax
@@ -151,3 +155,62 @@ def test_caches_hold_what_the_jax_engine_holds(fcfs_pair):
     for a, b in zip(jax.tree.leaves(jeng.caches), jax.tree.leaves(got)):
         np.testing.assert_allclose(b, np.asarray(a), atol=1e-4, rtol=1e-4)
     assert isinstance(teng.caches[0]["k"], torch.Tensor)
+
+
+# ---- the SSM family (mamba2 smoke config) -----------------------------------
+
+SSM_ARCH = "mamba2-370m"
+
+
+@pytest.fixture(scope="module")
+def ssm_weights():
+    """(JAX config, port config, JAX params, port params) of mamba2."""
+    jcfg, tcfg = jax_smoke(SSM_ARCH), get_smoke_config(SSM_ARCH)
+    jp = jax_init(jax.random.PRNGKey(0), jcfg)
+    tp = bridge.params_from_jax(jax.tree.map(np.asarray, jp), tcfg,
+                                device="cpu")
+    return jcfg, tcfg, jp, tp
+
+
+def _ssm_specs(n: int, seed: int, lengths):
+    rng = np.random.default_rng(seed)
+    return [(int(rng.choice(lengths)), int(rng.integers(2, 7)))
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("name", ["fcfs", "ewsjf"])
+def test_ssm_one_prompt_length_matches_jax_engine(ssm_weights, name):
+    """With one prompt length no row is padded, where the JAX engine is
+    right: greedy tokens, dispatch order and pool counts agree."""
+    jeng, teng = _run_both(ssm_weights, name, [(24, n) for n in
+                                               (3, 6, 2, 5, 4, 6, 2, 3, 5, 4)],
+                           explicit_tokens=True)
+    assert not teng.e.pad_prompts and not jeng.e.pad_prompts
+    assert teng.output_tokens == jeng.output_tokens
+    assert [rid for _, rid in teng.dispatch_log] == \
+        [rid for _, rid in jeng.dispatch_log]
+    for attr in ("total_blocks", "block_size", "free_blocks", "allocs"):
+        assert getattr(teng.pool, attr) == getattr(jeng.pool, attr)
+    assert isinstance(teng.caches[0]["ssm"], torch.Tensor)
+
+
+@pytest.mark.parametrize("name", ["fcfs", "ewsjf"])
+def test_ssm_mixed_lengths_match_one_request_at_a_time(ssm_weights, name):
+    """Mixed prompt lengths (at most one chunk, or whole chunks, so the JAX
+    prefill runs): the port's batched engine gives every request the greedy
+    tokens of a JAX engine that prefills one request at a time."""
+    jcfg, tcfg, jp, tp = ssm_weights
+    specs = _ssm_specs(12, seed=3, lengths=(5, 9, 17, 24, 32, 64, 96))
+    teng = ServingEngine(tcfg, tp, _scheduler(tcore, name),
+                         EngineConfig(**ECFG), device="cpu")
+    jeng = JaxEngine(jcfg, jp, _scheduler(jcore, name),
+                     JaxEngineConfig(**{**ECFG, "max_slots": 1}))
+    tfin = teng.run(_requests(tcore, specs, jcfg.vocab_size, True),
+                    max_steps=4000)
+    jfin = jeng.run(_requests(jcore, specs, jcfg.vocab_size, True),
+                    max_steps=4000)
+    assert len(tfin) == len(jfin) == len(specs)
+    assert teng.prefill_batches < len(specs)      # rows really were batched
+    assert teng.output_tokens == jeng.output_tokens
+    assert teng.pool.free_blocks == teng.pool.total_blocks == \
+        jeng.pool.free_blocks

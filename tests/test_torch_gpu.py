@@ -13,6 +13,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import FCFSScheduler, Request
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.paged_attention import ops as paged_ops
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan.ref import ssd_ref
 from repro_torch.models import DtypePolicy, init_params
 from repro_torch.serving import EngineConfig, ServingEngine
 
@@ -79,6 +81,55 @@ def test_paged_kernel_matches_plain(cuda, dtype, B, H, K, hd, page, npg, P):
                                rtol=TOLS[dtype])
 
 
+def _ssd_inputs(g, dev, b, s, H, P, G, N, dtype):
+    x = (torch.randn((b, s, H, P), generator=g, device=dev) * 0.5).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, H), generator=g,
+                                                  device=dev))
+    A_log = torch.log(torch.linspace(1.0, 16.0, H, device=dev))
+    B, C = ((torch.randn((b, s, G, N), generator=g, device=dev) * 0.3).to(dtype)
+            for _ in range(2))
+    return x, dt, A_log, B, C
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,nc,Q,H,P,G,N", [
+    (2, 2, 256, 4, 64, 1, 128),         # the mamba2-370m widths
+    (1, 3, 100, 4, 32, 2, 64),          # Q not a multiple of the tile, groups
+    (1, 1, 20, 4, 16, 4, 16),           # Q below one tile, G = H
+    (1, 2, 64, 2, 128, 1, 256),
+])
+def test_ssd_chunk_kernel_matches_plain(cuda, dtype, b, nc, Q, H, P, G, N):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x, dt, A_log, B, C = _ssd_inputs(g, cuda, b, nc * Q, H, P, G, N, dtype)
+    args = (x.view(b, nc, Q, H, P), dt.view(b, nc, Q, H), A_log,
+            B.view(b, nc, Q, G, N), C.view(b, nc, Q, G, N))
+    before = ssd_ops.KERNEL.launches
+    out = ssd_ops.ssd_chunk(*args)
+    ref = ssd_ops.ssd_chunk(*args, impl="plain")
+    torch.cuda.synchronize()
+    assert ssd_ops.KERNEL.launches == before + 1
+    for o, r in zip(out, ref):
+        assert o.dtype == torch.float32 and o.shape == r.shape
+        # relative to the output's scale: the two sum in different orders
+        err = float((o - r).abs().max() / r.abs().max().clamp_min(1e-30))
+        assert err <= TOLS[dtype], err
+
+
+@pytest.mark.parametrize("s,chunk", [(1000, 256), (200, 256), (512, 128)])
+def test_ssd_kernel_path_matches_recurrence(cuda, s, chunk):
+    """The whole scan through the kernel (padded to whole chunks with
+    dt = 0) against the sequential recurrence, output and final state."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x, dt, A_log, B, C = _ssd_inputs(g, cuda, 2, s, 4, 64, 1, 128,
+                                     torch.float32)
+    before = ssd_ops.KERNEL.launches
+    y, h = ssd_ops.ssd(x, dt, A_log, B, C, chunk=chunk)
+    assert ssd_ops.KERNEL.launches == before + 1
+    yr, hr = ssd_ref(x, dt, A_log, B, C)
+    assert float((y - yr).abs().max() / yr.abs().max()) <= 1e-4
+    assert float((h - hr).abs().max() / hr.abs().max()) <= 1e-4
+
+
 def test_kernel_wrappers_refuse_what_they_cannot_take(cuda):
     q = torch.zeros((1, 16, 2, 32), device=cuda)          # head_dim 32
     with pytest.raises(ValueError):
@@ -93,6 +144,14 @@ def test_kernel_wrappers_refuse_what_they_cannot_take(cuda):
                                               device=cuda),
                                   torch.ones((1,), dtype=torch.int32,
                                              device=cuda))
+    x = torch.zeros((1, 1, 16, 2, 48), device=cuda)      # head_dim 48
+    bc = torch.zeros((1, 1, 16, 1, 16), device=cuda)
+    dt = torch.zeros((1, 1, 16, 2), device=cuda)
+    with pytest.raises(ValueError):
+        ssd_ops.ssd_chunk(x, dt, torch.zeros(2, device=cuda), bc, bc)
+    with pytest.raises(ValueError):                      # bf16 dt
+        ssd_ops.ssd_chunk(x[..., :32], dt.bfloat16(),
+                          torch.zeros(2, device=cuda), bc, bc)
 
 
 def test_engine_kernel_path_matches_cpu_run(cuda):
@@ -119,5 +178,31 @@ def test_engine_kernel_path_matches_cpu_run(cuda):
         if dev == cuda:
             assert flash_ops.KERNEL.launches > flash0
             assert paged_ops.KERNEL.launches > paged0
+        outs[str(dev)] = eng.output_tokens
+    assert outs["cpu"] == outs["cuda"]
+
+
+def test_ssm_engine_kernel_path_matches_cpu_run(cuda):
+    """The mamba2 smoke config served on the card through the SSD kernel
+    (mixed prompt lengths, some above the 32-token chunk and not a multiple
+    of it) gives the greedy tokens of the same weights served on the CPU."""
+    from repro_torch.configs import get_smoke_config
+    cfg = get_smoke_config("mamba2-370m")
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    pol = DtypePolicy(torch.float32, torch.float32, torch.float32)
+    outs = {}
+    for dev in ("cpu", cuda):
+        rng = np.random.default_rng(2)
+        reqs = [Request(prompt_len=int(rng.integers(5, 90)), arrival_time=0.0,
+                        max_new_tokens=int(rng.integers(2, 8)),
+                        request_id=80_000 + i) for i in range(8)]
+        eng = ServingEngine(cfg, params.to(dev), FCFSScheduler(),
+                            EngineConfig(max_slots=4, s_max=128,
+                                         kv_pool_tokens=2048),
+                            policy=pol, device=dev)
+        ssd0 = ssd_ops.KERNEL.launches
+        assert len(eng.run(reqs)) == len(reqs)
+        if dev == cuda:
+            assert ssd_ops.KERNEL.launches > ssd0
         outs[str(dev)] = eng.output_tokens
     assert outs["cpu"] == outs["cuda"]
