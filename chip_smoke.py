@@ -7,9 +7,15 @@ Phases, in order; any failure raises and exits non-zero:
 
 1. setup: print the card's name and power limit, build the three CUDA
    kernels from ``src/repro_torch/csrc`` (one ``nvcc`` each, in parallel);
-2. kernels: hold flash attention, paged attention and the SSD chunk kernel
-   against their plain PyTorch versions on the card at the main paths'
-   shapes, and time kernel, plain version and, for attention,
+2. kernels: hold flash attention (bf16 on the tensor cores, f32 on the
+   CUDA cores), paged attention (split sequences, then merge) and the SSD
+   chunk kernel against their plain PyTorch versions on the card at the
+   main paths' shapes (the llama2 prefill buckets from B=8 S=128 to B=2
+   S=2048; 8 decode slots of 2048 tokens, one long among short ones
+   included); bf16 flash is also held element by element against
+   ``flash_attention_tiled_ref``, which rounds what the kernel rounds.
+   Times kernel, plain version, the least time the card could take
+   (bound) and, for attention,
    ``torch.nn.functional.scaled_dot_product_attention`` (a yardstick only:
    the port never calls it; no single PyTorch call computes SSD);
 3. parity: llama2-13b and mamba2-370m at full width and 2 layers, in f32 —
@@ -19,8 +25,12 @@ Phases, in order; any failure raises and exits non-zero:
    mamba2-370m, at full width and depth (random bf16 weights from a seed)
    under EWSJF over a mixed short/long workload; every request must finish
    and each path's kernels must have launched in its own run;
-5. summary: one JSON line of per-kernel numbers, then the last line
-   ``{"ok": true, "device": {...}}``.
+5. summary: one call of each attention kernel's main case under
+   ``torch.profiler`` names the device kernels that ran (the ``variant``
+   of its entry); a line of the replaced designs' times as recorded in
+   PERF.md (not measured here); one JSON line of per-kernel numbers
+   measured in this run; then the last line ``{"ok": true, "device":
+   {...}}``.
 
 TF32 is switched off for matmuls and cuDNN below, so every f32 product in
 the plain versions and in the model is full f32.
@@ -44,6 +54,17 @@ BF16_PEAK_FLOPS = 989e12     # H100 SXM data sheet, dense bf16 tensor cores
 F32_PEAK_FLOPS = 67e12       # H100 SXM data sheet, f32 outside tensor cores
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 F32_TOL, BF16_TOL = 1e-4, 3e-2   # kernel vs plain: summation order differs
+# bf16 flash vs its tiled plain version, per element: |d| <= atol + rtol·|ref|.
+# Both round the same P and the same output to bf16 (an ulp is at most 2^-7
+# of the value); what is left is f32 summation order.
+TILED_ATOL, TILED_RTOL = 1e-3, 1e-2
+# The llama2 serve's decode shape at its worst: one long slot among short ones.
+LONG_AMONG_SHORT = [2000, 17, 99, 1, 64, 33, 80, 5]
+# Main-case times of the designs the two attention kernels replaced, as
+# PERF.md section 6 records them (chip_smoke.py of the commit that added the
+# SSD kernel, eager-launch timer, NVIDIA H100 80GB HBM3 at 700 W).  Printed
+# on a line of their own, labelled as recorded, never in the kernels line.
+RECORDED_EARLIER_MS = {"flash_attention": 1.0194, "paged_attention": 0.3273}
 
 
 def check(cond: bool, what: str) -> None:
@@ -52,20 +73,56 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls, by CUDA events."""
+def time_ms(fn, iters: int = 20, warmup: int = 3, graph: bool = True) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls, by CUDA events.
+    With ``graph`` the events bracket one replay of a CUDA graph that holds
+    the ``iters`` calls, so the host's time to issue a call (the wrapper's
+    checks, the launch) does not count even where it exceeds a small
+    kernel's; without it they bracket ``iters`` eager calls (the timer of
+    the runs before the graph timer)."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if not graph:
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+    cuda_graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(cuda_graph):
+        for _ in range(iters):
+            fn()
+    cuda_graph.replay()
+    torch.cuda.synchronize()
     start.record()
-    for _ in range(iters):
-        fn()
+    cuda_graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def launched_kernels(fn) -> list:
+    """The device kernels one call of ``fn`` ran, as ``torch.profiler``
+    names them (namespace, return type and arguments dropped)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = set()
+    for ev in prof.key_averages():
+        if (ev.device_type == torch.autograd.DeviceType.CUDA
+                and ev.self_device_time_total > 0):
+            name = ev.key.replace("(anonymous namespace)::", "")
+            names.add(name.removeprefix("void ").split("(")[0])
+    return sorted(names)
 
 
 def max_err(a, b) -> float:
@@ -92,10 +149,14 @@ def phase_setup(kbuild) -> None:
 
 
 def flash_case(fa, B, S, H, K, hd, dtype, causal, window, seed):
-    """One flash-attention comparison; returns (max_abs_err, kernel_ms,
-    plain_ms, library_ms)."""
+    """One flash-attention comparison; returns (max_abs_err, worst
+    |d| / (atol + rtol·|ref|) against the tiled plain version (bf16; None
+    for f32), kernel_ms, eager kernel_ms, plain_ms, library_ms, the kernel
+    call)."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_tiled_ref)
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
     q = torch.randn((B, S, H, hd), generator=g, device="cuda").to(dtype)
@@ -110,8 +171,21 @@ def flash_case(fa, B, S, H, K, hd, dtype, causal, window, seed):
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     check(err <= tol, f"flash {dtype} B{B} S{S} H{H} K{K} w{window} err "
                       f"{err:.3g} <= {tol}")
-    kms = time_ms(lambda: fa.flash_attention(q, k, v, causal=causal,
-                                             window=window))
+    tiled = None
+    if dtype == torch.bfloat16:
+        ref_t = flash_attention_tiled_ref(
+            *(t.transpose(1, 2) for t in (q, k, v)), causal=causal,
+            window=window).transpose(1, 2).float()
+        tiled = float(((out.float() - ref_t).abs()
+                       / (TILED_ATOL + TILED_RTOL * ref_t.abs())).max())
+        check(tiled <= 1.0, f"flash bf16 B{B} S{S} H{H} K{K} w{window} "
+                            f"within {TILED_ATOL} + {TILED_RTOL}·|ref| of "
+                            f"the tiled plain version (worst {tiled:.3g})")
+
+    def call():
+        return fa.flash_attention(q, k, v, causal=causal, window=window)
+    kms = time_ms(call)
+    ems = time_ms(call, graph=False)
     pms = time_ms(lambda: fa.flash_attention(q, k, v, causal=causal,
                                              window=window, impl="plain"),
                   iters=5, warmup=1)
@@ -123,7 +197,7 @@ def flash_case(fa, B, S, H, K, hd, dtype, causal, window, seed):
     lms = time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
         enable_gqa=H != K))
-    return err, kms, pms, lms
+    return err, tiled, kms, ems, pms, lms, call
 
 
 def flash_bound(B, S, H, K, hd, elem, causal, window, peak):
@@ -141,9 +215,11 @@ def flash_bound(B, S, H, K, hd, elem, causal, window, peak):
                                        else "bytes")
 
 
-def paged_case(pa, B, H, K, hd, page, s_max, dtype, seed, shuffle):
-    """One paged-attention comparison over a slot cache viewed as pages;
-    returns (err, kernel_ms, plain_ms, library_ms, seq_lens)."""
+def paged_case(pa, B, H, K, hd, page, s_max, dtype, seed, shuffle,
+               lens=None):
+    """One paged-attention comparison over a slot cache viewed as pages,
+    at ``lens`` or at random lengths; returns (err, kernel_ms, eager
+    kernel_ms, plain_ms, library_ms, seq_lens, the kernel call)."""
     import torch
     import torch.nn.functional as F
     g = torch.Generator(device="cuda")
@@ -153,7 +229,9 @@ def paged_case(pa, B, H, K, hd, page, s_max, dtype, seed, shuffle):
     vc = torch.randn((B, s_max, K, hd), generator=g, device="cuda").to(dtype)
     q = torch.randn((B, H, hd), generator=g, device="cuda").to(dtype)
     rng = np.random.default_rng(seed)
-    lens = rng.integers(1, s_max + 1, size=B)
+    if lens is None:
+        lens = rng.integers(1, s_max + 1, size=B)
+    lens = np.asarray(lens)
     seq_lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
     table = np.arange(B * pages, dtype=np.int32).reshape(B, pages)
     if shuffle:
@@ -168,7 +246,11 @@ def paged_case(pa, B, H, K, hd, page, s_max, dtype, seed, shuffle):
     check(bool(torch.isfinite(out.float()).all()), "paged output finite")
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     check(err <= tol, f"paged {dtype} shuffle={shuffle} err {err:.3g} <= {tol}")
-    kms = time_ms(lambda: pa.paged_attention(q, kp, vp, table, seq_lens))
+
+    def call():
+        return pa.paged_attention(q, kp, vp, table, seq_lens)
+    kms = time_ms(call)
+    ems = time_ms(call, graph=False)
     pms = time_ms(lambda: pa.paged_attention(q, kp, vp, table, seq_lens,
                                              impl="plain"), iters=5, warmup=1)
     lms = None
@@ -179,7 +261,7 @@ def paged_case(pa, B, H, K, hd, page, s_max, dtype, seed, shuffle):
         kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
         lms = time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=H != K))
-    return err, kms, pms, lms, lens
+    return err, kms, ems, pms, lms, lens, call
 
 
 def paged_bound(B, H, K, hd, elem, lens):
@@ -303,52 +385,85 @@ def phase_ssd_kernel(so) -> dict:
     return row
 
 
-def phase_kernels(fa, pa) -> dict:
+def phase_kernels(fa, pa) -> tuple:
     """Both attention kernels against their plain versions at the main
-    path's shapes."""
+    path's shapes: the llama2 prefill buckets (B=8 S=128 to B=2 S=2048)
+    and its decode slots (8 of 2048 tokens, random lengths and one long
+    sequence among short ones).  Returns the main cases' rows and their
+    kernel calls."""
     import torch
-    rows = {}
+    rows, calls = {}, {}
     cases = [  # B, S, H, K, hd, dtype, causal, window
         (2, 1024, 40, 40, 128, torch.bfloat16, True, 0),    # main path
         (2, 1024, 40, 40, 128, torch.float32, True, 0),
         (2, 1024, 32, 8, 128, torch.bfloat16, True, 0),     # GQA
         (1, 1024, 40, 40, 128, torch.bfloat16, True, 256),  # window
         (2, 1000, 40, 40, 128, torch.float32, True, 0),     # ragged S
+        (8, 128, 40, 40, 128, torch.bfloat16, True, 0),     # short bucket
+        (2, 2048, 40, 40, 128, torch.bfloat16, True, 0),    # longest bucket
     ]
     for i, (B, S, H, K, hd, dt, causal, window) in enumerate(cases):
-        err, kms, pms, lms = flash_case(fa, B, S, H, K, hd, dt, causal,
-                                        window, seed=i)
+        err, tiled, kms, ems, pms, lms, call = flash_case(
+            fa, B, S, H, K, hd, dt, causal, window, seed=i)
         elem = 2 if dt == torch.bfloat16 else 4
         peak = BF16_PEAK_FLOPS if dt == torch.bfloat16 else F32_PEAK_FLOPS
         bms, by = flash_bound(B, S, H, K, hd, elem, causal, window, peak)
+        vs_tiled = (f" worst |d| / ({TILED_ATOL} + {TILED_RTOL}·|tiled|) "
+                    f"{tiled:.3g}" if tiled is not None else "")
         print(f"[kernels] flash B{B} S{S} H{H} K{K} hd{hd} {str(dt)[6:]} "
-              f"causal={causal} window={window}: max_abs_err {err:.3g} "
-              f"kernel {kms:.4f} ms plain {pms:.4f} ms sdpa {lms:.4f} ms "
-              f"bound {bms:.4f} ms ({by})")
+              f"causal={causal} window={window}: max_abs_err {err:.3g}"
+              f"{vs_tiled} kernel {kms:.4f} ms (eager timer {ems:.4f} ms) "
+              f"plain {pms:.4f} ms sdpa {lms:.4f} ms bound {bms:.4f} ms "
+              f"({by}); kernel / sdpa {kms / lms:.2f} (graph timer both)")
         if i == 0:
             rows["flash_attention"] = dict(max_abs_err=err, ms=kms,
                                            plain_ms=pms, library_ms=lms,
                                            bound_ms=bms, bound_by=by)
-    pcases = [(torch.bfloat16, False), (torch.float32, False),
-              (torch.bfloat16, True), (torch.float32, True)]
-    for i, (dt, shuffle) in enumerate(pcases):
-        B, H, K, hd, page, s_max = 8, 40, 40, 128, 16, 2048
-        err, kms, pms, lms, lens = paged_case(pa, B, H, K, hd, page, s_max,
-                                              dt, seed=10 + i,
-                                              shuffle=shuffle)
+            calls["flash_attention"] = call
+    pcases = [(torch.bfloat16, False, None), (torch.float32, False, None),
+              (torch.bfloat16, True, None), (torch.float32, True, None),
+              (torch.bfloat16, False, LONG_AMONG_SHORT),
+              (torch.float32, False, LONG_AMONG_SHORT)]
+    B, H, K, hd, page, s_max = 8, 40, 40, 128, 16, 2048
+    n_split = pa.split_count(s_max // page, page)
+    for i, (dt, shuffle, lens) in enumerate(pcases):
+        err, kms, ems, pms, lms, lens, call = paged_case(
+            pa, B, H, K, hd, page, s_max, dt, seed=10 + i % 2,
+            shuffle=shuffle, lens=lens)
         elem = 2 if dt == torch.bfloat16 else 4
         bms, by = paged_bound(B, H, K, hd, elem, lens)
         lib = f"{lms:.4f} ms" if lms is not None else "n/a"
+        ratio = (f"; kernel / sdpa {kms / lms:.2f} (graph timer both)"
+                 if lms is not None else "")
         print(f"[kernels] paged B{B} H{H} K{K} hd{hd} page{page} "
               f"s_max{s_max} {str(dt)[6:]} shuffled={shuffle} "
-              f"tokens={int(lens.sum())}: max_abs_err {err:.3g} kernel "
-              f"{kms:.4f} ms plain {pms:.4f} ms sdpa {lib} bound "
-              f"{bms:.4f} ms ({by})")
+              f"lens={lens.tolist()} tokens={int(lens.sum())} ({n_split} "
+              f"partitions of {pa.PARTITION} tokens): max_abs_err {err:.3g} "
+              f"kernel {kms:.4f} ms (eager timer {ems:.4f} ms) plain "
+              f"{pms:.4f} ms sdpa {lib} bound {bms:.4f} ms ({by}){ratio}")
         if i == 0:
             rows["paged_attention"] = dict(max_abs_err=err, ms=kms,
                                            plain_ms=pms, library_ms=lms,
                                            bound_ms=bms, bound_by=by)
-    return rows
+            calls["paged_attention"] = call
+    return rows, calls
+
+
+def phase_variants(calls: dict) -> dict:
+    """Which device kernels each attention kernel's main case ran, read
+    from the profiler: bf16 flash must run the tensor-core kernel alone,
+    paged attention its split and merge kernels."""
+    want = {"flash_attention": ("flash_fwd_mma_kernel",),
+            "paged_attention": ("paged_split_kernel", "paged_merge_kernel")}
+    variants = {}
+    for name, call in calls.items():
+        ran = launched_kernels(call)
+        print(f"[variants] {name} main case ran {ran}")
+        check(len(ran) == len(want[name])
+              and all(any(w in r for r in ran) for w in want[name]),
+              f"{name} main case ran {want[name]}")
+        variants[name] = ", ".join(ran)
+    return variants
 
 
 def phase_parity_llama() -> None:
@@ -521,7 +636,7 @@ def main() -> int:
 
     t_start = time.monotonic()
     phase_setup(kbuild)
-    rows = phase_kernels(fa, pa)
+    rows, calls = phase_kernels(fa, pa)
     rows["ssd_chunk"] = phase_ssd_kernel(so)
     phase_parity_llama()
     phase_parity_mamba2()
@@ -532,6 +647,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     mamba = phase_serve("mamba2-370m", ssm_card_engine_config(), ops,
                         ("ssd_chunk",))
+    # after every timed phase: the profiler runs in this process only here
+    variants = phase_variants(calls)
     # each kernel's launches come from the run of its own path
     launches = {"flash_attention": llama["flash_attention"],
                 "paged_attention": llama["paged_attention"],
@@ -545,13 +662,19 @@ def main() -> int:
     kernels = []
     for name, (source, replaces) in sources.items():
         r = rows[name]
-        kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
-                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"]})
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": launches[name],
+                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                 "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
+                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                 "library_ms": r["library_ms"]}
+        if name in variants:
+            entry["variant"] = variants[name]
+        kernels.append(entry)
     print(f"[summary] all phases passed in {time.monotonic() - t_start:.1f} s")
+    print("[summary] recorded, not measured in this run: main-case ms of "
+          "the replaced designs (PERF.md section 6, eager timer) "
+          + json.dumps(RECORDED_EARLIER_MS))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

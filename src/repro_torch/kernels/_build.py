@@ -42,9 +42,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
+    """Where the library built from ``csrc/<name>.cu`` lives: keyed by the
+    flags, the source and every header of ``csrc/``, so a changed or new
+    header never leaves a stale library behind."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / f"{name}-{h.hexdigest()[:16]}" / f"lib{name}.so"
 

@@ -1,7 +1,11 @@
 """Public wrapper of the paged decode-attention kernel.
 
 Tensors on the CPU go through the plain version (``ref.py``); tensors on a
-GPU launch ``csrc/paged_attention.cu`` or raise.
+GPU launch ``csrc/paged_attention.cu`` or raise.  The kernel splits every
+sequence into partitions of ``PARTITION`` tokens and merges their partial
+softmax states (``ref.py::paged_attention_split_ref`` / ``merge_partials_ref``
+spell out the arithmetic); one wrapper call is one counted launch, the merge
+pass included.
 """
 
 from __future__ import annotations
@@ -15,10 +19,19 @@ from .ref import paged_attention_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("paged_attention", "paged_attention_fwd",
-                    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                     ctypes.c_float, _P])
+                    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                     _I, _I, ctypes.c_float, _P])
 HEAD_DIMS = (64, 128)
 GROUPS = (1, 2, 4, 8)
+PARTITION = 256   # tokens per split; the kernel takes it as an argument
+
+
+def split_count(table_width: int, page: int) -> int:
+    """Partitions of ``PARTITION`` tokens the kernel splits every sequence
+    into: enough to cover the block table's ``table_width · page`` tokens.
+    It depends on the table's shape alone, so the wrapper never copies
+    ``seq_lens`` to the host (which would sync every decode step)."""
+    return max(1, -(-table_width * page // PARTITION))
 
 
 def paged_attention(q, k_pages, v_pages, block_table, seq_lens, *,
@@ -39,12 +52,19 @@ def paged_attention(q, k_pages, v_pages, block_table, seq_lens, *,
     _check(q, k_pages, v_pages, block_table, seq_lens)
     B, H, hd = q.shape
     _, page, K, _ = k_pages.shape
+    max_pages = block_table.shape[1]
     scale = hd ** -0.5 if scale is None else scale
+    n_split = split_count(max_pages, page)
     out = torch.empty_like(q)
+    # per (sequence, query head, partition): max, sum, unnormalised output
+    partials = (torch.empty(B * H * n_split * (hd + 2), dtype=torch.float32,
+                            device=q.device) if n_split > 1 else None)
     KERNEL.launch(q.device, q.data_ptr(), k_pages.data_ptr(),
                   v_pages.data_ptr(), block_table.data_ptr(),
-                  seq_lens.data_ptr(), out.data_ptr(), DTYPE_CODES[q.dtype],
-                  B, H, K, hd, page, block_table.shape[1], float(scale))
+                  seq_lens.data_ptr(), out.data_ptr(),
+                  None if partials is None else partials.data_ptr(),
+                  DTYPE_CODES[q.dtype], B, H, K, hd, page, max_pages,
+                  PARTITION, n_split, float(scale))
     return out
 
 

@@ -9,8 +9,8 @@ config) three times on the GPU: once to warm up (cuBLAS handles,
 first-call allocations), once timed without the profiler, once under
 ``torch.profiler``.  Prints both runs' engine wall times, the device time
 per kernel class (flash attention, paged attention, SSD chunk, matrix
-products, the rest), the device busy share against the unprofiled wall
-time, and the
+products, the rest), each of the port's own kernels by name under its class,
+the device busy share against the unprofiled wall time, and the
 host time spent in prefill (``_admit``) and decode (``_decode_tick``) under
 the profiler.  The profiler adds host overhead to every launch, so its wall
 time is longer than the unprofiled one; the device times are not affected.
@@ -31,10 +31,14 @@ from ..models.common import resolve_device
 from ..serving import ServingEngine
 from .serve import CARD_ENGINE_CONFIGS, card_requests
 
-_CLASSES = (("flash_attention", ("flash_fwd_kernel",)),
-            ("paged_attention", ("paged_decode_kernel",)),
-            ("ssd_chunk", ("ssd_chunk_kernel",)),
+# The port's own kernels match by the prefix every kernel of their source
+# shares (flash_fwd_kernel / flash_fwd_mma_kernel; paged_split_kernel and
+# paged_merge_kernel), so a new variant is counted under its class.
+_CLASSES = (("flash_attention", ("flash_fwd_",)),
+            ("paged_attention", ("paged_",)),
+            ("ssd_chunk", ("ssd_chunk_",)),
             ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "matmul")))
+_OWN = ("flash_attention", "paged_attention", "ssd_chunk")
 
 
 def _kernel_class(name: str) -> str:
@@ -95,6 +99,7 @@ def main() -> None:
         prof.export_chrome_trace(args.trace)
     device_us: dict[str, float] = {}
     host_us: dict[str, float] = {}
+    own: dict[str, dict] = {cls: {} for cls in _OWN}   # class -> name -> (s, n)
     kernels = []
     for ev in prof.key_averages():
         dt = ev.self_device_time_total
@@ -106,6 +111,9 @@ def main() -> None:
             cls = _kernel_class(ev.key)
             device_us[cls] = device_us.get(cls, 0.0) + dt
             kernels.append((dt, ev.count, ev.key[:90]))
+            if cls in own:
+                own[cls][ev.key[:90]] = {"device_s": dt / 1e6,
+                                         "count": ev.count}
     busy = sum(device_us.values()) / 1e6
     kernels.sort(reverse=True)
     print(json.dumps({
@@ -119,6 +127,7 @@ def main() -> None:
         "device_busy_share": busy / plain_wall,
         "device_s_by_class": {k: v / 1e6 for k, v in sorted(
             device_us.items(), key=lambda kv: -kv[1])},
+        "own_kernels_by_class": own,
         "host_s": {k: v / 1e6 for k, v in host_us.items()},
         "prefill_batches": eng.prefill_batches,
         "top_kernels": [{"name": k, "device_s": dt / 1e6, "count": n}

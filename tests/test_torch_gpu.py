@@ -12,6 +12,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import FCFSScheduler, Request
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.ref import flash_attention_tiled_ref
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import ssd_ref
@@ -22,6 +23,17 @@ pytestmark = pytest.mark.gpu
 
 # kernel vs plain version: the two sum in different orders
 TOLS = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# bf16 kernel vs its tiled plain version, which rounds P and the output to
+# bf16 as the kernel does: a bf16 ulp (at most 2^-7 of the value) plus f32
+# summation order, per element
+TILED_ATOL, TILED_RTOL = 1e-3, 1e-2
+
+
+def _assert_matches_tiled(out, q, k, v, causal, window):
+    ref = flash_attention_tiled_ref(*(t.transpose(1, 2) for t in (q, k, v)),
+                                    causal=causal, window=window)
+    torch.testing.assert_close(out.float(), ref.transpose(1, 2).float(),
+                               atol=TILED_ATOL, rtol=TILED_RTOL)
 
 
 @pytest.fixture
@@ -53,6 +65,88 @@ def test_flash_kernel_matches_plain(cuda, dtype, B, S, H, K, hd, causal,
                                     impl="plain")
     assert flash_ops.KERNEL.launches == before + 1
     assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOLS[dtype],
+                               rtol=TOLS[dtype])
+    if dtype == torch.bfloat16:
+        _assert_matches_tiled(out, q, k, v, causal, window)
+
+
+@pytest.mark.parametrize("B,S,T,H,K,hd,causal,window", [
+    *[(2, S, S, 8, 2, hd, True, 0)                      # G = 4, ragged S
+      for S in (1, 63, 65, 1000, 2048) for hd in (64, 128)],
+    (1, 300, 300, 16, 2, 128, True, 0),                 # G = 8
+    (1, 1000, 1000, 8, 8, 128, True, 256),              # window 256
+    (1, 700, 700, 4, 1, 64, True, 256),
+    (2, 100, 300, 4, 2, 128, False, 0),                 # bidirectional, T > S
+    (1, 300, 100, 4, 4, 64, False, 0),                  # bidirectional, T < S
+])
+def test_flash_bf16_tensor_core_kernel(cuda, B, S, T, H, K, hd, causal,
+                                       window):
+    """The bf16 tensor-core kernel at ragged lengths (a single row, one
+    either side of the 64-row tile), both head dims, GQA groups of 4 and 8,
+    a sliding window and T != S, against the dense and the tiled plain
+    versions; one counted launch per call."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn((B, S, H, hd), generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn((B, T, K, hd), generator=g, device=cuda).bfloat16()
+            for _ in range(2))
+    before = flash_ops.KERNEL.launches
+    out = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert flash_ops.KERNEL.launches == before + 1
+    ref = flash_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                    impl="plain")
+    assert flash_ops.KERNEL.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    torch.testing.assert_close(out.float(), ref.float(), atol=3e-2, rtol=3e-2)
+    _assert_matches_tiled(out, q, k, v, causal, window)
+
+
+def _paged_inputs(rng, g, dev, dtype, lens, H, K, hd, page, npg, shuffle):
+    B = len(lens)
+    n_pool = B * npg
+    q = torch.randn((B, H, hd), generator=g, device=dev).to(dtype)
+    kp, vp = (torch.randn((n_pool, page, K, hd), generator=g, device=dev)
+              .to(dtype) for _ in range(2))
+    table = (rng.permutation(n_pool) if shuffle else np.arange(n_pool))
+    bt = torch.tensor(table.reshape(B, npg), dtype=torch.int32, device=dev)
+    sl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return q, kp, vp, bt, sl
+
+
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_split_boundaries(cuda, dtype, G):
+    """Sequence lengths on either side of every 256-token partition edge of
+    a 1024-token table (4 partitions), through split and merge."""
+    p = paged_ops.PARTITION
+    lens = [1] + [e * p + d for e in (1, 2, 3) for d in (-1, 0, 1)] + [4 * p]
+    q, kp, vp, bt, sl = _paged_inputs(np.random.default_rng(2),
+                                      torch.Generator(device=cuda).manual_seed(2),
+                                      cuda, dtype, lens, 2 * G, 2, 128, 16,
+                                      4 * p // 16, shuffle=True)
+    assert paged_ops.split_count(bt.shape[1], 16) == 4
+    before = paged_ops.KERNEL.launches
+    out = paged_ops.paged_attention(q, kp, vp, bt, sl)
+    assert paged_ops.KERNEL.launches == before + 1
+    ref = paged_ops.paged_attention(q, kp, vp, bt, sl, impl="plain")
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOLS[dtype],
+                               rtol=TOLS[dtype])
+
+
+@pytest.mark.parametrize("shuffle", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_long_among_short(cuda, dtype, shuffle):
+    """The llama2 serve's decode shape: 8 slots of 2048 tokens (H = K = 40,
+    hd 128, pages of 16), one 2000-token sequence among seven under 100."""
+    lens = [2000, 17, 99, 1, 64, 33, 80, 5]
+    q, kp, vp, bt, sl = _paged_inputs(np.random.default_rng(3),
+                                      torch.Generator(device=cuda).manual_seed(3),
+                                      cuda, dtype, lens, 40, 40, 128, 16, 128,
+                                      shuffle)
+    before = paged_ops.KERNEL.launches
+    out = paged_ops.paged_attention(q, kp, vp, bt, sl)
+    assert paged_ops.KERNEL.launches == before + 1
+    ref = paged_ops.paged_attention(q, kp, vp, bt, sl, impl="plain")
     torch.testing.assert_close(out.float(), ref.float(), atol=TOLS[dtype],
                                rtol=TOLS[dtype])
 
