@@ -13,9 +13,10 @@ Phases, in order; any failure raises and exits non-zero:
    main paths' shapes (the llama2 prefill buckets from B=8 S=128 to B=2
    S=2048; 8 decode slots of 2048 tokens, one long among short ones
    included); bf16 flash is also held element by element against
-   ``flash_attention_tiled_ref``, which rounds what the kernel rounds.
-   Times kernel, plain version, the least time the card could take
-   (bound) and, for attention,
+   ``flash_attention_tiled_ref``, and the bf16 SSD main case against
+   ``ssd_chunk_tiled_ref``, each of which rounds what its kernel rounds.
+   Times kernel (graph and eager timers), plain version, the least time the
+   card could take (bound) and, for attention,
    ``torch.nn.functional.scaled_dot_product_attention`` (a yardstick only:
    the port never calls it; no single PyTorch call computes SSD);
 3. parity: llama2-13b and mamba2-370m at full width and 2 layers, in f32 —
@@ -25,10 +26,11 @@ Phases, in order; any failure raises and exits non-zero:
    mamba2-370m, at full width and depth (random bf16 weights from a seed)
    under EWSJF over a mixed short/long workload; every request must finish
    and each path's kernels must have launched in its own run;
-5. summary: one call of each attention kernel's main case under
+5. summary: one call of each kernel's bf16 main case under
    ``torch.profiler`` names the device kernels that ran (the ``variant``
    of its entry); a line of the replaced designs' times as recorded in
-   PERF.md (not measured here); one JSON line of per-kernel numbers
+   PERF.md (not measured here), each beside this run's time by the same
+   timer; one JSON line of per-kernel numbers
    measured in this run; then the last line ``{"ok": true, "device":
    {...}}``.
 
@@ -58,13 +60,24 @@ F32_TOL, BF16_TOL = 1e-4, 3e-2   # kernel vs plain: summation order differs
 # Both round the same P and the same output to bf16 (an ulp is at most 2^-7
 # of the value); what is left is f32 summation order.
 TILED_ATOL, TILED_RTOL = 1e-3, 1e-2
+# bf16 SSD vs ssd_chunk_tiled_ref, per element: |d| <= atol · max|ref| +
+# rtol·|ref|.  Both round the same P′ and w∘x to bf16; what is left is f32
+# summation order, exp2 and the decay scan's order, which can also move a
+# rounded operand by one bf16 ulp (2^-8 of it).
+SSD_TILED_ATOL, SSD_TILED_RTOL = 1e-3, 1e-2
 # The llama2 serve's decode shape at its worst: one long slot among short ones.
 LONG_AMONG_SHORT = [2000, 17, 99, 1, 64, 33, 80, 5]
-# Main-case times of the designs the two attention kernels replaced, as
-# PERF.md section 6 records them (chip_smoke.py of the commit that added the
-# SSD kernel, eager-launch timer, NVIDIA H100 80GB HBM3 at 700 W).  Printed
-# on a line of their own, labelled as recorded, never in the kernels line.
-RECORDED_EARLIER_MS = {"flash_attention": 1.0194, "paged_attention": 0.3273}
+# Main-case times of the designs the three kernels replaced, as PERF.md
+# section 6 records them, by the timer each was taken with (NVIDIA H100 80GB
+# HBM3 at 700 W): the attention kernels' by the eager timer of the
+# chip_smoke.py that added the SSD kernel; the CUDA-core bf16 SSD kernel's
+# 0.9817 ms by that eager timer and 0.9765 ms by the graph timer of the
+# chip_smoke.py that redesigned attention.  Printed on a line of their own,
+# labelled as recorded, each beside this run's time by the same timer,
+# never in the kernels line.
+RECORDED_EARLIER_MS = {"flash_attention": {"eager": 1.0194},
+                       "paged_attention": {"eager": 0.3273},
+                       "ssd_chunk": {"eager": 0.9817, "graph": 0.9765}}
 
 
 def check(cond: bool, what: str) -> None:
@@ -301,8 +314,11 @@ def rel_err(a, b) -> float:
 def ssd_chunk_case(so, b, S, H, P, G, N, Q, dtype, seed):
     """One SSD-chunk comparison (S a multiple of Q); returns (largest
     absolute error of the four outputs, largest error relative to each
-    output's scale, kernel_ms, plain_ms)."""
+    output's scale, worst |d| / (atol·max|ref| + rtol·|ref|) against the
+    tiled plain version (bf16; None for f32), kernel_ms, eager kernel_ms,
+    plain_ms, the kernel call)."""
     import torch
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunk_tiled_ref
     x, dt, A_log, B, C = ssd_inputs(b, S, H, P, G, N, dtype, seed)
     nc = S // Q
     args = (x.view(b, nc, Q, H, P), dt.view(b, nc, Q, H), A_log,
@@ -315,10 +331,24 @@ def ssd_chunk_case(so, b, S, H, P, G, N, Q, dtype, seed):
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     check(err <= tol, f"ssd_chunk {dtype} b{b} S{S} Q{Q} rel err {err:.3g} "
                       f"<= {tol}")
-    kms = time_ms(lambda: so.ssd_chunk(*args))
+    tiled = None
+    if dtype == torch.bfloat16:
+        tiled = max(float(((o - r).abs() / (SSD_TILED_ATOL * r.abs().max()
+                                            + SSD_TILED_RTOL * r.abs())).max())
+                    for o, r in zip(out, ssd_chunk_tiled_ref(*args)))
+        check(tiled <= 1.0, f"ssd_chunk bf16 b{b} S{S} Q{Q} within "
+                            f"{SSD_TILED_ATOL}·max|ref| + {SSD_TILED_RTOL}·"
+                            f"|ref| of the tiled plain version (worst "
+                            f"{tiled:.3g})")
+
+    def call():
+        return so.ssd_chunk(*args)
+    kms = time_ms(call)
+    ems = time_ms(call, graph=False)
     pms = time_ms(lambda: so.ssd_chunk(*args, impl="plain"), iters=5,
                   warmup=1)
-    return max(max_err(o, r) for o, r in zip(out, ref)), err, kms, pms
+    return (max(max_err(o, r) for o, r in zip(out, ref)), err, tiled, kms,
+            ems, pms, call)
 
 
 def ssd_scan_case(so, b, S, H, P, G, N, chunk, dtype, seed):
@@ -353,27 +383,37 @@ def ssd_bound(b, S, H, P, G, N, Q, elem, peak):
                                        else "bytes")
 
 
-def phase_ssd_kernel(so) -> dict:
+def phase_ssd_kernel(so) -> tuple:
     """The SSD chunk kernel against its plain version at mamba2-370m's
-    shapes (b=4, S=2048, H=32, P=64, N=128, G=1, Q=256), then the whole
-    scan at a ragged S and an S below one chunk."""
+    shapes (b=4, S=2048 and 1024, H=32, P=64, N=128, G=1, Q=256), then the
+    whole scan at a ragged S and an S below one chunk.  Returns the bf16
+    main case's row and its kernel call."""
     import torch
-    b, S, H, P, G, N, Q = 4, 2048, 32, 64, 1, 128, 256
-    row = None
-    for i, dt in enumerate((torch.bfloat16, torch.float32)):
-        aerr, err, kms, pms = ssd_chunk_case(so, b, S, H, P, G, N, Q, dt,
-                                             seed=20 + i)
+    b, H, P, G, N, Q = 4, 32, 64, 1, 128, 256
+    row = call = None
+    # the main case in both types, then the S = 1000 prefill as the kernel
+    # sees it (padded to 4 chunks)
+    for i, (S, dt) in enumerate(((2048, torch.bfloat16),
+                                 (2048, torch.float32),
+                                 (1024, torch.bfloat16))):
+        aerr, err, tiled, kms, ems, pms, fn = ssd_chunk_case(
+            so, b, S, H, P, G, N, Q, dt, seed=20 + i)
         elem = 2 if dt == torch.bfloat16 else 4
         peak = BF16_PEAK_FLOPS if dt == torch.bfloat16 else F32_PEAK_FLOPS
         bms, by = ssd_bound(b, S, H, P, G, N, Q, elem, peak)
+        vs_tiled = (f" worst |d| / ({SSD_TILED_ATOL}·max|tiled| + "
+                    f"{SSD_TILED_RTOL}·|tiled|) {tiled:.3g}"
+                    if tiled is not None else "")
         print(f"[kernels] ssd_chunk b{b} S{S} H{H} P{P} G{G} N{N} Q{Q} "
               f"{str(dt)[6:]} (B, C read per group): max_abs_err {aerr:.3g} "
-              f"max_rel_err {err:.3g} "
-              f"kernel {kms:.4f} ms plain {pms:.4f} ms library n/a (no "
-              f"single PyTorch call computes SSD) bound {bms:.4f} ms ({by})")
+              f"max_rel_err {err:.3g}{vs_tiled} "
+              f"kernel {kms:.4f} ms (eager timer {ems:.4f} ms) plain "
+              f"{pms:.4f} ms library n/a (no single PyTorch call computes "
+              f"SSD) bound {bms:.4f} ms ({by})")
         if row is None:
-            row = dict(max_abs_err=aerr, ms=kms, plain_ms=pms, library_ms=None,
-                       bound_ms=bms, bound_by=by)
+            row = dict(max_abs_err=aerr, ms=kms, eager_ms=ems, plain_ms=pms,
+                       library_ms=None, bound_ms=bms, bound_by=by)
+            call = fn
     for i, (S_, dt) in enumerate(((1000, torch.float32),
                                   (1000, torch.bfloat16),
                                   (200, torch.float32))):
@@ -382,7 +422,7 @@ def phase_ssd_kernel(so) -> dict:
         print(f"[kernels] ssd scan b{b} S{S_} chunk {Q} {str(dt)[6:]} "
               f"(kernel Q {min(Q, S_)}, padded to {padded}): rel err y "
               f"{ey:.3g} final state {eh:.3g}")
-    return row
+    return row, call
 
 
 def phase_kernels(fa, pa) -> tuple:
@@ -417,7 +457,8 @@ def phase_kernels(fa, pa) -> tuple:
               f"({by}); kernel / sdpa {kms / lms:.2f} (graph timer both)")
         if i == 0:
             rows["flash_attention"] = dict(max_abs_err=err, ms=kms,
-                                           plain_ms=pms, library_ms=lms,
+                                           eager_ms=ems, plain_ms=pms,
+                                           library_ms=lms,
                                            bound_ms=bms, bound_by=by)
             calls["flash_attention"] = call
     pcases = [(torch.bfloat16, False, None), (torch.float32, False, None),
@@ -443,18 +484,22 @@ def phase_kernels(fa, pa) -> tuple:
               f"{pms:.4f} ms sdpa {lib} bound {bms:.4f} ms ({by}){ratio}")
         if i == 0:
             rows["paged_attention"] = dict(max_abs_err=err, ms=kms,
-                                           plain_ms=pms, library_ms=lms,
+                                           eager_ms=ems, plain_ms=pms,
+                                           library_ms=lms,
                                            bound_ms=bms, bound_by=by)
             calls["paged_attention"] = call
     return rows, calls
 
 
 def phase_variants(calls: dict) -> dict:
-    """Which device kernels each attention kernel's main case ran, read
-    from the profiler: bf16 flash must run the tensor-core kernel alone,
-    paged attention its split and merge kernels."""
+    """Which device kernels each kernel's main case ran, read from the
+    profiler: bf16 flash must run the tensor-core kernel alone, paged
+    attention its split and merge kernels, bf16 SSD its two tensor-core
+    kernels and nothing else."""
     want = {"flash_attention": ("flash_fwd_mma_kernel",),
-            "paged_attention": ("paged_split_kernel", "paged_merge_kernel")}
+            "paged_attention": ("paged_split_kernel", "paged_merge_kernel"),
+            "ssd_chunk": ("ssd_chunk_y_mma_kernel",
+                          "ssd_chunk_state_mma_kernel")}
     variants = {}
     for name, call in calls.items():
         ran = launched_kernels(call)
@@ -637,7 +682,7 @@ def main() -> int:
     t_start = time.monotonic()
     phase_setup(kbuild)
     rows, calls = phase_kernels(fa, pa)
-    rows["ssd_chunk"] = phase_ssd_kernel(so)
+    rows["ssd_chunk"], calls["ssd_chunk"] = phase_ssd_kernel(so)
     phase_parity_llama()
     phase_parity_mamba2()
     torch.cuda.empty_cache()
@@ -673,8 +718,14 @@ def main() -> int:
         kernels.append(entry)
     print(f"[summary] all phases passed in {time.monotonic() - t_start:.1f} s")
     print("[summary] recorded, not measured in this run: main-case ms of "
-          "the replaced designs (PERF.md section 6, eager timer) "
+          "the replaced designs (PERF.md section 6) by timer "
           + json.dumps(RECORDED_EARLIER_MS))
+    for name, earlier in RECORDED_EARLIER_MS.items():
+        now = {"eager": rows[name]["eager_ms"], "graph": rows[name]["ms"]}
+        print(f"[summary] {name}: " + "; ".join(
+            f"{timer} timer: recorded {ms:.4f} ms, this run "
+            f"{now[timer]:.4f} ms, recorded / this run {ms / now[timer]:.2f}"
+            for timer, ms in earlier.items()))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 // Warp-level tensor-core and asynchronous-copy helpers (sm_80 instructions,
 // all present on sm_90a): 16-byte cp.async with zero fill, ldmatrix of four
 // 8x8 bf16 matrices (plain and transposed), the m16n8k16 bf16 MMA with f32
-// accumulators, and packing two f32 values into a bf16 pair.
+// accumulators, packing two f32 values into a bf16 pair, and 2^x on the
+// special-function unit.
 //
 // Fragment layouts of mma.m16n8k16 (lane = 4 * group + quad):
 //   A (16x16, row-major), regs a0..a3: rows group / group + 8, columns
@@ -70,6 +71,14 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 2^x by the special-function unit in one instruction (ex2.approx.ftz:
+// about 2 ulp; results below 2^-126 flush to 0).
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 }  // namespace repro

@@ -15,7 +15,7 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_tiled_ref
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
-from repro_torch.kernels.ssd_scan.ref import ssd_ref
+from repro_torch.kernels.ssd_scan.ref import ssd_chunk_tiled_ref, ssd_ref
 from repro_torch.models import DtypePolicy, init_params
 from repro_torch.serving import EngineConfig, ServingEngine
 
@@ -27,6 +27,13 @@ TOLS = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # bf16 as the kernel does: a bf16 ulp (at most 2^-7 of the value) plus f32
 # summation order, per element
 TILED_ATOL, TILED_RTOL = 1e-3, 1e-2
+# bf16 SSD kernel vs ssd_chunk_tiled_ref, which rounds P′ and w∘x to bf16 as
+# the kernel does, per element: |d| <= SSD_TILED_ATOL · max|ref| +
+# SSD_TILED_RTOL · |ref|.  What is left is f32 summation order, exp2 against
+# torch.exp2 and the decay scan's order (cumulative decays reach a few
+# thousand, where an f32 ulp is ~2e-4), each of which can also move a
+# rounded bf16 operand by one ulp (2^-8 of it).
+SSD_TILED_ATOL, SSD_TILED_RTOL = 1e-3, 1e-2
 
 
 def _assert_matches_tiled(out, q, k, v, causal, window):
@@ -191,6 +198,9 @@ def _ssd_inputs(g, dev, b, s, H, P, G, N, dtype):
     (1, 3, 100, 4, 32, 2, 64),          # Q not a multiple of the tile, groups
     (1, 1, 20, 4, 16, 4, 16),           # Q below one tile, G = H
     (1, 2, 64, 2, 128, 1, 256),
+    (1, 2, 256, 32, 64, 1, 128),        # mamba2-370m's 32 heads in one group
+    (1, 2, 192, 6, 64, 2, 64),          # H / G = 3: slabs of 3 heads
+    (2, 1, 150, 4, 32, 2, 24),          # N = 24, not a multiple of 16
 ])
 def test_ssd_chunk_kernel_matches_plain(cuda, dtype, b, nc, Q, H, P, G, N):
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -207,6 +217,48 @@ def test_ssd_chunk_kernel_matches_plain(cuda, dtype, b, nc, Q, H, P, G, N):
         # relative to the output's scale: the two sum in different orders
         err = float((o - r).abs().max() / r.abs().max().clamp_min(1e-30))
         assert err <= TOLS[dtype], err
+    if dtype == torch.bfloat16:
+        for o, r in zip(out, ssd_chunk_tiled_ref(*args)):
+            torch.testing.assert_close(
+                o, r, rtol=SSD_TILED_RTOL,
+                atol=SSD_TILED_ATOL * float(r.abs().max()))
+
+
+def _device_kernels(fn) -> set:
+    """Names of the device kernels one call of ``fn`` ran, by the
+    profiler (namespace, template arguments and parameters dropped)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = set()
+    for ev in prof.key_averages():
+        if (ev.device_type == torch.autograd.DeviceType.CUDA
+                and ev.self_device_time_total > 0):
+            name = ev.key.replace("(anonymous namespace)::", "")
+            name = name.removeprefix("void ").split("(")[0].split("<")[0]
+            names.add(name.split("::")[-1])
+    return names
+
+
+def test_ssd_chunk_kernel_routes_by_type(cuda):
+    """bf16 runs only the tensor-core kernels (every name ``ssd_chunk_``,
+    none the CUDA-core one); f32 runs ``ssd_chunk_kernel`` alone."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    b, nc, Q, H, P, G, N = 1, 2, 256, 8, 64, 1, 128
+    ran = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        x, dt, A_log, B, C = _ssd_inputs(g, cuda, b, nc * Q, H, P, G, N, dtype)
+        args = (x.view(b, nc, Q, H, P), dt.view(b, nc, Q, H), A_log,
+                B.view(b, nc, Q, G, N), C.view(b, nc, Q, G, N))
+        ssd_ops.ssd_chunk(*args)            # built and loaded before
+        ran[dtype] = _device_kernels(lambda: ssd_ops.ssd_chunk(*args))
+    assert ran[torch.bfloat16] and all(
+        n.startswith("ssd_chunk_") for n in ran[torch.bfloat16])
+    assert "ssd_chunk_kernel" not in ran[torch.bfloat16]
+    assert ran[torch.float32] == {"ssd_chunk_kernel"}
 
 
 @pytest.mark.parametrize("s,chunk", [(1000, 256), (200, 256), (512, 128)])

@@ -31,7 +31,8 @@ from repro.models.ssm import ssm_forward as jax_ssm_forward
 from repro_torch import bridge
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
-from repro_torch.kernels.ssd_scan.ref import ssd_ref
+from repro_torch.kernels.ssd_scan.ref import (ssd_chunk_ref,
+                                              ssd_chunk_tiled_ref, ssd_ref)
 from repro_torch.models import DtypePolicy, decode_step, init_params, prefill
 from repro_torch.models.ssm import ssm_forward
 
@@ -48,6 +49,10 @@ SSD_SHAPES = [
     (1, 192, 2, 64, 1, 64, 64),         # non-pow2 length
     (2, 64, 8, 16, 4, 16, 32),          # grouped, mamba2 smoke widths
 ]
+# the bf16 kernel's plain version also at H/G = 3 (a slab of 3 heads),
+# N = 24 (not a multiple of 16) and a chunk that is not a multiple of 64
+SSD_TILED_SHAPES = SSD_SHAPES + [(1, 200, 6, 16, 2, 24, 100)]
+BF16_SSD_TOL = 3e-2     # bf16 inputs, P′ and w∘x rounded to bf16
 
 
 def _rel_err(got, want) -> float:
@@ -128,6 +133,47 @@ class TestSSDKernelPlain:
                              chunk=32, h_init=h1)
         assert _rel_err(torch.cat([y1, y2], 1).numpy(), y.numpy()) <= SSD_TOL
         assert _rel_err(h2.numpy(), h.numpy()) <= SSD_TOL
+
+    @pytest.mark.parametrize("b,s,h,p,g,n,chunk", SSD_TILED_SHAPES)
+    def test_tiled_unrounded_equals_plain(self, b, s, h, p, g, n, chunk):
+        """Without rounding the tiled form is the plain one, up to f32
+        summation order."""
+        x, dt, A, B, C = _ssd_inputs(5, b, s, h, p, g, n)
+        nc = s // chunk
+        args = _t(x.reshape(b, nc, chunk, h, p), dt.reshape(b, nc, chunk, h),
+                  A, B.reshape(b, nc, chunk, g, n),
+                  C.reshape(b, nc, chunk, g, n))
+        for name, o, r in zip(("y_diag", "states", "in_decay", "chunk_decay"),
+                              ssd_chunk_tiled_ref(*args, round=False),
+                              ssd_chunk_ref(*args)):
+            assert o.shape == r.shape and o.dtype == torch.float32
+            assert _rel_err(o.numpy(), r.numpy()) <= 1e-5, name
+
+    @pytest.mark.parametrize("b,s,h,p,g,n,chunk", SSD_TILED_SHAPES)
+    def test_tiled_bf16_matches_pallas_interpret(self, b, s, h, p, g, n,
+                                                 chunk):
+        """The kernel's bf16 arithmetic (P′ and w∘x rounded) on bf16 x, B
+        and C against the JAX kernel in interpret mode on the same bf16
+        values."""
+        x, dt, A, B, C = _ssd_inputs(6, b, s, h, p, g, n)
+        nc, rep = s // chunk, h // g
+        xc = x.reshape(b, nc, chunk, h, p)
+        dtc = dt.reshape(b, nc, chunk, h)
+        Bc, Cc = (a.reshape(b, nc, chunk, g, n) for a in (B, C))
+        bf = jnp.bfloat16
+        want = ssd_chunk_call(
+            jnp.asarray(xc, dtype=bf), jnp.asarray(dtc), jnp.asarray(A),
+            jnp.asarray(np.repeat(Bc, rep, 3), dtype=bf),
+            jnp.asarray(np.repeat(Cc, rep, 3), dtype=bf), interpret=True)
+        got = ssd_chunk_tiled_ref(
+            torch.from_numpy(xc).bfloat16(), torch.from_numpy(dtc),
+            torch.from_numpy(A), torch.from_numpy(Bc).bfloat16(),
+            torch.from_numpy(Cc).bfloat16())
+        for name, w, o in zip(("y_diag", "states", "in_decay", "chunk_decay"),
+                              want, got):
+            assert tuple(o.shape) == w.shape and o.dtype == torch.float32
+            assert _rel_err(o.numpy(), np.asarray(w, np.float32)) <= \
+                BF16_SSD_TOL, name
 
     def test_cpu_never_launches_and_refuses_other_devices(self):
         ssd_ops.KERNEL.launches = 0
