@@ -12,7 +12,10 @@ Phases, in order; any failure raises and exits non-zero:
    chunk kernel against their plain PyTorch versions on the card at the
    main paths' shapes (the llama2 prefill buckets from B=8 S=128 to B=2
    S=2048; 8 decode slots of 2048 tokens, one long among short ones
-   included); bf16 flash is also held element by element against
+   included) and, for flash, the chunked-prefill shapes (queries at an
+   offset into a 2048-position slot cache whose rows past the visible keys
+   hold NaN, which must never be read); bf16 flash is also held element by
+   element against
    ``flash_attention_tiled_ref``, and the bf16 SSD main case against
    ``ssd_chunk_tiled_ref``, each of which rounds what its kernel rounds.
    Times kernel (graph and eager timers), plain version, the least time the
@@ -21,11 +24,16 @@ Phases, in order; any failure raises and exits non-zero:
    the port never calls it; no single PyTorch call computes SSD);
 3. parity: llama2-13b and mamba2-370m at full width and 2 layers, in f32 —
    one prefill and a few greedy decode steps through the kernels and
-   through the plain versions must give the same tokens and close logits;
-4. serve: ``repro_torch.serving.api.serve`` runs llama2-13b, then
-   mamba2-370m, at full width and depth (random bf16 weights from a seed)
-   under EWSJF over a mixed short/long workload; every request must finish
-   and each path's kernels must have launched in its own run;
+   through the plain versions must give the same tokens and close logits,
+   and llama2's prompt fed through ``chunk_step`` in chunks of 512, 512 and
+   the rest must give the prefill's tokens and logits;
+4. serve: ``repro_torch.serving.api.serve`` runs llama2-13b at full width
+   and depth (random bf16 weights from a seed) under EWSJF over a mixed
+   short/long workload, then the same weights in chunked-prefill +
+   radix-reuse mode over shared-prefix traffic, then mamba2-370m; every
+   request must finish, each path's kernels must have launched in its own
+   run, the prefix run must attach the cached prefix for at least 16
+   requests and leave only radix tenancy in the pool;
 5. summary: one call of each kernel's bf16 main case under
    ``torch.profiler`` names the device kernels that ran (the ``variant``
    of its entry); a line of the replaced designs' times as recorded in
@@ -43,6 +51,7 @@ repository's ``src/repro_torch`` is not beside it.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -161,68 +170,82 @@ def phase_setup(kbuild) -> None:
                 print(f"[setup]   {name}: {line.strip()}")
 
 
-def flash_case(fa, B, S, H, K, hd, dtype, causal, window, seed):
-    """One flash-attention comparison; returns (max_abs_err, worst
-    |d| / (atol + rtol·|ref|) against the tiled plain version (bf16; None
-    for f32), kernel_ms, eager kernel_ms, plain_ms, library_ms, the kernel
-    call)."""
+def flash_case(fa, B, S, H, K, hd, dtype, causal, window, seed, q_offset=0,
+               T=None, kv_len=None):
+    """One flash-attention comparison: S queries at ``q_offset`` against the
+    first ``kv_len`` keys (default all) of (B, T, K, hd) keys and values (T
+    defaults to S); rows past ``kv_len`` hold NaN, which must never be read.
+    Returns (max_abs_err, worst |d| / (atol + rtol·|ref|) against the tiled
+    plain version (bf16; None for f32), kernel_ms, eager kernel_ms,
+    plain_ms, library_ms, the kernel call)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_tiled_ref)
+    T = S if T is None else T
+    kv_len = T if kv_len is None else kv_len
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
     q = torch.randn((B, S, H, hd), generator=g, device="cuda").to(dtype)
-    k = torch.randn((B, S, K, hd), generator=g, device="cuda").to(dtype)
-    v = torch.randn((B, S, K, hd), generator=g, device="cuda").to(dtype)
-    out = fa.flash_attention(q, k, v, causal=causal, window=window)
-    ref = fa.flash_attention(q, k, v, causal=causal, window=window,
-                             impl="plain")
+    k = torch.randn((B, T, K, hd), generator=g, device="cuda").to(dtype)
+    v = torch.randn((B, T, K, hd), generator=g, device="cuda").to(dtype)
+    k[:, kv_len:] = float("nan")
+    v[:, kv_len:] = float("nan")
+    kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
+    what = (f"flash {dtype} B{B} S{S} H{H} K{K} w{window} q_offset{q_offset} "
+            f"kv_len{kv_len}")
+    out = fa.flash_attention(q, k, v, **kw)
+    ref = fa.flash_attention(q, k, v, impl="plain", **kw)
     torch.cuda.synchronize()
     err = max_err(out, ref)
-    check(bool(torch.isfinite(out.float()).all()), "flash output finite")
+    check(bool(torch.isfinite(out.float()).all()), f"{what} output finite")
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
-    check(err <= tol, f"flash {dtype} B{B} S{S} H{H} K{K} w{window} err "
-                      f"{err:.3g} <= {tol}")
+    check(err <= tol, f"{what} err {err:.3g} <= {tol}")
     tiled = None
     if dtype == torch.bfloat16:
         ref_t = flash_attention_tiled_ref(
-            *(t.transpose(1, 2) for t in (q, k, v)), causal=causal,
-            window=window).transpose(1, 2).float()
+            *(t.transpose(1, 2) for t in (q, k, v)), **kw).transpose(1, 2).float()
         tiled = float(((out.float() - ref_t).abs()
                        / (TILED_ATOL + TILED_RTOL * ref_t.abs())).max())
-        check(tiled <= 1.0, f"flash bf16 B{B} S{S} H{H} K{K} w{window} "
-                            f"within {TILED_ATOL} + {TILED_RTOL}·|ref| of "
-                            f"the tiled plain version (worst {tiled:.3g})")
+        check(tiled <= 1.0, f"{what} within {TILED_ATOL} + {TILED_RTOL}·|ref| "
+                            f"of the tiled plain version (worst {tiled:.3g})")
 
     def call():
-        return fa.flash_attention(q, k, v, causal=causal, window=window)
+        return fa.flash_attention(q, k, v, **kw)
     kms = time_ms(call)
     ems = time_ms(call, graph=False)
-    pms = time_ms(lambda: fa.flash_attention(q, k, v, causal=causal,
-                                             window=window, impl="plain"),
+    pms = time_ms(lambda: fa.flash_attention(q, k, v, impl="plain", **kw),
                   iters=5, warmup=1)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    qt = q.transpose(1, 2)
+    kt, vt = (t[:, :kv_len].transpose(1, 2) for t in (k, v))
     mask = None
-    if window:
-        pos = torch.arange(S, device="cuda")
-        mask = (pos[None] <= pos[:, None]) & (pos[None] > pos[:, None] - window)
+    if window or q_offset or kv_len != S:   # else SDPA's own causal path
+        pos = q_offset + torch.arange(S, device="cuda")[:, None]
+        kpos = torch.arange(kv_len, device="cuda")[None]
+        mask = kpos <= pos if causal else torch.ones_like(kpos <= pos)
+        if window:
+            mask &= kpos > pos - window
     lms = time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
         enable_gqa=H != K))
     return err, tiled, kms, ems, pms, lms, call
 
 
-def flash_bound(B, S, H, K, hd, elem, causal, window, peak):
+def flash_bound(B, S, H, K, hd, elem, causal, window, peak, q_offset=0,
+                kv_len=None):
     """Least time (ms) for the work, and what bounds it: matmul FLOPs over
-    the visible (query, key) pairs vs q/k/v read once and out written once."""
+    the visible (query, key) pairs (query s at position ``q_offset + s``,
+    the first ``kv_len`` keys, default S) vs q and out, and the visible k
+    and v, moved once."""
+    kv_len = S if kv_len is None else kv_len
     pairs = 0
     for s in range(S):
-        lo = max(0, s - window + 1) if window else 0
-        hi = s + 1 if causal else S
+        a = q_offset + s
+        lo = max(0, a - window + 1) if window else 0
+        hi = min(a + 1, kv_len) if causal else kv_len
         pairs += hi - lo
     flops = 4.0 * B * H * hd * pairs
-    nbytes = elem * (2 * B * S * H * hd + 2 * B * S * K * hd)
+    nbytes = elem * (2 * B * S * H * hd + 2 * B * kv_len * K * hd)
     t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -461,6 +484,41 @@ def phase_kernels(fa, pa) -> tuple:
                                            library_ms=lms,
                                            bound_ms=bms, bound_by=by)
             calls["flash_attention"] = call
+    ocases = [  # C, q_offset, dtype, window: the chunks of the prefix serve
+        (512, 1024, torch.bfloat16, 0),     # main offset case: a suffix chunk
+        (512, 1024, torch.float32, 0),
+        (1, 1500, torch.bfloat16, 0),       # a chunk of one token
+        (1, 1500, torch.float32, 0),
+        (200, 1500, torch.bfloat16, 0),     # C not a multiple of the tile
+        (200, 1500, torch.float32, 0),
+        (300, 700, torch.bfloat16, 256),    # window
+        (300, 700, torch.float32, 256),
+    ]
+    T, H, K, hd = 2048, 40, 40, 128
+    for i, (C, off, dt, window) in enumerate(ocases):
+        kv_len = off + C
+        err, tiled, kms, ems, pms, lms, call = flash_case(
+            fa, 1, C, H, K, hd, dt, True, window, seed=40 + i, q_offset=off,
+            T=T, kv_len=kv_len)
+        elem = 2 if dt == torch.bfloat16 else 4
+        peak = BF16_PEAK_FLOPS if dt == torch.bfloat16 else F32_PEAK_FLOPS
+        bms, by = flash_bound(1, C, H, K, hd, elem, True, window, peak,
+                              q_offset=off, kv_len=kv_len)
+        vs_tiled = (f" worst |d| / ({TILED_ATOL} + {TILED_RTOL}·|tiled|) "
+                    f"{tiled:.3g}" if tiled is not None else "")
+        print(f"[kernels] flash offset B1 C{C} q_offset{off} kv_len{kv_len} "
+              f"T{T} H{H} K{K} hd{hd} {str(dt)[6:]} window={window}: "
+              f"max_abs_err {err:.3g}{vs_tiled} kernel {kms:.4f} ms (eager "
+              f"timer {ems:.4f} ms) plain {pms:.4f} ms sdpa (boolean mask) "
+              f"{lms:.4f} ms bound {bms:.4f} ms ({by}); kernel / sdpa "
+              f"{kms / lms:.2f} (graph timer both)")
+        if i == 0:
+            rows["flash_attention_offset"] = dict(
+                max_abs_err=err, ms=kms, eager_ms=ems, plain_ms=pms,
+                library_ms=lms, bound_ms=bms, bound_by=by,
+                case=f"B=1, C={C}, q_offset={off}, kv_len={kv_len}, T={T}, "
+                     f"H=K={H}, hd={hd}, causal, bf16")
+            calls["flash_attention_offset"] = call
     pcases = [(torch.bfloat16, False, None), (torch.float32, False, None),
               (torch.bfloat16, True, None), (torch.float32, True, None),
               (torch.bfloat16, False, LONG_AMONG_SHORT),
@@ -497,6 +555,7 @@ def phase_variants(calls: dict) -> dict:
     attention its split and merge kernels, bf16 SSD its two tensor-core
     kernels and nothing else."""
     want = {"flash_attention": ("flash_fwd_mma_kernel",),
+            "flash_attention_offset": ("flash_fwd_mma_kernel",),
             "paged_attention": ("paged_split_kernel", "paged_merge_kernel"),
             "ssd_chunk": ("ssd_chunk_y_mma_kernel",
                           "ssd_chunk_state_mma_kernel")}
@@ -558,6 +617,61 @@ def phase_parity_llama() -> None:
     # 1e-3: two layers of f32 attention summed in another order
     check(err <= 1e-3, f"parity logits within 1e-3 (got {err:.3g})")
     check(all(bool(torch.isfinite(x).all()) for x in lk), "finite logits")
+    phase_parity_llama_chunks(cfg, params, pol, rng)
+
+
+def phase_parity_llama_chunks(cfg, params, pol, rng) -> None:
+    """One prompt of 1024 + (0..100) tokens, fed through ``chunk_step`` in
+    chunks of 512, 512 and the rest (each chunk at its offset, flash with
+    a query offset over the slot cache) and through one prefill, both on
+    the kernels, then greedy decode steps from each: equal tokens, logits
+    within 1e-3."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import (chunk_step, decode_step,
+                                    init_decode_caches, prefill)
+    S = 1024 + int(rng.integers(0, 101))
+    widths = [512, 512] + ([S - 1024] if S > 1024 else [])
+    tokens = torch.tensor(rng.integers(0, cfg.vocab_size, (1, S)),
+                          device="cuda")
+    results = {}
+    off0 = fa.KERNEL.offset_launches
+    for mode in ("prefill", "chunks"):
+        caches = init_decode_caches(cfg, 1, 2048, dtype=torch.float32,
+                                    device="cuda")
+        if mode == "prefill":
+            logits, pc = prefill(params, {"tokens": tokens}, cfg, policy=pol)
+            for dst, src in zip(caches, pc):
+                for name in ("k", "v"):
+                    dst[name][:, :S].copy_(src[name])
+        else:
+            pos = 0
+            for w in widths:
+                logits, caches = chunk_step(params, tokens[:, pos:pos + w],
+                                            caches, pos, cfg, policy=pol)
+                pos += w
+        tok = logits.argmax(-1).to(torch.int32)
+        seq, all_logits = [tok.cpu()], [logits]
+        for step in range(3):
+            logits, caches = decode_step(params, tok, caches, S + step, cfg,
+                                         policy=pol)
+            tok = logits.argmax(-1).to(torch.int32)
+            seq.append(tok.cpu())
+            all_logits.append(logits)
+        torch.cuda.synchronize()
+        results[mode] = (torch.cat(seq, dim=1), all_logits)
+    (tp_, lp), (tc, lc) = results["prefill"], results["chunks"]
+    err = max(max_err(a, b) for a, b in zip(lc, lp))
+    print(f"[parity] llama2-13b full width, 2 layers, f32, chunk_step in "
+          f"chunks {widths} against one prefill of {S}: tokens chunks "
+          f"{tc.tolist()} prefill {tp_.tolist()}; max logit diff {err:.3g}; "
+          f"flash launches with an offset {fa.KERNEL.offset_launches - off0}")
+    check(fa.KERNEL.offset_launches - off0 >= 2 * (len(widths) - 1),
+          "chunks after the first launched flash with a query offset")
+    check(torch.equal(tc, tp_), "chunked and prefill greedy tokens equal")
+    # 1e-3: two layers of f32 attention over other key tilings
+    check(err <= 1e-3, f"chunk parity logits within 1e-3 (got {err:.3g})")
+    check(all(bool(torch.isfinite(x).all()) for x in lc), "finite logits")
 
 
 def phase_parity_mamba2() -> None:
@@ -613,17 +727,24 @@ def phase_parity_mamba2() -> None:
     check(all(bool(torch.isfinite(x).all()) for x in lk), "finite logits")
 
 
-def phase_serve(arch: str, ecfg, ops: dict, path: tuple) -> dict:
+def reset_counts(ops: dict) -> None:
+    """Set every kernel's launch counts to 0."""
+    for mod in ops.values():
+        mod.KERNEL.launches = 0
+    ops["flash_attention"].KERNEL.offset_launches = 0
+
+
+def phase_serve(arch: str, ecfg, ops: dict, path: tuple) -> tuple:
     """``arch`` at full width and depth, bf16, EWSJF, on the card.  Every
     kernel count is set to 0 just before the run and read just after; the
-    kernels in ``path`` must have launched."""
+    kernels in ``path`` must have launched.  Returns (the launches, the
+    serve's result)."""
     import torch
     from repro_torch.launch.serve import card_requests
     from repro_torch.serving.api import serve
     reqs = card_requests()       # 24 at t=0: 19 short, 5 long
     torch.cuda.reset_peak_memory_stats()
-    for mod in ops.values():
-        mod.KERNEL.launches = 0
+    reset_counts(ops)
     t0 = time.monotonic()
     out = serve(arch, reqs, smoke=False, scheduler="ewsjf",
                 engine_config=ecfg, device="cuda", dtype=torch.bfloat16)
@@ -655,6 +776,85 @@ def phase_serve(arch: str, ecfg, ops: dict, path: tuple) -> dict:
           f"{st['padding_waste']:.3f} preemptions {st['preemptions']}; peak "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
           f"launches {launches}")
+    return launches, out
+
+
+def phase_prefix_serve(params, ops: dict) -> dict:
+    """llama2-13b at full width and depth (``params``, bf16) in chunked
+    prefill + radix reuse mode (``card_prefix_engine_config``) over
+    shared-prefix traffic (``card_prefix_requests``: one 1024-token prefix,
+    16-128-token suffixes).  Counts are set to 0 just before the run and
+    read just after: flash (also with a query offset) and paged attention
+    must have launched.  Every request must finish with all its tokens, at
+    least 16 must attach the whole prefix (``cached_len == 1024``), the
+    radix must keep its invariants and the pool must hold nothing but radix
+    tenancy.  Returns the launches."""
+    import resource
+
+    import torch
+    from repro_torch.launch.serve import (card_prefix_engine_config,
+                                          card_prefix_requests)
+    from repro_torch.serving.api import serve
+    reqs = card_prefix_requests()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(ops)
+    t0 = time.monotonic()
+    out = serve("llama2-13b", reqs, smoke=False, scheduler="ewsjf",
+                params=params, engine_config=card_prefix_engine_config(),
+                device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {name: mod.KERNEL.launches for name, mod in ops.items()}
+    launches["flash_attention_offset"] = \
+        ops["flash_attention"].KERNEL.offset_launches
+    eng, st = out["engine"], out["stats"]
+    fin = out["finished"]
+    check(len(fin) == len(reqs), f"all {len(reqs)} prefix requests finished "
+                                 f"(got {len(fin)})")
+    for r in fin:
+        toks = eng.output_tokens.get(r.request_id, [])
+        check(len(toks) == r.max_new_tokens == r.generated,
+              f"prefix request {r.request_id} generated all its tokens")
+        check(all(0 <= t < eng.cfg.vocab_size for t in toks),
+              "token ids inside the vocabulary")
+    attached = [r for r in fin if r.cached_len == 1024]
+    check(len(attached) >= 16, f"at least 16 requests attached the 1024-"
+                               f"token prefix (got {len(attached)})")
+    for name in ("flash_attention", "paged_attention",
+                 "flash_attention_offset"):
+        check(launches[name] > 0, f"{name} launched on the prefix path")
+    eng.radix.check_invariants()
+    leftover = {k: v for k, v in eng.pool.allocs.items()
+                if not isinstance(k, tuple)}
+    check(leftover == {}, f"only radix tenancy left in the pool (got "
+                          f"{leftover})")
+    full = [r.ttft for r in fin if r.cached_len < 1024]
+    cp = st["radix_copies"]
+    host_runs = {id(h): h for h, _ in eng._node_kv.values()}
+    host_bytes = sum(t.nbytes for run in host_runs.values() for t in run)
+    peak_dev = torch.cuda.max_memory_allocated() / 2**30
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    print(f"[serve] llama2-13b chunked+radix {eng.cfg.n_layers} layers "
+          f"d{eng.cfg.d_model} bf16 EWSJF, chunks of "
+          f"{eng.e.chunk_prefill_tokens}: {len(fin)} requests, "
+          f"{sum(r.generated for r in fin)} tokens in {st['elapsed_s']:.2f} s "
+          f"engine time ({wall:.2f} s): {st['tok_per_s']:.1f} tok/s; mean "
+          f"TTFT suffix-only ({len(attached)} requests) "
+          f"{np.mean([r.ttft for r in attached]):.3f} s, whole prompt "
+          f"({len(full)}) {np.mean(full) if full else float('nan'):.3f} s; "
+          f"chunks {st['chunks']} ({st['chunk_tokens']} tokens), "
+          f"prefix_saved_tokens {st['prefix_saved_tokens']}, "
+          f"interleaved_ticks {st['interleaved_ticks']}, preemptions "
+          f"{st['preemptions']}; radix {st['radix']}")
+    for way, label in (("d2h", "device to host (publish)"),
+                       ("h2d", "host to device (attach)")):
+        rate = cp[f"{way}_bytes"] / max(cp[f"{way}_s"], 1e-12) / 1e9
+        print(f"[serve]   radix block copies {label}: {cp[f'{way}_blocks']} "
+              f"blocks, {cp[f'{way}_bytes'] / 1e9:.3f} GB in "
+              f"{cp[f'{way}_s']:.4f} s ({rate:.1f} GB/s)")
+    print(f"[serve]   peak device memory {peak_dev:.1f} GiB; host KV store "
+          f"{host_bytes / 1e9:.3f} GB in {len(host_runs)} runs; process peak "
+          f"RSS {rss:.1f} GiB; launches {launches}")
     return launches
 
 
@@ -687,11 +887,18 @@ def main() -> int:
     phase_parity_mamba2()
     torch.cuda.empty_cache()
     ops = {"flash_attention": fa, "paged_attention": pa, "ssd_chunk": so}
-    llama = phase_serve("llama2-13b", card_engine_config(), ops,
-                        ("flash_attention", "paged_attention"))
+    llama, out = phase_serve("llama2-13b", card_engine_config(), ops,
+                             ("flash_attention", "paged_attention"))
+    params = out["engine"].params      # the prefix run reuses these weights
+    del out
+    gc.collect()
     torch.cuda.empty_cache()
-    mamba = phase_serve("mamba2-370m", ssm_card_engine_config(), ops,
-                        ("ssd_chunk",))
+    prefix = phase_prefix_serve(params, ops)
+    del params                         # the weights, engine and store go
+    gc.collect()
+    torch.cuda.empty_cache()
+    mamba, _ = phase_serve("mamba2-370m", ssm_card_engine_config(), ops,
+                           ("ssd_chunk",))
     # after every timed phase: the profiler runs in this process only here
     variants = phase_variants(calls)
     # each kernel's launches come from the run of its own path
@@ -715,6 +922,16 @@ def main() -> int:
                  "library_ms": r["library_ms"]}
         if name in variants:
             entry["variant"] = variants[name]
+        if name == "flash_attention":
+            o = rows["flash_attention_offset"]
+            entry["offset_case"] = {
+                "case": o["case"],
+                "launches": prefix["flash_attention_offset"],
+                "launches_all": prefix["flash_attention"],
+                "max_abs_err": o["max_abs_err"], "ms": o["ms"],
+                "plain_ms": o["plain_ms"], "bound_ms": o["bound_ms"],
+                "bound_by": o["bound_by"], "library_ms": o["library_ms"],
+                "variant": variants["flash_attention_offset"]}
         kernels.append(entry)
     print(f"[summary] all phases passed in {time.monotonic() - t_start:.1f} s")
     print("[summary] recorded, not measured in this run: main-case ms of "

@@ -5,8 +5,10 @@ The JAX model keeps its layers as ``{"head": [..], "stack": {slot_i: ..},
 "tail": [..]}``, where every ``stack`` leaf has a leading period axis (made
 by ``jax.vmap`` over the periods of ``cfg.pattern``).  The port keeps one
 entry per layer, in layer order.  These functions convert both ways for the
-parameters (``repro.models.model.init_params`` layout) and the decode caches
-(``repro.models.transformer.init_stack_cache`` layout).
+parameters (``repro.models.model.init_params`` layout), the decode caches
+(``repro.models.transformer.init_stack_cache`` layout) and the engines'
+radix KV blocks (a cache tree whose batch and sequence axes are replaced by
+a block's rows).
 
 Both sides of the bridge are numpy: it imports no JAX, and callers hand in
 ``np.asarray`` of the JAX arrays.  The conversion is exact.
@@ -119,7 +121,10 @@ def params_to_numpy(params: LMParams, cfg: ModelConfig) -> dict:
 
 def caches_from_jax(tree: dict, cfg: ModelConfig, *, device="cuda") -> list:
     """A JAX decode-cache tree (numpy leaves) as the port's per-layer list
-    (``{"k", "v"}`` or ``{"ssm", "conv"}``) on ``device``."""
+    (``{"k", "v"}`` or ``{"ssm", "conv"}``) on ``device``.  A radix KV block
+    of the JAX engine (its ``export_prefix_blocks``: the cache tree with
+    (block_size, K, hd) leaves) converts the same way, into the block
+    layout of the port engine's ``import_prefix_blocks``."""
     check_supported(cfg)
     dev = resolve_device(device)
     return [{k: _to_torch(v, dev) for k, v in layer.items()}
@@ -127,6 +132,8 @@ def caches_from_jax(tree: dict, cfg: ModelConfig, *, device="cuda") -> list:
 
 
 def caches_to_numpy(caches: list, cfg: ModelConfig) -> dict:
-    """The port's per-layer caches as a JAX decode-cache tree (numpy)."""
+    """The port's per-layer caches (or one radix KV block) as a JAX
+    decode-cache tree (or block tree), numpy."""
     layers = [{k: _to_numpy(v) for k, v in layer.items()} for layer in caches]
     return tree_from_layers(layers, cfg)
+

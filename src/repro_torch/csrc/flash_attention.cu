@@ -7,7 +7,11 @@
 // are all masked gives 0, not NaN.
 //
 // Layout: q (B, S, H, hd), k/v (B, T, K, hd), out (B, S, H, hd), all
-// contiguous, f32 or bf16; query head h reads KV head h / (H / K).
+// contiguous, f32 or bf16; query head h reads KV head h / (H / K).  Query row
+// i stands at absolute position q_offset + i, and only the first kv_len <= T
+// keys are visible: chunked prefill passes a slot's whole (B, s_max, K, hd)
+// cache with q_offset = pos0 and kv_len = pos0 + C, so the per-batch stride of
+// K and V comes from T, the bounds and masks from kv_len.
 //
 // What bounds it on this card.  Causal prefill does about 2 * S * S * hd
 // FLOPs per (batch, head) against 4 * S * hd elements of q, k, v and out:
@@ -92,8 +96,8 @@ __device__ __forceinline__ void load_tile(float* __restrict__ dst, const T* __re
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     T* __restrict__ o, int S, int T_len, int H, int KH, float scale, int causal,
-                     int window) {
+                     T* __restrict__ o, int S, int T_len, int kv_len, int q_offset, int H, int KH,
+                     float scale, int causal, int window) {
   constexpr int LD = HD + 1;
   constexpr int LDP = kBKV + 1;
   constexpr int RQ = kBQ / 16;   // query rows per thread
@@ -134,16 +138,17 @@ __global__ void __launch_bounds__(kThreads)
 
   // KV tiles that hold at least one visible key for some row of this tile:
   // below the diagonal of the tile's last row, right of the window edge of
-  // its first row.
-  int kv_end = T_len;
-  if (causal) kv_end = min(kv_end, q0 + kBQ);
+  // its first row (both at absolute positions q_offset + row).
+  const int a0 = q_offset + q0;  // absolute position of the tile's first row
+  int kv_end = kv_len;
+  if (causal) kv_end = min(kv_end, a0 + kBQ);
   int kv_begin = 0;
-  if (window > 0) kv_begin = (max(0, q0 - window + 1) / kBKV) * kBKV;
+  if (window > 0) kv_begin = (max(0, a0 - window + 1) / kBKV) * kBKV;
 
   for (int k0 = kv_begin; k0 < kv_end; k0 += kBKV) {
     __syncthreads();  // the previous tile's K, V and P are no longer read
-    load_tile<T, HD, kBKV>(Ks, kb, kv_row, k0, T_len);
-    load_tile<T, HD, kBKV>(Vs, vb, kv_row, k0, T_len);
+    load_tile<T, HD, kBKV>(Ks, kb, kv_row, k0, kv_len);
+    load_tile<T, HD, kBKV>(Vs, vb, kv_row, k0, kv_len);
     __syncthreads();
 
     // Scores: rows ty + 16 i, columns tx + 16 j.
@@ -169,13 +174,14 @@ __global__ void __launch_bounds__(kThreads)
     // are the 16 lanes of one half-warp, so xor shuffles of 8..1 reduce it.
 #pragma unroll
     for (int i = 0; i < RQ; ++i) {
-      const int qpos = q0 + ty + 16 * i;
+      const int qpos = q0 + ty + 16 * i;  // local row; q_offset + qpos absolute
+      const int apos = q_offset + qpos;
       float mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < CK; ++j) {
         const int kpos = k0 + tx + 16 * j;
-        const bool ok = kpos < T_len && qpos < S && (!causal || kpos <= qpos) &&
-                        (window <= 0 || kpos > qpos - window);
+        const bool ok = kpos < kv_len && qpos < S && (!causal || kpos <= apos) &&
+                        (window <= 0 || kpos > apos - window);
         s[i][j] = ok ? s[i][j] * scale : -INFINITY;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -227,7 +233,8 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S, int T_len,
-                   int H, int KH, float scale, int causal, int window, cudaStream_t stream) {
+                   int kv_len, int q_offset, int H, int KH, float scale, int causal, int window,
+                   cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
   auto kern = flash_fwd_kernel<T, HD>;
   cudaError_t err =
@@ -236,7 +243,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   kern<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
                                          static_cast<const T*>(v), static_cast<T*>(o), S, T_len,
-                                         H, KH, scale, causal, window);
+                                         kv_len, q_offset, H, KH, scale, causal, window);
   return cudaGetLastError();
 }
 
@@ -287,8 +294,9 @@ __device__ __forceinline__ void stage_tile(bf16* __restrict__ dst, const bf16* _
 template <int HD>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, bf16* __restrict__ o, int S, int T_len, int H,
-                         int KH, float scale_log2, int causal, int window) {
+                         const bf16* __restrict__ v, bf16* __restrict__ o, int S, int T_len,
+                         int kv_len, int q_offset, int H, int KH, float scale_log2, int causal,
+                         int window) {
   constexpr int KS = HD / 16;   // k-steps of Q K^T
   constexpr int NT = kBKV / 8;  // 8-key column tiles of S
   constexpr int DT = HD / 8;    // 8-dim column tiles of O
@@ -307,7 +315,9 @@ __global__ void __launch_bounds__(kThreads)
   const int b = blockIdx.z;
   const int kh = h / (H / KH);
   const int q0 = q_tile * kBQ;
-  const int row0 = q0 + warp * 16 + grp;  // this lane's rows: row0, row0 + 8
+  const int a0 = q_offset + q0;  // absolute position of the tile's first row
+  // this lane's rows, at absolute positions: arow0 and arow0 + 8
+  const int arow0 = a0 + warp * 16 + grp;
 
   const size_t q_row = size_t(H) * HD;
   const size_t kv_row = size_t(KH) * HD;
@@ -316,17 +326,17 @@ __global__ void __launch_bounds__(kThreads)
   const bf16* vb = v + (size_t(b) * T_len * KH + kh) * HD;
 
   // KV tiles with at least one visible key for some row of this tile.
-  int kv_end = T_len;
-  if (causal) kv_end = min(kv_end, q0 + kBQ);
+  int kv_end = kv_len;
+  if (causal) kv_end = min(kv_end, a0 + kBQ);
   int kv_begin = 0;
-  if (window > 0) kv_begin = (max(0, q0 - window + 1) / kBKV) * kBKV;
+  if (window > 0) kv_begin = (max(0, a0 - window + 1) / kBKV) * kBKV;
   const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + kBKV - 1) / kBKV : 0;
 
   stage_tile<HD, kBQ>(Qs, qb, q_row, q0, S);
   repro::cp_async_commit();
   if (n_tiles > 0) {
-    stage_tile<HD, kBKV>(Ks, kb, kv_row, kv_begin, T_len);
-    stage_tile<HD, kBKV>(Vs, vb, kv_row, kv_begin, T_len);
+    stage_tile<HD, kBKV>(Ks, kb, kv_row, kv_begin, kv_len);
+    stage_tile<HD, kBKV>(Vs, vb, kv_row, kv_begin, kv_len);
   }
   repro::cp_async_commit();
 
@@ -355,8 +365,8 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     if (it + 1 < n_tiles) {
       const int nxt = (it + 1) & 1;
-      stage_tile<HD, kBKV>(Ks + nxt * kBKV * HD, kb, kv_row, k0 + kBKV, T_len);
-      stage_tile<HD, kBKV>(Vs + nxt * kBKV * HD, vb, kv_row, k0 + kBKV, T_len);
+      stage_tile<HD, kBKV>(Ks + nxt * kBKV * HD, kb, kv_row, k0 + kBKV, kv_len);
+      stage_tile<HD, kBKV>(Vs + nxt * kBKV * HD, vb, kv_row, k0 + kBKV, kv_len);
       repro::cp_async_commit();
     }
 
@@ -380,22 +390,22 @@ __global__ void __launch_bounds__(kThreads)
 
     // Mask only tiles that cross an edge.  Scores stay unscaled: the max is
     // taken on them and scale * log2(e) is folded into the exponent's FMA.
-    const bool edge = k0 + kBKV > T_len || (causal && k0 + kBKV - 1 > q0) ||
-                      (window > 0 && k0 < q0 + kBQ - window);
+    const bool edge = k0 + kBKV > kv_len || (causal && k0 + kBKV - 1 > a0) ||
+                      (window > 0 && k0 < a0 + kBQ - window);
     if (edge) {
 #pragma unroll
       for (int j = 0; j < NT; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int kpos = k0 + j * 8 + 2 * quad + (e & 1);
-          const int qpos = row0 + (e >> 1) * 8;
-          const bool ok = kpos < T_len && (!causal || kpos <= qpos) &&
-                          (window <= 0 || kpos > qpos - window);
+          const int apos = arow0 + (e >> 1) * 8;
+          const bool ok = kpos < kv_len && (!causal || kpos <= apos) &&
+                          (window <= 0 || kpos > apos - window);
           s[j][e] = ok ? s[j][e] : -INFINITY;
         }
     }
 
-    // Online softmax on the fragment: rows row0 (e = 0, 1) and row0 + 8.
+    // Online softmax on the fragment: this lane's rows (e = 0, 1 and e = 2, 3).
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
@@ -479,7 +489,8 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S, int T_len,
-                   int H, int KH, float scale, int causal, int window, cudaStream_t stream) {
+                   int kv_len, int q_offset, int H, int KH, float scale, int causal, int window,
+                   cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
   auto kern = flash_fwd_mma_kernel<HD>;
   cudaError_t err =
@@ -488,8 +499,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   kern<<<grid, kThreads, smem, stream>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                                          static_cast<const bf16*>(v), static_cast<bf16*>(o), S,
-                                         T_len, H, KH, scale * 1.4426950408889634f, causal,
-                                         window);
+                                         T_len, kv_len, q_offset, H, KH,
+                                         scale * 1.4426950408889634f, causal, window);
   return cudaGetLastError();
 }
 
@@ -498,24 +509,28 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
 
 REPRO_EXPORT_ERROR_STRING
 
-// Returns the CUDA error code of the launch (0 on success).
+// Returns the CUDA error code of the launch (0 on success).  T_len is k's and
+// v's length (their per-batch stride), kv_len <= T_len the number of visible
+// keys, q_offset the absolute position of query row 0.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int dtype, int B, int S, int T_len, int H, int KH, int hd,
-                                   float scale, int causal, int window, void* stream) {
+                                   int dtype, int B, int S, int T_len, int kv_len, int q_offset,
+                                   int H, int KH, int hd, float scale, int causal, int window,
+                                   void* stream) {
   if (B == 0 || S == 0) return 0;
-  if (KH <= 0 || H % KH != 0) return int(cudaErrorInvalidValue);
+  if (KH <= 0 || H % KH != 0 || kv_len < 0 || kv_len > T_len || q_offset < 0)
+    return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kF32 && hd == 128)
-    return int(cuda_core::launch<float, 128>(q, k, v, o, B, S, T_len, H, KH, scale, causal,
-                                             window, st));
+    return int(cuda_core::launch<float, 128>(q, k, v, o, B, S, T_len, kv_len, q_offset, H, KH,
+                                             scale, causal, window, st));
   if (dtype == repro::kF32 && hd == 64)
-    return int(cuda_core::launch<float, 64>(q, k, v, o, B, S, T_len, H, KH, scale, causal,
-                                            window, st));
+    return int(cuda_core::launch<float, 64>(q, k, v, o, B, S, T_len, kv_len, q_offset, H, KH,
+                                            scale, causal, window, st));
   if (dtype == repro::kBF16 && hd == 128)
-    return int(
-        tensor_core::launch<128>(q, k, v, o, B, S, T_len, H, KH, scale, causal, window, st));
+    return int(tensor_core::launch<128>(q, k, v, o, B, S, T_len, kv_len, q_offset, H, KH, scale,
+                                        causal, window, st));
   if (dtype == repro::kBF16 && hd == 64)
-    return int(
-        tensor_core::launch<64>(q, k, v, o, B, S, T_len, H, KH, scale, causal, window, st));
+    return int(tensor_core::launch<64>(q, k, v, o, B, S, T_len, kv_len, q_offset, H, KH, scale,
+                                       causal, window, st));
   return int(cudaErrorInvalidValue);
 }

@@ -3,7 +3,9 @@
 Takes the model layout (q (B,S,H,hd), k/v (B,T,K,hd)), which is also the CUDA
 kernel's layout, so nothing is transposed on the GPU.  Tensors on the CPU go
 through the plain version (``ref.py``); tensors on a GPU launch
-``csrc/flash_attention.cu`` or raise.
+``csrc/flash_attention.cu`` or raise.  Chunked prefill passes a slot's whole
+cache as k/v with a query offset and a count of visible keys, so the chunk
+attends to the resident prefix without a slice or a copy.
 """
 
 from __future__ import annotations
@@ -16,35 +18,60 @@ from .._build import DTYPE_CODES, CudaKernel
 from .ref import flash_attention_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-KERNEL = CudaKernel("flash_attention", "flash_attention_fwd",
-                    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                     ctypes.c_float, _I, _I, _P])
 HEAD_DIMS = (64, 128)
 
 
+class FlashKernel(CudaKernel):
+    """The flash library, which also counts its launches with a query
+    offset (``offset_launches``), so a serve can show that chunked prefill
+    ran through the kernel."""
+
+    def __init__(self):
+        super().__init__("flash_attention", "flash_attention_fwd",
+                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                          ctypes.c_float, _I, _I, _P])
+        self.offset_launches = 0
+
+
+KERNEL = FlashKernel()
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    scale: float | None = None, impl: str | None = None):
+                    scale: float | None = None, q_offset: int = 0,
+                    kv_len: int | None = None, impl: str | None = None):
     """q (B,S,H,hd); k/v (B,T,K,hd) → (B,S,H,hd), H a multiple of K.
 
-    Causal and sliding-window masks use absolute positions 0..S-1 and
-    0..T-1; a query row with no visible key gives 0.  ``impl=None`` picks by
-    device (CPU: plain version, CUDA: kernel); ``impl="plain"`` forces the
-    plain version."""
+    Query row i stands at absolute position ``q_offset + i``; only the
+    first ``kv_len`` keys (default T) are visible, and the rest of k and v
+    is never read.  Causal and sliding-window masks use these absolute
+    positions; a query row with no visible key gives 0.  ``impl=None``
+    picks by device (CPU: plain version, CUDA: kernel); ``impl="plain"``
+    forces the plain version."""
     if impl not in (None, "plain"):
         raise ValueError(f"impl must be None or 'plain', got {impl!r}")
+    T = k.shape[1]
+    kv_len = T if kv_len is None else int(kv_len)
+    q_offset = int(q_offset)
+    if not 0 <= kv_len <= T or q_offset < 0:
+        raise ValueError(f"need 0 <= kv_len <= {T} and q_offset >= 0, got "
+                         f"kv_len {kv_len}, q_offset {q_offset}")
     if impl == "plain" or q.device.type == "cpu":
         out = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                                   v.transpose(1, 2), causal=causal,
-                                  window=window, scale=scale)
+                                  window=window, scale=scale,
+                                  q_offset=q_offset, kv_len=kv_len)
         return out.transpose(1, 2)
     _check(q, k, v, window)
     B, S, H, hd = q.shape
-    T, K = k.shape[1], k.shape[2]
+    K = k.shape[2]
     scale = hd ** -0.5 if scale is None else scale
     out = torch.empty_like(q)
     KERNEL.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  out.data_ptr(), DTYPE_CODES[q.dtype], B, S, T, H, K, hd,
-                  float(scale), int(bool(causal)), int(window))
+                  out.data_ptr(), DTYPE_CODES[q.dtype], B, S, T, kv_len,
+                  q_offset, H, K, hd, float(scale), int(bool(causal)),
+                  int(window))
+    if q_offset > 0:
+        KERNEL.offset_launches += 1
     return out
 
 

@@ -5,7 +5,12 @@ causal / window semantics of the JAX oracle
 (``repro/kernels/flash_attention/ref.py``); the wrapper's ``impl="plain"``
 and the CPU path use it.  ``flash_attention_tiled_ref`` spells out the bf16
 tensor-core kernel's arithmetic: 64-key tiles, an online softmax in the
-log2 domain, and P rounded to bf16 before the P·V product."""
+log2 domain, and P rounded to bf16 before the P·V product.
+
+Both take the kernel's query offset and visible-key count: query row i
+stands at absolute position ``q_offset + i`` and only the first ``kv_len``
+keys exist (the rest of k and v, e.g. the unused tail of a slot cache, is
+never read)."""
 
 from __future__ import annotations
 
@@ -16,18 +21,30 @@ import torch
 NEG_INF = torch.finfo(torch.float32).min
 
 
+def _visible(k, v, kv_len):
+    """k and v cut to their first ``kv_len`` keys (all when None)."""
+    T = k.shape[2] if kv_len is None else kv_len
+    if not 0 <= T <= k.shape[2]:
+        raise ValueError(f"kv_len {kv_len} outside [0, {k.shape[2]}]")
+    return k[:, :, :T], v[:, :, :T], T
+
+
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                        scale: float | None = None):
+                        scale: float | None = None, q_offset: int = 0,
+                        kv_len: int | None = None):
     """q (B,H,S,hd); k/v (B,K,T,hd) → (B,H,S,hd).  Query head h reads KV
-    head h // (H/K).  A row with no visible key gives 0."""
+    head h // (H/K); query row i stands at position ``q_offset + i`` and
+    sees the first ``kv_len`` keys (default T).  A row with no visible key
+    gives 0."""
     B, H, S, hd = q.shape
-    K, T = k.shape[1], k.shape[2]
+    K = k.shape[1]
+    k, v, T = _visible(k, v, kv_len)
     G = H // K
     scale = hd ** -0.5 if scale is None else scale
     kk = k.repeat_interleave(G, dim=1)
     vv = v.repeat_interleave(G, dim=1)
     s = torch.einsum("bhsd,bhtd->bhst", q.float(), kk.float()) * scale
-    q_pos = torch.arange(S, device=q.device)[:, None]
+    q_pos = q_offset + torch.arange(S, device=q.device)[:, None]
     k_pos = torch.arange(T, device=q.device)[None, :]
     mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
     if causal:
@@ -43,6 +60,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
 
 def flash_attention_tiled_ref(q, k, v, *, causal: bool = True,
                               window: int = 0, scale: float | None = None,
+                              q_offset: int = 0, kv_len: int | None = None,
                               tile: int = 64, round_p: bool = True):
     """Same layout and semantics as :func:`flash_attention_ref`, computed as
     the bf16 kernel does: walk the keys in ``tile``-key tiles keeping a
@@ -50,13 +68,14 @@ def flash_attention_tiled_ref(q, k, v, *, causal: bool = True,
     exponentiated with exp2, P rounded to bf16 before P·V when
     ``round_p``, products accumulated in f32."""
     B, H, S, hd = q.shape
-    K, T = k.shape[1], k.shape[2]
+    K = k.shape[1]
+    k, v, T = _visible(k, v, kv_len)
     G = H // K
     scale = hd ** -0.5 if scale is None else scale
     qf = q.float()
     kk = k.repeat_interleave(G, dim=1).float()
     vv = v.repeat_interleave(G, dim=1).float()
-    q_pos = torch.arange(S, device=q.device)[:, None]
+    q_pos = q_offset + torch.arange(S, device=q.device)[:, None]
     m = torch.full((B, H, S), -math.inf, device=q.device)
     l = torch.zeros((B, H, S), device=q.device)
     acc = torch.zeros((B, H, S, hd), device=q.device)

@@ -1,24 +1,28 @@
 """Where the time of the full-width card run goes.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
-        [--arch llama2-13b|mamba2-370m] [--trace out.json]
+        [--arch llama2-13b|mamba2-370m] [--prefix] [--trace out.json]
 
 Serves the ``chip_smoke.py`` workload (``card_requests``; the architecture
 at full width and depth, random bf16 weights, EWSJF, its card engine
 config) three times on the GPU: once to warm up (cuBLAS handles,
 first-call allocations), once timed without the profiler, once under
-``torch.profiler``.  Prints both runs' engine wall times, the device time
-per kernel class (flash attention, paged attention, SSD chunk, matrix
-products, the rest), each of the port's own kernels by name under its class,
-the device busy share against the unprofiled wall time, and the
-host time spent in prefill (``_admit``) and decode (``_decode_tick``) under
-the profiler.  The profiler adds host overhead to every launch, so its wall
+``torch.profiler``.  ``--prefix`` serves llama2-13b's chunked-prefill +
+radix-reuse run instead (``card_prefix_requests`` under
+``card_prefix_engine_config``).  Prints both runs' engine wall times, the
+device time per kernel class (flash attention, paged attention, SSD chunk,
+matrix products, host-device copies, the rest), each of the port's own
+kernels by name under its class, the device busy share against the
+unprofiled wall time, and the host time spent in admission and prefill
+(``_admit``), chunked prefill (``_prefill_chunk_tick``) and decode
+(``_decode_tick``) under the profiler.  The profiler adds host overhead to every launch, so its wall
 time is longer than the unprofiled one; the device times are not affected.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 
 import torch
@@ -29,7 +33,8 @@ from ..core import EWSJFConfig, EWSJFScheduler
 from ..models import DtypePolicy, init_params
 from ..models.common import resolve_device
 from ..serving import ServingEngine
-from .serve import CARD_ENGINE_CONFIGS, card_requests
+from .serve import (CARD_ENGINE_CONFIGS, card_prefix_engine_config,
+                    card_prefix_requests, card_requests)
 
 # The port's own kernels match by the prefix every kernel of their source
 # shares (flash_fwd_kernel / flash_fwd_mma_kernel; paged_split_kernel and
@@ -37,7 +42,8 @@ from .serve import CARD_ENGINE_CONFIGS, card_requests
 _CLASSES = (("flash_attention", ("flash_fwd_",)),
             ("paged_attention", ("paged_",)),
             ("ssd_chunk", ("ssd_chunk_",)),
-            ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "matmul")))
+            ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "matmul")),
+            ("copy_host_device", ("memcpy htod", "memcpy dtoh")))
 _OWN = ("flash_attention", "paged_attention", "ssd_chunk")
 
 
@@ -49,9 +55,11 @@ def _kernel_class(name: str) -> str:
     return "other"
 
 
-def _engine(cfg, params, dev) -> ServingEngine:
+def _engine(cfg, params, dev, prefix: bool) -> ServingEngine:
     sched = EWSJFScheduler(EWSJFConfig(min_history=8, reopt_interval=0.5))
-    return ServingEngine(cfg, params, sched, CARD_ENGINE_CONFIGS[cfg.name](),
+    ecfg = (card_prefix_engine_config() if prefix
+            else CARD_ENGINE_CONFIGS[cfg.name]())
+    return ServingEngine(cfg, params, sched, ecfg,
                          policy=DtypePolicy(torch.bfloat16, torch.bfloat16,
                                             torch.float32), device=dev)
 
@@ -63,36 +71,49 @@ def main() -> None:
                     choices=sorted(CARD_ENGINE_CONFIGS))
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--prefix", action="store_true",
+                    help="llama2-13b in chunked-prefill + radix-reuse mode "
+                         "over shared-prefix traffic")
     ap.add_argument("--trace", default=None,
                     help="write a chrome trace of the profiled run here")
     args = ap.parse_args()
+    if args.prefix and args.arch != "llama2-13b":
+        ap.error("--prefix runs llama2-13b only")
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     params = init_params(cfg, gen, device=dev, dtype=torch.bfloat16)
-    _engine(cfg, params, dev).run(card_requests(seed=args.seed))  # warm-up
-    eng = _engine(cfg, params, dev)
-    eng.run(card_requests(seed=args.seed))
+
+    def requests():
+        if args.prefix:
+            return card_prefix_requests(seed=args.seed, vocab=cfg.vocab_size)
+        return card_requests(seed=args.seed)
+
+    _engine(cfg, params, dev, args.prefix).run(requests())  # warm-up
+    gc.collect()     # a radix engine's caches sit in a reference cycle
+    eng = _engine(cfg, params, dev, args.prefix)
+    eng.run(requests())
     torch.cuda.synchronize(dev)
     plain_wall = eng.now()
+    plain_stats = eng.stats()
+    del eng
+    gc.collect()
 
-    eng = _engine(cfg, params, dev)
-    admit, decode = eng._admit, eng._decode_tick
+    eng = _engine(cfg, params, dev, args.prefix)
+    for attr, label in (("_admit", "engine.prefill"),
+                        ("_prefill_chunk_tick", "engine.chunk"),
+                        ("_decode_tick", "engine.decode")):
+        fn = getattr(eng, attr)
 
-    def traced_admit(now):
-        with record_function("engine.prefill"):
-            admit(now)
-
-    def traced_decode():
-        with record_function("engine.decode"):
-            decode()
-
-    eng._admit, eng._decode_tick = traced_admit, traced_decode
+        def traced(*a, _fn=fn, _label=label):
+            with record_function(_label):
+                return _fn(*a)
+        setattr(eng, attr, traced)
     torch.cuda.synchronize(dev)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fin = eng.run(card_requests(seed=args.seed))
+        fin = eng.run(requests())
         torch.cuda.synchronize(dev)
     wall = eng.now()
     if args.trace:
@@ -130,6 +151,8 @@ def main() -> None:
         "own_kernels_by_class": own,
         "host_s": {k: v / 1e6 for k, v in host_us.items()},
         "prefill_batches": eng.prefill_batches,
+        "chunks": eng.chunks_run,
+        "radix_copies_unprofiled": plain_stats["radix_copies"],
         "top_kernels": [{"name": k, "device_s": dt / 1e6, "count": n}
                         for dt, n, k in kernels[:10]],
     }))

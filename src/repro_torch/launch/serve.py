@@ -83,6 +83,34 @@ def ssm_card_engine_config() -> EngineConfig:
                         max_prefill_tokens=8192)
 
 
+def card_prefix_engine_config() -> EngineConfig:
+    """``card_engine_config`` with chunked prefill (512-token chunks) and
+    engine-side radix prefix reuse: the full-width llama2-13b run of the
+    chunked and radix paths."""
+    ecfg = card_engine_config()
+    ecfg.chunk_prefill_tokens = 512
+    ecfg.enable_prefix_cache = True
+    return ecfg
+
+
+def card_prefix_requests(n: int = 24, seed: int = 0, vocab: int = 32000,
+                         prefix_len: int = 1024) -> list[Request]:
+    """Multi-turn / agent traffic for the card's prefix run: ``n`` requests
+    at t=0, each one shared ``prefix_len``-token prefix (a system prompt)
+    plus its own 16-128-token suffix, 8-32 new tokens, token ids below
+    ``vocab`` drawn from ``numpy.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, vocab, size=(prefix_len,)).astype(np.int32)
+    reqs = []
+    for i in range(n):
+        suffix = rng.integers(0, vocab, size=(int(rng.integers(16, 129)),))
+        toks = np.concatenate([prefix, suffix.astype(np.int32)])
+        reqs.append(Request(prompt_len=len(toks), arrival_time=0.0,
+                            max_new_tokens=int(rng.integers(8, 33)),
+                            prompt_tokens=toks))
+    return reqs
+
+
 CARD_ENGINE_CONFIGS = {"llama2-13b": card_engine_config,
                        "mamba2-370m": ssm_card_engine_config}
 

@@ -1,15 +1,16 @@
 """Attention for the ported architectures: GQA/MHA/MQA with RoPE and the
 optional qwen3 ``qk_norm``.
 
-Prefill goes through the flash-attention kernel wrapper for every sequence
-length, decode through the paged-attention kernel wrapper; on CPU tensors
-both run their plain PyTorch versions.  Shapes: x (B, S, d); a layer's
-decode cache is ``{"k", "v"}`` of (B, S_max, K, hd), updated **in place** by
-:func:`gqa_decode` (the JAX package returns new caches instead).
+Prefill and chunked prefill go through the flash-attention kernel wrapper
+for every sequence length, decode through the paged-attention kernel
+wrapper; on CPU tensors both run their plain PyTorch versions.  Shapes: x
+(B, S, d); a layer's decode cache is ``{"k", "v"}`` of (B, S_max, K, hd),
+updated **in place** by :func:`gqa_decode` and :func:`gqa_chunk_decode`
+(the JAX package returns new caches instead).
 
 Not ported yet, and raising ``NotImplementedError``: MLA (deepseek-v2-lite,
-minicpm3), the sliding-window ring cache (h2o-danube, gemma3 local layers)
-and the chunked-prefill path (``gqa_chunk_decode``).
+minicpm3) and the sliding-window ring cache (h2o-danube, gemma3 local
+layers).
 """
 
 from __future__ import annotations
@@ -135,6 +136,39 @@ def gqa_decode(params, x, cache: dict, cache_pos, cfg: ModelConfig,
     return y, cache
 
 
+def gqa_chunk_decode(params, x, cache: dict, pos0, cfg: ModelConfig,
+                     *, window: int = 0, impl: str | None = None):
+    """One contiguous C-token span against a resident cache: x (B,C,d) at
+    absolute positions ``pos0 .. pos0+C-1`` (one scalar ``pos0`` for every
+    row); cache k/v (B,S_max,K,hd).
+
+    Writes the span's K/V into ``cache`` **in place** at ``pos0``, then
+    attends with the flash kernel over the whole cache tensor
+    (``q_offset=pos0``, ``kv_len=pos0+C``: each query sees every resident
+    key up to its own position, the JAX mask ``k_pos <= pos``).  ``pos0=0``
+    is a plain prefill, C=1 a decode step.  A windowed layer raises: the
+    JAX engine gates chunked mode off for ring caches
+    (``transformer.supports_chunked_decode``).  Returns (y (B,C,d),
+    cache)."""
+    if window and window > 0:
+        raise NotImplementedError(_RING_LATER)
+    B, C, _ = x.shape
+    pos0 = int(pos0)
+    kc, vc = cache["k"], cache["v"]
+    if pos0 < 0 or pos0 + C > kc.shape[1]:
+        raise ValueError(f"chunk of {C} at position {pos0} does not fit a "
+                         f"cache of {kc.shape[1]} positions")
+    positions = torch.arange(pos0, pos0 + C, dtype=torch.int32,
+                             device=x.device)[None].expand(B, C)
+    q, k_new, v_new = _qkv(params, x, cfg, positions)
+    kc[:, pos0:pos0 + C] = k_new.to(kc.dtype)
+    vc[:, pos0:pos0 + C] = v_new.to(vc.dtype)
+    out = flash_attention(q.to(kc.dtype).contiguous(), kc, vc, causal=True,
+                          q_offset=pos0, kv_len=pos0 + C, impl=impl)
+    y = out.to(x.dtype).reshape(B, C, cfg.n_heads * cfg.head_dim) @ params["wo"]
+    return y, cache
+
+
 def window_for(cfg: ModelConfig, kind: str) -> int:
     """Attention window of a layer kind (0 = unbounded)."""
     if kind == "local":
@@ -163,3 +197,12 @@ def attn_decode(params, x, cache, cache_pos, cfg: ModelConfig, kind: str,
         raise NotImplementedError(_MLA_LATER)
     return gqa_decode(params, x, cache, cache_pos, cfg,
                       window=window_for(cfg, kind), impl=impl)
+
+
+def attn_chunk_decode(params, x, cache, pos0, cfg: ModelConfig, kind: str,
+                      impl: str | None = None):
+    """Chunked-prefill attention of a layer of kind ``kind``."""
+    if cfg.use_mla:
+        raise NotImplementedError(_MLA_LATER)
+    return gqa_chunk_decode(params, x, cache, pos0, cfg,
+                            window=window_for(cfg, kind), impl=impl)

@@ -1,8 +1,8 @@
 """Model facade for serving: parameters, prefill, decode step, decode caches.
 
 Ported from the JAX package's ``models/model.py`` for the dense attention
-families and the SSM family.  ``chunk_step``, ``train_loss`` and the MoE
-and RG-LRU families come with later steps of the port.
+families and the SSM family.  ``train_loss`` and the MoE and RG-LRU
+families come with later steps of the port.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from torch import nn
 from ..configs.base import ModelConfig
 from .common import DtypePolicy, dense_init, embed_init, resolve_device, rms_norm
 from .transformer import (check_supported, init_stack, init_stack_cache,
-                          stack_decode, stack_forward)
+                          stack_chunk, stack_decode, stack_forward)
 
 
 class LMParams(nn.Module):
@@ -120,6 +120,29 @@ def decode_step(params: LMParams, tokens, caches: list, cache_pos,
     h, caches = stack_decode(params.blocks, x, caches, cache_pos, cfg,
                              impl=impl)
     h = rms_norm(h, params.final_norm, cfg.norm_eps)
+    w_head = _unembed(params, cfg)
+    logits = (h.to(w_head.dtype) @ w_head).float()
+    return _softcap(logits, cfg), caches
+
+
+@torch.no_grad()
+def chunk_step(params: LMParams, tokens, caches: list, pos0,
+               cfg: ModelConfig, *, policy: DtypePolicy = DtypePolicy.serve(),
+               impl: str | None = None):
+    """Prefill one C-token chunk against existing decode caches.
+
+    tokens (B,C) int; ``pos0`` an int — tokens already resident in every
+    row's cache (the chunk occupies absolute positions pos0..pos0+C-1).
+    The caches are updated **in place** (pass a slot's ``[s:s+1]`` views to
+    prefill one slot).  Returns (logits at the chunk's last position (B,1,V)
+    f32, caches).  With pos0=0 and C=prompt_len this is a whole prefill;
+    with C=1 a decode step.  Requires
+    ``transformer.supports_chunked_decode(cfg)``."""
+    x = params.embed[tokens.long()].to(policy.compute)
+    if cfg.tie_embeddings:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=policy.compute)
+    h, caches = stack_chunk(params.blocks, x, caches, pos0, cfg, impl=impl)
+    h = rms_norm(h[:, -1:], params.final_norm, cfg.norm_eps)
     w_head = _unembed(params, cfg)
     logits = (h.to(w_head.dtype) @ w_head).float()
     return _softcap(logits, cfg), caches

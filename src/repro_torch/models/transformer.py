@@ -10,6 +10,8 @@ layer, ``{"ssm", "conv"}`` for an SSM layer.
 
 Attention kinds without a ring cache and the SSM kind are ported: MoE,
 RG-LRU, MLA and sliding-window layers raise ``NotImplementedError``.
+Chunked decode (:func:`stack_chunk`) runs on stacks of attention layers
+only (:func:`supports_chunked_decode`).
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
-from .attention import attn_decode, attn_forward, init_attention
+from .attention import (attn_chunk_decode, attn_decode, attn_forward,
+                        init_attention)
 from .common import rms_norm
 from .mlp import init_mlp, mlp_forward
 from .ssm import init_ssm, init_ssm_cache, ssm_decode, ssm_forward
@@ -139,6 +142,35 @@ def block_decode(bp: Block, x, cache: dict, cache_pos, cfg: ModelConfig, *,
     return _mlp_residual(bp, x, cfg), cache
 
 
+def supports_chunked_decode(cfg: ModelConfig) -> bool:
+    """True when every layer of the stack can run :func:`block_chunk` —
+    chunked prefill or a prefill at an offset against a full-layout cache.
+    Excludes ring-buffer (sliding-window/local) attention (a later chunk
+    token overwrites the ring slot an earlier in-chunk query still needs),
+    recurrent state (SSM layers need strictly sequential scans),
+    encoder-only stacks and non-token inputs, as the JAX package does."""
+    if cfg.is_encoder_only or cfg.input_mode != "tokens":
+        return False
+    kinds = set(layer_kinds(cfg))
+    if not all(k in ATTN_KINDS for k in kinds):
+        return False
+    return not any(_uses_ring(cfg, k) for k in kinds)
+
+
+def block_chunk(bp: Block, x, cache: dict, pos0, cfg: ModelConfig, *,
+                impl: str | None = None):
+    """C-token chunk decode through an attention block (x (B,C,d)); the
+    cache is updated in place.  Returns (x, cache)."""
+    if bp.kind not in ATTN_KINDS or _uses_ring(cfg, bp.kind):
+        raise ValueError(f"chunked decode unsupported for layer kind "
+                         f"{bp.kind}")
+    h = rms_norm(x, bp.ln1, cfg.norm_eps)
+    mix, cache = attn_chunk_decode(bp.mixer, h, cache, pos0, cfg, bp.kind,
+                                   impl=impl)
+    x = x + mix.to(x.dtype)
+    return _mlp_residual(bp, x, cfg), cache
+
+
 def init_stack(generator: torch.Generator, cfg: ModelConfig, dtype,
                device) -> nn.ModuleList:
     """Every layer of the stack, in order."""
@@ -186,4 +218,13 @@ def stack_decode(blocks: nn.ModuleList, x, caches: list, cache_pos,
     updated in place.  Returns (x, caches)."""
     for bp, cache in zip(blocks, caches):
         x, _ = block_decode(bp, x, cache, cache_pos, cfg, impl=impl)
+    return x, caches
+
+
+def stack_chunk(blocks: nn.ModuleList, x, caches: list, pos0,
+                cfg: ModelConfig, *, impl: str | None = None):
+    """Chunked decode through the whole stack (x (B,C,d)); every layer's
+    cache is updated in place.  Returns (x, caches)."""
+    for bp, cache in zip(blocks, caches):
+        x, _ = block_chunk(bp, x, cache, pos0, cfg, impl=impl)
     return x, caches

@@ -50,8 +50,10 @@ def _label_key(labels: LabelDict) -> _LabelKey:
 class HistogramSpec:
     """Geometric bucket layout: upper edges ``lo * growth**i``.
 
-    ``growth`` is the percentile error bound: an estimate never exceeds
-    the exact quantile by more than one bucket (factor ``growth``)."""
+    ``growth`` is the percentile error bound above ``lo``: an estimate
+    never exceeds the exact quantile by more than one bucket (factor
+    ``growth``).  The underflow bucket has the weaker bound of
+    :meth:`LogHistogram.percentile`."""
 
     lo: float = 1e-4          # first upper edge (underflow bucket [0, lo])
     growth: float = 2.0       # geometric bucket ratio
@@ -71,10 +73,13 @@ class LogHistogram:
     ``percentile(p)`` returns the upper edge of the bucket containing the
     p-th sample — an overestimate by at most ``spec.growth`` (one bucket
     bound).  The overflow bucket reports the exact observed max instead of
-    an unbounded edge.  ``merge`` adds bucket counts (same spec required),
-    which is associative and commutative by construction."""
+    an unbounded edge, and the underflow bucket ``[0, lo]`` the largest
+    sample it holds (``under_max``).  ``merge`` adds bucket counts (same
+    spec required), which is associative and commutative by
+    construction."""
 
-    __slots__ = ("spec", "_edges", "counts", "count", "sum", "min", "max")
+    __slots__ = ("spec", "_edges", "counts", "count", "sum", "min", "max",
+                 "under_max")
 
     def __init__(self, spec: HistogramSpec = DEFAULT_SPEC):
         self.spec = spec
@@ -84,11 +89,15 @@ class LogHistogram:
         self.sum = 0.0
         self.min = math.inf
         self.max = -math.inf
+        self.under_max = -math.inf      # largest sample in [0, lo]
 
     def observe(self, value: float) -> None:
         """Record one sample (negative values clamp into the first bucket)."""
         v = value if value > 0.0 else 0.0
-        self.counts[bisect_left(self._edges, v)] += 1
+        i = bisect_left(self._edges, v)
+        self.counts[i] += 1
+        if i == 0 and v > self.under_max:
+            self.under_max = v
         self.count += 1
         self.sum += v
         if v < self.min:
@@ -105,7 +114,12 @@ class LogHistogram:
         """Estimate of the p-th percentile (0 < p <= 100); 0.0 when empty.
 
         Bound (tested): ``exact <= estimate <= exact * spec.growth`` for
-        samples landing in finite buckets; overflow reports the exact max.
+        samples landing in the finite buckets above ``lo``; overflow reports
+        the exact max.  The underflow bucket ``[0, lo]`` has no edge within
+        a factor ``growth`` of its samples, so it reports the largest sample
+        it holds: ``exact <= estimate <= that sample <= lo`` — exact when
+        the bucket holds one value, and within ``exact * spec.growth`` when
+        its samples lie within a factor ``growth`` of each other.
         """
         if self.count == 0:
             return 0.0
@@ -116,6 +130,8 @@ class LogHistogram:
             if acc >= rank:
                 if i >= len(self._edges):        # overflow bucket
                     return self.max
+                if i == 0:                       # underflow bucket
+                    return self.under_max
                 return self._edges[i]
         return self.max
 
@@ -130,6 +146,7 @@ class LogHistogram:
         self.sum += other.sum
         self.min = min(self.min, other.min)
         self.max = max(self.max, other.max)
+        self.under_max = max(self.under_max, other.under_max)
         return self
 
     def copy(self) -> "LogHistogram":
@@ -137,6 +154,7 @@ class LogHistogram:
         h = LogHistogram(self.spec)
         h.counts = list(self.counts)
         h.count, h.sum, h.min, h.max = self.count, self.sum, self.min, self.max
+        h.under_max = self.under_max
         return h
 
     def summary(self, pcts: Iterable[float] = (50, 95, 99)) -> dict:

@@ -25,17 +25,38 @@ that of the row alone (the JAX engine folds its padding into the state).
 
 PyTorch runs eagerly, so the JAX engine's per-shape ``jax.jit`` caches
 become plain calls; ``engine_compile_cache_total`` still counts first calls
-per shape.
+per shape (prefill shapes, chunk widths).
 
-Chunked prefill and engine-side radix prefix reuse are not ported yet
-(``chunk_prefill_tokens`` / ``enable_prefix_cache`` raise).
+Two opt-in features follow the JAX engine (``docs/ENGINE.md``):
+
+* **chunked prefill** (``chunk_prefill_tokens``) — prompts prefill in
+  budgeted chunks through ``models.chunk_step`` on the slot's own cache
+  rows (in place, flash kernel with a query offset), interleaved with
+  ``_decode_tick``, so a long prompt no longer stalls every decoding
+  sequence for its whole prefill.  A slot in mid-prefill parks its decode
+  cursor at ``s_max - 1``: the global decode step writes only there;
+* **engine-side radix prefix reuse** (``enable_prefix_cache``) — a
+  ``kvplane.RadixPrefixIndex`` runs against the engine's own ``BlockPool``;
+  prefills match their chained block hashes, copy the cached prefix KV
+  into the slot, and prefill only the uncached suffix at its offset
+  through the same chunked path.  The cached KV lives on the **host**, as
+  in the JAX engine (export and import hand host blocks between engines):
+  one pinned tensor per layer for each run of blocks published together.
+
+Both raise ``ValueError`` for a family ``supports_chunked_decode`` rejects
+(the SSM family), as the JAX engine does.  Both off ⇒ the bucketed path.
+
+One fault of the JAX engine is not copied: a planned request whose prompt
+cannot fit a slot (``prompt_len > s_max - 1``) is shed with
+``TerminalState.SHED`` instead of being dropped without a terminal state
+(which leaves the JAX engine's ``run`` spinning to ``max_steps``).
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
 import numpy as np
 import torch
@@ -45,16 +66,17 @@ from ..core.batch_builder import BatchBudget
 from ..core.cost_model import CostModel
 from ..core.scheduler import BaseScheduler
 from ..core.types import Request, RequestState, TerminalState
+
+if TYPE_CHECKING:   # runtime import is deferred: kvplane.radix imports
+    from ..kvplane.radix import RadixPrefixIndex   # serving.kv_cache, and a
+                                                   # module-level import here
+                                                   # would close the cycle
 from ..models.common import DtypePolicy, resolve_device, rms_norm
-from ..models.model import (LMParams, _embed_inputs, _unembed, decode_step,
-                            init_decode_caches)
-from ..models.transformer import stack_forward
+from ..models.model import (LMParams, _embed_inputs, _unembed, chunk_step,
+                            decode_step, init_decode_caches)
+from ..models.transformer import stack_forward, supports_chunked_decode
 from .kv_cache import BlockPool, SlotAllocator
 from .sampler import sample_tokens
-
-_CHUNKED_LATER = ("chunked prefill and engine-side radix prefix reuse are not "
-                  "ported yet; they come with the next step of the port "
-                  "(chunk_step with a query offset in the flash kernel)")
 
 
 @dataclass
@@ -73,9 +95,9 @@ class EngineConfig:
     pad_prompts: Optional[bool] = None   # None => auto by family
     moe_impl: str = "dropping"
     seed: int = 0
-    chunk_prefill_tokens: Optional[int] = None  # not ported: must stay None
-    enable_prefix_cache: bool = False           # not ported: must stay False
-    prefix_cache_blocks: Optional[int] = None
+    chunk_prefill_tokens: Optional[int] = None  # per-tick chunk budget; None=off
+    enable_prefix_cache: bool = False           # engine-side radix KV reuse
+    prefix_cache_blocks: Optional[int] = None   # radix pool-share cap (None=all)
     engine_id: int = 0
 
 
@@ -84,6 +106,31 @@ class _SlotState:
     req: Request
     seq_id: int
     budget_left: int
+    pin_node: object = None         # pinned radix path (prefix-cache mode)
+    cap_tokens: int = 0             # KV token capacity allocated (chunked mode)
+
+
+@dataclass
+class _PrefillState:
+    """A slot mid-chunked-prefill: admitted, holding pool blocks and its
+    pinned prefix path, cursor at ``pos`` prompt tokens resident."""
+
+    req: Request
+    seq_id: int
+    pos: int                        # prompt tokens already in the slot cache
+    pin_node: object = None
+    cap_tokens: int = 0
+
+
+def _runs(idxs: list) -> list:
+    """Split ascending block indices into runs of consecutive ones."""
+    out: list = []
+    for i in idxs:
+        if out and out[-1][-1] == i - 1:
+            out[-1].append(i)
+        else:
+            out.append([i])
+    return out
 
 
 class ServingEngine:
@@ -110,8 +157,16 @@ class ServingEngine:
         self.params = params
         self.sched = scheduler
         self.e = ecfg or EngineConfig()
-        if self.e.chunk_prefill_tokens or self.e.enable_prefix_cache:
-            raise NotImplementedError(_CHUNKED_LATER)
+        # Chunked-prefill / prefix-reuse mode: every admission goes through
+        # the per-slot chunk path (suffix prefill at an offset needs it).
+        self._chunked = (bool(self.e.chunk_prefill_tokens)
+                         or self.e.enable_prefix_cache)
+        if self._chunked and not supports_chunked_decode(cfg):
+            raise ValueError(
+                f"chunked prefill / prefix cache unsupported for family "
+                f"{cfg.family!r} (ring/recurrent/encoder-only stacks)")
+        self._chunk_budget = (self.e.chunk_prefill_tokens
+                              or self.e.max_prefill_tokens)
         self.policy = policy or DtypePolicy(torch.float32, torch.float32,
                                             torch.float32)
         if self.e.pad_prompts is None:
@@ -119,6 +174,25 @@ class ServingEngine:
         self.pool = BlockPool(self.e.kv_pool_tokens // self.e.block_size,
                               self.e.block_size)
         self.slots = SlotAllocator(self.e.max_slots)
+        self.radix: Optional[RadixPrefixIndex] = None
+        # radix node_id -> (run, i): block i of a run of blocks published
+        # together, whose KV is one host tensor per layer of shape
+        # (2, n·block_size, K, hd), K rows then V rows.  A run's host memory
+        # is released when its last node leaves the tree.
+        self._node_kv: dict[int, tuple] = {}
+        self._new_radix()
+        self._prefilling: dict[int, _PrefillState] = {}  # admission order
+        self._chunk_widths: set = set()      # chunk widths already run
+        self.chunks_run = 0
+        self.chunk_tokens = 0
+        self.prefix_saved_tokens = 0
+        self.interleaved_ticks = 0   # decode ticks run while a prefill was up
+        # Host-side radix KV copies: device-to-host when a prefill publishes
+        # its blocks, host-to-device when a prefix attaches (seconds, bytes,
+        # blocks).  Pure recording.
+        self.radix_copies = {"d2h_s": 0.0, "d2h_bytes": 0, "d2h_blocks": 0,
+                             "host_alloc_s": 0.0,
+                             "h2d_s": 0.0, "h2d_bytes": 0, "h2d_blocks": 0}
         self.caches = init_decode_caches(cfg, self.e.max_slots, self.e.s_max,
                                          dtype=self.policy.compute,
                                          device=self.device)
@@ -168,6 +242,16 @@ class ServingEngine:
         self._gen.manual_seed(self.e.seed)
         self._t0 = time.monotonic()
 
+    def _new_radix(self) -> None:
+        """A fresh radix index over the current pool (prefix-cache mode)."""
+        if not self.e.enable_prefix_cache:
+            return
+        from ..kvplane.radix import RadixPrefixIndex
+        self.radix = RadixPrefixIndex(
+            self.pool, self.e.block_size,
+            capacity_blocks=self.e.prefix_cache_blocks)
+        self.radix.on_evict = self._on_radix_evict
+
     # ---- model steps -------------------------------------------------------
 
     @torch.no_grad()
@@ -187,6 +271,12 @@ class ServingEngine:
         w = _unembed(self.params, self.cfg)
         logits = (h_last[:, None, :].to(w.dtype) @ w).float()
         return logits, caches
+
+    def _slot_view(self, slot: int) -> list:
+        """One slot's caches as B=1 views (``chunk_step`` writes through
+        them into the engine caches)."""
+        return [{name: t[slot:slot + 1] for name, t in layer.items()}
+                for layer in self.caches]
 
     def _sample(self, logits: torch.Tensor) -> np.ndarray:
         return sample_tokens(logits, self._gen,
@@ -211,11 +301,43 @@ class ServingEngine:
         waiting = self.sched.snapshot(now).waiting_tokens
         return waiting / self._prefill_tok_rate
 
+    def _stamp_prefix(self, req: Request) -> None:
+        """Chunked/prefix mode: materialize prompt tokens up front (the
+        chunk cursor needs them before dispatch), hash them, and stamp the
+        queue-side ``cached_len`` *estimate* from a read-only radix probe,
+        so EWSJF queues and scores the request on its effective length.  The
+        authoritative resolution happens at dispatch (``_attach_prefix``)."""
+        if req.prompt_tokens is None:
+            rng = np.random.default_rng(req.request_id)
+            req.prompt_tokens = rng.integers(
+                0, self.cfg.vocab_size, size=(req.prompt_len,)).astype(np.int32)
+        else:
+            req.prompt_tokens = np.asarray(req.prompt_tokens, dtype=np.int32)
+        if self.radix is None:
+            return
+        if req.prompt_hashes is None:
+            from ..kvplane.radix import chain_block_hashes
+            req.prompt_hashes = chain_block_hashes(req.prompt_tokens.tolist(),
+                                                   self.e.block_size)
+        blocks = self.radix.match(req.prompt_hashes, touch=False).blocks
+        req.cached_len = min(blocks * self.e.block_size,
+                             int(req.prompt_len) - 1)
+        if self.obs is not None:
+            self.obs.event("probe", self.now(), request_id=req.request_id,
+                           replica_id=self.e.engine_id,
+                           data={"blocks": blocks,
+                                 "cached_est": int(req.cached_len)})
+            self.obs.inc("radix_probe_total",
+                         {"hit": "true" if blocks else "false"})
+
     def add_request(self, req: Request) -> None:
-        """Ingress one request: pass it through the admission controller
-        when present (shed / defer / admit) and submit admitted requests to
-        the scheduler queue."""
+        """Ingress one request: stamp its prefix estimate (chunked/prefix
+        mode), pass it through the admission controller when present (shed
+        / defer / admit) and submit admitted requests to the scheduler
+        queue."""
         now = self.now()
+        if self._chunked:
+            self._stamp_prefix(req)
         if self.obs is not None:
             self.obs.event("arrival", now, request_id=req.request_id,
                            replica_id=self.e.engine_id)
@@ -273,8 +395,9 @@ class ServingEngine:
                 self.sched.maybe_reoptimize(now)
             self._maybe_sync_policy(now)
             self._admit(now)
-            if (not self.slot_state and self.sched.waiting() == 0
-                    and pi < n_total):
+            self._prefill_chunk_tick(now)
+            if (not self.slot_state and not self._prefilling
+                    and self.sched.waiting() == 0 and pi < n_total):
                 continue
             self._decode_tick()
         return self.finished
@@ -292,28 +415,34 @@ class ServingEngine:
         self._maybe_sync_policy(now)
         if not self.draining:
             self._admit(now)
+        self._prefill_chunk_tick(now)
         self._decode_tick()
         if self.draining and not self.has_work():
             self.alive = False
 
     def has_work(self) -> bool:
-        """Anything decoding or queued."""
-        return bool(self.slot_state or self.sched.waiting())
+        """Anything decoding, mid-prefill, or queued."""
+        return bool(self.slot_state or self._prefilling
+                    or self.sched.waiting())
 
     # ---- fleet lifecycle (failure / drain) --------------------------------
 
     def fail(self) -> list[Request]:
         """Hard failure: every in-flight and queued request is orphaned and
-        returned for re-routing (recompute recovery — the KV dies with the
-        engine)."""
+        returned for re-routing (recompute recovery — the KV, the radix
+        cache and the host block store die with the engine)."""
         self.alive = False
-        orphans = [st.req for st in self.slot_state.values()]
+        orphans = [st.req for st in self._prefilling.values()]
+        orphans += [st.req for st in self.slot_state.values()]
         orphans += self.sched.drain()
+        self._prefilling.clear()
         self.slot_state.clear()
         self.slots = SlotAllocator(self.e.max_slots)
         self._slot_last_tok[:] = -1.0
         self.pool = BlockPool(self.e.kv_pool_tokens // self.e.block_size,
                               self.e.block_size)
+        self._node_kv.clear()
+        self._new_radix()
         for req in orphans:
             req.state = RequestState.PREEMPTED
             req.preemptions += 1
@@ -338,6 +467,60 @@ class ServingEngine:
             self.alive = False
         return queued
 
+    # ---- host-KV handoff (fleet prefix plane) -----------------------------
+
+    def export_prefix_blocks(self, hashes, want: int) -> list:
+        """Source side of a host-KV handoff: the host KV blocks of the
+        longest locally cached prefix of ``hashes``, root first, capped at
+        ``want`` blocks and cut at the first block whose KV is not
+        host-resident (so the shipped set is a closed prefix an importer can
+        attach).  Each block is a per-layer list of ``{"k", "v"}`` host
+        tensors of (block_size, K, hd); ``bridge.caches_to_numpy`` gives the
+        JAX engine's layout."""
+        if self.radix is None or not hashes or want <= 0:
+            return []
+        m = self.radix.match(hashes[:want], self.now())
+        out: list = []
+        for nd in self._path(m.node):
+            if nd.node_id not in self._node_kv:
+                break
+            out.append(self._block_kv(nd.node_id))
+        return out
+
+    def import_prefix_blocks(self, hashes, blocks_kv: list) -> int:
+        """Destination side of a host-KV handoff: insert the chain into the
+        local radix (allocating real pool blocks — the pool stays the single
+        accountant) and attach the shipped host KV (per-layer lists of
+        ``{"k", "v"}`` of (block_size, K, hd); ``bridge.caches_from_jax``
+        converts the JAX engine's) to the newly resident nodes.  Pool
+        pressure may stop the insert early; only blocks that landed count.
+        Returns blocks landed."""
+        if self.radix is None or not blocks_kv:
+            return 0
+        node, _ = self.radix.insert(hashes[:len(blocks_kv)], self.now())
+        path = self._path(node)[:len(blocks_kv)]
+        bs = self.e.block_size
+        missing = [i for i, nd in enumerate(path)
+                   if nd.node_id not in self._node_kv]
+        for run in _runs(missing):
+            host = self._new_run(len(run))
+            for j, i in enumerate(run):
+                for buf, layer in zip(host, blocks_kv[i]):
+                    buf[0, j * bs:(j + 1) * bs].copy_(layer["k"])
+                    buf[1, j * bs:(j + 1) * bs].copy_(layer["v"])
+                self._node_kv[path[i].node_id] = (host, j)
+        return len(path)
+
+    @staticmethod
+    def _path(node) -> list:
+        """Radix nodes from the root's child down to ``node``."""
+        path: list = []
+        while node is not None and node.depth > 0:
+            path.append(node)
+            node = node.parent
+        path.reverse()
+        return path
+
     def _maybe_sync_policy(self, now: float) -> None:
         """Strategic-plane round against a shared policy store (publish,
         merge, adopt on the store's cadence).  Never blocks serving."""
@@ -357,7 +540,10 @@ class ServingEngine:
         plan = self.sched.tick(now, budget)
         if not plan.requests:
             return
-        reqs = [r for r in plan.requests if r.prompt_len <= self.e.s_max - 1]
+        reqs = self._shed_oversized(plan.requests, now)
+        if self._chunked:
+            self._admit_chunked(reqs, now)
+            return
         if not reqs:
             return
         n = len(reqs)
@@ -440,6 +626,31 @@ class ServingEngine:
             if r.max_new_tokens <= 1:
                 self._finish_slot(slot)
 
+    def _shed_oversized(self, reqs: list, now: float) -> list:
+        """Shed every planned request whose prompt cannot fit a slot
+        (``prompt_len > s_max - 1``) with ``TerminalState.SHED``; return the
+        rest.  The scheduler has already popped them, so dropping them
+        silently (as the JAX engine does) would leave them without a
+        terminal state and ``run`` spinning to ``max_steps``."""
+        keep = []
+        for r in reqs:
+            if r.prompt_len <= self.e.s_max - 1:
+                keep.append(r)
+                continue
+            r.state = RequestState.FAILED
+            r.finish_time = now
+            r.terminal = TerminalState.SHED
+            self.shed.append(r)
+            if self.obs is not None:
+                self.obs.inc("requests_terminal_total",
+                             {"state": TerminalState.SHED.value,
+                              "slo_class": self.obs.classify(r)})
+                self.obs.event("shed", now, request_id=r.request_id,
+                               replica_id=self.e.engine_id,
+                               data={"why": "prompt_exceeds_slot",
+                                     "prompt_len": int(r.prompt_len)})
+        return keep
+
     def _write_slot(self, slot: int, prefill_caches: list, row: int) -> None:
         """Copy row ``row`` of the per-layer prefill caches into the decode
         slot **in place**.  K/V fill the slot's first bucket positions and
@@ -454,11 +665,312 @@ class ServingEngine:
                 else:
                     dst[name][slot].copy_(t[row])
 
+    # ---- host KV store (prefix-cache mode) ----------------------------------
+
+    def _new_run(self, n: int) -> list:
+        """Host buffers for ``n`` blocks, pinned on a GPU engine: one
+        (2, n·block_size, K, hd) tensor per layer in the cache dtype."""
+        return [torch.empty((2, n * self.e.block_size) + tuple(c["k"].shape[2:]),
+                            dtype=c["k"].dtype,
+                            pin_memory=self.device.type == "cuda")
+                for c in self.caches]
+
+    def _sync(self) -> None:
+        """Wait for the device's queued work, so that a host-timed copy
+        measures the copy alone (the copies themselves are synchronous)."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def _block_bytes(self) -> int:
+        bs = self.e.block_size
+        return sum(2 * bs * c["k"][0, 0].numel() * c["k"].element_size()
+                   for c in self.caches)
+
+    def _publish_blocks(self, slot: int, path: list) -> None:
+        """Copy the slot's rows of every block on ``path`` whose KV is not
+        host-resident yet into the host store (device to host, one copy per
+        layer and tensor for each run of consecutive blocks).  Allocating
+        (pinning) the host buffers and copying are timed apart."""
+        missing = [i for i, nd in enumerate(path)
+                   if nd.node_id not in self._node_kv]
+        if not missing:
+            return
+        bs = self.e.block_size
+        self._sync()
+        for run in _runs(missing):
+            t0 = time.monotonic()
+            host = self._new_run(len(run))
+            t1 = time.monotonic()
+            lo, hi = run[0] * bs, (run[-1] + 1) * bs
+            for buf, c in zip(host, self.caches):
+                buf[0].copy_(c["k"][slot, lo:hi])
+                buf[1].copy_(c["v"][slot, lo:hi])
+            for j, i in enumerate(run):
+                self._node_kv[path[i].node_id] = (host, j)
+            self.radix_copies["host_alloc_s"] += t1 - t0
+            self.radix_copies["d2h_s"] += time.monotonic() - t1
+        self.radix_copies["d2h_blocks"] += len(missing)
+        self.radix_copies["d2h_bytes"] += len(missing) * self._block_bytes()
+
+    def _write_blocks(self, slot: int, path: list) -> None:
+        """Copy the host KV of the blocks on ``path`` into the slot's first
+        ``len(path)`` blocks — the radix attach: cached prefix blocks land
+        without recompute (host to device, one copy per layer and tensor
+        for each stretch of blocks that are consecutive in one run)."""
+        bs = self.e.block_size
+        groups: list = []                # [host, first j, first i, n]
+        for i, nd in enumerate(path):
+            host, j = self._node_kv[nd.node_id]
+            g = groups[-1] if groups else None
+            if g is not None and g[0] is host and g[1] + g[3] == j:
+                g[3] += 1
+            else:
+                groups.append([host, j, i, 1])
+        for host, j, i, n in groups:
+            for buf, c in zip(host, self.caches):
+                c["k"][slot, i * bs:(i + n) * bs].copy_(
+                    buf[0, j * bs:(j + n) * bs])
+                c["v"][slot, i * bs:(i + n) * bs].copy_(
+                    buf[1, j * bs:(j + n) * bs])
+
+    def _block_kv(self, node_id: int) -> list:
+        """A host-resident block as the port's per-layer list of ``{"k",
+        "v"}`` tensors of (block_size, K, hd) (views of its run)."""
+        host, j = self._node_kv[node_id]
+        bs = self.e.block_size
+        return [{"k": buf[0, j * bs:(j + 1) * bs],
+                 "v": buf[1, j * bs:(j + 1) * bs]} for buf in host]
+
+    # ---- chunked admission + prefill ------------------------------------------
+
+    def _on_radix_evict(self, node_id: int) -> None:
+        """Radix eviction hook: drop the node's host-side KV block and
+        record the eviction."""
+        self._node_kv.pop(node_id, None)
+        if self.obs is not None:
+            self.obs.event("evict", self.now(),
+                           replica_id=self.e.engine_id,
+                           data={"node": node_id})
+            self.obs.inc("radix_evict_total")
+
+    def _attach_prefix(self, r: Request, slot: int, now: float
+                       ) -> tuple[int, int, object]:
+        """Authoritative prefix resolution for one dispatched request: match
+        the radix, copy every matched block whose KV is host-resident into
+        the slot caches, then insert + pin the request's *full* prompt path
+        (blocks computed this pass are about to exist; their content is
+        published when the prefill completes).  Returns ``(cached_tokens,
+        resident_blocks, pin_node)``."""
+        if self.radix is None or not r.prompt_hashes:
+            r.cached_len = 0
+            return 0, 0, None
+        bs = self.e.block_size
+        hashes = r.prompt_hashes
+        path = self._path(self.radix.match(hashes, now).node)
+        # Usable = contiguous matched blocks with host KV content, capped so
+        # at least one suffix token remains to produce the first logit.
+        max_blocks = (int(r.prompt_len) - 1) // bs
+        usable = 0
+        for nd in path[:max_blocks]:
+            if nd.node_id not in self._node_kv:
+                break
+            usable += 1
+        full_blocks = int(r.prompt_len) // bs
+        pin_node, _ = self.radix.insert(hashes[:full_blocks], now)
+        self.radix.pin(pin_node)
+        resident = pin_node.depth if pin_node is not None else 0
+        if usable:
+            self._sync()
+        t_a0 = self.now()
+        self._write_blocks(slot, path[:usable])
+        t_a1 = self.now()
+        cached_tokens = usable * bs
+        r.cached_len = cached_tokens
+        self.prefix_saved_tokens += cached_tokens
+        copied = self._block_bytes() * usable
+        if usable:
+            self.radix_copies["h2d_s"] += t_a1 - t_a0
+            self.radix_copies["h2d_blocks"] += usable
+            self.radix_copies["h2d_bytes"] += copied
+        if self.obs is not None:
+            self.obs.inc("radix_insert_total")
+            if usable:
+                self.obs.event("attach", t_a0, request_id=r.request_id,
+                               replica_id=self.e.engine_id,
+                               dur=max(t_a1 - t_a0, 0.0),
+                               data={"slot": slot, "blocks": usable,
+                                     "tokens": cached_tokens,
+                                     "bytes": int(copied)})
+                self.obs.observe("radix_attach_copy_bytes", float(copied))
+                if self.cost is not None:
+                    self.obs.calibrate(
+                        "attach_copy",
+                        self.cost.attach_copy_time(cached_tokens),
+                        max(t_a1 - t_a0, 1e-9))
+        return cached_tokens, resident, pin_node
+
+    def _admit_chunked(self, reqs: list, now: float) -> None:
+        """Admit dispatched requests into slots as chunk-prefill jobs: take
+        a slot, resolve + attach the cached prefix, allocate the private
+        (uncached) KV up front, and park the request in ``_prefilling`` —
+        ``_prefill_chunk_tick`` then advances cursors under the chunk
+        budget, interleaved with decode."""
+        bs = self.e.block_size
+        for r in reqs:
+            slot = self.slots.acquire(r.request_id)
+            if slot is None:       # budget.max_requests == free slots
+                raise RuntimeError("scheduler admitted more requests than "
+                                   "free slots")
+            r.state = RequestState.RUNNING_PREFILL
+            # Park the slot's decode cursor at the scratch position: the
+            # global decode step runs over *all* slot rows, and its cache
+            # write for this row must not land inside the prompt span being
+            # chunk-prefilled.  s_max-1 is causally masked for every live
+            # sequence until its own final step overwrites it.
+            self.slot_pos[slot] = self.e.s_max - 1
+            self.last_tokens[slot, 0] = 0
+            cached, resident, pin_node = self._attach_prefix(r, slot, now)
+            # Private allocation = prompt KV minus radix-resident blocks
+            # (unchecked — admission was guarded on the *estimate*;
+            # transient overdraw is reclaimed by decode-time preemption).
+            private = max(int(r.prompt_len) - resident * bs, 0)
+            self.pool.allocate_unchecked(r.request_id, private)
+            cap = resident * bs + self.pool.blocks_for(private) * bs
+            self._prefilling[slot] = _PrefillState(
+                req=r, seq_id=r.request_id, pos=cached,
+                pin_node=pin_node, cap_tokens=cap)
+            self.dispatch_log.append((now, r.request_id))
+            if self.obs is not None:
+                wait = max(0.0, now - r.arrival_time)
+                self.obs.event("dispatch", now, request_id=r.request_id,
+                               replica_id=self.e.engine_id,
+                               data={"wait": round(wait, 6),
+                                     "cached_tokens": cached})
+                self.obs.event("park", now, request_id=r.request_id,
+                               replica_id=self.e.engine_id,
+                               data={"slot": slot, "cap_tokens": cap})
+                self.obs.observe("sched_dispatch_wait_seconds", wait,
+                                 {"slo_class": self.obs.classify(r)})
+
+    def _prefill_chunk_tick(self, now: float) -> None:
+        """Advance every in-flight chunked prefill under the per-tick token
+        budget (admission order — FIFO across slots), promoting completed
+        prompts to decode.  One tick spends at most ``chunk_prefill_tokens``
+        (or ``max_prefill_tokens`` in pure prefix-reuse mode) prefill
+        tokens, so decoding sequences wait at most one chunk per tick."""
+        if not self._prefilling:
+            return
+        left = self._chunk_budget
+        completed: list[tuple[int, torch.Tensor]] = []
+        for slot in list(self._prefilling):
+            if left <= 0:
+                break
+            st = self._prefilling[slot]
+            r = st.req
+            pos0 = st.pos
+            width = min(int(r.prompt_len) - st.pos, left)
+            left -= width
+            toks = torch.from_numpy(np.asarray(
+                r.prompt_tokens[st.pos:st.pos + width],
+                dtype=np.int32)[None]).to(self.device)
+            fresh = width not in self._chunk_widths
+            self._chunk_widths.add(width)
+            t0 = self.now()
+            logits, _ = chunk_step(self.params, toks, self._slot_view(slot),
+                                   st.pos, self.cfg, policy=self.policy)
+            st.pos += width
+            t1 = self.now()
+            self.chunks_run += 1
+            self.chunk_tokens += width
+            self.real_tokens += width
+            self.padded_tokens += width      # chunk path pads nothing
+            if not fresh:
+                rate = width / max(t1 - t0, 1e-6)
+                self._prefill_tok_rate = (
+                    rate if self._prefill_tok_rate <= 0 else
+                    0.7 * self._prefill_tok_rate + 0.3 * rate)
+            if self.obs is not None:
+                # A chunk re-running a preempted request's prompt is a
+                # "recompute" span; first-pass chunks are "chunk".
+                kind = "recompute" if r.preemptions > 0 else "chunk"
+                self.obs.event(kind, t0, request_id=r.request_id,
+                               replica_id=self.e.engine_id,
+                               dur=max(t1 - t0, 0.0),
+                               data={"slot": slot, "batch": 1,
+                                     "suffix_tokens": width,
+                                     "cached_tokens": int(r.cached_len),
+                                     "chunk": width, "pos": pos0})
+                self.obs.observe("engine_chunk_width_tokens", float(width))
+                self.obs.inc("engine_compile_cache_total",
+                             {"kind": "chunk",
+                              "hit": "false" if fresh else "true"})
+                # Calibration sample: roofline prediction for prefilling a
+                # prompt to pos0+width with pos0 tokens already resident.
+                if self.cost is not None and not fresh:
+                    self.obs.calibrate(
+                        "prefill_chunk",
+                        self.cost.prefill_cost(pos0 + width, cached=pos0),
+                        max(t1 - t0, 1e-9))
+            if st.pos >= int(r.prompt_len):
+                completed.append((slot, logits))
+        for slot, logits in completed:
+            self._promote_slot(slot, logits)
+
+    def _promote_slot(self, slot: int, logits: torch.Tensor) -> None:
+        """Chunked prefill finished: publish computed prefix blocks to the
+        radix host store, sample the first token, move the slot to decode."""
+        st = self._prefilling.pop(slot)
+        r = st.req
+        first = self._sample(logits)     # waits for the chunk's forward pass
+        if self.radix is not None and st.pin_node is not None:
+            self._publish_blocks(slot, self._path(st.pin_node))
+        t = self.now()
+        r.state = RequestState.RUNNING_DECODE
+        r.first_token_time = t
+        r.generated = 1
+        if self.obs is not None:
+            self.obs.event("promote", t, request_id=r.request_id,
+                           replica_id=self.e.engine_id,
+                           data={"slot": slot,
+                                 "prompt_len": int(r.prompt_len)})
+            self.obs.event("first_token", t, request_id=r.request_id,
+                           replica_id=self.e.engine_id)
+        self.tokens_out += 1
+        self.output_tokens[r.request_id] = [int(first[0, 0])]
+        self.slot_pos[slot] = int(r.prompt_len)
+        self.last_tokens[slot, 0] = first[0, 0]
+        self._slot_last_tok[slot] = t
+        self.slot_state[slot] = _SlotState(
+            req=r, seq_id=st.seq_id, budget_left=r.max_new_tokens - 1,
+            pin_node=st.pin_node, cap_tokens=st.cap_tokens)
+        if r.max_new_tokens <= 1:
+            self._finish_slot(slot)
+
     # ---- decode -------------------------------------------------------------
+
+    def _grow_chunked(self, slot: int, st: _SlotState) -> None:
+        """Per-slot KV growth in chunked/prefix mode: capacity is tracked in
+        ``cap_tokens`` (radix-resident + private blocks); one private block
+        is appended when the next token would exceed it.  Under pressure the
+        radix sheds a cold cached block first (running sequences outrank the
+        prefix cache), then LIFO recompute preemption applies as in the
+        bucketed mode."""
+        total = int(self.slot_pos[slot]) + 1
+        if total <= st.cap_tokens:
+            return
+        if self.pool.free_blocks < 1 and self.radix is not None:
+            self.radix.evict(1)
+        if self.pool.free_blocks >= 1 or len(self.slot_state) <= 1:
+            self.pool.allocate_unchecked(st.seq_id, self.e.block_size)
+            st.cap_tokens += self.e.block_size
+        else:
+            self._preempt_slot(slot)
 
     def _decode_tick(self) -> None:
         if not self.slot_state:
             return
+        if self._prefilling:
+            self.interleaved_ticks += 1
         t_tick0 = self.now()
         steps = 0
         # Tick-start batch composition, for the decode calibration sample.
@@ -470,7 +982,10 @@ class ServingEngine:
             # paged growth accounting (+ LIFO recompute preemption)
             for slot in sorted(self.slot_state, reverse=True):
                 st = self.slot_state[slot]
-                if not self.pool.grow(st.seq_id, int(self.slot_pos[slot]) + 1):
+                if self._chunked:
+                    self._grow_chunked(slot, st)
+                elif not self.pool.grow(st.seq_id,
+                                        int(self.slot_pos[slot]) + 1):
                     if len(self.slot_state) > 1:
                         self._preempt_slot(slot)
                     # else: single sequence — let it run (pool undersized)
@@ -519,6 +1034,8 @@ class ServingEngine:
     def _preempt_slot(self, slot: int, cause: str = "kv_pressure") -> None:
         st = self.slot_state.pop(slot)
         self.pool.free(st.seq_id)
+        if self.radix is not None and st.pin_node is not None:
+            self.radix.unpin(st.pin_node)
         self.slots.release(slot)
         self._slot_last_tok[slot] = -1.0
         req = st.req
@@ -542,6 +1059,8 @@ class ServingEngine:
             return
         req = st.req
         self.pool.free(st.seq_id)
+        if self.radix is not None and st.pin_node is not None:
+            self.radix.unpin(st.pin_node)
         self.slots.release(slot)
         self._slot_last_tok[slot] = -1.0
         req.state = RequestState.FINISHED
@@ -571,7 +1090,7 @@ class ServingEngine:
             "t": self.now(),
             "kv_occupancy": self.pool.utilization,
             "slots_active": len(self.slot_state),
-            "prefilling": 0,           # no chunked prefill in this engine
+            "prefilling": len(self._prefilling),
             "waiting": self.sched.waiting(),
             "finished": len(self.finished),
             "tokens_out": self.tokens_out,
@@ -581,8 +1100,9 @@ class ServingEngine:
         return hb
 
     def stats(self) -> dict:
-        """Run summary: throughput, terminal accounting, padding waste and
-        the decode inter-token-gap (TBT) percentiles."""
+        """Run summary: throughput, terminal accounting, padding waste,
+        chunked-prefill / prefix-reuse counters, radix stats, the host KV
+        copies, and the decode inter-token-gap (TBT) percentiles."""
         elapsed = self.now()
         toks = sum(r.generated for r in self.finished)
         terminal: dict[str, int] = {}
@@ -605,6 +1125,12 @@ class ServingEngine:
             "prefill_batches": self.prefill_batches,
             "padding_waste": (1.0 - self.real_tokens
                               / max(self.padded_tokens, 1)),
+            "chunks": self.chunks_run,
+            "chunk_tokens": self.chunk_tokens,
+            "interleaved_ticks": self.interleaved_ticks,
+            "prefix_saved_tokens": self.prefix_saved_tokens,
+            "radix": (self.radix.stats() if self.radix is not None else {}),
+            "radix_copies": dict(self.radix_copies),
             "decode_tbt_p95": (float(np.percentile(self.decode_gaps, 95))
                                if self.decode_gaps else 0.0),
             "decode_tbt_max": (float(max(self.decode_gaps))

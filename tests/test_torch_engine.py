@@ -138,12 +138,20 @@ def test_engine_defaults_to_gpu_and_raises_without_one(weights):
         ServingEngine(tcfg, tp, tcore.FCFSScheduler(), EngineConfig(**ECFG))
 
 
-def test_unported_engine_features_raise(weights):
-    _, tcfg, _, tp = weights
-    for extra in (dict(chunk_prefill_tokens=16), dict(enable_prefix_cache=True)):
-        with pytest.raises(NotImplementedError):
-            ServingEngine(tcfg, tp, tcore.FCFSScheduler(),
-                          EngineConfig(**ECFG, **extra), device="cpu")
+@pytest.mark.parametrize("extra", [dict(chunk_prefill_tokens=16),
+                                   dict(enable_prefix_cache=True)],
+                         ids=["chunked", "radix"])
+def test_unported_engine_features_raise(ssm_weights, extra):
+    """Chunked prefill and radix reuse run on the dense families; the SSM
+    family cannot chunk (``supports_chunked_decode``), and both engines
+    refuse either mode with ValueError rather than fall back."""
+    jcfg, tcfg, jp, tp = ssm_weights
+    with pytest.raises(ValueError):
+        ServingEngine(tcfg, tp, tcore.FCFSScheduler(),
+                      EngineConfig(**ECFG, **extra), device="cpu")
+    with pytest.raises(ValueError):
+        JaxEngine(jcfg, jp, jcore.FCFSScheduler(),
+                  JaxEngineConfig(**ECFG, **extra))
 
 
 def test_caches_hold_what_the_jax_engine_holds(fcfs_pair):

@@ -1,5 +1,6 @@
 """The PyTorch port's CUDA kernels on a GPU: each against its plain version,
-and the engine's kernel path against its CPU run.  Marked ``gpu``; every test
+and the engine's kernel path (bucketed, and chunked + radix) against its CPU
+run.  Marked ``gpu``; every test
 skips where no CUDA device is visible.  On the card:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
@@ -276,6 +277,116 @@ def test_ssd_kernel_path_matches_recurrence(cuda, s, chunk):
     assert float((h - hr).abs().max() / hr.abs().max()) <= 1e-4
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,T,q_offset,kv_len,H,K,hd,window", [
+    (512, 2048, 1024, 1536, 8, 8, 128, 0),   # a suffix chunk after a prefix
+    (1, 2048, 1500, 1501, 8, 2, 128, 0),     # a chunk of one token
+    (200, 2048, 1500, 1700, 8, 2, 64, 0),    # C not a multiple of the tile
+    (300, 1024, 700, 1000, 4, 4, 128, 256),  # window
+    (63, 256, 64, 127, 4, 1, 64, 0),         # MQA, one row short of a tile
+    (16, 128, 0, 16, 2, 2, 128, 0),          # first chunk, cache longer
+])
+def test_flash_offset_kernel_matches_plain(cuda, dtype, C, T, q_offset,
+                                           kv_len, H, K, hd, window):
+    """Chunked-prefill attention: C queries at ``q_offset`` against the
+    first ``kv_len`` keys of a longer cache whose other rows hold NaN
+    (never read), against both plain versions; one counted launch, and one
+    offset launch when ``q_offset > 0``."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q = torch.randn((1, C, H, hd), generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn((1, T, K, hd), generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    k[:, kv_len:] = float("nan")
+    v[:, kv_len:] = float("nan")
+    kw = dict(window=window, q_offset=q_offset, kv_len=kv_len)
+    before = flash_ops.KERNEL.launches
+    off_before = flash_ops.KERNEL.offset_launches
+    out = flash_ops.flash_attention(q, k, v, **kw)
+    ref = flash_ops.flash_attention(q, k, v, impl="plain", **kw)
+    assert flash_ops.KERNEL.launches == before + 1
+    assert flash_ops.KERNEL.offset_launches == off_before + (q_offset > 0)
+    assert out.dtype == dtype and out.shape == q.shape
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOLS[dtype],
+                               rtol=TOLS[dtype])
+    if dtype == torch.bfloat16:
+        tiled = flash_attention_tiled_ref(
+            *(t.transpose(1, 2) for t in (q, k, v)), **kw).transpose(1, 2)
+        torch.testing.assert_close(out.float(), tiled.float(),
+                                   atol=TILED_ATOL, rtol=TILED_RTOL)
+
+
+def _small_cfg():
+    return ModelConfig(name="gpu-small", family="dense", n_layers=2,
+                       d_model=256, n_heads=4, n_kv_heads=2, d_ff=512,
+                       vocab_size=512, head_dim=64)
+
+
+def test_chunk_step_in_pieces_matches_prefill_on_card(cuda):
+    """A small model's prompt through chunk_step in chunks of 64, 64 and 29
+    on the card (flash with a query offset over the slot cache) gives the
+    logits and K/V of one prefill on the card, and of the CPU run."""
+    from repro_torch.models import chunk_step, init_decode_caches, prefill
+    cfg = _small_cfg()
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    pol = DtypePolicy(torch.float32, torch.float32, torch.float32)
+    toks = torch.tensor(np.random.default_rng(3).integers(0, 512, (1, 157)))
+    got = {}
+    for dev in ("cpu", cuda):
+        p = params.to(dev)
+        ref, ref_c = prefill(p, {"tokens": toks.to(dev)}, cfg, policy=pol)
+        caches = init_decode_caches(cfg, 1, 256, dtype=torch.float32,
+                                    device=dev)
+        pos, off0 = 0, flash_ops.KERNEL.offset_launches
+        for w in (64, 64, 29):
+            logits, caches = chunk_step(p, toks[:, pos:pos + w].to(dev),
+                                        caches, pos, cfg, policy=pol)
+            pos += w
+        if dev == cuda:
+            assert flash_ops.KERNEL.offset_launches == off0 + 2 * 2
+        torch.testing.assert_close(logits, ref, atol=1e-4, rtol=1e-4)
+        for layer, r in zip(caches, ref_c):
+            torch.testing.assert_close(layer["k"][:, :157], r["k"],
+                                       atol=1e-4, rtol=1e-4)
+        got[str(dev)] = logits.cpu()
+    torch.testing.assert_close(got["cuda"], got["cpu"], atol=1e-4, rtol=1e-4)
+
+
+def test_chunked_radix_engine_kernel_path_matches_cpu_run(cuda):
+    """The small model served on the card in chunked + radix mode over
+    shared-prefix requests gives the CPU run's greedy tokens and attached
+    prefixes, with flash launched at a query offset."""
+    cfg = _small_cfg()
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    pol = DtypePolicy(torch.float32, torch.float32, torch.float32)
+    rng = np.random.default_rng(4)
+    prefix = rng.integers(0, 512, size=(64,)).astype(np.int32)
+    specs = [(np.concatenate([prefix, rng.integers(0, 512, size=(int(n),))
+                              .astype(np.int32)]), int(m))
+             for n, m in zip(rng.integers(5, 60, 10), rng.integers(2, 8, 10))]
+    outs, cached = {}, {}
+    for dev in ("cpu", cuda):
+        reqs = [Request(prompt_len=len(t), arrival_time=0.0,
+                        max_new_tokens=m, prompt_tokens=t.copy(),
+                        request_id=90_000 + i) for i, (t, m) in enumerate(specs)]
+        eng = ServingEngine(cfg, params.to(dev), FCFSScheduler(),
+                            EngineConfig(max_slots=4, s_max=256,
+                                         kv_pool_tokens=4096,
+                                         chunk_prefill_tokens=48,
+                                         enable_prefix_cache=True),
+                            policy=pol, device=dev)
+        off0 = flash_ops.KERNEL.offset_launches
+        assert len(eng.run(reqs)) == len(reqs)
+        if dev == cuda:
+            assert flash_ops.KERNEL.offset_launches > off0
+        eng.radix.check_invariants()
+        outs[str(dev)] = eng.output_tokens
+        cached[str(dev)] = {r.request_id: r.cached_len for r in eng.finished}
+    assert outs["cpu"] == outs["cuda"]
+    assert cached["cpu"] == cached["cuda"]
+    assert sum(c > 0 for c in cached["cuda"].values()) >= 4
+
+
 def test_kernel_wrappers_refuse_what_they_cannot_take(cuda):
     q = torch.zeros((1, 16, 2, 32), device=cuda)          # head_dim 32
     with pytest.raises(ValueError):
@@ -303,9 +414,7 @@ def test_kernel_wrappers_refuse_what_they_cannot_take(cuda):
 def test_engine_kernel_path_matches_cpu_run(cuda):
     """A small model (head_dim 64) served on the card through both kernels
     gives the greedy tokens of the same weights served on the CPU."""
-    cfg = ModelConfig(name="gpu-small", family="dense", n_layers=2,
-                      d_model=256, n_heads=4, n_kv_heads=2, d_ff=512,
-                      vocab_size=512, head_dim=64)
+    cfg = _small_cfg()
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     pol = DtypePolicy(torch.float32, torch.float32, torch.float32)
     outs = {}
