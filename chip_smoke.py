@@ -33,7 +33,18 @@ Phases, in order; any failure raises and exits non-zero:
    radix-reuse mode over shared-prefix traffic, then mamba2-370m; every
    request must finish, each path's kernels must have launched in its own
    run, the prefix run must attach the cached prefix for at least 16
-   requests and leave only radix tenancy in the pool;
+   requests and leave only radix tenancy in the pool.  Between the prefix
+   run and mamba2, with the same llama2 weights:
+   - replay: ``serving.replay.run_replay`` feeds one 24-request burst
+     through the DES (H100 roofline) and the bucketed engine under FCFS,
+     SJF and EWSJF; FCFS and SJF must dispatch as the DES does, EWSJF
+     within the rank-correlation bound, and greedy tokens that differ
+     between runs must part at a near-tie within the measured bf16 noise
+     of the prefill batch's shape;
+   - fleet: two chunked+radix engines sharing the weights behind
+     ``cluster.EngineFleet`` serve shared-prefix traffic; the router must
+     plan a remote prefix fetch that ships real host KV bytes, which the
+     fetched request attaches;
 5. summary: one call of each kernel's bf16 main case under
    ``torch.profiler`` names the device kernels that ran (the ``variant``
    of its entry); a line of the replaced designs' times as recorded in
@@ -858,6 +869,308 @@ def phase_prefix_serve(params, ops: dict) -> dict:
     return launches
 
 
+def attention_launches(ops: dict) -> dict:
+    """The attention kernels' counts since the last ``reset_counts``."""
+    return {"flash_attention": ops["flash_attention"].KERNEL.launches,
+            "flash_attention_offset":
+                ops["flash_attention"].KERNEL.offset_launches,
+            "paged_attention": ops["paged_attention"].KERNEL.launches}
+
+
+def phase_replay(cfg, params, ops: dict) -> dict:
+    """DES↔engine replay at full width: ``card_trace`` (24 requests at t=0,
+    a quarter of 700-1900 prompt tokens) through the DES (H100 roofline)
+    and the torch engine (``params``, ``card_engine_config``) under FCFS,
+    SJF and EWSJF, each a ``serving.replay.run_replay`` call with the
+    counts set to 0 just before it and read just after.  Each must pass
+    ``replay_ok`` (FCFS and SJF dispatch equal to the DES, EWSJF's rank
+    correlation at least ``TAU_BOUND``), finish 24 of 24 in both executors
+    and launch both attention kernels; where the greedy tokens of a request
+    differ between runs, they must part at a near-tie
+    (``check_tokens_agree``).  Returns the launches by scheduler."""
+    import torch
+    from repro_torch.launch.replay_trace import card_trace, ttft_by_class
+    from repro_torch.launch.serve import card_engine_config
+    from repro_torch.serving.replay import (EXACT_SCHEDULERS, SCHEDULERS,
+                                            TAU_BOUND, replay_ok, run_replay)
+    ecfg = card_engine_config()
+    check(ecfg.kv_pool_tokens >= ecfg.max_slots * ecfg.s_max,
+          "replay pool holds every slot: no pool pressure")
+    trace = card_trace(24, 0, cfg.vocab_size)
+    n_long = sum(r.prompt_len > 128 for r in trace)
+    launches, tokens = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    for name in SCHEDULERS:
+        reset_counts(ops)
+        t0 = time.monotonic()
+        rep = run_replay(trace, name, arch="llama2-13b", ecfg=ecfg,
+                         params=params, cfg=cfg, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches[name] = attention_launches(ops)
+        check(rep["des_finished"] == rep["engine_finished"] == len(trace),
+              f"replay {name}: {len(trace)} of {len(trace)} finished in both "
+              f"executors (DES {rep['des_finished']}, engine "
+              f"{rep['engine_finished']})")
+        if name in EXACT_SCHEDULERS:
+            check(rep["dispatch_match"], f"replay {name}: engine dispatch "
+                  f"{rep['engine_dispatch']} equals the DES's "
+                  f"{rep['des_dispatch']}")
+        else:
+            check(rep["dispatch_tau"] >= TAU_BOUND,
+                  f"replay {name}: dispatch_tau {rep['dispatch_tau']:.3f} "
+                  f">= {TAU_BOUND}")
+        check(replay_ok(rep), f"replay {name}: replay_ok")
+        for path in ("flash_attention", "paged_attention"):
+            check(launches[name][path] > 0,
+                  f"{path} launched in the {name} replay")
+        for r in trace:
+            toks = rep["engine_tokens"][str(r.request_id)]
+            check(len(toks) == r.max_new_tokens
+                  and all(0 <= t < cfg.vocab_size for t in toks),
+                  f"replay {name}: request {r.request_id} generated all its "
+                  f"tokens inside the vocabulary")
+        tokens[name] = rep["engine_tokens"]
+        eng, des = ttft_by_class(rep, trace), ttft_by_class(rep, trace, "des")
+        print(f"[replay] llama2-13b {cfg.n_layers} layers d{cfg.d_model} "
+              f"{str(params.embed.dtype)[6:]} "
+              f"{name}: {rep['engine_finished']} requests ({n_long} long) in "
+              f"{rep['engine_elapsed_s']:.2f} s engine time ({wall:.2f} s "
+              f"with the DES); dispatch {'match' if rep['dispatch_match'] else 'diverge'} "
+              f"dispatch_tau {rep['dispatch_tau']:.3f} ttft_tau "
+              f"{rep['ttft_tau']:.3f}; engine TTFT short mean "
+              f"{eng['short']['mean']:.3f} s p95 {eng['short']['p95']:.3f} s, "
+              f"long mean {eng['long']['mean']:.3f} s p95 "
+              f"{eng['long']['p95']:.3f} s; {rep['engine_tok_per_s']:.1f} "
+              f"tok/s; DES (H100 roofline) mean TTFT short "
+              f"{des['short']['mean']:.4f} s long {des['long']['mean']:.4f} s; "
+              f"launches flash {launches[name]['flash_attention']} paged "
+              f"{launches[name]['paged_attention']}")
+        print(f"[replay]   {name} dispatch engine {rep['engine_dispatch']} "
+              f"DES {rep['des_dispatch']}")
+    check_tokens_agree(cfg, params, trace, tokens)
+    print(f"[replay] peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    return launches
+
+
+def next_token_logits(cfg, params, prompt, pad_to=None, beside=None):
+    """Logits (f32) of the token after ``prompt`` from one prefill of it
+    alone or, with ``pad_to``, as row 0 of a 2-row batch right-padded to
+    ``pad_to`` positions beside ``beside``'s first ``pad_to`` tokens."""
+    import torch
+    from repro_torch.models import DtypePolicy, prefill
+    n = len(prompt)
+    rows = [np.asarray(prompt)]
+    lens = [n]
+    if pad_to is not None:
+        rows = [np.pad(rows[0], (0, pad_to - n)), np.asarray(beside)[:pad_to]]
+        lens.append(pad_to)
+    tokens = torch.tensor(np.stack(rows), dtype=torch.int64, device="cuda")
+    dt = params.embed.dtype
+    logits, _ = prefill(params, {"tokens": tokens}, cfg,
+                        policy=DtypePolicy(dt, dt, torch.float32),
+                        true_lens=torch.tensor(lens, device="cuda"))
+    return logits[0, 0].float()
+
+
+def check_tokens_agree(cfg, params, trace, tokens: dict) -> None:
+    """Greedy tokens of every request under each scheduler against the
+    first scheduler's.  In bf16 a request's logits move with the shape of
+    the prefill batch it rode in (which differs by scheduler), so two runs
+    may part at a near-tie.  The bound is measured here: ``noise`` is the
+    largest difference of any request's first-token logits between a
+    prefill of its prompt alone and one as a row of a batch padded to 2048
+    positions.  Where two runs part, the request's logits after the common
+    tokens (prefilled alone) must hold both tokens within 2·noise of the
+    largest logit, as each run's choice allows; a wrong cache or position
+    would part the runs far from any tie."""
+    from repro_torch.serving.replay import SCHEDULERS
+    longest = max(trace, key=lambda r: r.prompt_len).prompt_tokens
+    pad = 2048
+    noise = 0.0
+    for r in trace:
+        if r.prompt_len < len(longest) and r.prompt_len < pad:
+            a = next_token_logits(cfg, params, r.prompt_tokens)
+            b = next_token_logits(cfg, params, r.prompt_tokens, pad,
+                                  np.resize(longest, pad))
+            noise = max(noise, float((a - b).abs().max()))
+    base = SCHEDULERS[0]
+    parted = 0
+    for name in SCHEDULERS[1:]:
+        for r in trace:
+            ta, tb = tokens[base][str(r.request_id)], tokens[name][str(r.request_id)]
+            if ta == tb:
+                continue
+            parted += 1
+            k = next(i for i in range(len(ta)) if ta[i] != tb[i])
+            seq = np.concatenate([r.prompt_tokens,
+                                  np.asarray(ta[:k], dtype=np.int32)])
+            lg = next_token_logits(cfg, params, seq)
+            margin = float(lg.max() - min(lg[ta[k]], lg[tb[k]]))
+            print(f"[replay]   {base} and {name} part on request "
+                  f"{r.request_id} at token {k}: {ta[k]} against {tb[k]}, "
+                  f"logits alone {float(lg[ta[k]]):.4f} and "
+                  f"{float(lg[tb[k]]):.4f}, largest {float(lg.max()):.4f}")
+            check(margin <= 2 * noise,
+                  f"replay {name}: request {r.request_id} parts from "
+                  f"{base} at a near-tie (margin {margin:.4f} <= 2 x "
+                  f"{noise:.4f})")
+    print(f"[replay] greedy tokens under {', '.join(SCHEDULERS)}: "
+          f"{parted} of {len(trace) * (len(SCHEDULERS) - 1)} request pairs "
+          f"part from {base}'s, each at a near-tie; bf16 first-token logits "
+          f"move by up to {noise:.4f} with the prefill batch's shape")
+
+
+def phase_fleet(cfg, params, ops: dict) -> dict:
+    """Two torch engines in chunked+radix mode (``card_prefix_engine_config``,
+    EWSJF each) sharing the one set of ``params``, behind
+    ``cluster.EngineFleet`` with ``EWSJFRouter``, ``HealthMonitor``, a
+    ``PrefixDirectory`` synced every round and a ``LinkTopology`` at the
+    port's defaults, over ``card_prefix_requests(24)`` (one shared
+    1024-token prefix).  The first request is served alone and its engine
+    advertises the prefix; the other 23 are then routed at once, so the
+    router plans a remote prefix fetch for the other engine, which ships
+    the holder's host KV blocks into that engine's radix.  Counts are set to
+    0 before the first request and read after the last.  Checks: 24 of 24
+    finish, none lost or dispatched twice, both engines dispatched, at
+    least one fetch whose bytes are its blocks × 16 tokens × the KV bytes a
+    token takes, the fetched request attached 1024 cached tokens, clean
+    radix invariants and no pins left on both engines, shared weights, and
+    peak device memory under 75 GiB.  Returns the launches."""
+    import torch
+    from repro_torch.cluster import (EngineFleet, EWSJFRouter, HealthConfig,
+                                     HealthMonitor)
+    from repro_torch.core import CostModel, RequestState
+    from repro_torch.kvplane import (LinkTopology, PrefixDirectory,
+                                     PrefixDirectoryConfig)
+    from repro_torch.launch.serve import (card_prefix_engine_config,
+                                          card_prefix_requests,
+                                          make_scheduler)
+    from repro_torch.models import DtypePolicy
+    from repro_torch.serving import ServingEngine
+    torch.cuda.reset_peak_memory_stats()
+    dt = params.embed.dtype
+    engines = []
+    for eid in range(2):
+        ecfg = card_prefix_engine_config()
+        ecfg.engine_id = eid
+        engines.append(ServingEngine(cfg, params, make_scheduler("ewsjf"),
+                                     ecfg, policy=DtypePolicy(dt, dt,
+                                                              torch.float32),
+                                     device="cuda"))
+    w0, w1 = (e.params.blocks[0].mixer["wq"] for e in engines)
+    check(w0.data_ptr() == w1.data_ptr()
+          and engines[0].params.embed.data_ptr()
+          == engines[1].params.embed.data_ptr(),
+          "both engines share one set of weights")
+    cost = CostModel()
+    fleet = EngineFleet(
+        engines, router=EWSJFRouter(cost=cost), cost=cost,
+        monitor=HealthMonitor(HealthConfig()),
+        directory=PrefixDirectory(PrefixDirectoryConfig(sync_interval=0.0)),
+        topology=LinkTopology())
+    reqs = card_prefix_requests(24, vocab=cfg.vocab_size)
+    warm, rest = reqs[0], reqs[1:]
+    reset_counts(ops)
+    t0 = time.monotonic()
+    fleet.submit(warm)
+    for _ in range(2000):
+        if warm.state == RequestState.FINISHED:
+            break
+        fleet.step()
+    check(warm.state == RequestState.FINISHED,
+          "the first request finished alone")
+    fleet.prefix_sync()
+    holders = fleet.directory.advertised_replicas()
+    check(len(holders) == 1, f"one engine advertises the prefix (got "
+                             f"{sorted(holders)})")
+    fetched = []
+    for r in rest:
+        before = fleet.stats.prefix_fetches
+        fleet.submit(r)
+        if fleet.stats.prefix_fetches > before:
+            fetched.append(r)
+    # the body of EngineFleet.serve, whose end test would count the first
+    # request among these
+    last_health = fleet.now()
+    for _ in range(20000):
+        now = fleet.now()
+        if now - last_health >= fleet.monitor.cfg.check_interval:
+            fleet.health_round(now)
+            last_health = now
+        if fleet.directory.due(now):
+            fleet.prefix_sync(now)
+        fleet.step()
+        if all(r.state == RequestState.FINISHED for r in reqs):
+            break
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = attention_launches(ops)
+    res = fleet.result()
+    fin = fleet.finished()
+    check(sorted(r.request_id for r in fin)
+          == sorted(r.request_id for r in reqs) and res["shed"] == 0,
+          f"all {len(reqs)} fleet requests finished once (finished "
+          f"{res['finished']}, shed {res['shed']})")
+    dispatched = [rid for e in engines for _, rid in e.dispatch_log]
+    preempted = sum(e.preemptions for e in engines)
+    check(len(dispatched) == len(reqs) + preempted
+          and set(dispatched) == {r.request_id for r in reqs},
+          f"no request lost or dispatched twice ({len(dispatched)} "
+          f"dispatches, {preempted} preemptions)")
+    check(all(e.dispatch_log for e in engines), "both engines dispatched")
+    for r in fin:
+        toks = next(e for e in engines
+                    if r in e.finished).output_tokens[r.request_id]
+        check(len(toks) == r.max_new_tokens == r.generated
+              and all(0 <= t < cfg.vocab_size for t in toks),
+              f"fleet request {r.request_id} generated all its tokens")
+    block_bytes = (cfg.n_layers * 2 * cfg.n_kv_heads * cfg.head_dim
+                   * torch.finfo(dt).bits // 8)
+    check(res["prefix_fetches"] >= 1 and fetched,
+          f"the router planned at least one remote prefix fetch (got "
+          f"{res['prefix_fetches']})")
+    check(res["prefix_fetch_bytes"]
+          == res["prefix_fetch_blocks"] * 16 * block_bytes > 0,
+          f"prefix_fetch_bytes {res['prefix_fetch_bytes']} = blocks "
+          f"{res['prefix_fetch_blocks']} x 16 x {block_bytes}")
+    check(all(r.cached_len == 1024 for r in fetched),
+          f"the fetched requests attached 1024 cached tokens (got "
+          f"{[r.cached_len for r in fetched]})")
+    for e in engines:
+        e.radix.check_invariants()
+        check(all(nd.pins == 0 for nd in e.radix._nodes.values()),
+              f"no pins left on engine {e.e.engine_id}")
+    for path in ("flash_attention", "paged_attention",
+                 "flash_attention_offset"):
+        check(launches[path] > 0, f"{path} launched in the fleet")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(peak < 75, f"fleet peak device memory {peak:.1f} GiB < 75")
+    toks = sum(r.generated for r in fin)
+    per = {eid: (st["dispatched"], st["finished"], st["prefix_saved_tokens"])
+           for eid, st in res["engines"].items()}
+    print(f"[fleet] llama2-13b {cfg.n_layers} layers d{cfg.d_model} "
+          f"{str(dt)[6:]}, 2 "
+          f"engines sharing one set of weights (EWSJF each, EWSJFRouter): "
+          f"{len(fin)} requests, {toks} tokens in {wall:.2f} s "
+          f"({toks / wall:.1f} tok/s); per engine (dispatched, finished, "
+          f"prefix_saved_tokens) {per}; holder {sorted(holders)}; "
+          f"prefix fetches {res['prefix_fetches']} of "
+          f"{res['prefix_fetch_blocks']} blocks, {res['prefix_fetch_bytes']} "
+          f"B host KV ({res['prefix_fetch_bytes'] / 1e6:.1f} MB; "
+          f"{block_bytes * 16 / 1e6:.2f} MB a block), exposed "
+          f"{res['prefix_fetch_exposed_s'] * 1e3:.3f} ms on the link model; "
+          f"fetched requests (trace positions) "
+          f"{[reqs.index(r) for r in fetched]} cached_len "
+          f"{[r.cached_len for r in fetched]}; mean TTFT "
+          f"{np.mean([r.ttft for r in fin]):.3f} s; peak device memory "
+          f"{peak:.1f} GiB; launches {launches}")
+    del fleet, engines
+    gc.collect()
+    return launches
+
+
 def main() -> int:
     """Run every phase; return the exit code."""
     import torch
@@ -889,12 +1202,19 @@ def main() -> int:
     ops = {"flash_attention": fa, "paged_attention": pa, "ssd_chunk": so}
     llama, out = phase_serve("llama2-13b", card_engine_config(), ops,
                              ("flash_attention", "paged_attention"))
-    params = out["engine"].params      # the prefix run reuses these weights
+    # the prefix, replay and fleet runs reuse these weights
+    params, cfg = out["engine"].params, out["engine"].cfg
     del out
     gc.collect()
     torch.cuda.empty_cache()
     prefix = phase_prefix_serve(params, ops)
-    del params                         # the weights, engine and store go
+    gc.collect()
+    torch.cuda.empty_cache()
+    replay = phase_replay(cfg, params, ops)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fleet = phase_fleet(cfg, params, ops)
+    del params                         # the weights, engines and stores go
     gc.collect()
     torch.cuda.empty_cache()
     mamba, _ = phase_serve("mamba2-370m", ssm_card_engine_config(), ops,
@@ -905,6 +1225,13 @@ def main() -> int:
     launches = {"flash_attention": llama["flash_attention"],
                 "paged_attention": llama["paged_attention"],
                 "ssd_chunk": mamba["ssd_chunk"]}
+    # and, beside them, from each later path's run
+    by_path = {name: {"serve": launches[name]} for name in launches}
+    for name in ("flash_attention", "paged_attention"):
+        by_path[name]["prefix"] = prefix[name]
+        for sched, counts in replay.items():
+            by_path[name][f"replay_{sched}"] = counts[name]
+        by_path[name]["fleet"] = fleet[name]
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention/kernel.py:88"),
                "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
@@ -920,6 +1247,7 @@ def main() -> int:
                  "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
                  "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                  "library_ms": r["library_ms"]}
+        entry["launches_by_path"] = by_path[name]
         if name in variants:
             entry["variant"] = variants[name]
         if name == "flash_attention":

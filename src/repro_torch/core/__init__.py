@@ -1,15 +1,15 @@
 """EWSJF core — the paper's contribution (adaptive request-level scheduling).
 
-A copy of the JAX package's scheduler stack (pure Python and NumPy), minus
-the discrete-event simulator.  ``CostModel`` defaults to one H100's
-data-sheet peaks.
+A copy of the JAX package's scheduler stack and discrete-event simulator
+(pure Python and NumPy).  ``CostModel`` defaults to one H100's data-sheet
+peaks.
 
 Public API:
     Request, QueueBounds, MetaParams, SchedulerPolicy, BatchPlan
     refine_and_prune, kmeans_partition, PartitionConfig
     EWSJFScheduler, FCFSScheduler, SJFScheduler, make_scheduler
     BayesianMetaOptimizer
-    CostModel
+    CostModel, ServingSimulator, WorkloadSpec
 """
 
 from .batch_builder import BatchBudget, BatchBuilder, DEFAULT_BUCKETS
@@ -24,6 +24,8 @@ from .scheduler import (BaseScheduler, EWSJFConfig, EWSJFScheduler,
                         FCFSScheduler, SJFScheduler, StaticPriorityScheduler,
                         make_scheduler)
 from .scoring import QueueProfile, compute_score, score_decomposition, weights_for_queue
+from .simulator import (EngineParams, ServingSimulator, SimResult,
+                        WorkloadSpec, run_comparison, uniform_workload)
 from .types import (BatchPlan, MetaParams, QueueBounds, QueueSnapshot,
                     Request, RequestState, SchedulerPolicy, SchedulerSnapshot,
                     ScoringWeights, TerminalState)
@@ -40,6 +42,8 @@ __all__ = [
     "BaseScheduler", "EWSJFConfig", "EWSJFScheduler", "FCFSScheduler",
     "SJFScheduler", "StaticPriorityScheduler", "make_scheduler",
     "QueueProfile", "compute_score", "score_decomposition", "weights_for_queue",
+    "EngineParams", "ServingSimulator", "SimResult", "WorkloadSpec",
+    "run_comparison", "uniform_workload",
     "BatchPlan", "MetaParams", "QueueBounds", "QueueSnapshot", "Request",
     "RequestState", "SchedulerPolicy", "SchedulerSnapshot", "ScoringWeights",
     "TerminalState",

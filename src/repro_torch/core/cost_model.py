@@ -25,6 +25,10 @@ from dataclasses import dataclass, field
 # bandwidth).  They are the CostModel defaults, not measurements.
 H100_PEAK_FLOPS_BF16 = 989e12   # FLOP/s per card
 H100_HBM_BW = 3.35e12           # bytes/s per card
+# NVLink 4 between two H100 SXM cards: the data sheet's 900 GB/s is the
+# sum of both directions, so one direction carries 450 GB/s.  The default
+# link rate for KV handoffs and remote prefix fetches.
+H100_NVLINK_BW = 450e9          # bytes/s per direction
 
 
 @dataclass(frozen=True)
@@ -58,15 +62,17 @@ LLAMA2_13B_COST = ModelCostParams(
 class CostModel:
     """Roofline cost model over one chip-group (``n_chips`` tensor-parallel).
 
-    ``peak_flops`` (FLOP/s) and ``hbm_bw`` (bytes/s) are per-chip peaks;
-    the defaults are one H100 SXM's data-sheet figures.  Pass other values
-    to model another part (the scheduler parity tests pass the JAX
+    ``peak_flops`` (FLOP/s) and ``hbm_bw`` (bytes/s) are per-chip peaks
+    and ``link_bw`` (bytes/s) the rate of one directed link between two
+    replicas; the defaults are one H100 SXM's data-sheet figures.  Pass
+    other values to model another part (the parity tests pass the JAX
     package's constants to reproduce its decisions)."""
 
     model: ModelCostParams = LLAMA2_13B_COST
     n_chips: int = 1
     peak_flops: float = H100_PEAK_FLOPS_BF16
     hbm_bw: float = H100_HBM_BW
+    link_bw: float = H100_NVLINK_BW
     mfu: float = 0.5             # achievable fraction of peak on prefill
     hbm_eff: float = 0.8
 
@@ -224,6 +230,7 @@ class CalibratedCostModel(CostModel):
         correction (``CostCalibrator.correction()`` output)."""
         return cls(model=base.model, n_chips=base.n_chips,
                    peak_flops=base.peak_flops, hbm_bw=base.hbm_bw,
+                   link_bw=base.link_bw,
                    mfu=base.mfu, hbm_eff=base.hbm_eff,
                    correction=dict(correction))
 

@@ -461,3 +461,77 @@ def test_ssm_engine_kernel_path_matches_cpu_run(cuda):
             assert ssd_ops.KERNEL.launches > ssd0
         outs[str(dev)] = eng.output_tokens
     assert outs["cpu"] == outs["cuda"]
+
+
+def test_two_engine_fleet_on_card_matches_cpu_run(cuda):
+    """Two chunked + radix engines of the small model, sharing one set of
+    weights behind ``EngineFleet`` (EWSJF router, prefix directory, link
+    topology), serve one shared-prefix burst on the card and on the CPU in
+    f32: the same dispatch log on each engine and the same greedy
+    tokens, with both attention kernels launched on the card."""
+    from repro_torch.cluster import EngineFleet, HealthMonitor
+    from repro_torch.core import CostModel
+    from repro_torch.kvplane import (LinkTopology, PrefixDirectory,
+                                     PrefixDirectoryConfig)
+    cfg = _small_cfg()
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    pol = DtypePolicy(torch.float32, torch.float32, torch.float32)
+    rng = np.random.default_rng(6)
+    prefix = rng.integers(0, 512, size=(64,)).astype(np.int32)
+    specs = [(np.concatenate([prefix if i % 2 else
+                              rng.integers(0, 512, size=(64,)).astype(np.int32),
+                              rng.integers(0, 512, size=(int(n),))
+                              .astype(np.int32)]), int(m))
+             for i, (n, m) in enumerate(zip(rng.integers(5, 60, 12),
+                                            rng.integers(2, 8, 12)))]
+    logs, outs = {}, {}
+    for dev in ("cpu", cuda):
+        p = params.to(dev)
+        engines = [ServingEngine(cfg, p, FCFSScheduler(),
+                                 EngineConfig(max_slots=4, s_max=256,
+                                              kv_pool_tokens=4096,
+                                              chunk_prefill_tokens=48,
+                                              enable_prefix_cache=True,
+                                              engine_id=i),
+                                 policy=pol, device=dev) for i in range(2)]
+        fleet = EngineFleet(
+            engines, cost=CostModel(), monitor=HealthMonitor(),
+            directory=PrefixDirectory(PrefixDirectoryConfig(
+                sync_interval=0.0)),
+            topology=LinkTopology(), calibrated_routing=False)
+        reqs = [Request(prompt_len=len(t), arrival_time=0.0,
+                        max_new_tokens=m, prompt_tokens=t.copy(),
+                        request_id=95_000 + i)
+                for i, (t, m) in enumerate(specs)]
+        flash0, paged0 = flash_ops.KERNEL.launches, paged_ops.KERNEL.launches
+        res = fleet.serve(reqs, max_ticks=4000)
+        assert res["finished"] == len(reqs)
+        if dev == cuda:
+            assert flash_ops.KERNEL.launches > flash0
+            assert paged_ops.KERNEL.launches > paged0
+        for e in engines:
+            e.radix.check_invariants()
+        logs[str(dev)] = [rep.dispatch_order() for rep in fleet.replicas]
+        outs[str(dev)] = {rid: t for e in engines
+                          for rid, t in e.output_tokens.items()}
+    assert all(logs["cuda"])
+    assert logs["cpu"] == logs["cuda"]
+    assert outs["cpu"] == outs["cuda"]
+
+
+def test_replay_suite_on_card(cuda):
+    """``run_suite`` at smoke size (the small model) on the card: every
+    scheduler within its
+    bound (FCFS and SJF dispatch equal to the DES, EWSJF's rank
+    correlation at least TAU_BOUND), every request finished in both
+    executors, both attention kernels launched."""
+    from repro_torch.serving.replay import replay_ok, run_suite
+    flash0, paged0 = flash_ops.KERNEL.launches, paged_ops.KERNEL.launches
+    # the llama2 smoke config's head_dim of 16 is below the kernels' 64
+    suite = run_suite(n=12, seed=0, cfg=_small_cfg(), device=cuda)
+    assert flash_ops.KERNEL.launches > flash0
+    assert paged_ops.KERNEL.launches > paged0
+    for rep in suite["reports"]:
+        assert replay_ok(rep), (rep["scheduler"], rep["dispatch_tau"])
+        assert rep["engine_finished"] == rep["n_requests"] == 12
+    assert suite["ok"]

@@ -298,3 +298,45 @@ def test_engine_slo_report_one_code_path(weights):
     rep = eng2.slo_report()
     assert rep and rep["_all"]["ttft"]["n"] == 4
     assert eng2.stats()["slo"] == rep
+
+
+# ---- HealthMonitor: engine heartbeats (the twin of tests/test_engine_obs.py) ----
+
+def test_heartbeat_folds_into_kv_view_and_liveness():
+    from repro.cluster import HealthConfig as JaxHealthConfig
+    from repro.cluster import HealthMonitor as JaxHealthMonitor
+    from repro_torch.cluster import HealthConfig, HealthMonitor
+    monitors = (HealthMonitor(HealthConfig(heartbeat_timeout=5.0,
+                                           kv_alpha=0.5)),
+                JaxHealthMonitor(JaxHealthConfig(heartbeat_timeout=5.0,
+                                                 kv_alpha=0.5)))
+    for hm in monitors:
+        hm.observe_engine_heartbeat(
+            {"engine_id": 3, "t": 1.0, "kv_occupancy": 0.4})
+        hm.observe_engine_heartbeat(
+            {"engine_id": 3, "t": 2.0, "kv_occupancy": 0.8})
+        assert hm.kv_ewma[3] == pytest.approx(0.6)     # 0.4 then EWMA to 0.6
+        assert hm.kv_peak[3] == pytest.approx(0.8)
+        assert hm.engine_alive(3, 6.9)
+        assert not hm.engine_alive(3, 7.1)
+        assert not hm.engine_alive(99, 2.0)            # never reported
+        assert hm.engine_beacon[3]["kv_occupancy"] == 0.8
+    port, ref = monitors
+    assert (port.kv_ewma, port.kv_peak, port.engine_beacon) == \
+        (ref.kv_ewma, ref.kv_peak, ref.engine_beacon)
+
+
+def test_port_engine_beacon_keeps_its_engine_alive(weights):
+    """A port engine's own heartbeat, folded at its clock, keeps it alive
+    for the monitor's timeout and carries its pool occupancy."""
+    from repro_torch.cluster import HealthConfig, HealthMonitor
+    eng = _engine(weights, Observability.enabled(), chunk=32)
+    eng.e.engine_id = 7
+    eng.run(_requests(tcore, weights[1].vocab_size, n=2, seed=6),
+            max_steps=4000)
+    hm = HealthMonitor(HealthConfig(heartbeat_timeout=2.0, kv_alpha=1.0))
+    hb = eng.heartbeat()
+    hm.observe_engine_heartbeat(hb, now=hb["t"])
+    assert hm.engine_alive(7, hb["t"] + 1.9)
+    assert not hm.engine_alive(7, hb["t"] + 2.1)
+    assert hm.kv_ewma[7] == pytest.approx(eng.pool.utilization)
