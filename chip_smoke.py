@@ -21,7 +21,11 @@ Phases, in order; any failure raises and exits non-zero:
    Times kernel (graph and eager timers), plain version, the least time the
    card could take (bound) and, for attention,
    ``torch.nn.functional.scaled_dot_product_attention`` (a yardstick only:
-   the port never calls it; no single PyTorch call computes SSD);
+   the port never calls it; no single PyTorch call computes SSD); both
+   attention kernels also at deepseek-v2-lite's MLA shapes (prefill in MHA
+   form with keys of 192 and values of 128, H = K = 16; absorbed decode over
+   8 slots of 2048 latent rows, keys of 576 and values the view of their
+   first 512 columns, one KV head and 16 query heads);
 3. parity: llama2-13b and mamba2-370m at full width and 2 layers, in f32 —
    one prefill and a few greedy decode steps through the kernels and
    through the plain versions must give the same tokens and close logits,
@@ -45,6 +49,13 @@ Phases, in order; any failure raises and exits non-zero:
      ``cluster.EngineFleet`` serve shared-prefix traffic; the router must
      plan a remote prefix fetch that ships real host KV bytes, which the
      fetched request attaches;
+   then, with llama2-13b's weights freed, deepseek-v2-lite-16b: a
+   full-width 2-layer f32 parity (the dense head block and one MoE block)
+   of the card's kernels against the CPU's plain versions, whose greedy
+   tokens may part only at a measured router or logit near-tie, and the
+   full-width bf16 serve of the same 24 requests under EWSJF (MLA prefill
+   through flash, absorbed decode through paged attention, MoE experts by
+   capacity dispatch), with peak device memory under 75 GiB;
 5. summary: one call of each kernel's bf16 main case under
    ``torch.profiler`` names the device kernels that ran (the ``variant``
    of its entry); a line of the replaced designs' times as recorded in
@@ -182,29 +193,31 @@ def phase_setup(kbuild) -> None:
 
 
 def flash_case(fa, B, S, H, K, hd, dtype, causal, window, seed, q_offset=0,
-               T=None, kv_len=None):
+               T=None, kv_len=None, hd_v=None, scale=None):
     """One flash-attention comparison: S queries at ``q_offset`` against the
-    first ``kv_len`` keys (default all) of (B, T, K, hd) keys and values (T
-    defaults to S); rows past ``kv_len`` hold NaN, which must never be read.
-    Returns (max_abs_err, worst |d| / (atol + rtol·|ref|) against the tiled
-    plain version (bf16; None for f32), kernel_ms, eager kernel_ms,
-    plain_ms, library_ms, the kernel call)."""
+    first ``kv_len`` keys (default all) of (B, T, K, hd) keys and (B, T, K,
+    hd_v) values (T defaults to S, hd_v to hd); rows past ``kv_len`` hold
+    NaN, which must never be read.  Returns (max_abs_err, worst |d| / (atol
+    + rtol·|ref|) against the tiled plain version (bf16; None for f32),
+    kernel_ms, eager kernel_ms, plain_ms, library_ms, the kernel call)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_tiled_ref)
     T = S if T is None else T
     kv_len = T if kv_len is None else kv_len
+    hd_v = hd if hd_v is None else hd_v
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
     q = torch.randn((B, S, H, hd), generator=g, device="cuda").to(dtype)
     k = torch.randn((B, T, K, hd), generator=g, device="cuda").to(dtype)
-    v = torch.randn((B, T, K, hd), generator=g, device="cuda").to(dtype)
+    v = torch.randn((B, T, K, hd_v), generator=g, device="cuda").to(dtype)
     k[:, kv_len:] = float("nan")
     v[:, kv_len:] = float("nan")
-    kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
-    what = (f"flash {dtype} B{B} S{S} H{H} K{K} w{window} q_offset{q_offset} "
-            f"kv_len{kv_len}")
+    kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len,
+              scale=scale)
+    what = (f"flash {dtype} B{B} S{S} H{H} K{K} hd{hd}/{hd_v} w{window} "
+            f"q_offset{q_offset} kv_len{kv_len}")
     out = fa.flash_attention(q, k, v, **kw)
     ref = fa.flash_attention(q, k, v, impl="plain", **kw)
     torch.cuda.synchronize()
@@ -238,42 +251,48 @@ def flash_case(fa, B, S, H, K, hd, dtype, causal, window, seed, q_offset=0,
             mask &= kpos > pos - window
     lms = time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
-        enable_gqa=H != K))
+        enable_gqa=H != K, scale=scale))
     return err, tiled, kms, ems, pms, lms, call
 
 
 def flash_bound(B, S, H, K, hd, elem, causal, window, peak, q_offset=0,
-                kv_len=None):
+                kv_len=None, hd_v=None):
     """Least time (ms) for the work, and what bounds it: matmul FLOPs over
     the visible (query, key) pairs (query s at position ``q_offset + s``,
     the first ``kv_len`` keys, default S) vs q and out, and the visible k
-    and v, moved once."""
+    and v, moved once (values of ``hd_v``, default hd)."""
     kv_len = S if kv_len is None else kv_len
+    hd_v = hd if hd_v is None else hd_v
     pairs = 0
     for s in range(S):
         a = q_offset + s
         lo = max(0, a - window + 1) if window else 0
         hi = min(a + 1, kv_len) if causal else kv_len
         pairs += hi - lo
-    flops = 4.0 * B * H * hd * pairs
-    nbytes = elem * (2 * B * S * H * hd + 2 * B * kv_len * K * hd)
+    flops = 2.0 * B * H * (hd + hd_v) * pairs
+    nbytes = elem * (B * S * H * (hd + hd_v) + B * kv_len * K * (hd + hd_v))
     t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
 
 def paged_case(pa, B, H, K, hd, page, s_max, dtype, seed, shuffle,
-               lens=None):
+               lens=None, hd_v=None, scale=None):
     """One paged-attention comparison over a slot cache viewed as pages,
-    at ``lens`` or at random lengths; returns (err, kernel_ms, eager
-    kernel_ms, plain_ms, library_ms, seq_lens, the kernel call)."""
+    at ``lens`` or at random lengths; with ``hd_v`` (MLA) the values are
+    the view of the key rows' first hd_v columns.  Returns (err, kernel_ms,
+    eager kernel_ms, plain_ms, library_ms, seq_lens, the kernel call)."""
     import torch
     import torch.nn.functional as F
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
     pages = s_max // page
     kc = torch.randn((B, s_max, K, hd), generator=g, device="cuda").to(dtype)
-    vc = torch.randn((B, s_max, K, hd), generator=g, device="cuda").to(dtype)
+    if hd_v is None:
+        vc = torch.randn((B, s_max, K, hd), generator=g,
+                         device="cuda").to(dtype)
+    else:
+        vc = kc[..., :hd_v]
     q = torch.randn((B, H, hd), generator=g, device="cuda").to(dtype)
     rng = np.random.default_rng(seed)
     if lens is None:
@@ -285,21 +304,25 @@ def paged_case(pa, B, H, K, hd, page, s_max, dtype, seed, shuffle,
         table = rng.permutation(B * pages).astype(np.int32).reshape(B, pages)
     table = torch.tensor(table, device="cuda")
     kp = kc.view(B * pages, page, K, hd)
-    vp = vc.view(B * pages, page, K, hd)
-    out = pa.paged_attention(q, kp, vp, table, seq_lens)
-    ref = pa.paged_attention(q, kp, vp, table, seq_lens, impl="plain")
+    vp = (vc.view(B * pages, page, K, hd) if hd_v is None
+          else kp[..., :hd_v])
+    out = pa.paged_attention(q, kp, vp, table, seq_lens, scale=scale)
+    ref = pa.paged_attention(q, kp, vp, table, seq_lens, scale=scale,
+                             impl="plain")
     torch.cuda.synchronize()
     err = max_err(out, ref)
     check(bool(torch.isfinite(out.float()).all()), "paged output finite")
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
-    check(err <= tol, f"paged {dtype} shuffle={shuffle} err {err:.3g} <= {tol}")
+    check(err <= tol, f"paged {dtype} hd{hd}/{hd_v or hd} shuffle={shuffle} "
+                      f"err {err:.3g} <= {tol}")
 
     def call():
-        return pa.paged_attention(q, kp, vp, table, seq_lens)
+        return pa.paged_attention(q, kp, vp, table, seq_lens, scale=scale)
     kms = time_ms(call)
     ems = time_ms(call, graph=False)
     pms = time_ms(lambda: pa.paged_attention(q, kp, vp, table, seq_lens,
-                                             impl="plain"), iters=5, warmup=1)
+                                             scale=scale, impl="plain"),
+                  iters=5, warmup=1)
     lms = None
     if not shuffle:     # identity table: the pool is the contiguous cache
         mask = (torch.arange(s_max, device="cuda")[None]
@@ -307,20 +330,25 @@ def paged_case(pa, B, H, K, hd, page, s_max, dtype, seed, shuffle,
         qt = q[:, :, None, :]
         kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
         lms = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=H != K))
+            qt, kt, vt, attn_mask=mask, enable_gqa=H != K, scale=scale))
     return err, kms, ems, pms, lms, lens, call
 
 
-def paged_bound(B, H, K, hd, elem, lens):
-    """Least time (ms): the K/V bytes of the tokens each sequence holds, q
-    and out, and the 16-token pages' table entries, over HBM bandwidth
-    (decode is bytes-bound: 4·H·hd FLOPs per token is far below the
-    ridge)."""
+def paged_bound(B, H, K, hd, elem, lens, hd_v=None, peak=BF16_PEAK_FLOPS):
+    """Least time (ms): the K/V bytes of the tokens each sequence holds
+    (with ``hd_v``, MLA, each row once: the values are its first hd_v
+    columns), q and out, and the 16-token pages' table entries, over HBM
+    bandwidth, against the FLOPs over ``peak``."""
     tokens = int(np.sum(lens))
     pages = int(np.sum(-(-np.asarray(lens) // 16)))
-    nbytes = elem * (2 * tokens * K * hd + 2 * B * H * hd) + 4 * (pages + B)
-    flops = 4.0 * tokens * H * hd
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_PEAK_FLOPS
+    if hd_v is None:
+        nbytes = elem * (2 * tokens * K * hd + 2 * B * H * hd)
+        flops = 4.0 * tokens * H * hd
+    else:
+        nbytes = elem * (tokens * K * hd + B * H * (hd + hd_v))
+        flops = 2.0 * tokens * H * (hd + hd_v)
+    nbytes += 4 * (pages + B)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -557,7 +585,79 @@ def phase_kernels(fa, pa) -> tuple:
                                            library_ms=lms,
                                            bound_ms=bms, bound_by=by)
             calls["paged_attention"] = call
+    phase_kernels_mla(fa, pa, rows, calls)
     return rows, calls
+
+
+def phase_kernels_mla(fa, pa, rows: dict, calls: dict) -> None:
+    """Both attention kernels at deepseek-v2-lite's MLA shapes, against
+    their plain versions: prefill folded into MHA form (H = K = 16, q/k of
+    128 + 64 rope = 192, v of 128, scale 192^-0.5) at the serve's buckets,
+    and absorbed decode over 8 slots of 2048 latent rows (one KV head of
+    576 = 512 + 64, values the view of the rows' first 512 columns, G =
+    16).  Adds the main cases' rows and calls under ``*_mla``."""
+    import torch
+    H, dk, dv, scale = 16, 192, 128, 192 ** -0.5
+    cases = [  # B, S, dtype
+        (2, 1024, torch.bfloat16),      # main MLA prefill case
+        (2, 1024, torch.float32),
+        (8, 128, torch.bfloat16),       # short bucket
+        (2, 2048, torch.bfloat16),      # longest bucket
+        (2, 1000, torch.float32),       # ragged S
+    ]
+    for i, (B, S, dt) in enumerate(cases):
+        err, tiled, kms, ems, pms, lms, call = flash_case(
+            fa, B, S, H, H, dk, dt, True, 0, seed=60 + i, hd_v=dv,
+            scale=scale)
+        elem = 2 if dt == torch.bfloat16 else 4
+        peak = BF16_PEAK_FLOPS if dt == torch.bfloat16 else F32_PEAK_FLOPS
+        bms, by = flash_bound(B, S, H, H, dk, elem, True, 0, peak, hd_v=dv)
+        vs_tiled = (f" worst |d| / ({TILED_ATOL} + {TILED_RTOL}·|tiled|) "
+                    f"{tiled:.3g}" if tiled is not None else "")
+        print(f"[kernels] flash MLA B{B} S{S} H=K={H} dk{dk} dv{dv} "
+              f"{str(dt)[6:]} causal: max_abs_err {err:.3g}{vs_tiled} kernel "
+              f"{kms:.4f} ms (eager timer {ems:.4f} ms) plain {pms:.4f} ms "
+              f"sdpa {lms:.4f} ms bound {bms:.4f} ms ({by}); kernel / sdpa "
+              f"{kms / lms:.2f} (graph timer both)")
+        if i == 0:
+            rows["flash_attention_mla"] = dict(
+                max_abs_err=err, ms=kms, eager_ms=ems, plain_ms=pms,
+                library_ms=lms, bound_ms=bms, bound_by=by,
+                case=f"B={B}, S={S}, H=K={H}, dk={dk}, dv={dv}, causal, "
+                     f"scale 192^-0.5, bf16")
+            calls["flash_attention_mla"] = call
+    dk, dv = pa.MLA_DIMS
+    B, K, page, s_max = 8, 1, 16, 2048
+    n_split = pa.mla_split_count(s_max // page, page)
+    pcases = [(torch.bfloat16, False, None), (torch.float32, False, None),
+              (torch.bfloat16, True, None),
+              (torch.bfloat16, False, LONG_AMONG_SHORT),
+              (torch.float32, False, LONG_AMONG_SHORT)]
+    for i, (dt, shuffle, lens) in enumerate(pcases):
+        err, kms, ems, pms, lms, lens, call = paged_case(
+            pa, B, H, K, dk, page, s_max, dt, seed=70 + i, shuffle=shuffle,
+            lens=lens, hd_v=dv, scale=scale)
+        elem = 2 if dt == torch.bfloat16 else 4
+        peak = BF16_PEAK_FLOPS if dt == torch.bfloat16 else F32_PEAK_FLOPS
+        bms, by = paged_bound(B, H, K, dk, elem, lens, hd_v=dv, peak=peak)
+        lib = f"{lms:.4f} ms" if lms is not None else "n/a"
+        ratio = (f"; kernel / sdpa {kms / lms:.2f} (graph timer both)"
+                 if lms is not None else "")
+        print(f"[kernels] paged MLA B{B} H{H} K{K} dk{dk} dv{dv} (values a "
+              f"view of the key rows) page{page} s_max{s_max} {str(dt)[6:]} "
+              f"shuffled={shuffle} lens={lens.tolist()} tokens="
+              f"{int(lens.sum())} ({n_split} partitions of "
+              f"{pa.MLA_PARTITION} tokens): max_abs_err {err:.3g} kernel "
+              f"{kms:.4f} ms (eager timer {ems:.4f} ms) plain {pms:.4f} ms "
+              f"sdpa {lib} bound {bms:.4f} ms ({by}){ratio}")
+        if i == 0:
+            rows["paged_attention_mla"] = dict(
+                max_abs_err=err, ms=kms, eager_ms=ems, plain_ms=pms,
+                library_ms=lms, bound_ms=bms, bound_by=by,
+                case=f"B={B} slots of {s_max}, lens={lens.tolist()}, H={H}, "
+                     f"K={K}, dk={dk}, dv={dv} (a view of the key rows), "
+                     f"page {page}, scale 192^-0.5, bf16")
+            calls["paged_attention_mla"] = call
 
 
 def phase_variants(calls: dict) -> dict:
@@ -567,7 +667,10 @@ def phase_variants(calls: dict) -> dict:
     kernels and nothing else."""
     want = {"flash_attention": ("flash_fwd_mma_kernel",),
             "flash_attention_offset": ("flash_fwd_mma_kernel",),
+            "flash_attention_mla": ("flash_fwd_mma_kernel",),
             "paged_attention": ("paged_split_kernel", "paged_merge_kernel"),
+            "paged_attention_mla": ("paged_mla_split_kernel",
+                                    "paged_merge_kernel"),
             "ssd_chunk": ("ssd_chunk_y_mma_kernel",
                           "ssd_chunk_state_mma_kernel")}
     variants = {}
@@ -738,6 +841,131 @@ def phase_parity_mamba2() -> None:
     check(all(bool(torch.isfinite(x).all()) for x in lk), "finite logits")
 
 
+def phase_parity_deepseek(ops: dict) -> None:
+    """deepseek-v2-lite at full width and 2 layers (the dense head block and
+    one MoE block, 64 experts top-6 plus 2 shared), f32: one prefill of two
+    512-token rows and 4 decode steps (row 1 decoding from position 400),
+    on the card through the kernels (flash at dk 192 / dv 128, paged at dk
+    576 / dv 512) and on the CPU through the plain versions, both fed the
+    CPU run's greedy tokens.  The router's choices are recorded on both.
+    Greedy tokens must be equal, and logits within 1e-3, except where the
+    parting is explained by a measured near-tie: a token whose expert set
+    differs must have a CPU gap between its 6th and 7th router
+    probabilities within twice the largest router-probability difference
+    of the two runs, and a row whose greedy token differs without such a
+    flip must hold both tokens within twice the largest logit difference
+    of the rows without one."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import (DtypePolicy, decode_step,
+                                    init_decode_caches, init_params, prefill)
+    from repro_torch.models import moe as moe_mod
+    cfg = get_config("deepseek-v2-lite-16b").scaled(n_layers=2)
+    check(cfg.first_dense_layers == 1 and cfg.n_experts == 64,
+          "two layers: the dense head block and one MoE block")
+    cpu_params = init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu", dtype=torch.float32)
+    pol = DtypePolicy(torch.float32, torch.float32, torch.float32)
+    rng = np.random.default_rng(3)
+    B, S, s_max, steps = 2, 512, 1024, 4
+    prompt = torch.tensor(rng.integers(0, cfg.vocab_size, (B, S)))
+    k = cfg.moe_top_k
+    orig_route = moe_mod._route
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        params = cpu_params if dev == "cpu" else cpu_params.to(dev)
+        routes = []
+
+        def recording(x2d, router, top_k, _routes=routes):
+            gates, idx, probs = orig_route(x2d, router, top_k)
+            _routes.append((idx.cpu(), probs.cpu()))
+            return gates, idx, probs
+        moe_mod._route = recording
+        f0 = ops["flash_attention"].KERNEL.launches
+        p0 = ops["paged_attention"].KERNEL.launches
+        try:
+            logits, pc = prefill(params, {"tokens": prompt.to(dev)}, cfg,
+                                 policy=pol)
+            caches = init_decode_caches(cfg, B, s_max, dtype=torch.float32,
+                                        device=dev)
+            for dst, src in zip(caches, pc):
+                dst["ckv"][:, :S].copy_(src["ckv"])
+            pos = np.array([S, 400], dtype=np.int32)
+            all_logits = [logits.cpu()]
+            feed = (runs["cpu"]["tokens"] if dev == "cuda" else None)
+            toks = [logits.argmax(-1).cpu()]
+            for step in range(steps):
+                tok = (feed[step] if feed is not None else toks[-1])
+                logits, caches = decode_step(params, tok.to(dev).to(torch.int32),
+                                             caches, pos, cfg, policy=pol)
+                all_logits.append(logits.cpu())
+                toks.append(logits.argmax(-1).cpu())
+                pos = pos + 1
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                check(ops["flash_attention"].KERNEL.launches > f0
+                      and ops["paged_attention"].KERNEL.launches > p0,
+                      "deepseek parity ran flash and paged on the card")
+        finally:
+            moe_mod._route = orig_route
+        runs[dev] = {"logits": all_logits, "tokens": toks, "routes": routes}
+        del params, caches, pc
+    cpu, gpu = runs["cpu"], runs["cuda"]
+    check(len(cpu["routes"]) == len(gpu["routes"]) == 1 + steps,
+          "one MoE layer routed in every call")
+    # router: every token whose expert set differs must sit at a near-tie
+    p_noise = max(float((pc_ - pg).abs().max()) for (_, pc_), (_, pg)
+                  in zip(cpu["routes"], gpu["routes"]))
+    flips = []                                    # (call, token)
+    for call, ((ic, pc_), (ig, _)) in enumerate(zip(cpu["routes"],
+                                                     gpu["routes"])):
+        differ = (ic.sort(-1).values != ig.sort(-1).values).any(-1)
+        for t in differ.nonzero().flatten().tolist():
+            top = pc_[t].topk(k + 1).values
+            gap = float(top[k - 1] - top[k])
+            flips.append((call, t))
+            print(f"[parity]   deepseek router flip: call {call} token {t}, "
+                  f"CPU gap between choice {k} and {k + 1} {gap:.3g} "
+                  f"(router noise {p_noise:.3g})")
+            check(gap <= 2 * p_noise, f"router flip at call {call} token {t} "
+                                      f"sits at a near-tie ({gap:.3g} <= "
+                                      f"2 x {p_noise:.3g})")
+    # logits: row b of call c reads router token b·S + S - 1 (prefill) or b
+    def flipped(c, b):
+        return (c, b * S + S - 1 if c == 0 else b) in flips
+    clean = [float((lc[b] - lg[b]).abs().max())
+             for c, (lc, lg) in enumerate(zip(cpu["logits"], gpu["logits"]))
+             for b in range(B) if not flipped(c, b)]
+    l_noise = max(clean) if clean else 0.0
+    parted = 0
+    for c, (lc, lg) in enumerate(zip(cpu["logits"], gpu["logits"])):
+        for b in range(B):
+            tc, tg = int(lc[b, 0].argmax()), int(lg[b, 0].argmax())
+            if tc == tg or flipped(c, b):
+                continue
+            parted += 1
+            margin = float(lc[b, 0].max() - lc[b, 0, tg])
+            print(f"[parity]   deepseek call {c} row {b}: CPU token {tc}, "
+                  f"card token {tg}, CPU logit margin {margin:.4g}")
+            check(margin <= 2 * l_noise, f"deepseek tokens part at a logit "
+                                         f"near-tie ({margin:.4g} <= 2 x "
+                                         f"{l_noise:.4g})")
+    cpu_tok = torch.cat(cpu["tokens"], dim=1).tolist()
+    gpu_tok = torch.cat(gpu["tokens"], dim=1).tolist()
+    print(f"[parity] deepseek-v2-lite full width, 2 layers (dense + MoE "
+          f"64e top-6), f32, card (kernels) vs CPU (plain versions): tokens "
+          f"card {gpu_tok} CPU {cpu_tok}; max logit diff {l_noise:.3g} over "
+          f"rows without a router flip; router probability noise "
+          f"{p_noise:.3g}; router flips {len(flips)}; tokens parted at a "
+          f"near-tie {parted}")
+    check(l_noise <= 1e-3, f"deepseek parity logits within 1e-3 (got "
+                           f"{l_noise:.3g})")
+    check(all(bool(torch.isfinite(x).all()) for x in gpu["logits"]),
+          "finite logits")
+    if not flips and not parted:
+        check(cpu_tok == gpu_tok, "card and CPU greedy tokens equal")
+
+
 def reset_counts(ops: dict) -> None:
     """Set every kernel's launch counts to 0."""
     for mod in ops.values():
@@ -745,11 +973,13 @@ def reset_counts(ops: dict) -> None:
     ops["flash_attention"].KERNEL.offset_launches = 0
 
 
-def phase_serve(arch: str, ecfg, ops: dict, path: tuple) -> tuple:
+def phase_serve(arch: str, ecfg, ops: dict, path: tuple,
+                max_peak_gib: float | None = None) -> tuple:
     """``arch`` at full width and depth, bf16, EWSJF, on the card.  Every
     kernel count is set to 0 just before the run and read just after; the
-    kernels in ``path`` must have launched.  Returns (the launches, the
-    serve's result)."""
+    kernels in ``path`` must have launched, and the peak device memory of
+    the run (weights included) must stay under ``max_peak_gib`` when given.
+    Returns (the launches, the serve's result)."""
     import torch
     from repro_torch.launch.serve import card_requests
     from repro_torch.serving.api import serve
@@ -787,6 +1017,10 @@ def phase_serve(arch: str, ecfg, ops: dict, path: tuple) -> tuple:
           f"{st['padding_waste']:.3f} preemptions {st['preemptions']}; peak "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
           f"launches {launches}")
+    if max_peak_gib is not None:
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(peak < max_peak_gib, f"{arch} serve peak device memory "
+                                   f"{peak:.1f} GiB < {max_peak_gib}")
     return launches, out
 
 
@@ -1189,7 +1423,8 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.paged_attention import ops as pa
     from repro_torch.kernels.ssd_scan import ops as so
-    from repro_torch.launch.serve import (card_engine_config,
+    from repro_torch.launch.serve import (CARD_ENGINE_CONFIGS,
+                                          card_engine_config,
                                           ssm_card_engine_config)
 
     t_start = time.monotonic()
@@ -1217,6 +1452,18 @@ def main() -> int:
     del params                         # the weights, engines and stores go
     gc.collect()
     torch.cuda.empty_cache()
+    # deepseek-v2-lite only once llama2-13b's weights and caches are gone
+    phase_parity_deepseek(ops)
+    gc.collect()
+    torch.cuda.empty_cache()
+    deepseek, out = phase_serve("deepseek-v2-lite-16b",
+                                CARD_ENGINE_CONFIGS["deepseek-v2-lite-16b"](),
+                                ops,
+                                ("flash_attention", "paged_attention"),
+                                max_peak_gib=75)
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
     mamba, _ = phase_serve("mamba2-370m", ssm_card_engine_config(), ops,
                            ("ssd_chunk",))
     # after every timed phase: the profiler runs in this process only here
@@ -1232,6 +1479,7 @@ def main() -> int:
         for sched, counts in replay.items():
             by_path[name][f"replay_{sched}"] = counts[name]
         by_path[name]["fleet"] = fleet[name]
+        by_path[name]["deepseek"] = deepseek[name]
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention/kernel.py:88"),
                "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
@@ -1260,6 +1508,14 @@ def main() -> int:
                 "plain_ms": o["plain_ms"], "bound_ms": o["bound_ms"],
                 "bound_by": o["bound_by"], "library_ms": o["library_ms"],
                 "variant": variants["flash_attention_offset"]}
+        if f"{name}_mla" in rows:
+            o = rows[f"{name}_mla"]
+            entry["mla_case"] = {
+                "case": o["case"], "launches": deepseek[name],
+                "max_abs_err": o["max_abs_err"], "ms": o["ms"],
+                "plain_ms": o["plain_ms"], "bound_ms": o["bound_ms"],
+                "bound_by": o["bound_by"], "library_ms": o["library_ms"],
+                "variant": variants[f"{name}_mla"]}
         kernels.append(entry)
     print(f"[summary] all phases passed in {time.monotonic() - t_start:.1f} s")
     print("[summary] recorded, not measured in this run: main-case ms of "

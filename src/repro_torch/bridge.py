@@ -8,7 +8,11 @@ entry per layer, in layer order.  These functions convert both ways for the
 parameters (``repro.models.model.init_params`` layout), the decode caches
 (``repro.models.transformer.init_stack_cache`` layout) and the engines'
 radix KV blocks (a cache tree whose batch and sequence axes are replaced by
-a block's rows).
+a block's rows).  An MoE layer's shared experts stay under the ``"shared"``
+key of its ``mlp`` on the JAX side and sit in the port block's ``shared``;
+an MLA layer's ``{"latent", "k_rope"}`` cache pair is the port's one
+``{"ckv"}`` tensor, the two joined along the last axis under a KV-head axis
+of 1.
 
 Both sides of the bridge are numpy: it imports no JAX, and callers hand in
 ``np.asarray`` of the JAX arrays.  The conversion is exact.
@@ -23,6 +27,7 @@ from torch import nn
 from .configs.base import ModelConfig
 from .models.common import resolve_device
 from .models.model import LMParams
+from .models.attention import MLA_CACHE
 from .models.transformer import Block, check_supported, layer_kinds, stack_layout
 
 
@@ -94,8 +99,7 @@ def params_from_jax(tree: dict, cfg: ModelConfig, *,
             kind, _to_torch(bp["ln1"], dev),
             {k: _to_torch(v, dev) for k, v in bp["mixer"].items()},
             _to_torch(bp["ln2"], dev) if has_mlp else None,
-            ({k: _to_torch(v, dev) for k, v in bp["mlp"].items()}
-             if has_mlp else None)))
+            _map(lambda a: _to_torch(a, dev), bp["mlp"]) if has_mlp else None))
     head = _to_torch(tree["head"], dev) if "head" in tree else None
     return LMParams(blocks, _to_torch(tree["final_norm"], dev),
                     _to_torch(tree["embed"], dev), head)
@@ -110,6 +114,9 @@ def params_to_numpy(params: LMParams, cfg: ModelConfig) -> dict:
         if bp.mlp is not None:
             layer["ln2"] = _to_numpy(bp.ln2)
             layer["mlp"] = {k: _to_numpy(v) for k, v in bp.mlp.items()}
+            if bp.shared is not None:
+                layer["mlp"]["shared"] = {k: _to_numpy(v)
+                                          for k, v in bp.shared.items()}
         layers.append(layer)
     out = {"blocks": tree_from_layers(layers, cfg),
            "final_norm": _to_numpy(params.final_norm),
@@ -121,19 +128,33 @@ def params_to_numpy(params: LMParams, cfg: ModelConfig) -> dict:
 
 def caches_from_jax(tree: dict, cfg: ModelConfig, *, device="cuda") -> list:
     """A JAX decode-cache tree (numpy leaves) as the port's per-layer list
-    (``{"k", "v"}`` or ``{"ssm", "conv"}``) on ``device``.  A radix KV block
-    of the JAX engine (its ``export_prefix_blocks``: the cache tree with
-    (block_size, K, hd) leaves) converts the same way, into the block
-    layout of the port engine's ``import_prefix_blocks``."""
+    (``{"k", "v"}``, ``{"ckv"}`` or ``{"ssm", "conv"}``) on ``device``.  A
+    radix KV block of the JAX engine (its ``export_prefix_blocks``: the
+    cache tree with (block_size, K, hd) leaves) converts the same way, into
+    the block layout of the port engine's ``import_prefix_blocks``."""
     check_supported(cfg)
     dev = resolve_device(device)
-    return [{k: _to_torch(v, dev) for k, v in layer.items()}
-            for layer in layers_from_tree(tree, cfg)]
+    out = []
+    for layer in layers_from_tree(tree, cfg):
+        if "latent" in layer:      # MLA: latent ‖ k_rope under one KV head
+            layer = {MLA_CACHE: np.concatenate(
+                [np.asarray(layer["latent"]), np.asarray(layer["k_rope"])],
+                axis=-1)[..., None, :]}
+        out.append({k: _to_torch(v, dev) for k, v in layer.items()})
+    return out
 
 
 def caches_to_numpy(caches: list, cfg: ModelConfig) -> dict:
     """The port's per-layer caches (or one radix KV block) as a JAX
     decode-cache tree (or block tree), numpy."""
-    layers = [{k: _to_numpy(v) for k, v in layer.items()} for layer in caches]
+    layers = []
+    for layer in caches:
+        layer = {k: _to_numpy(v) for k, v in layer.items()}
+        if MLA_CACHE in layer:
+            ckv = layer.pop(MLA_CACHE)[..., 0, :]
+            r = cfg.kv_lora_rank
+            layer = {"latent": ckv[..., :r].copy(),
+                     "k_rope": ckv[..., r:].copy()}
+        layers.append(layer)
     return tree_from_layers(layers, cfg)
 

@@ -6,8 +6,10 @@
 // oracle (src/repro/kernels/flash_attention/ref.py): a query row whose keys
 // are all masked gives 0, not NaN.
 //
-// Layout: q (B, S, H, hd), k/v (B, T, K, hd), out (B, S, H, hd), all
-// contiguous, f32 or bf16; query head h reads KV head h / (H / K).  Query row
+// Layout: q (B, S, H, dk), k (B, T, K, dk), v (B, T, K, dv), out (B, S, H,
+// dv), all contiguous, f32 or bf16; query head h reads KV head h / (H / K).
+// (dk, dv) is (64, 64), (128, 128) or, for MLA prefill folded into MHA form
+// (deepseek-v2-lite: keys [nope 128 ‖ rope 64], values 128), (192, 128).  Query row
 // i stands at absolute position q_offset + i, and only the first kv_len <= T
 // keys are visible: chunked prefill passes a slot's whole (B, s_max, K, hd)
 // cache with q_offset = pos0 and kv_len = pos0 + C, so the per-batch stride of
@@ -25,12 +27,14 @@
 //     TPU's sequential `nkv` grid axis), so the softmax state and the
 //     output accumulator stay in registers;
 //   * S = Q K^T and O += P V are mma.sync m16n8k16 (bf16 in, f32 out).  Q's
-//     A fragments are loaded once (ldmatrix); K fragments come from
-//     ldmatrix, V fragments from ldmatrix.trans;
+//     A fragments are loaded once (ldmatrix) up to dk 128, and read from
+//     the Q tile at each k-step at dk 192 (held, they would spill); K
+//     fragments come from ldmatrix, V fragments from ldmatrix.trans;
 //   * K and V tiles stay bf16 in a 2-stage shared-memory ring filled by
 //     16-byte cp.async, so tile n + 1 is in flight while tile n is
 //     computed, behind one barrier a tile; rows are XOR-swizzled by 16-byte chunk, so ldmatrix has no
-//     bank conflicts.  ~80 KB of shared memory at hd 128: two blocks an SM;
+//     bank conflicts.  ~80 KB of shared memory at (128, 128) and ~104 KB at
+//     (192, 128): two blocks an SM;
 //   * the mask and the online softmax run on the accumulator fragments in
 //     registers (exp2, with scale * log2(e) folded into its argument's
 //     FMA; a row's max and sum reduce over the 4 lanes of a quad); the
@@ -61,12 +65,13 @@ constexpr int kBQ = 64;        // query rows per block
 constexpr int kBKV = 64;       // keys per KV tile
 constexpr int kThreads = 256;  // 16 x 16 threads: ty owns rows, tx owns columns
 
-template <int HD>
+template <int DK, int DV>
 constexpr size_t smem_bytes() {
-  // Q, K, V tiles with a padded row (HD + 1 floats) so that column walks hit
-  // distinct banks, plus the probability tile P (kBKV + 1 floats a row).
-  return sizeof(float) * (size_t(kBQ) * (HD + 1) + 2 * size_t(kBKV) * (HD + 1) +
-                          size_t(kBQ) * (kBKV + 1));
+  // Q, K, V tiles with a padded row (width + 1 floats) so that column walks
+  // hit distinct banks, plus the probability tile P (kBKV + 1 floats a row):
+  // 148,480 bytes at (192, 128), under the 232,448 a block may opt into.
+  return sizeof(float) * (size_t(kBQ) * (DK + 1) + size_t(kBKV) * (DK + 1) +
+                          size_t(kBKV) * (DV + 1) + size_t(kBQ) * (kBKV + 1));
 }
 
 // Stage rows [r0, r0 + ROWS) of a (rows, HD) slice whose rows are
@@ -93,22 +98,23 @@ __device__ __forceinline__ void load_tile(float* __restrict__ dst, const T* __re
   }
 }
 
-template <typename T, int HD>
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      T* __restrict__ o, int S, int T_len, int kv_len, int q_offset, int H, int KH,
                      float scale, int causal, int window) {
-  constexpr int LD = HD + 1;
+  constexpr int LD = DK + 1;   // Q and K rows
+  constexpr int LDV = DV + 1;  // V rows
   constexpr int LDP = kBKV + 1;
   constexpr int RQ = kBQ / 16;   // query rows per thread
   constexpr int CK = kBKV / 16;  // score columns per thread
-  constexpr int CD = HD / 16;    // output dims per thread
+  constexpr int CD = DV / 16;    // output dims per thread
 
   extern __shared__ float smem[];
   float* Qs = smem;
   float* Ks = Qs + kBQ * LD;
   float* Vs = Ks + kBKV * LD;
-  float* Ps = Vs + kBKV * LD;
+  float* Ps = Vs + kBKV * LDV;
 
   const int tid = threadIdx.x;
   const int tx = tid & 15;
@@ -119,13 +125,14 @@ __global__ void __launch_bounds__(kThreads)
   const int kh = h / (H / KH);
   const int q0 = q_tile * kBQ;
 
-  const size_t q_row = size_t(H) * HD;    // elements between query positions
-  const size_t kv_row = size_t(KH) * HD;  // elements between key positions
-  const T* qb = q + (size_t(b) * S * H + h) * HD;
-  const T* kb = k + (size_t(b) * T_len * KH + kh) * HD;
-  const T* vb = v + (size_t(b) * T_len * KH + kh) * HD;
+  const size_t q_row = size_t(H) * DK;   // elements between query positions
+  const size_t k_row = size_t(KH) * DK;  // elements between key positions
+  const size_t v_row = size_t(KH) * DV;
+  const T* qb = q + (size_t(b) * S * H + h) * DK;
+  const T* kb = k + (size_t(b) * T_len * KH + kh) * DK;
+  const T* vb = v + (size_t(b) * T_len * KH + kh) * DV;
 
-  load_tile<T, HD, kBQ>(Qs, qb, q_row, q0, S);
+  load_tile<T, DK, kBQ>(Qs, qb, q_row, q0, S);
 
   float m[RQ], l[RQ], acc[RQ][CD];
 #pragma unroll
@@ -147,8 +154,8 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int k0 = kv_begin; k0 < kv_end; k0 += kBKV) {
     __syncthreads();  // the previous tile's K, V and P are no longer read
-    load_tile<T, HD, kBKV>(Ks, kb, kv_row, k0, kv_len);
-    load_tile<T, HD, kBKV>(Vs, vb, kv_row, k0, kv_len);
+    load_tile<T, DK, kBKV>(Ks, kb, k_row, k0, kv_len);
+    load_tile<T, DV, kBKV>(Vs, vb, v_row, k0, kv_len);
     __syncthreads();
 
     // Scores: rows ty + 16 i, columns tx + 16 j.
@@ -158,7 +165,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < CK; ++j) s[i][j] = 0.f;
 #pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
+    for (int d = 0; d < DK; ++d) {
       float qv[RQ], kv[CK];
 #pragma unroll
       for (int i = 0; i < RQ; ++i) qv[i] = Qs[(ty + 16 * i) * LD + d];
@@ -212,7 +219,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int i = 0; i < RQ; ++i) pv[i] = Ps[(ty + 16 * i) * LDP + c];
 #pragma unroll
-      for (int jd = 0; jd < CD; ++jd) vv[jd] = Vs[c * LD + tx + 16 * jd];
+      for (int jd = 0; jd < CD; ++jd) vv[jd] = Vs[c * LDV + tx + 16 * jd];
 #pragma unroll
       for (int i = 0; i < RQ; ++i)
 #pragma unroll
@@ -225,18 +232,18 @@ __global__ void __launch_bounds__(kThreads)
     const int qpos = q0 + ty + 16 * i;
     if (qpos >= S) continue;
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;  // fully masked row -> 0
-    T* orow = o + ((size_t(b) * S + qpos) * H + h) * HD;
+    T* orow = o + ((size_t(b) * S + qpos) * H + h) * DV;
 #pragma unroll
     for (int jd = 0; jd < CD; ++jd) orow[tx + 16 * jd] = repro::from_f32<T>(acc[i][jd] * inv);
   }
 }
 
-template <typename T, int HD>
+template <typename T, int DK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S, int T_len,
                    int kv_len, int q_offset, int H, int KH, float scale, int causal, int window,
                    cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<HD>();
-  auto kern = flash_fwd_kernel<T, HD>;
+  constexpr size_t smem = smem_bytes<DK, DV>();
+  auto kern = flash_fwd_kernel<T, DK, DV>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
@@ -259,9 +266,9 @@ constexpr int kBKV = 64;       // keys per KV tile
 constexpr int kWarps = 4;      // each owns 16 query rows
 constexpr int kThreads = kWarps * 32;
 
-template <int HD>
-constexpr size_t smem_bytes() {
-  return sizeof(bf16) * size_t(HD) * (kBQ + 4 * kBKV);  // Q, 2 stages of K and of V
+template <int DK, int DV>
+constexpr size_t smem_bytes() {  // Q, 2 stages of K and of V
+  return sizeof(bf16) * (size_t(DK) * (kBQ + 2 * kBKV) + size_t(DV) * 2 * kBKV);
 }
 
 // Element offset of 16-byte chunk c of row r in a (rows, HD) bf16 tile whose
@@ -291,20 +298,21 @@ __device__ __forceinline__ void stage_tile(bf16* __restrict__ dst, const bf16* _
   }
 }
 
-template <int HD>
+template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, bf16* __restrict__ o, int S, int T_len,
                          int kv_len, int q_offset, int H, int KH, float scale_log2, int causal,
                          int window) {
-  constexpr int KS = HD / 16;   // k-steps of Q K^T
+  constexpr int KS = DK / 16;   // k-steps of Q K^T
   constexpr int NT = kBKV / 8;  // 8-key column tiles of S
-  constexpr int DT = HD / 8;    // 8-dim column tiles of O
+  constexpr int DT = DV / 8;    // 8-dim column tiles of O
+  static_assert(DV <= DK, "the output is staged through the Q buffer");
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + kBQ * HD;
-  bf16* Vs = Ks + 2 * kBKV * HD;
+  bf16* Ks = Qs + kBQ * DK;
+  bf16* Vs = Ks + 2 * kBKV * DK;
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -319,11 +327,12 @@ __global__ void __launch_bounds__(kThreads)
   // this lane's rows, at absolute positions: arow0 and arow0 + 8
   const int arow0 = a0 + warp * 16 + grp;
 
-  const size_t q_row = size_t(H) * HD;
-  const size_t kv_row = size_t(KH) * HD;
-  const bf16* qb = q + (size_t(b) * S * H + h) * HD;
-  const bf16* kb = k + (size_t(b) * T_len * KH + kh) * HD;
-  const bf16* vb = v + (size_t(b) * T_len * KH + kh) * HD;
+  const size_t q_row = size_t(H) * DK;
+  const size_t k_row = size_t(KH) * DK;
+  const size_t v_row = size_t(KH) * DV;
+  const bf16* qb = q + (size_t(b) * S * H + h) * DK;
+  const bf16* kb = k + (size_t(b) * T_len * KH + kh) * DK;
+  const bf16* vb = v + (size_t(b) * T_len * KH + kh) * DV;
 
   // KV tiles with at least one visible key for some row of this tile.
   int kv_end = kv_len;
@@ -332,11 +341,11 @@ __global__ void __launch_bounds__(kThreads)
   if (window > 0) kv_begin = (max(0, a0 - window + 1) / kBKV) * kBKV;
   const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + kBKV - 1) / kBKV : 0;
 
-  stage_tile<HD, kBQ>(Qs, qb, q_row, q0, S);
+  stage_tile<DK, kBQ>(Qs, qb, q_row, q0, S);
   repro::cp_async_commit();
   if (n_tiles > 0) {
-    stage_tile<HD, kBKV>(Ks, kb, kv_row, kv_begin, kv_len);
-    stage_tile<HD, kBKV>(Vs, vb, kv_row, kv_begin, kv_len);
+    stage_tile<DK, kBKV>(Ks, kb, k_row, kv_begin, kv_len);
+    stage_tile<DV, kBKV>(Vs, vb, v_row, kv_begin, kv_len);
   }
   repro::cp_async_commit();
 
@@ -349,15 +358,21 @@ __global__ void __launch_bounds__(kThreads)
   float l[2] = {0.f, 0.f};  // this lane's share of the row sums
   repro::cp_async_wait<1>();  // Q has landed (tile 0 may still be in flight)
   __syncthreads();
-  uint32_t qf[KS][4];  // Q's A fragments, held for the whole walk
+  // Q's A fragments, held in registers for the whole walk up to dk 128; at
+  // dk 192 they would take 48 registers beside the 64 of the accumulator
+  // and spill, so there each k-step reads its fragment from the Q tile.
+  constexpr bool kHoldQ = DK <= 128;
+  uint32_t qf[kHoldQ ? KS : 1][4];
+  if constexpr (kHoldQ) {
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk)
-    repro::ldmatrix_x4(qf[kk], Qs + swz<HD>(warp * 16 + (lane & 15), 2 * kk + (lane >> 4)));
+    for (int kk = 0; kk < KS; ++kk)
+      repro::ldmatrix_x4(qf[kk], Qs + swz<DK>(warp * 16 + (lane & 15), 2 * kk + (lane >> 4)));
+  }
 
   for (int it = 0; it < n_tiles; ++it) {
     const int k0 = kv_begin + it * kBKV;
-    const bf16* Kt = Ks + (it & 1) * kBKV * HD;
-    const bf16* Vt = Vs + (it & 1) * kBKV * HD;
+    const bf16* Kt = Ks + (it & 1) * kBKV * DK;
+    const bf16* Vt = Vs + (it & 1) * kBKV * DV;
     repro::cp_async_wait<0>();  // tile it has landed
     // One barrier a tile: past it, every thread's copies of tile it are
     // visible, and every warp is done with tile it - 1, whose stage the
@@ -365,8 +380,8 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     if (it + 1 < n_tiles) {
       const int nxt = (it + 1) & 1;
-      stage_tile<HD, kBKV>(Ks + nxt * kBKV * HD, kb, kv_row, k0 + kBKV, kv_len);
-      stage_tile<HD, kBKV>(Vs + nxt * kBKV * HD, vb, kv_row, k0 + kBKV, kv_len);
+      stage_tile<DK, kBKV>(Ks + nxt * kBKV * DK, kb, k_row, k0 + kBKV, kv_len);
+      stage_tile<DV, kBKV>(Vs + nxt * kBKV * DV, vb, v_row, k0 + kBKV, kv_len);
       repro::cp_async_commit();
     }
 
@@ -378,13 +393,16 @@ __global__ void __launch_bounds__(kThreads)
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
+      if constexpr (!kHoldQ)
+        repro::ldmatrix_x4(qf[0], Qs + swz<DK>(warp * 16 + (lane & 15), 2 * kk + (lane >> 4)));
+      const uint32_t(&qa)[4] = qf[kHoldQ ? kk : 0];
 #pragma unroll
       for (int np = 0; np < NT / 2; ++np) {
         uint32_t kf[4];  // B fragments of key tiles 2 np and 2 np + 1
         repro::ldmatrix_x4(
-            kf, Kt + swz<HD>(np * 16 + (lane & 7) + ((lane >> 4) << 3), 2 * kk + ((lane >> 3) & 1)));
-        repro::mma_bf16_16816(s[2 * np], qf[kk], kf[0], kf[1]);
-        repro::mma_bf16_16816(s[2 * np + 1], qf[kk], kf[2], kf[3]);
+            kf, Kt + swz<DK>(np * 16 + (lane & 7) + ((lane >> 4) << 3), 2 * kk + ((lane >> 3) & 1)));
+        repro::mma_bf16_16816(s[2 * np], qa, kf[0], kf[1]);
+        repro::mma_bf16_16816(s[2 * np + 1], qa, kf[2], kf[3]);
       }
     }
 
@@ -448,7 +466,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int dp = 0; dp < DT / 2; ++dp) {
         uint32_t vf[4];  // B fragments of dim tiles 2 dp and 2 dp + 1
-        repro::ldmatrix_x4_trans(vf, Vt + swz<HD>(kk * 16 + (lane & 15), 2 * dp + (lane >> 4)));
+        repro::ldmatrix_x4_trans(vf, Vt + swz<DV>(kk * 16 + (lane & 15), 2 * dp + (lane >> 4)));
         repro::mma_bf16_16816(acc[2 * dp], pf[kk], vf[0], vf[1]);
         repro::mma_bf16_16816(acc[2 * dp + 1], pf[kk], vf[2], vf[3]);
       }
@@ -469,9 +487,9 @@ __global__ void __launch_bounds__(kThreads)
   const int r_lo = warp * 16 + grp;
 #pragma unroll
   for (int d = 0; d < DT; ++d) {
-    *reinterpret_cast<uint32_t*>(Qs + swz<HD>(r_lo, d) + 2 * quad) =
+    *reinterpret_cast<uint32_t*>(Qs + swz<DV>(r_lo, d) + 2 * quad) =
         repro::pack_bf16x2(acc[d][0] * inv[0], acc[d][1] * inv[0]);
-    *reinterpret_cast<uint32_t*>(Qs + swz<HD>(r_lo + 8, d) + 2 * quad) =
+    *reinterpret_cast<uint32_t*>(Qs + swz<DV>(r_lo + 8, d) + 2 * quad) =
         repro::pack_bf16x2(acc[d][2] * inv[1], acc[d][3] * inv[1]);
   }
   __syncwarp();
@@ -482,17 +500,17 @@ __global__ void __launch_bounds__(kThreads)
     const int c = idx % DT;
     const int qpos = q0 + warp * 16 + r;
     if (qpos < S)
-      *reinterpret_cast<uint4*>(o + ((size_t(b) * S + qpos) * H + h) * HD + c * 8) =
-          *reinterpret_cast<const uint4*>(Qs + swz<HD>(warp * 16 + r, c));
+      *reinterpret_cast<uint4*>(o + ((size_t(b) * S + qpos) * H + h) * DV + c * 8) =
+          *reinterpret_cast<const uint4*>(Qs + swz<DV>(warp * 16 + r, c));
   }
 }
 
-template <int HD>
+template <int DK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S, int T_len,
                    int kv_len, int q_offset, int H, int KH, float scale, int causal, int window,
                    cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<HD>();
-  auto kern = flash_fwd_mma_kernel<HD>;
+  constexpr size_t smem = smem_bytes<DK, DV>();
+  auto kern = flash_fwd_mma_kernel<DK, DV>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
@@ -511,26 +529,28 @@ REPRO_EXPORT_ERROR_STRING
 
 // Returns the CUDA error code of the launch (0 on success).  T_len is k's and
 // v's length (their per-batch stride), kv_len <= T_len the number of visible
-// keys, q_offset the absolute position of query row 0.
+// keys, q_offset the absolute position of query row 0; hd is q's and k's
+// head dim, hd_v v's and out's.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int dtype, int B, int S, int T_len, int kv_len, int q_offset,
-                                   int H, int KH, int hd, float scale, int causal, int window,
-                                   void* stream) {
+                                   int H, int KH, int hd, int hd_v, float scale, int causal,
+                                   int window, void* stream) {
   if (B == 0 || S == 0) return 0;
   if (KH <= 0 || H % KH != 0 || kv_len < 0 || kv_len > T_len || q_offset < 0)
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == repro::kF32 && hd == 128)
-    return int(cuda_core::launch<float, 128>(q, k, v, o, B, S, T_len, kv_len, q_offset, H, KH,
-                                             scale, causal, window, st));
-  if (dtype == repro::kF32 && hd == 64)
-    return int(cuda_core::launch<float, 64>(q, k, v, o, B, S, T_len, kv_len, q_offset, H, KH,
-                                            scale, causal, window, st));
-  if (dtype == repro::kBF16 && hd == 128)
-    return int(tensor_core::launch<128>(q, k, v, o, B, S, T_len, kv_len, q_offset, H, KH, scale,
-                                        causal, window, st));
-  if (dtype == repro::kBF16 && hd == 64)
-    return int(tensor_core::launch<64>(q, k, v, o, B, S, T_len, kv_len, q_offset, H, KH, scale,
-                                       causal, window, st));
+#define REPRO_FLASH_CASE(DK, DV)                                                               \
+  if (hd == DK && hd_v == DV) {                                                                \
+    if (dtype == repro::kF32)                                                                  \
+      return int(cuda_core::launch<float, DK, DV>(q, k, v, o, B, S, T_len, kv_len, q_offset, H, \
+                                                  KH, scale, causal, window, st));             \
+    if (dtype == repro::kBF16)                                                                 \
+      return int(tensor_core::launch<DK, DV>(q, k, v, o, B, S, T_len, kv_len, q_offset, H, KH, \
+                                             scale, causal, window, st));                      \
+  }
+  REPRO_FLASH_CASE(128, 128)
+  REPRO_FLASH_CASE(64, 64)
+  REPRO_FLASH_CASE(192, 128)
+#undef REPRO_FLASH_CASE
   return int(cudaErrorInvalidValue);
 }

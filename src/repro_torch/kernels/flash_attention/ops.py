@@ -5,7 +5,9 @@ kernel's layout, so nothing is transposed on the GPU.  Tensors on the CPU go
 through the plain version (``ref.py``); tensors on a GPU launch
 ``csrc/flash_attention.cu`` or raise.  Chunked prefill passes a slot's whole
 cache as k/v with a query offset and a count of visible keys, so the chunk
-attends to the resident prefix without a slice or a copy.
+attends to the resident prefix without a slice or a copy.  Keys and values
+may differ in width: MLA prefill (deepseek-v2-lite) passes queries and keys
+of hd + rd = 192 and values of 128.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from .._build import DTYPE_CODES, CudaKernel
 from .ref import flash_attention_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = ((64, 64), (128, 128), (192, 128))   # (q/k width, v width)
 
 
 class FlashKernel(CudaKernel):
@@ -29,7 +31,7 @@ class FlashKernel(CudaKernel):
     def __init__(self):
         super().__init__("flash_attention", "flash_attention_fwd",
                          [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                          ctypes.c_float, _I, _I, _P])
+                          _I, ctypes.c_float, _I, _I, _P])
         self.offset_launches = 0
 
 
@@ -39,7 +41,8 @@ KERNEL = FlashKernel()
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     scale: float | None = None, q_offset: int = 0,
                     kv_len: int | None = None, impl: str | None = None):
-    """q (B,S,H,hd); k/v (B,T,K,hd) → (B,S,H,hd), H a multiple of K.
+    """q (B,S,H,hd); k (B,T,K,hd), v (B,T,K,hd_v) → (B,S,H,hd_v), H a
+    multiple of K; the scale defaults to hd^-0.5.
 
     Query row i stands at absolute position ``q_offset + i``; only the
     first ``kv_len`` keys (default T) are visible, and the rest of k and v
@@ -63,12 +66,12 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         return out.transpose(1, 2)
     _check(q, k, v, window)
     B, S, H, hd = q.shape
-    K = k.shape[2]
+    K, hd_v = k.shape[2], v.shape[3]
     scale = hd ** -0.5 if scale is None else scale
-    out = torch.empty_like(q)
+    out = torch.empty((B, S, H, hd_v), dtype=q.dtype, device=q.device)
     KERNEL.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   out.data_ptr(), DTYPE_CODES[q.dtype], B, S, T, kv_len,
-                  q_offset, H, K, hd, float(scale), int(bool(causal)),
+                  q_offset, H, K, hd, hd_v, float(scale), int(bool(causal)),
                   int(window))
     if q_offset > 0:
         KERNEL.offset_launches += 1
@@ -81,9 +84,10 @@ def _check(q, k, v, window: int) -> None:
                          f"{q.device}")
     if any(t.device != q.device for t in (k, v)):
         raise ValueError("q, k and v must be on one device")
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"expected q (B,S,H,hd) and k/v (B,T,K,hd), got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"expected q (B,S,H,hd), k (B,T,K,hd) and v "
+                         f"(B,T,K,hd_v), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, S, H, hd = q.shape
     if k.shape[0] != B or k.shape[3] != hd or H % k.shape[2]:
         raise ValueError(f"q {tuple(q.shape)} and k/v {tuple(k.shape)} do not "
@@ -91,8 +95,9 @@ def _check(q, k, v, window: int) -> None:
     if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k, v must all be float32 or bfloat16, got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not supported (have {HEAD_DIMS})")
+    if (hd, v.shape[3]) not in HEAD_DIMS:
+        raise ValueError(f"head dims ({hd}, {v.shape[3]}) not supported "
+                         f"(have {HEAD_DIMS})")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     for name, t in (("q", q), ("k", k), ("v", v)):

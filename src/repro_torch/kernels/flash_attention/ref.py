@@ -10,7 +10,8 @@ log2 domain, and P rounded to bf16 before the P·V product.
 Both take the kernel's query offset and visible-key count: query row i
 stands at absolute position ``q_offset + i`` and only the first ``kv_len``
 keys exist (the rest of k and v, e.g. the unused tail of a slot cache, is
-never read)."""
+never read).  Values may be narrower than queries and keys (MLA prefill:
+hd 192, hd_v 128)."""
 
 from __future__ import annotations
 
@@ -32,10 +33,10 @@ def _visible(k, v, kv_len):
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
                         scale: float | None = None, q_offset: int = 0,
                         kv_len: int | None = None):
-    """q (B,H,S,hd); k/v (B,K,T,hd) → (B,H,S,hd).  Query head h reads KV
-    head h // (H/K); query row i stands at position ``q_offset + i`` and
-    sees the first ``kv_len`` keys (default T).  A row with no visible key
-    gives 0."""
+    """q (B,H,S,hd); k (B,K,T,hd), v (B,K,T,hd_v) → (B,H,S,hd_v).  Query
+    head h reads KV head h // (H/K); query row i stands at position
+    ``q_offset + i`` and sees the first ``kv_len`` keys (default T).  A row
+    with no visible key gives 0.  The scale defaults to hd^-0.5."""
     B, H, S, hd = q.shape
     K = k.shape[1]
     k, v, T = _visible(k, v, kv_len)
@@ -78,7 +79,7 @@ def flash_attention_tiled_ref(q, k, v, *, causal: bool = True,
     q_pos = q_offset + torch.arange(S, device=q.device)[:, None]
     m = torch.full((B, H, S), -math.inf, device=q.device)
     l = torch.zeros((B, H, S), device=q.device)
-    acc = torch.zeros((B, H, S, hd), device=q.device)
+    acc = torch.zeros((B, H, S, v.shape[-1]), device=q.device)
     for k0 in range(0, T, tile):
         s = torch.einsum("bhsd,bhtd->bhst", qf, kk[:, :, k0:k0 + tile])
         s = s * (scale * math.log2(math.e))

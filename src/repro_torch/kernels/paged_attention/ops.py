@@ -6,6 +6,11 @@ sequence into partitions of ``PARTITION`` tokens and merges their partial
 softmax states (``ref.py::paged_attention_split_ref`` / ``merge_partials_ref``
 spell out the arithmetic); one wrapper call is one counted launch, the merge
 pass included.
+
+Absorbed MLA decode (deepseek-v2-lite) passes keys of ``MLA_DIMS[0]`` (the
+latent ‖ rope row) and, as values, the view ``k_pages[..., :MLA_DIMS[1]]``
+of the same rows: the kernel reads each row once for keys and values, and
+splits sequences into ``MLA_PARTITION``-token partitions.
 """
 
 from __future__ import annotations
@@ -20,10 +25,13 @@ from .ref import paged_attention_ref
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("paged_attention", "paged_attention_fwd",
                     [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                     _I, _I, ctypes.c_float, _P])
-HEAD_DIMS = (64, 128)
+                     _I, _I, _I, _I, ctypes.c_float, _P])
+HEAD_DIMS = (64, 128)     # keys and values of one width, pages of their own
 GROUPS = (1, 2, 4, 8)
+MLA_DIMS = (576, 512)     # (key, value) widths of absorbed MLA decode
+MLA_GROUPS = (4, 16)
 PARTITION = 256   # tokens per split; the kernel takes it as an argument
+MLA_PARTITION = 128
 
 
 def split_count(table_width: int, page: int) -> int:
@@ -31,13 +39,24 @@ def split_count(table_width: int, page: int) -> int:
     into: enough to cover the block table's ``table_width · page`` tokens.
     It depends on the table's shape alone, so the wrapper never copies
     ``seq_lens`` to the host (which would sync every decode step)."""
-    return max(1, -(-table_width * page // PARTITION))
+    return _splits(table_width, page, PARTITION)
+
+
+def mla_split_count(table_width: int, page: int) -> int:
+    """:func:`split_count` for MLA's ``MLA_PARTITION``-token partitions."""
+    return _splits(table_width, page, MLA_PARTITION)
+
+
+def _splits(table_width: int, page: int, partition: int) -> int:
+    return max(1, -(-table_width * page // partition))
 
 
 def paged_attention(q, k_pages, v_pages, block_table, seq_lens, *,
                     scale: float | None = None, impl: str | None = None):
-    """q (B,H,hd); k/v_pages (P,page,K,hd); block_table (B,max_pages) i32;
-    seq_lens (B,) i32 → (B,H,hd).
+    """q (B,H,hd); k_pages (P,page,K,hd), v_pages (P,page,K,hd_v);
+    block_table (B,max_pages) i32; seq_lens (B,) i32 → (B,H,hd_v).  The
+    kernel takes hd_v = hd in ``HEAD_DIMS`` with contiguous pages, or
+    (hd, hd_v) = ``MLA_DIMS`` with ``v_pages = k_pages[..., :hd_v]``.
 
     Sequence b attends to its first ``seq_lens[b]`` tokens, token t living in
     row ``t % page`` of page ``block_table[b, t // page]``.  The kernel
@@ -52,19 +71,21 @@ def paged_attention(q, k_pages, v_pages, block_table, seq_lens, *,
     _check(q, k_pages, v_pages, block_table, seq_lens)
     B, H, hd = q.shape
     _, page, K, _ = k_pages.shape
+    hd_v = v_pages.shape[3]
     max_pages = block_table.shape[1]
     scale = hd ** -0.5 if scale is None else scale
-    n_split = split_count(max_pages, page)
-    out = torch.empty_like(q)
+    partition = MLA_PARTITION if (hd, hd_v) == MLA_DIMS else PARTITION
+    n_split = _splits(max_pages, page, partition)
+    out = torch.empty((B, H, hd_v), dtype=q.dtype, device=q.device)
     # per (sequence, query head, partition): max, sum, unnormalised output
-    partials = (torch.empty(B * H * n_split * (hd + 2), dtype=torch.float32,
+    partials = (torch.empty(B * H * n_split * (hd_v + 2), dtype=torch.float32,
                             device=q.device) if n_split > 1 else None)
     KERNEL.launch(q.device, q.data_ptr(), k_pages.data_ptr(),
                   v_pages.data_ptr(), block_table.data_ptr(),
                   seq_lens.data_ptr(), out.data_ptr(),
                   None if partials is None else partials.data_ptr(),
-                  DTYPE_CODES[q.dtype], B, H, K, hd, page, max_pages,
-                  PARTITION, n_split, float(scale))
+                  DTYPE_CODES[q.dtype], B, H, K, hd, hd_v, v_pages.stride(1),
+                  page, max_pages, partition, n_split, float(scale))
     return out
 
 
@@ -76,16 +97,29 @@ def _check(q, k_pages, v_pages, block_table, seq_lens) -> None:
                ("block_table", block_table), ("seq_lens", seq_lens))
     if any(t.device != q.device for _, t in tensors):
         raise ValueError("all inputs must be on one device")
-    if q.dim() != 3 or k_pages.dim() != 4 or v_pages.shape != k_pages.shape:
-        raise ValueError(f"expected q (B,H,hd) and k/v pages (P,page,K,hd), "
-                         f"got {tuple(q.shape)}, {tuple(k_pages.shape)}, "
-                         f"{tuple(v_pages.shape)}")
+    if (q.dim() != 3 or k_pages.dim() != 4 or v_pages.dim() != 4
+            or v_pages.shape[:3] != k_pages.shape[:3]):
+        raise ValueError(f"expected q (B,H,hd), k pages (P,page,K,hd) and v "
+                         f"pages (P,page,K,hd_v), got {tuple(q.shape)}, "
+                         f"{tuple(k_pages.shape)}, {tuple(v_pages.shape)}")
     B, H, hd = q.shape
     K = k_pages.shape[2]
-    if k_pages.shape[3] != hd or H % K or H // K not in GROUPS:
+    hd_v = v_pages.shape[3]
+    mla = (hd, hd_v) == MLA_DIMS
+    groups = MLA_GROUPS if mla else GROUPS
+    if k_pages.shape[3] != hd or H % K or H // K not in groups:
         raise ValueError(f"q {tuple(q.shape)} and pages "
                          f"{tuple(k_pages.shape)} do not match, or H/K not "
-                         f"in {GROUPS}")
+                         f"in {groups}")
+    if mla:
+        if (v_pages.data_ptr() != k_pages.data_ptr()
+                or v_pages.stride() != k_pages.stride()):
+            raise ValueError("MLA values must be the view "
+                             "k_pages[..., :hd_v] of the key rows")
+    elif hd_v != hd or hd not in HEAD_DIMS:
+        raise ValueError(f"head dims ({hd}, {hd_v}) not supported (have "
+                         f"{HEAD_DIMS} for keys and values alike, and "
+                         f"{MLA_DIMS})")
     if (block_table.dim() != 2 or block_table.shape[0] != B
             or tuple(seq_lens.shape) != (B,)):
         raise ValueError(f"expected block_table (B,max_pages) and seq_lens "
@@ -97,8 +131,8 @@ def _check(q, k_pages, v_pages, block_table, seq_lens) -> None:
             or v_pages.dtype != q.dtype):
         raise ValueError(f"q and pages must all be float32 or bfloat16, got "
                          f"{q.dtype}, {k_pages.dtype}, {v_pages.dtype}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not supported (have {HEAD_DIMS})")
     for name, t in tensors:
+        if name == "v_pages" and mla:
+            continue               # a view of k_pages, checked above
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")

@@ -18,7 +18,8 @@ NEG_INF = torch.finfo(torch.float32).min
 
 
 def gather_pages(pages, block_table):
-    """pages (P, page, K, hd); block_table (B, n) → (B, n·page, K, hd)."""
+    """pages (P, page, K, hd), or any strided view of that shape;
+    block_table (B, n) → (B, n·page, K, hd)."""
     g = pages[block_table.long()]                # (B, n, page, K, hd)
     B, n, page, K, hd = g.shape
     return g.reshape(B, n * page, K, hd)
@@ -26,8 +27,9 @@ def gather_pages(pages, block_table):
 
 def paged_attention_ref(q, k_pages, v_pages, block_table, seq_lens, *,
                         scale: float | None = None):
-    """q (B,H,hd); k/v_pages (P,page,K,hd); block_table (B,max_pages);
-    seq_lens (B,) → (B,H,hd).  Positions >= seq_len are masked."""
+    """q (B,H,hd); k_pages (P,page,K,hd), v_pages (P,page,K,hd_v);
+    block_table (B,max_pages); seq_lens (B,) → (B,H,hd_v).  Positions >=
+    seq_len are masked; the scale defaults to hd^-0.5."""
     B, H, hd = q.shape
     K = k_pages.shape[2]
     G = H // K
@@ -52,10 +54,12 @@ def paged_attention_split_ref(q, k_pages, v_pages, block_table, seq_lens, *,
     """The split pass: per (sequence, query head, partition of ``partition``
     tokens) the max ``m`` and sum ``l`` of the masked scores in the log2
     domain (``score · scale · log2(e)``) and the unnormalised output ``o``.
-    Returns f32 ``m`` (B,H,n), ``l`` (B,H,n), ``o`` (B,H,n,hd), n covering
-    the table's width; an empty partition has m = -inf, l = 0, o = 0."""
+    Returns f32 ``m`` (B,H,n), ``l`` (B,H,n), ``o`` (B,H,n,hd_v), n
+    covering the table's width; an empty partition has m = -inf, l = 0,
+    o = 0."""
     B, H, hd = q.shape
     K = k_pages.shape[2]
+    hd_v = v_pages.shape[3]
     G = H // K
     scale = hd ** -0.5 if scale is None else scale
     k = gather_pages(k_pages, block_table).float()       # (B,T,K,hd)
@@ -66,7 +70,7 @@ def paged_attention_split_ref(q, k_pages, v_pages, block_table, seq_lens, *,
     k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
     v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
     k = k.repeat_interleave(G, dim=2).reshape(B, n, partition, H, hd)
-    v = v.repeat_interleave(G, dim=2).reshape(B, n, partition, H, hd)
+    v = v.repeat_interleave(G, dim=2).reshape(B, n, partition, H, hd_v)
     s = torch.einsum("bhd,bnthd->bhnt", q.float(), k) * (scale * math.log2(math.e))
     pos = torch.arange(n * partition, device=q.device).reshape(n, partition)
     mask = pos[None] < seq_lens.to(q.device).long()[:, None, None]  # (B,n,t)
@@ -80,7 +84,7 @@ def paged_attention_split_ref(q, k_pages, v_pages, block_table, seq_lens, *,
 def merge_partials_ref(m, l, o, dtype=torch.float32):
     """The merge pass: Σ 2^(mᵢ-M)·oᵢ / Σ 2^(mᵢ-M)·lᵢ over the non-empty
     partials (M = max mᵢ); 0 where no partition held a token.  m, l (B,H,n),
-    o (B,H,n,hd) → (B,H,hd) in ``dtype``."""
+    o (B,H,n,hd_v) → (B,H,hd_v) in ``dtype``."""
     M = m.amax(-1, keepdim=True)
     wt = torch.where(m == -math.inf, 0.0,
                      torch.exp2(m - torch.where(M == -math.inf, 0.0, M)))

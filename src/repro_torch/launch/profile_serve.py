@@ -1,7 +1,8 @@
 """Where the time of the full-width card run goes.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
-        [--arch llama2-13b|mamba2-370m] [--prefix] [--trace out.json]
+        [--arch llama2-13b|mamba2-370m|deepseek-v2-lite-16b] [--prefix] \\
+        [--trace out.json]
 
 Serves the ``chip_smoke.py`` workload (``card_requests``; the architecture
 at full width and depth, random bf16 weights, EWSJF, its card engine
@@ -11,7 +12,9 @@ first-call allocations), once timed without the profiler, once under
 radix-reuse run instead (``card_prefix_requests`` under
 ``card_prefix_engine_config``).  Prints both runs' engine wall times, the
 device time per kernel class (flash attention, paged attention, SSD chunk,
-matrix products, host-device copies, the rest), each of the port's own
+matrix products, MoE dispatch — the router's top-k, the position cumsum,
+the scatter into and gather from the expert buffers —, host-device copies,
+the rest), each of the port's own
 kernels by name under its class, the device busy share against the
 unprofiled wall time, and the host time spent in admission and prefill
 (``_admit``), chunked prefill (``_prefill_chunk_tick``) and decode
@@ -43,6 +46,8 @@ _CLASSES = (("flash_attention", ("flash_fwd_",)),
             ("paged_attention", ("paged_",)),
             ("ssd_chunk", ("ssd_chunk_",)),
             ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "matmul")),
+            ("moe_dispatch", ("index_add", "topk", "gather", "sort", "scan",
+                              "cumsum")),
             ("copy_host_device", ("memcpy htod", "memcpy dtoh")))
 _OWN = ("flash_attention", "paged_attention", "ssd_chunk")
 

@@ -4,6 +4,8 @@ admission scheduler over the paper's mixed workload.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
         --full --device cuda
 
+(or ``--arch llama2-13b``, ``--arch deepseek-v2-lite-16b``)
+
 ``--full`` builds the architecture's published config (random bf16 weights
 from ``--seed``) and serves the card workload (``card_requests``) with the
 architecture's card engine config; without it the smoke config serves the
@@ -111,8 +113,13 @@ def card_prefix_requests(n: int = 24, seed: int = 0, vocab: int = 32000,
     return reqs
 
 
+# deepseek-v2-lite-16b serves at llama2-13b's sizing with the MoE
+# ``dropping`` path (the engine's default): at 8 slots a decode step routes
+# 8 tokens, each to 6 distinct experts, against a capacity of 8 an expert,
+# so decode never drops a token.
 CARD_ENGINE_CONFIGS = {"llama2-13b": card_engine_config,
-                       "mamba2-370m": ssm_card_engine_config}
+                       "mamba2-370m": ssm_card_engine_config,
+                       "deepseek-v2-lite-16b": card_engine_config}
 
 
 def main() -> None:

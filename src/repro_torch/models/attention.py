@@ -1,16 +1,25 @@
 """Attention for the ported architectures: GQA/MHA/MQA with RoPE and the
-optional qwen3 ``qk_norm``.
+optional qwen3 ``qk_norm``, and MLA (multi-head latent attention,
+deepseek-v2-lite).
 
 Prefill and chunked prefill go through the flash-attention kernel wrapper
 for every sequence length, decode through the paged-attention kernel
 wrapper; on CPU tensors both run their plain PyTorch versions.  Shapes: x
-(B, S, d); a layer's decode cache is ``{"k", "v"}`` of (B, S_max, K, hd),
-updated **in place** by :func:`gqa_decode` and :func:`gqa_chunk_decode`
-(the JAX package returns new caches instead).
+(B, S, d).  A GQA layer's decode cache is ``{"k", "v"}`` of (B, S_max, K,
+hd); an MLA layer's is ``{"ckv"}`` of (B, S_max, 1, r + rd), each row the
+compressed latent followed by the rotated rope key.  :func:`gqa_decode`,
+:func:`mla_decode` and :func:`gqa_chunk_decode` update the cache **in
+place** (the JAX package returns new caches and keeps MLA's two parts as
+``{"latent", "k_rope"}``; ``bridge`` converts).
 
-Not ported yet, and raising ``NotImplementedError``: MLA (deepseek-v2-lite,
-minicpm3) and the sliding-window ring cache (h2o-danube, gemma3 local
-layers).
+MLA prefill folds into MHA form (queries and keys of hd + rd, values of
+vd) for the flash kernel; MLA decode is absorbed: the query is projected
+through W_uk and attends over the latent cache as one KV head of r + rd
+keys whose values are the first r columns of the same rows, through the
+paged kernel.
+
+Not ported yet, and raising ``NotImplementedError``: MLA chunked prefill
+and the sliding-window ring cache (h2o-danube, gemma3 local layers).
 """
 
 from __future__ import annotations
@@ -27,18 +36,22 @@ from .common import apply_rope, dense_init, rms_norm
 
 DECODE_PAGE = 16   # tokens per page when a slot cache is viewed as a page pool
 
-_MLA_LATER = ("MLA attention is not ported yet; it comes with the later step "
-              "that brings MLA, MoE, ring/SWA, RG-LRU and SSM")
+MLA_CACHE = "ckv"   # an MLA layer's decode cache entry: latent ‖ k_rope
+
+_MLA_CHUNK_LATER = ("MLA chunked prefill is not ported yet; it comes with the "
+                    "next slice (MLA chunked prefill and radix reuse, "
+                    "ROADMAP.md section 1)")
 _RING_LATER = ("sliding-window (ring-cache) decode is not ported yet; it comes "
-               "with the later step that brings MLA, MoE, ring/SWA, RG-LRU "
-               "and SSM")
+               "with the later step that brings ring/SWA and RG-LRU")
 
 
 def init_attention(generator: torch.Generator, cfg: ModelConfig, dtype,
                    device) -> dict:
-    """Projection weights (and qk-norm scales) of one GQA layer."""
+    """Projection weights of one attention layer: GQA (and qk-norm scales),
+    or MLA (query, latent down-projection and its norm, rope key, latent
+    up-projections to keys and values, output)."""
     if cfg.use_mla:
-        raise NotImplementedError(_MLA_LATER)
+        return _init_mla(generator, cfg, dtype, device)
     d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     p = {"wq": dense_init(generator, d, H * hd, dtype, device),
          "wk": dense_init(generator, d, K * hd, dtype, device),
@@ -48,6 +61,31 @@ def init_attention(generator: torch.Generator, cfg: ModelConfig, dtype,
         p["q_norm"] = torch.zeros((hd,), dtype=dtype, device=device)
         p["k_norm"] = torch.zeros((hd,), dtype=dtype, device=device)
     return p
+
+
+def _init_mla(generator: torch.Generator, cfg: ModelConfig, dtype,
+              device) -> dict:
+    d, H, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+    r, rd, vd = cfg.kv_lora_rank, cfg.rope_head_dim, cfg.v_head_dim
+    return {"wq": dense_init(generator, d, H * (hd + rd), dtype, device),
+            "w_dkv": dense_init(generator, d, r, dtype, device),
+            "w_krope": dense_init(generator, d, rd, dtype, device),
+            "w_uk": dense_init(generator, r, H * hd, dtype, device),
+            "w_uv": dense_init(generator, r, H * vd, dtype, device),
+            "wo": dense_init(generator, H * vd, d, dtype, device),
+            "kv_norm": torch.zeros((r,), dtype=dtype, device=device)}
+
+
+def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype,
+               device) -> dict:
+    """Zero decode cache of one attention layer: ``{"k", "v"}`` of (batch,
+    s_max, K, hd), or for MLA ``{"ckv"}`` of (batch, s_max, 1, r + rd)."""
+    if cfg.use_mla:
+        shape = (batch, s_max, 1, cfg.kv_lora_rank + cfg.rope_head_dim)
+        return {MLA_CACHE: torch.zeros(shape, dtype=dtype, device=device)}
+    shape = (batch, s_max, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def _qkv(params, x, cfg: ModelConfig, positions):
@@ -169,6 +207,90 @@ def gqa_chunk_decode(params, x, cache: dict, pos0, cfg: ModelConfig,
     return y, cache
 
 
+def _mla_scale(cfg: ModelConfig) -> float:
+    return (cfg.head_dim + cfg.rope_head_dim) ** -0.5
+
+
+def mla_forward(params, x, cfg: ModelConfig, *, positions,
+                causal: bool = True, window: int = 0,
+                return_kv: bool = False, impl: str | None = None):
+    """Full-sequence MLA (prefill), folded into MHA form: queries and keys
+    ``[nope ‖ rope]`` of hd + rd (the rope key shared by every head),
+    values of vd, scale ``(hd + rd)^-0.5``, through the flash kernel.  x
+    (B,S,d) → (B,S,d), plus the layer's ``{"ckv"}`` (B,S,1,r+rd) when
+    ``return_kv``."""
+    B, S, _ = x.shape
+    H, hd = cfg.n_heads, cfg.head_dim
+    r, rd, vd = cfg.kv_lora_rank, cfg.rope_head_dim, cfg.v_head_dim
+    q = (x @ params["wq"]).reshape(B, S, H, hd + rd)
+    c = rms_norm(x @ params["w_dkv"], params["kv_norm"], cfg.norm_eps)
+    q_rope = apply_rope(q[..., hd:], positions, cfg.rope_theta)
+    k_rope = apply_rope((x @ params["w_krope"]).reshape(B, S, 1, rd),
+                        positions, cfg.rope_theta)
+    k_nope = (c @ params["w_uk"]).reshape(B, S, H, hd)
+    v = (c @ params["w_uv"]).reshape(B, S, H, vd)
+    q_full = torch.cat([q[..., :hd], q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope.expand(B, S, H, rd)], dim=-1)
+    out = flash_attention(q_full, k_full, v.contiguous(), causal=causal,
+                          window=window, scale=_mla_scale(cfg), impl=impl)
+    y = out.reshape(B, S, H * vd) @ params["wo"]
+    if return_kv:
+        return y, {MLA_CACHE: torch.cat([c, k_rope[:, :, 0]], dim=-1)[:, :, None]}
+    return y
+
+
+def mla_decode(params, x, cache: dict, cache_pos, cfg: ModelConfig,
+               *, window: int = 0, impl: str | None = None):
+    """Absorbed single-token MLA decode.  x (B,1,d); cache ``{"ckv"}``
+    (B,S_max,1,r+rd); cache_pos: int or (B,) — tokens already in each
+    row's cache (< S_max).
+
+    Writes the new token's latent and rope key into ``cache`` **in place**,
+    then attends with the paged kernel over the cache viewed as a page pool
+    of one KV head: the query ``[q_nope·W_uk ‖ q_rope]`` (B,H,r+rd) scores
+    every cached row, the values are the rows' first r columns (a strided
+    view, no copy), and the context (B,H,r) goes through W_uv and the
+    output projection.  Returns (y (B,1,d), cache)."""
+    if window and window > 0:
+        raise NotImplementedError(_RING_LATER)
+    B = x.shape[0]
+    H, hd = cfg.n_heads, cfg.head_dim
+    r, rd, vd = cfg.kv_lora_rank, cfg.rope_head_dim, cfg.v_head_dim
+    posv = _pos_vec(cache_pos, B, x.device)
+    q = (x @ params["wq"]).reshape(B, 1, H, hd + rd)
+    q_rope = apply_rope(q[..., hd:], posv[:, None], cfg.rope_theta)[:, 0]
+    c_new = rms_norm(x @ params["w_dkv"], params["kv_norm"], cfg.norm_eps)
+    k_rope_new = apply_rope((x @ params["w_krope"]).reshape(B, 1, 1, rd),
+                            posv[:, None], cfg.rope_theta)
+    ckv = cache[MLA_CACHE]
+    rows = torch.arange(B, device=x.device)
+    ckv[rows, posv, 0] = torch.cat([c_new[:, 0], k_rope_new[:, 0, 0]],
+                                   dim=-1).to(ckv.dtype)
+    q_eff = torch.einsum("bhd,rhd->bhr", q[:, 0, :, :hd],
+                         params["w_uk"].reshape(r, H, hd))
+    q_cat = torch.cat([q_eff, q_rope], dim=-1).to(ckv.dtype)
+    n_slots, s_max = ckv.shape[:2]
+    page = math.gcd(s_max, DECODE_PAGE)
+    pages = s_max // page
+    kp = ckv.view(n_slots * pages, page, 1, r + rd)
+    table = _slot_block_table(n_slots, pages, ckv.device)[:B]
+    seq_lens = (posv + 1).to(torch.int32)
+    ctx = paged_attention(q_cat, kp, kp[..., :r], table, seq_lens,
+                          scale=_mla_scale(cfg), impl=impl)
+    out = torch.einsum("bhr,rhd->bhd", ctx.to(x.dtype),
+                       params["w_uv"].reshape(r, H, vd))
+    y = out.reshape(B, 1, H * vd) @ params["wo"]
+    return y, cache
+
+
+def mla_chunk_decode(params, x, cache: dict, pos0, cfg: ModelConfig,
+                     *, window: int = 0, impl: str | None = None):
+    """Chunked absorbed-MLA decode (the JAX package's ``mla_chunk_decode``):
+    not ported yet.  It needs flash with a query offset at one KV head of
+    r + rd keys over the latent cache; it raises ``NotImplementedError``."""
+    raise NotImplementedError(_MLA_CHUNK_LATER)
+
+
 def window_for(cfg: ModelConfig, kind: str) -> int:
     """Attention window of a layer kind (0 = unbounded)."""
     if kind == "local":
@@ -184,7 +306,9 @@ def attn_forward(params, x, cfg: ModelConfig, kind: str, positions,
                  return_kv: bool = False, impl: str | None = None):
     """Prefill attention of a layer of kind ``kind``."""
     if cfg.use_mla:
-        raise NotImplementedError(_MLA_LATER)
+        return mla_forward(params, x, cfg, positions=positions,
+                           causal=cfg.causal, window=window_for(cfg, kind),
+                           return_kv=return_kv, impl=impl)
     return gqa_forward(params, x, cfg, window=window_for(cfg, kind),
                        positions=positions, causal=cfg.causal,
                        return_kv=return_kv, impl=impl)
@@ -194,15 +318,18 @@ def attn_decode(params, x, cache, cache_pos, cfg: ModelConfig, kind: str,
                 impl: str | None = None):
     """Single-token decode attention of a layer of kind ``kind``."""
     if cfg.use_mla:
-        raise NotImplementedError(_MLA_LATER)
+        return mla_decode(params, x, cache, cache_pos, cfg,
+                          window=window_for(cfg, kind), impl=impl)
     return gqa_decode(params, x, cache, cache_pos, cfg,
                       window=window_for(cfg, kind), impl=impl)
 
 
 def attn_chunk_decode(params, x, cache, pos0, cfg: ModelConfig, kind: str,
                       impl: str | None = None):
-    """Chunked-prefill attention of a layer of kind ``kind``."""
+    """Chunked-prefill attention of a layer of kind ``kind``.  MLA raises
+    ``NotImplementedError`` (the next slice)."""
     if cfg.use_mla:
-        raise NotImplementedError(_MLA_LATER)
+        return mla_chunk_decode(params, x, cache, pos0, cfg,
+                                window=window_for(cfg, kind), impl=impl)
     return gqa_chunk_decode(params, x, cache, pos0, cfg,
                             window=window_for(cfg, kind), impl=impl)

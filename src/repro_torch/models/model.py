@@ -1,8 +1,9 @@
 """Model facade for serving: parameters, prefill, decode step, decode caches.
 
 Ported from the JAX package's ``models/model.py`` for the dense attention
-families and the SSM family.  ``train_loss`` and the MoE and RG-LRU
-families come with later steps of the port.
+families, MLA and MoE (deepseek-v2-lite) and the SSM family; ``moe_impl``
+picks the MoE path (``dropping``, the JAX engine's default, or ``dense``).
+``train_loss`` and the RG-LRU family come with later steps of the port.
 """
 
 from __future__ import annotations
@@ -15,8 +16,9 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from .common import DtypePolicy, dense_init, embed_init, resolve_device, rms_norm
-from .transformer import (check_supported, init_stack, init_stack_cache,
-                          stack_chunk, stack_decode, stack_forward)
+from .transformer import (SEQ_CACHE_ENTRIES, check_supported, init_stack,
+                          init_stack_cache, stack_chunk, stack_decode,
+                          stack_forward)
 
 
 class LMParams(nn.Module):
@@ -76,16 +78,18 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
 @torch.no_grad()
 def prefill(params: LMParams, batch: dict, cfg: ModelConfig, *,
             policy: DtypePolicy = DtypePolicy.serve(),
-            true_lens=None, impl: str | None = None):
+            true_lens=None, impl: str | None = None,
+            moe_impl: str = "dropping"):
     """Full-prompt forward.  batch {"tokens": (B,S) int}; ``true_lens``
     (B,) the real lengths of right-padded rows, or None for all S.  Returns
     (logits at each row's last real position (B,1,V) f32, per-layer caches:
-    ``{"k", "v"}`` (B,S,K,hd) for attention, ``{"ssm", "conv"}`` after the
-    last real position for SSM layers)."""
+    ``{"k", "v"}`` (B,S,K,hd) for GQA, ``{"ckv"}`` (B,S,1,r+rd) for MLA,
+    ``{"ssm", "conv"}`` after the last real position for SSM layers)."""
     x = _embed_inputs(params, batch, cfg, policy.compute)
     B, S = x.shape[:2]
     h, caches = stack_forward(params.blocks, x, cfg, _positions(B, S, x.device),
-                              want_cache=True, true_lens=true_lens, impl=impl)
+                              want_cache=True, true_lens=true_lens, impl=impl,
+                              moe_impl=moe_impl)
     h = rms_norm(h, params.final_norm, cfg.norm_eps)
     if true_lens is None:
         h_last = h[:, -1:]
@@ -101,12 +105,13 @@ def prefill(params: LMParams, batch: dict, cfg: ModelConfig, *,
 def decode_step(params: LMParams, tokens, caches: list, cache_pos,
                 cfg: ModelConfig, *,
                 policy: DtypePolicy = DtypePolicy.serve(),
-                impl: str | None = None):
+                impl: str | None = None, moe_impl: str = "dropping"):
     """One token for every sequence.  tokens (B,1) int; cache_pos an int or
     (B,) per-row positions (tokens already in each cache, < S_max; SSM
     layers do not read them).  The caches are updated **in place**.
     Returns (logits (B,1,V) f32, caches)."""
-    s_max = next((c["k"].shape[1] for c in caches if "k" in c), None)
+    s_max = next((t.shape[1] for c in caches for name, t in c.items()
+                  if name in SEQ_CACHE_ENTRIES), None)
     if s_max is not None and isinstance(cache_pos, (int, np.integer,
                                                     np.ndarray)):
         host = np.asarray(cache_pos)
@@ -118,7 +123,7 @@ def decode_step(params: LMParams, tokens, caches: list, cache_pos,
     if cfg.tie_embeddings:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=policy.compute)
     h, caches = stack_decode(params.blocks, x, caches, cache_pos, cfg,
-                             impl=impl)
+                             impl=impl, moe_impl=moe_impl)
     h = rms_norm(h, params.final_norm, cfg.norm_eps)
     w_head = _unembed(params, cfg)
     logits = (h.to(w_head.dtype) @ w_head).float()
@@ -128,7 +133,7 @@ def decode_step(params: LMParams, tokens, caches: list, cache_pos,
 @torch.no_grad()
 def chunk_step(params: LMParams, tokens, caches: list, pos0,
                cfg: ModelConfig, *, policy: DtypePolicy = DtypePolicy.serve(),
-               impl: str | None = None):
+               impl: str | None = None, moe_impl: str = "dropping"):
     """Prefill one C-token chunk against existing decode caches.
 
     tokens (B,C) int; ``pos0`` an int — tokens already resident in every
@@ -141,7 +146,8 @@ def chunk_step(params: LMParams, tokens, caches: list, pos0,
     x = params.embed[tokens.long()].to(policy.compute)
     if cfg.tie_embeddings:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=policy.compute)
-    h, caches = stack_chunk(params.blocks, x, caches, pos0, cfg, impl=impl)
+    h, caches = stack_chunk(params.blocks, x, caches, pos0, cfg, impl=impl,
+                            moe_impl=moe_impl)
     h = rms_norm(h[:, -1:], params.final_norm, cfg.norm_eps)
     w_head = _unembed(params, cfg)
     logits = (h.to(w_head.dtype) @ w_head).float()

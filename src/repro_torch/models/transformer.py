@@ -1,17 +1,22 @@
-"""Layer stack assembly for the attention and SSM layer kinds.
+"""Layer stack assembly for the attention and SSM layer kinds, with dense or
+MoE MLPs.
 
 The JAX package runs ``head`` blocks, a ``jax.lax.scan`` over periods of
 ``cfg.pattern`` and ``tail`` blocks, with stacked period weights.  Here the
 layers are an ``nn.ModuleList`` of per-layer :class:`Block`\\ s in layer
 order and the scan is a Python loop; ``stack_layout`` and ``layer_kinds``
 keep the JAX meaning.  The decode cache is a per-layer list of dicts,
-updated in place by :func:`stack_decode`: ``{"k", "v"}`` for an attention
-layer, ``{"ssm", "conv"}`` for an SSM layer.
+updated in place by :func:`stack_decode`: ``{"k", "v"}`` for a GQA layer,
+``{"ckv"}`` for an MLA layer, ``{"ssm", "conv"}`` for an SSM layer.  With
+``cfg.n_experts`` every block after the first ``cfg.first_dense_layers``
+carries an MoE MLP (``models/moe.py``), run by ``moe_impl`` (``dense`` or
+``dropping``, the default).
 
-Attention kinds without a ring cache and the SSM kind are ported: MoE,
-RG-LRU, MLA and sliding-window layers raise ``NotImplementedError``.
-Chunked decode (:func:`stack_chunk`) runs on stacks of attention layers
-only (:func:`supports_chunked_decode`).
+Attention kinds without a ring cache (GQA and MLA), MoE MLPs and the SSM
+kind are ported: RG-LRU and sliding-window layers raise
+``NotImplementedError``.  Chunked decode (:func:`stack_chunk`) runs on
+stacks of attention layers (:func:`supports_chunked_decode`); an MLA
+layer raises ``NotImplementedError`` there until the next slice.
 """
 
 from __future__ import annotations
@@ -20,17 +25,21 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
-from .attention import (attn_chunk_decode, attn_decode, attn_forward,
-                        init_attention)
+from .attention import (MLA_CACHE, attn_chunk_decode, attn_decode,
+                        attn_forward, init_attention, init_cache)
 from .common import rms_norm
 from .mlp import init_mlp, mlp_forward
+from .moe import init_moe, moe_forward
 from .ssm import init_ssm, init_ssm_cache, ssm_decode, ssm_forward
 
 ATTN_KINDS = ("attn", "local", "global")
 PORTED_KINDS = ATTN_KINDS + ("ssm",)
+# Decode-cache entries with a sequence axis (axis 1), which a prefill fills
+# up to its bucket's length
+SEQ_CACHE_ENTRIES = ("k", "v", MLA_CACHE)
 
-_FAMILIES_LATER = ("not ported yet; MLA, MoE, ring/SWA and RG-LRU come "
-                   "with a later step of the port")
+_FAMILIES_LATER = ("not ported yet; ring/SWA, RG-LRU, encoder-only and "
+                   "embedding-input models come with a later step of the port")
 
 
 def _uses_ring(cfg: ModelConfig, kind: str) -> bool:
@@ -53,10 +62,6 @@ def stack_layout(cfg: ModelConfig) -> tuple[int, int, int]:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config this port cannot run yet."""
-    if cfg.n_experts:
-        raise NotImplementedError(f"MoE layers are {_FAMILIES_LATER}")
-    if cfg.use_mla:
-        raise NotImplementedError(f"MLA attention is {_FAMILIES_LATER}")
     if cfg.is_encoder_only or cfg.input_mode != "tokens":
         raise NotImplementedError(f"encoder-only and embedding-input models "
                                   f"are {_FAMILIES_LATER}")
@@ -72,47 +77,71 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+def _frozen_dict(d: dict | None) -> nn.ParameterDict | None:
+    if d is None:
+        return None
+    return nn.ParameterDict({k: _frozen(v) for k, v in d.items()})
+
+
 class Block(nn.Module):
     """Weights of one layer: ``ln1`` and ``mixer`` (the attention
     projections or the SSM mixer), then for attention kinds ``ln2`` and the
-    SwiGLU ``mlp``; an SSM block has neither (``None``).  Inference only:
-    the parameters do not require grad."""
+    ``mlp``: a SwiGLU MLP, or an MoE layer (``use_moe``: its ``mlp`` has a
+    router) whose shared experts (the ``"shared"`` entry of the JAX tree)
+    sit in ``shared``.  An SSM block has no ``ln2`` and no MLP (``None``).
+    Inference only: the parameters do not require grad."""
 
     def __init__(self, kind: str, ln1: torch.Tensor, mixer: dict,
                  ln2: torch.Tensor | None = None, mlp: dict | None = None):
         super().__init__()
         self.kind = kind
+        self.use_moe = mlp is not None and "router" in mlp
         self.ln1 = _frozen(ln1)
-        self.mixer = nn.ParameterDict({k: _frozen(v) for k, v in mixer.items()})
+        self.mixer = _frozen_dict(mixer)
         self.ln2 = _frozen(ln2) if ln2 is not None else None
-        self.mlp = (nn.ParameterDict({k: _frozen(v) for k, v in mlp.items()})
-                    if mlp is not None else None)
+        mlp = dict(mlp) if mlp is not None else None
+        shared = mlp.pop("shared", None) if mlp is not None else None
+        self.mlp = _frozen_dict(mlp)
+        self.shared = _frozen_dict(shared)
+
+    def moe_params(self) -> dict:
+        """The MoE weights as ``models/moe.py`` takes them (the JAX
+        layout: router, experts and ``"shared"``)."""
+        return {**self.mlp, "shared": self.shared}
 
 
 def init_block(generator: torch.Generator, cfg: ModelConfig, kind: str,
-               dtype, device) -> Block:
-    """A freshly initialized layer of kind ``kind``."""
+               dtype, device, use_moe: bool = False) -> Block:
+    """A freshly initialized layer of kind ``kind`` (with an MoE MLP when
+    ``use_moe``)."""
     d = cfg.d_model
     zeros = torch.zeros((d,), dtype=dtype, device=device)
     if kind == "ssm":
         return Block(kind, zeros, init_ssm(generator, cfg, dtype, device))
     mixer = init_attention(generator, cfg, dtype, device)
-    mlp = init_mlp(generator, d, cfg.d_ff, dtype, device)
+    mlp = (init_moe(generator, cfg, dtype, device) if use_moe
+           else init_mlp(generator, d, cfg.d_ff, dtype, device))
     return Block(kind, zeros, mixer, zeros.clone(), mlp)
 
 
-def _mlp_residual(bp: Block, x, cfg: ModelConfig):
+def _mlp_residual(bp: Block, x, cfg: ModelConfig, moe_impl: str):
     if bp.mlp is None:
         return x
     h2 = rms_norm(x, bp.ln2, cfg.norm_eps)
-    return x + mlp_forward(bp.mlp, h2).to(x.dtype)
+    if bp.use_moe:
+        y, _ = moe_forward(bp.moe_params(), h2, cfg, impl=moe_impl)
+    else:
+        y = mlp_forward(bp.mlp, h2)
+    return x + y.to(x.dtype)
 
 
 def block_forward(bp: Block, x, cfg: ModelConfig, positions, *,
-                  want_cache: bool, true_lens=None, impl: str | None = None):
+                  want_cache: bool, true_lens=None, impl: str | None = None,
+                  moe_impl: str = "dropping"):
     """Full-sequence block.  ``true_lens`` (B,) are the real lengths of
     right-padded rows (read by SSM layers; causal attention needs no mask
-    for right padding).  Returns (x, the layer's cache or None)."""
+    for right padding, but an MoE layer routes the padding too, as the JAX
+    package does).  Returns (x, the layer's cache or None)."""
     h = rms_norm(x, bp.ln1, cfg.norm_eps)
     cache = None
     if bp.kind == "ssm":
@@ -125,11 +154,11 @@ def block_forward(bp: Block, x, cfg: ModelConfig, positions, *,
     else:
         mix = attn_forward(bp.mixer, h, cfg, bp.kind, positions, impl=impl)
     x = x + mix.to(x.dtype)
-    return _mlp_residual(bp, x, cfg), cache
+    return _mlp_residual(bp, x, cfg, moe_impl), cache
 
 
 def block_decode(bp: Block, x, cache: dict, cache_pos, cfg: ModelConfig, *,
-                 impl: str | None = None):
+                 impl: str | None = None, moe_impl: str = "dropping"):
     """One-token decode through a block; ``cache`` is updated in place.
     Returns (x, cache)."""
     h = rms_norm(x, bp.ln1, cfg.norm_eps)
@@ -139,7 +168,7 @@ def block_decode(bp: Block, x, cache: dict, cache_pos, cfg: ModelConfig, *,
         mix, cache = attn_decode(bp.mixer, h, cache, cache_pos, cfg, bp.kind,
                                  impl=impl)
     x = x + mix.to(x.dtype)
-    return _mlp_residual(bp, x, cfg), cache
+    return _mlp_residual(bp, x, cfg, moe_impl), cache
 
 
 def supports_chunked_decode(cfg: ModelConfig) -> bool:
@@ -158,7 +187,7 @@ def supports_chunked_decode(cfg: ModelConfig) -> bool:
 
 
 def block_chunk(bp: Block, x, cache: dict, pos0, cfg: ModelConfig, *,
-                impl: str | None = None):
+                impl: str | None = None, moe_impl: str = "dropping"):
     """C-token chunk decode through an attention block (x (B,C,d)); the
     cache is updated in place.  Returns (x, cache)."""
     if bp.kind not in ATTN_KINDS or _uses_ring(cfg, bp.kind):
@@ -168,27 +197,28 @@ def block_chunk(bp: Block, x, cache: dict, pos0, cfg: ModelConfig, *,
     mix, cache = attn_chunk_decode(bp.mixer, h, cache, pos0, cfg, bp.kind,
                                    impl=impl)
     x = x + mix.to(x.dtype)
-    return _mlp_residual(bp, x, cfg), cache
+    return _mlp_residual(bp, x, cfg, moe_impl), cache
 
 
 def init_stack(generator: torch.Generator, cfg: ModelConfig, dtype,
                device) -> nn.ModuleList:
     """Every layer of the stack, in order."""
     check_supported(cfg)
-    return nn.ModuleList(init_block(generator, cfg, kind, dtype, device)
-                         for kind in layer_kinds(cfg))
+    # the JAX stack's head blocks (first_dense_layers) keep a dense MLP
+    return nn.ModuleList(
+        init_block(generator, cfg, kind, dtype, device,
+                   use_moe=cfg.n_experts > 0 and i >= cfg.first_dense_layers)
+        for i, kind in enumerate(layer_kinds(cfg)))
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, s_max: int,
                      dtype, device) -> dict:
-    """Zero decode cache of one layer: ``{"k", "v"}`` of (batch, s_max, K,
-    hd), or for an SSM layer ``{"ssm": (batch, H, P, N) f32, "conv":
-    (batch, W-1, conv_dim)}``."""
+    """Zero decode cache of one layer: ``attention.init_cache`` (``{"k",
+    "v"}`` or MLA's ``{"ckv"}``), or for an SSM layer ``{"ssm": (batch, H,
+    P, N) f32, "conv": (batch, W-1, conv_dim)}``."""
     if kind == "ssm":
         return init_ssm_cache(cfg, batch, dtype, device)
-    shape = (batch, s_max, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return init_cache(cfg, batch, s_max, dtype, device)
 
 
 def init_stack_cache(cfg: ModelConfig, batch: int, s_max: int, dtype,
@@ -201,30 +231,35 @@ def init_stack_cache(cfg: ModelConfig, batch: int, s_max: int, dtype,
 
 def stack_forward(blocks: nn.ModuleList, x, cfg: ModelConfig, positions, *,
                   want_cache: bool = False, true_lens=None,
-                  impl: str | None = None):
+                  impl: str | None = None, moe_impl: str = "dropping"):
     """Returns (x, per-layer caches or None)."""
     caches = [] if want_cache else None
     for bp in blocks:
         x, c = block_forward(bp, x, cfg, positions, want_cache=want_cache,
-                             true_lens=true_lens, impl=impl)
+                             true_lens=true_lens, impl=impl,
+                             moe_impl=moe_impl)
         if want_cache:
             caches.append(c)
     return x, caches
 
 
 def stack_decode(blocks: nn.ModuleList, x, caches: list, cache_pos,
-                 cfg: ModelConfig, *, impl: str | None = None):
+                 cfg: ModelConfig, *, impl: str | None = None,
+                 moe_impl: str = "dropping"):
     """One-token decode through the whole stack; every layer's cache is
     updated in place.  Returns (x, caches)."""
     for bp, cache in zip(blocks, caches):
-        x, _ = block_decode(bp, x, cache, cache_pos, cfg, impl=impl)
+        x, _ = block_decode(bp, x, cache, cache_pos, cfg, impl=impl,
+                            moe_impl=moe_impl)
     return x, caches
 
 
 def stack_chunk(blocks: nn.ModuleList, x, caches: list, pos0,
-                cfg: ModelConfig, *, impl: str | None = None):
+                cfg: ModelConfig, *, impl: str | None = None,
+                moe_impl: str = "dropping"):
     """Chunked decode through the whole stack (x (B,C,d)); every layer's
     cache is updated in place.  Returns (x, caches)."""
     for bp, cache in zip(blocks, caches):
-        x, _ = block_chunk(bp, x, cache, pos0, cfg, impl=impl)
+        x, _ = block_chunk(bp, x, cache, pos0, cfg, impl=impl,
+                           moe_impl=moe_impl)
     return x, caches

@@ -44,7 +44,11 @@ Two opt-in features follow the JAX engine (``docs/ENGINE.md``):
   one pinned tensor per layer for each run of blocks published together.
 
 Both raise ``ValueError`` for a family ``supports_chunked_decode`` rejects
-(the SSM family), as the JAX engine does.  Both off ⇒ the bucketed path.
+(the SSM family), as the JAX engine does, and ``NotImplementedError`` for
+an MLA config (deepseek-v2-lite), whose chunked prefill and latent host KV
+store come with the next slice of the port.  Both off ⇒ the bucketed path.
+An MoE config runs its experts by ``EngineConfig.moe_impl`` (``dropping``,
+as in the JAX engine, or ``dense``) in every prefill and decode step.
 
 One fault of the JAX engine is not copied: a planned request whose prompt
 cannot fit a slot (``prompt_len > s_max - 1``) is shed with
@@ -74,7 +78,8 @@ if TYPE_CHECKING:   # runtime import is deferred: kvplane.radix imports
 from ..models.common import DtypePolicy, resolve_device, rms_norm
 from ..models.model import (LMParams, _embed_inputs, _unembed, chunk_step,
                             decode_step, init_decode_caches)
-from ..models.transformer import stack_forward, supports_chunked_decode
+from ..models.transformer import (SEQ_CACHE_ENTRIES, stack_forward,
+                                  supports_chunked_decode)
 from .kv_cache import BlockPool, SlotAllocator
 from .sampler import sample_tokens
 
@@ -165,6 +170,11 @@ class ServingEngine:
             raise ValueError(
                 f"chunked prefill / prefix cache unsupported for family "
                 f"{cfg.family!r} (ring/recurrent/encoder-only stacks)")
+        if self._chunked and cfg.use_mla:
+            raise NotImplementedError(
+                "chunked prefill / prefix cache for MLA configs is not "
+                "ported yet; it comes with the next slice (MLA chunked "
+                "prefill and radix reuse, ROADMAP.md section 1)")
         self._chunk_budget = (self.e.chunk_prefill_tokens
                               or self.e.max_prefill_tokens)
         self.policy = policy or DtypePolicy(torch.float32, torch.float32,
@@ -257,15 +267,17 @@ class ServingEngine:
     @torch.no_grad()
     def _prefill_fn(self, tokens: torch.Tensor, true_lens: torch.Tensor):
         """Bucketed prefill returning per-row logits at true_lens-1 (n,1,V)
-        f32 and the per-layer caches (attention: (n, bucket, K, hd) K/V;
-        SSM: the state and conv tail after each row's last real token)."""
+        f32 and the per-layer caches (attention: (n, bucket, K, hd) K/V or
+        MLA's (n, bucket, 1, r+rd) latent rows; SSM: the state and conv
+        tail after each row's last real token)."""
         x = _embed_inputs(self.params, {"tokens": tokens}, self.cfg,
                           self.policy.compute)
         B, S = x.shape[:2]
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device)[None].expand(B, S)
         h, caches = stack_forward(self.params.blocks, x, self.cfg, positions,
-                                  want_cache=True, true_lens=true_lens)
+                                  want_cache=True, true_lens=true_lens,
+                                  moe_impl=self.e.moe_impl)
         h = rms_norm(h, self.params.final_norm, self.cfg.norm_eps)
         h_last = h[torch.arange(B, device=x.device), true_lens.long() - 1]
         w = _unembed(self.params, self.cfg)
@@ -653,12 +665,13 @@ class ServingEngine:
 
     def _write_slot(self, slot: int, prefill_caches: list, row: int) -> None:
         """Copy row ``row`` of the per-layer prefill caches into the decode
-        slot **in place**.  K/V fill the slot's first bucket positions and
-        zero the rest (the JAX engine writes a zero-padded row); SSM state
-        and conv entries have no sequence axis and are copied whole."""
+        slot **in place**.  An entry with a sequence axis (GQA's K/V, MLA's
+        latent rows) fills the slot's first bucket positions and zeroes the
+        rest (the JAX engine writes a zero-padded row); SSM state and conv
+        entries have none and are copied whole."""
         for dst, src in zip(self.caches, prefill_caches):
             for name, t in src.items():
-                if name in ("k", "v"):
+                if name in SEQ_CACHE_ENTRIES:
                     S = t.shape[1]
                     dst[name][slot, :S].copy_(t[row])
                     dst[name][slot, S:].zero_()
@@ -877,7 +890,8 @@ class ServingEngine:
             self._chunk_widths.add(width)
             t0 = self.now()
             logits, _ = chunk_step(self.params, toks, self._slot_view(slot),
-                                   st.pos, self.cfg, policy=self.policy)
+                                   st.pos, self.cfg, policy=self.policy,
+                                   moe_impl=self.e.moe_impl)
             st.pos += width
             t1 = self.now()
             self.chunks_run += 1
@@ -992,7 +1006,8 @@ class ServingEngine:
             toks = torch.from_numpy(self.last_tokens).to(self.device)
             logits, self.caches = decode_step(self.params, toks, self.caches,
                                               self.slot_pos, self.cfg,
-                                              policy=self.policy)
+                                              policy=self.policy,
+                                              moe_impl=self.e.moe_impl)
             nxt = self._sample(logits)
             t = self.now()
             steps += 1

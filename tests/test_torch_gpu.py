@@ -535,3 +535,125 @@ def test_replay_suite_on_card(cuda):
         assert replay_ok(rep), (rep["scheduler"], rep["dispatch_tau"])
         assert rep["engine_finished"] == rep["n_requests"] == 12
     assert suite["ok"]
+
+
+# ---- MLA shapes (deepseek-v2-lite): keys wider than values ------------------
+
+MLA_SCALE = 192 ** -0.5        # (hd + rd)^-0.5 of deepseek-v2-lite
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,q_offset,T", [
+    (2, 200, 16, 0, 200),        # MLA prefill in MHA form, ragged S
+    (1, 1, 16, 0, 1),            # one token
+    (1, 70, 4, 100, 256),        # at an offset into a longer cache
+])
+def test_flash_mla_dims_kernel_matches_plain(cuda, dtype, B, S, H, q_offset,
+                                             T):
+    """Flash attention at (dk, dv) = (192, 128), H = K, against its plain
+    version (and, in bf16, per element against the tiled plain version that
+    rounds P as the tensor-core kernel does)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn((B, S, H, 192), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, T, H, 192), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, T, H, 128), generator=g, device=cuda).to(dtype)
+    kw = dict(scale=MLA_SCALE, q_offset=q_offset, kv_len=q_offset + S)
+    before = flash_ops.KERNEL.launches
+    out = flash_ops.flash_attention(q, k, v, **kw)
+    assert flash_ops.KERNEL.launches == before + 1
+    assert out.shape == (B, S, H, 128) and out.dtype == dtype
+    ref = flash_ops.flash_attention(q, k, v, impl="plain", **kw)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOLS[dtype],
+                               rtol=TOLS[dtype])
+    if dtype == torch.bfloat16:
+        tiled = flash_attention_tiled_ref(
+            *(t.transpose(1, 2) for t in (q, k, v)), **kw).transpose(1, 2)
+        torch.testing.assert_close(out.float(), tiled.float(),
+                                   atol=TILED_ATOL, rtol=TILED_RTOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,lens,npg", [
+    (16, [1, 17, 127, 128, 129, 600, 2000, 5], 128),   # 16 partitions of 128
+    (16, [1, 9, 33, 100], 8),                          # one partition
+    (4, [1, 15, 16, 17, 300], 32),
+])
+def test_paged_mla_kernel_matches_plain(cuda, dtype, G, lens, npg):
+    """Absorbed MLA decode: keys of 576, values the view of their rows'
+    first 512 columns, one KV head, G query heads; sequences of one token,
+    with a partly filled last page, and on both sides of a partition
+    edge."""
+    rng = np.random.default_rng(6)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    B, page = len(lens), 16
+    n_pool = B * npg
+    q = torch.randn((B, G, 576), generator=g, device=cuda).to(dtype)
+    kp = torch.randn((n_pool, page, 1, 576), generator=g,
+                     device=cuda).to(dtype)
+    vp = kp[..., :512]
+    bt = torch.tensor(rng.permutation(n_pool).reshape(B, npg),
+                      dtype=torch.int32, device=cuda)
+    sl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = paged_ops.KERNEL.launches
+    out = paged_ops.paged_attention(q, kp, vp, bt, sl, scale=MLA_SCALE)
+    assert paged_ops.KERNEL.launches == before + 1
+    assert out.shape == (B, G, 512) and out.dtype == dtype
+    ref = paged_ops.paged_attention(q, kp, vp, bt, sl, scale=MLA_SCALE,
+                                    impl="plain")
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOLS[dtype],
+                               rtol=TOLS[dtype])
+
+
+def test_mla_wrappers_refuse_what_they_cannot_take(cuda):
+    kp = torch.zeros((4, 16, 1, 576), device=cuda)
+    q = torch.zeros((1, 16, 576), device=cuda)
+    bt = torch.zeros((1, 2), dtype=torch.int32, device=cuda)
+    sl = torch.ones((1,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):                     # values not a view
+        paged_ops.paged_attention(q, kp, kp[..., :512].contiguous(), bt, sl)
+    with pytest.raises(ValueError):                     # G = 8 at MLA dims
+        paged_ops.paged_attention(q[:, :8], kp, kp[..., :512], bt, sl)
+    qf = torch.zeros((1, 8, 2, 192), device=cuda)
+    with pytest.raises(ValueError):                     # (192, 192)
+        flash_ops.flash_attention(qf, qf, qf)
+
+
+def _mla_moe_cfg():
+    """deepseek-v2-lite's kernel dims at a small width: MLA with heads of
+    128 + 64 rope and a 512 latent (prefill flash at (192, 128), decode
+    paged at (576, 512)), 8 experts top-2 and one shared, first layer
+    dense."""
+    return ModelConfig(name="gpu-mla-moe", family="moe", n_layers=3,
+                       d_model=256, n_heads=4, n_kv_heads=4, d_ff=512,
+                       vocab_size=512, head_dim=128, use_mla=True,
+                       kv_lora_rank=512, rope_head_dim=64, n_experts=8,
+                       n_shared_experts=1, moe_top_k=2, moe_d_ff=128,
+                       first_dense_layers=1)
+
+
+def test_mla_moe_engine_kernel_path_matches_cpu_run(cuda):
+    """The small MLA + MoE model served on the card in f32 (flash at
+    (192, 128), paged at (576, 512) with G = 4, MoE ``dropping``) gives the
+    greedy tokens of the same weights served on the CPU."""
+    cfg = _mla_moe_cfg()
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    pol = DtypePolicy(torch.float32, torch.float32, torch.float32)
+    outs = {}
+    for dev in ("cpu", cuda):
+        rng = np.random.default_rng(7)
+        reqs = [Request(prompt_len=int(rng.integers(5, 120)),
+                        arrival_time=0.0,
+                        max_new_tokens=int(rng.integers(2, 8)),
+                        request_id=60_000 + i) for i in range(8)]
+        eng = ServingEngine(cfg, params.to(dev), FCFSScheduler(),
+                            EngineConfig(max_slots=4, s_max=256,
+                                         kv_pool_tokens=2048,
+                                         buckets=(32, 64, 128)),
+                            policy=pol, device=dev)
+        flash0, paged0 = flash_ops.KERNEL.launches, paged_ops.KERNEL.launches
+        assert len(eng.run(reqs)) == len(reqs)
+        if dev == cuda:
+            assert flash_ops.KERNEL.launches > flash0
+            assert paged_ops.KERNEL.launches > paged0
+        outs[str(dev)] = eng.output_tokens
+    assert outs["cpu"] == outs["cuda"]

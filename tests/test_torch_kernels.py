@@ -197,6 +197,93 @@ class TestPagedAttention:
                                    atol=F32_TOL, rtol=F32_TOL)
 
 
+def _dense_attention(q, k, v, scale, mask):
+    """Softmax attention in float64 numpy: q (B,H,S,dk), k (B,H,T,dk),
+    v (B,H,T,dv), mask (B or 1, 1, S, T) → (B,H,S,dv)."""
+    s = np.einsum("bhsd,bhtd->bhst", q.astype(np.float64),
+                  k.astype(np.float64)) * scale
+    s = np.where(mask, s, -np.inf)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    return np.einsum("bhst,bhtd->bhsd", p, v.astype(np.float64))
+
+
+class TestWideKeys:
+    """Keys wider than values, the MLA shapes: prefill folded into MHA form
+    (q/k 192 = 128 + 64 rope, v 128) through flash attention, and absorbed
+    decode (keys 576 = latent 512 + rope 64, values the first 512 columns
+    of the same rows, a strided view) through paged attention; both plain
+    versions against dense softmax attention."""
+
+    @pytest.mark.parametrize("B,S,H,K,q_offset,kv_len,scale", [
+        (2, 70, 4, 4, 0, None, 192 ** -0.5),   # MLA prefill: H = K
+        (1, 64, 4, 2, 0, None, None),          # GQA, default hd^-0.5
+        (1, 20, 2, 2, 50, 70, 192 ** -0.5),    # at an offset into a cache
+    ])
+    def test_flash_plain_versions_match_dense(self, B, S, H, K, q_offset,
+                                              kv_len, scale):
+        rng = np.random.default_rng(11)
+        T = q_offset + S if kv_len is None else kv_len + 10
+        q = _normal(rng, (B, S, H, 192))
+        k = _normal(rng, (B, T, K, 192))
+        v = _normal(rng, (B, T, K, 128))
+        vis = q_offset + S if kv_len is None else kv_len
+        qpos = q_offset + np.arange(S)[:, None]
+        mask = (np.arange(vis)[None] <= qpos)[None, None]
+        G = H // K
+        want = _dense_attention(
+            q.transpose(0, 2, 1, 3),
+            np.repeat(k[:, :vis], G, axis=2).transpose(0, 2, 1, 3),
+            np.repeat(v[:, :vis], G, axis=2).transpose(0, 2, 1, 3),
+            192 ** -0.5 if scale is None else scale, mask)
+        tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+        got = flash_ops.flash_attention(tq, tk, tv, scale=scale,
+                                        q_offset=q_offset, kv_len=kv_len)
+        assert got.shape == (B, S, H, 128)
+        np.testing.assert_allclose(got.numpy().transpose(0, 2, 1, 3), want,
+                                   atol=F32_TOL, rtol=F32_TOL)
+        tiled = flash_attention_tiled_ref(
+            tq.transpose(1, 2), tk.transpose(1, 2), tv.transpose(1, 2),
+            scale=scale, q_offset=q_offset, kv_len=kv_len, round_p=False)
+        np.testing.assert_allclose(tiled.numpy(), want, atol=F32_TOL,
+                                   rtol=F32_TOL)
+
+    @pytest.mark.parametrize("G,page,lens", [
+        (16, 16, [1, 37, 128, 129, 300]),   # one token; partial last page
+        (4, 8, [5, 64, 250]),
+    ])
+    def test_paged_strided_values_match_dense(self, G, page, lens):
+        rng = np.random.default_rng(12)
+        dk, dv = paged_ops.MLA_DIMS
+        lens = np.asarray(lens, dtype=np.int32)
+        B = len(lens)
+        npg = -(-int(lens.max()) // page) + 1
+        n_pool = B * npg + 2
+        q = _normal(rng, (B, G, dk))
+        rows = _normal(rng, (n_pool, page, 1, dk))
+        bt = rng.permutation(n_pool)[:B * npg].astype(np.int32).reshape(B, npg)
+        kp = torch.from_numpy(rows)
+        vp = kp[..., :dv]                      # the values: a strided view
+        assert not vp.is_contiguous() and vp.stride() == kp.stride()
+        scale = 192 ** -0.5
+        gathered = rows[bt].reshape(B, npg * page, dk)
+        mask = (np.arange(npg * page)[None] < lens[:, None])[:, None, None]
+        want = _dense_attention(
+            q[:, :, None], np.repeat(gathered[:, None], G, 1),
+            np.repeat(gathered[:, None, :, :dv], G, 1), scale, mask)[:, :, 0]
+        args = (torch.from_numpy(q), kp, vp, torch.from_numpy(bt),
+                torch.from_numpy(lens))
+        got = paged_ops.paged_attention(*args, scale=scale)
+        assert got.shape == (B, G, dv)
+        np.testing.assert_allclose(got.numpy(), want, atol=F32_TOL,
+                                   rtol=F32_TOL)
+        m, l, o = paged_attention_split_ref(
+            *args, partition=paged_ops.MLA_PARTITION, scale=scale)
+        assert o.shape == (B, G, paged_ops.mla_split_count(npg, page), dv)
+        np.testing.assert_allclose(merge_partials_ref(m, l, o).numpy(), want,
+                                   atol=F32_TOL, rtol=F32_TOL)
+
+
 class TestWrappers:
     def test_cpu_never_launches_a_kernel(self):
         flash_ops.KERNEL.launches = 0
@@ -243,6 +330,11 @@ class TestWrappers:
      "paged_attention"),
     ("void (anonymous namespace)::paged_merge_kernel<__nv_bfloat16, 128>",
      "paged_attention"),
+    ("void (anonymous namespace)::tensor_core::flash_fwd_mma_kernel<192, 128>"
+     "(...)", "flash_attention"),
+    ("void (anonymous namespace)::mla::paged_mla_split_kernel<__nv_bfloat16, "
+     "576, 512, 16>", "paged_attention"),
+    ("void at::native::index_add_cuda_impl<float>", "moe_dispatch"),
     ("void (anonymous namespace)::ssd_chunk_kernel<float, 64, 128>",
      "ssd_chunk"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32", "matmul"),

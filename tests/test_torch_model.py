@@ -124,8 +124,8 @@ def test_init_params_seeded_and_gpu_by_default():
 
 
 @pytest.mark.parametrize("overrides", [
-    dict(use_mla=True, kv_lora_rank=16),
-    dict(family="moe", n_experts=4),
+    dict(family="hybrid", pattern=("rglru",)),           # RG-LRU
+    dict(family="encoder", is_encoder_only=True, causal=False),
     dict(attn_kind="swa", window=8),
 ])
 def test_unported_families_raise(overrides):
