@@ -16,7 +16,8 @@ Phases, in order; any failure raises and exits non-zero:
    offset into a 2048-position slot cache whose rows past the visible keys
    hold NaN, which must never be read); bf16 flash is also held element by
    element against
-   ``flash_attention_tiled_ref``, and the bf16 SSD main case against
+   ``flash_attention_tiled_ref``, bf16 MLA paged attention against
+   ``paged_mla_tiled_ref`` and the bf16 SSD main case against
    ``ssd_chunk_tiled_ref``, each of which rounds what its kernel rounds.
    Times kernel (graph and eager timers), plain version, the least time the
    card could take (bound) and, for attention,
@@ -25,7 +26,8 @@ Phases, in order; any failure raises and exits non-zero:
    attention kernels also at deepseek-v2-lite's MLA shapes (prefill in MHA
    form with keys of 192 and values of 128, H = K = 16; absorbed decode over
    8 slots of 2048 latent rows, keys of 576 and values the view of their
-   first 512 columns, one KV head and 16 query heads);
+   first 512 columns, one KV head and 16 query heads; its bf16 main case
+   also at each partition size of ``MLA_PARTITIONS_TRIED``);
 3. parity: llama2-13b and mamba2-370m at full width and 2 layers, in f32 —
    one prefill and a few greedy decode steps through the kernels and
    through the plain versions must give the same tokens and close logits,
@@ -56,9 +58,9 @@ Phases, in order; any failure raises and exits non-zero:
    full-width bf16 serve of the same 24 requests under EWSJF (MLA prefill
    through flash, absorbed decode through paged attention, MoE experts by
    capacity dispatch), with peak device memory under 75 GiB;
-5. summary: one call of each kernel's bf16 main case under
-   ``torch.profiler`` names the device kernels that ran (the ``variant``
-   of its entry); a line of the replaced designs' times as recorded in
+5. summary: one call of each kernel's bf16 main case (and of the f32 MLA
+   paged case) under ``torch.profiler`` names the device kernels that ran,
+   with their device time (the ``variant`` of its entry); a line of the replaced designs' times as recorded in
    PERF.md (not measured here), each beside this run's time by the same
    timer; one JSON line of per-kernel numbers
    measured in this run; then the last line ``{"ok": true, "device":
@@ -98,17 +100,23 @@ TILED_ATOL, TILED_RTOL = 1e-3, 1e-2
 SSD_TILED_ATOL, SSD_TILED_RTOL = 1e-3, 1e-2
 # The llama2 serve's decode shape at its worst: one long slot among short ones.
 LONG_AMONG_SHORT = [2000, 17, 99, 1, 64, 33, 80, 5]
-# Main-case times of the designs the three kernels replaced, as PERF.md
-# section 6 records them, by the timer each was taken with (NVIDIA H100 80GB
-# HBM3 at 700 W): the attention kernels' by the eager timer of the
-# chip_smoke.py that added the SSD kernel; the CUDA-core bf16 SSD kernel's
-# 0.9817 ms by that eager timer and 0.9765 ms by the graph timer of the
-# chip_smoke.py that redesigned attention.  Printed on a line of their own,
-# labelled as recorded, each beside this run's time by the same timer,
-# never in the kernels line.
+# Tokens a partition of the MLA paged kernel: each size is timed on the bf16
+# main case, and ops.py's MLA_PARTITION is the faster (PERF.md section 6).
+MLA_PARTITIONS_TRIED = (64, 128)
+# Main-case times of the designs the kernels replaced, as PERF.md section 6
+# records them, by the timer each was taken with (NVIDIA H100 80GB HBM3 at
+# 700 W): the attention kernels' by the eager timer of the chip_smoke.py
+# that added the SSD kernel; the CUDA-core bf16 SSD kernel's 0.9817 ms by
+# that eager timer and 0.9765 ms by the graph timer of the chip_smoke.py
+# that redesigned attention; the CUDA-core bf16 MLA paged kernel's by both
+# timers of the first call of the chip_smoke.py that added it.  Printed on
+# a line of their own, labelled as recorded, each beside this run's time by
+# the same timer, never in the kernels line.
 RECORDED_EARLIER_MS = {"flash_attention": {"eager": 1.0194},
                        "paged_attention": {"eager": 0.3273},
-                       "ssd_chunk": {"eager": 0.9817, "graph": 0.9765}}
+                       "ssd_chunk": {"eager": 0.9817, "graph": 0.9765},
+                       "paged_attention_mla": {"graph": 0.0503,
+                                               "eager": 0.0627}}
 
 
 def check(cond: bool, what: str) -> None:
@@ -150,9 +158,10 @@ def time_ms(fn, iters: int = 20, warmup: int = 3, graph: bool = True) -> float:
     return start.elapsed_time(end) / iters
 
 
-def launched_kernels(fn) -> list:
+def launched_kernels(fn) -> dict:
     """The device kernels one call of ``fn`` ran, as ``torch.profiler``
-    names them (namespace, return type and arguments dropped)."""
+    names them (namespace, return type and arguments dropped), each with
+    its device time in µs, sorted by name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -160,13 +169,15 @@ def launched_kernels(fn) -> list:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    names = set()
+    device_us = {}
     for ev in prof.key_averages():
         if (ev.device_type == torch.autograd.DeviceType.CUDA
                 and ev.self_device_time_total > 0):
             name = ev.key.replace("(anonymous namespace)::", "")
-            names.add(name.removeprefix("void ").split("(")[0])
-    return sorted(names)
+            name = name.removeprefix("void ").split("(")[0]
+            device_us[name] = (device_us.get(name, 0.0)
+                               + ev.self_device_time_total)
+    return dict(sorted(device_us.items()))
 
 
 def max_err(a, b) -> float:
@@ -280,10 +291,14 @@ def paged_case(pa, B, H, K, hd, page, s_max, dtype, seed, shuffle,
                lens=None, hd_v=None, scale=None):
     """One paged-attention comparison over a slot cache viewed as pages,
     at ``lens`` or at random lengths; with ``hd_v`` (MLA) the values are
-    the view of the key rows' first hd_v columns.  Returns (err, kernel_ms,
-    eager kernel_ms, plain_ms, library_ms, seq_lens, the kernel call)."""
+    the view of the key rows' first hd_v columns, and in bf16 the kernel is
+    also held per element against ``paged_mla_tiled_ref``.  Returns (err,
+    worst |d| / (atol + rtol·|ref|) against the tiled plain version (bf16
+    MLA; else None), kernel_ms, eager kernel_ms, plain_ms, library_ms,
+    seq_lens, the kernel call)."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention.ref import paged_mla_tiled_ref
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
     pages = s_max // page
@@ -315,6 +330,16 @@ def paged_case(pa, B, H, K, hd, page, s_max, dtype, seed, shuffle,
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     check(err <= tol, f"paged {dtype} hd{hd}/{hd_v or hd} shuffle={shuffle} "
                       f"err {err:.3g} <= {tol}")
+    tiled = None
+    if hd_v is not None and dtype == torch.bfloat16:
+        ref_t = paged_mla_tiled_ref(q, kp, vp, table, seq_lens,
+                                    partition=pa.MLA_PARTITION,
+                                    scale=scale).float()
+        tiled = float(((out.float() - ref_t).abs()
+                       / (TILED_ATOL + TILED_RTOL * ref_t.abs())).max())
+        check(tiled <= 1.0, f"paged MLA bf16 shuffle={shuffle} within "
+                            f"{TILED_ATOL} + {TILED_RTOL}·|ref| of the tiled "
+                            f"plain version (worst {tiled:.3g})")
 
     def call():
         return pa.paged_attention(q, kp, vp, table, seq_lens, scale=scale)
@@ -331,7 +356,7 @@ def paged_case(pa, B, H, K, hd, page, s_max, dtype, seed, shuffle,
         kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
         lms = time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=H != K, scale=scale))
-    return err, kms, ems, pms, lms, lens, call
+    return err, tiled, kms, ems, pms, lms, lens, call
 
 
 def paged_bound(B, H, K, hd, elem, lens, hd_v=None, peak=BF16_PEAK_FLOPS):
@@ -565,7 +590,7 @@ def phase_kernels(fa, pa) -> tuple:
     B, H, K, hd, page, s_max = 8, 40, 40, 128, 16, 2048
     n_split = pa.split_count(s_max // page, page)
     for i, (dt, shuffle, lens) in enumerate(pcases):
-        err, kms, ems, pms, lms, lens, call = paged_case(
+        err, _, kms, ems, pms, lms, lens, call = paged_case(
             pa, B, H, K, hd, page, s_max, dt, seed=10 + i % 2,
             shuffle=shuffle, lens=lens)
         elem = 2 if dt == torch.bfloat16 else 4
@@ -634,7 +659,7 @@ def phase_kernels_mla(fa, pa, rows: dict, calls: dict) -> None:
               (torch.bfloat16, False, LONG_AMONG_SHORT),
               (torch.float32, False, LONG_AMONG_SHORT)]
     for i, (dt, shuffle, lens) in enumerate(pcases):
-        err, kms, ems, pms, lms, lens, call = paged_case(
+        err, tiled, kms, ems, pms, lms, lens, call = paged_case(
             pa, B, H, K, dk, page, s_max, dt, seed=70 + i, shuffle=shuffle,
             lens=lens, hd_v=dv, scale=scale)
         elem = 2 if dt == torch.bfloat16 else 4
@@ -643,13 +668,15 @@ def phase_kernels_mla(fa, pa, rows: dict, calls: dict) -> None:
         lib = f"{lms:.4f} ms" if lms is not None else "n/a"
         ratio = (f"; kernel / sdpa {kms / lms:.2f} (graph timer both)"
                  if lms is not None else "")
+        vs_tiled = (f" worst |d| / ({TILED_ATOL} + {TILED_RTOL}·|tiled|) "
+                    f"{tiled:.3g}" if tiled is not None else "")
         print(f"[kernels] paged MLA B{B} H{H} K{K} dk{dk} dv{dv} (values a "
               f"view of the key rows) page{page} s_max{s_max} {str(dt)[6:]} "
               f"shuffled={shuffle} lens={lens.tolist()} tokens="
               f"{int(lens.sum())} ({n_split} partitions of "
-              f"{pa.MLA_PARTITION} tokens): max_abs_err {err:.3g} kernel "
-              f"{kms:.4f} ms (eager timer {ems:.4f} ms) plain {pms:.4f} ms "
-              f"sdpa {lib} bound {bms:.4f} ms ({by}){ratio}")
+              f"{pa.MLA_PARTITION} tokens): max_abs_err {err:.3g}{vs_tiled} "
+              f"kernel {kms:.4f} ms (eager timer {ems:.4f} ms) plain "
+              f"{pms:.4f} ms sdpa {lib} bound {bms:.4f} ms ({by}){ratio}")
         if i == 0:
             rows["paged_attention_mla"] = dict(
                 max_abs_err=err, ms=kms, eager_ms=ems, plain_ms=pms,
@@ -658,25 +685,54 @@ def phase_kernels_mla(fa, pa, rows: dict, calls: dict) -> None:
                      f"K={K}, dk={dk}, dv={dv} (a view of the key rows), "
                      f"page {page}, scale 192^-0.5, bf16")
             calls["paged_attention_mla"] = call
+        elif i == 1:
+            calls["paged_attention_mla_f32"] = call
+    # MLA_PARTITION is the faster of the sizes tried: the bf16 main case is
+    # checked and timed again at each other one, then the size restored.
+    chosen, by_partition = pa.MLA_PARTITION, {}
+    for partition in MLA_PARTITIONS_TRIED:
+        if partition == chosen:
+            by_partition[partition] = rows["paged_attention_mla"]["ms"]
+            continue
+        pa.MLA_PARTITION = partition
+        n_parts = pa.mla_split_count(s_max // page, page)
+        err, tiled, kms, ems, *_ = paged_case(
+            pa, B, H, K, dk, page, s_max, torch.bfloat16, seed=70,
+            shuffle=False, hd_v=dv, scale=scale)
+        pa.MLA_PARTITION = chosen
+        by_partition[partition] = kms
+        print(f"[kernels] paged MLA bf16 main case, {n_parts} partitions of "
+              f"{partition} tokens: max_abs_err {err:.3g} worst |d| / "
+              f"({TILED_ATOL} + {TILED_RTOL}·|tiled|) {tiled:.3g} kernel "
+              f"{kms:.4f} ms (eager timer {ems:.4f} ms)")
+    print(f"[kernels] paged MLA bf16 main case ms by partition (graph timer) "
+          f"{by_partition}; MLA_PARTITION is {chosen}")
+    rows["paged_attention_mla"]["ms_by_partition"] = by_partition
 
 
 def phase_variants(calls: dict) -> dict:
     """Which device kernels each kernel's main case ran, read from the
     profiler: bf16 flash must run the tensor-core kernel alone, paged
-    attention its split and merge kernels, bf16 SSD its two tensor-core
-    kernels and nothing else."""
+    attention its split and merge kernels (for bf16 MLA the tensor-core
+    split kernel, for f32 MLA the CUDA-core one), bf16 SSD its two
+    tensor-core kernels and nothing else."""
     want = {"flash_attention": ("flash_fwd_mma_kernel",),
             "flash_attention_offset": ("flash_fwd_mma_kernel",),
             "flash_attention_mla": ("flash_fwd_mma_kernel",),
             "paged_attention": ("paged_split_kernel", "paged_merge_kernel"),
-            "paged_attention_mla": ("paged_mla_split_kernel",
+            "paged_attention_mla": ("paged_mla_mma_kernel",
                                     "paged_merge_kernel"),
+            "paged_attention_mla_f32": ("paged_mla_split_kernel",
+                                        "paged_merge_kernel"),
             "ssd_chunk": ("ssd_chunk_y_mma_kernel",
                           "ssd_chunk_state_mma_kernel")}
     variants = {}
     for name, call in calls.items():
-        ran = launched_kernels(call)
-        print(f"[variants] {name} main case ran {ran}")
+        device_us = launched_kernels(call)
+        ran = list(device_us)
+        print(f"[variants] {name} main case ran {ran}; device µs of this "
+              f"one profiled call " + ", ".join(
+                  f"{k} {us:.2f}" for k, us in device_us.items()))
         check(len(ran) == len(want[name])
               and all(any(w in r for r in ran) for w in want[name]),
               f"{name} main case ran {want[name]}")
@@ -1516,6 +1572,10 @@ def main() -> int:
                 "plain_ms": o["plain_ms"], "bound_ms": o["bound_ms"],
                 "bound_by": o["bound_by"], "library_ms": o["library_ms"],
                 "variant": variants[f"{name}_mla"]}
+            if "ms_by_partition" in o:
+                entry["mla_case"]["ms_by_partition"] = o["ms_by_partition"]
+            if f"{name}_mla_f32" in variants:
+                entry["mla_case"]["f32_variant"] = variants[f"{name}_mla_f32"]
         kernels.append(entry)
     print(f"[summary] all phases passed in {time.monotonic() - t_start:.1f} s")
     print("[summary] recorded, not measured in this run: main-case ms of "

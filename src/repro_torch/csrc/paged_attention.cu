@@ -10,10 +10,11 @@
 //
 // Layout: q (B, H, hd), k/v pages (P, page, K, hd), block_table
 // (B, max_pages) int32, seq_lens (B,) int32, out (B, H, hd); f32 or bf16.
-// One more shape, for absorbed MLA decode (deepseek-v2-lite), runs its own
-// split kernel, `paged_mla_split_kernel` (see below): keys of 576 (latent
-// 512 ‖ rope 64) and values that are the first 512 columns of the same rows,
-// one KV head, groups of 16 (or 4) query heads.
+// One more shape, for absorbed MLA decode (deepseek-v2-lite), runs split
+// kernels of its own (see below: `paged_mla_mma_kernel` for bf16,
+// `paged_mla_split_kernel` for f32): keys of 576 (latent 512 ‖ rope 64) and
+// values that are the first 512 columns of the same rows, one KV head,
+// groups of 16 (or 4) query heads.
 //
 // What bounds it on this card: bytes.  Each cached token's K and V row is
 // used for 2 * G * hd FLOPs per 4 * hd bytes (bf16), far below the H100's
@@ -43,24 +44,63 @@
 //     and writes the output itself, and no merge is launched.
 // Scores live in the log2 domain (q is pre-scaled by scale * log2(e)).
 //
-// MLA (`paged_mla_split_kernel`, dk 576, dv 512, G = H / K of 16 or 4).  A
-// token's row is 576 values, so a lane-per-dims split like the one above
-// would need 72 lanes a row; and each row is read by G = 16 heads, ~30 FLOPs
-// a byte in bf16 — on the CUDA cores (about 20 FLOPs a byte at 67 TFLOP/s
-// against 3.35 TB/s) the work, not the bytes, is the floor here.  So the
-// block (256 threads, one (KV head, sequence, partition)) stages tiles of 32
-// tokens' rows in shared memory as f32, once for all G heads and for both
-// products: the values are the rows' first dv columns, never loaded again.
-//   * scores: each thread owns 4 heads x 4 tokens over a slice of the 576
-//     dims (q transposed in shared memory, one 16-byte load of 4 heads and
-//     4 key loads per 16 FMAs); the slices' partial scores sum through
-//     shared memory;
-//   * online softmax: one warp per head, a lane per token;
-//   * P V: each thread owns dv / 256 output dims for all G heads;
-//   * partials and the merge as above (the merge runs dv threads).
-// The wrapper passes 128-token partitions.  Tensor cores (G = 16 is one
-// m16n8k16 row tile) are the way to the byte bound.
+// MLA (dk 576 = latent 512 ‖ rope 64, dv 512, one KV head, G = H / K of 16
+// or 4).  A token's 1,152-byte bf16 row serves as key and, in its first 512
+// columns, as value for all G heads: 2 * G * (576 + 512) FLOPs a row, ~30 a
+// byte at G = 16.  That is still far under the tensor cores' ~295 FLOP/byte
+// ridge, so bytes bound the bf16 kernel; but on the CUDA cores (~20 FLOP a
+// byte at 67 TFLOP/s against 3.35 TB/s, and every FMA reading shared memory)
+// the work would be the floor.  Two kernels, chosen by type:
+//
+// bf16 -> `paged_mla_mma_kernel`, tensor cores.  One block of 4 warps per
+// (KV head, sequence, partition); the wrapper passes partitions of
+// `MLA_PARTITION` = 128 tokens (ops.py; 64 times slower on the card, as
+// chip_smoke.py shows: at 64 the merge reads twice the partials and the
+// blocks of long sequences share SMs).
+//   * Q is staged once, bf16 and unscaled (G x 576, 18 KB); its 16 rows are
+//     the M tile of m16n8k16, rows >= G zero (G = 4) and never written back.
+//     scale * log2(e) multiplies the f32 scores after the product, so no
+//     rounding of a pre-scaled Q enters;
+//   * 32-token tiles of latent rows are copied as they lie in device memory
+//     (bf16, 36 KB a tile) by 16-byte cp.async into a 2-stage ring: both
+//     stages go out before the first product, and tile i + 2 follows as
+//     soon as tile i is done.  Each row's page comes from the block's own
+//     block-table entries; rows past seq_len are zero-filled and never read
+//     from device memory.  Rows are XOR-swizzled by 16-byte chunk (as in
+//     flash_attention.cu), so every ldmatrix below is free of bank
+//     conflicts;
+//   * S = Q K^T: warp w owns the tile's tokens 8w..8w+7 (one n8 column
+//     tile) over all 36 k-steps; K's B fragments come by ldmatrix from the
+//     row-major tile (a row-major K is the column-major B operand); four
+//     accumulators taken in turn keep four MMAs in flight;
+//   * online softmax in f32 per head in the log2 domain on the fragments:
+//     a head's tile max reduces over the quad, then over the 4 warps through
+//     shared memory, so every warp rescales by the same max; each warp keeps
+//     the sum of its own tokens (summed across warps once, at the end);
+//   * P, rounded to bf16, goes through shared memory to every warp, and
+//     O += P V runs with warp w owning output columns 128w..128w+127 (64 f32
+//     accumulators a thread); V's fragments are ldmatrix.trans of the same
+//     staged rows, so nothing is read twice from device memory;
+//   * three barriers a tile (tile landed, tile max, P written); ~92 KB of
+//     shared memory, so two blocks fit an SM: the serve's grid (8 slots x
+//     16 partitions) runs in one wave, and so would 64-token partitions.
+//   What bounds it as built: not the bytes.  On the card (PERF.md section
+//   6) the split pass took as long with 3 or 4 stages in flight as with 2,
+//   so the in-block work of each tile sets the time (four warps, one a
+//   sub-partition, each MMA waiting on its ldmatrix; Q's fragments re-read
+//   from shared memory every tile), and the merge takes about a third of
+//   the whole.  More warps a block, Q held in registers, wgmma with the
+//   tile's tokens as its 64 rows, and a merge folded into the split pass
+//   are the way to the byte bound.
+// f32 -> `paged_mla_split_kernel`, CUDA cores (the parity checks' type:
+//   TF32 would not hold 1e-4): 256 threads stage 32-token tiles as f32 once
+//   for both products; each thread owns 4 heads x 4 tokens of the scores
+//   over a slice of the 576 dims (slices summed through shared memory), one
+//   warp a head runs the softmax, each thread owns dv / 256 output dims.
+// Both write the partials above (the merge runs dv threads), or with a
+// single partition the output itself.
 #include "common.cuh"
+#include "warp_mma.cuh"
 
 namespace {
 
@@ -570,17 +610,326 @@ cudaError_t launch(const void* q, const void* kp, const void* bt, const void* sl
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// MLA in bf16: tensor cores.
+using bf16 = __nv_bfloat16;
+constexpr int kMmaWarps = 4;
+constexpr int kMmaThreads = kMmaWarps * 32;
+constexpr int kTile = 8 * kMmaWarps;  // tokens a stage holds: one n8 column tile of S a warp
+// Depth of the cp.async ring: three and four stages (one block an SM) timed
+// no faster than two at the serve's shapes (PERF.md section 6).
+constexpr int kStages = 2;
+static_assert(kStages >= 2, "the refill of a stage waits for the barrier of the next tile");
+constexpr int kM = 16;                // rows of the M tile: the G heads, zero-padded
+constexpr int kLDP = kTile + 8;       // P's row in bf16, padded to 80 B: ldmatrix conflict-free
+
+template <int DK>
+constexpr size_t mma_smem_bytes() {  // Q, the ring, P, the tile max and sums of each warp
+  return sizeof(bf16) * (size_t(kM) * DK + size_t(kStages) * kTile * DK + size_t(kM) * kLDP) +
+         sizeof(float) * 2 * kMmaWarps * kM;
+}
+
+// Element offset of 16-byte chunk c of row r in a (rows, HD) bf16 tile whose
+// chunks are XOR-swizzled by row (flash_attention.cu's layout): the 8 rows
+// an ldmatrix reads land in 8 different bank groups.
+template <int HD>
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * HD + ((c ^ (r & 7)) << 3);
+}
+
+// Start the copy of tile `it` of the partition [t_begin, t_end) into its
+// stage: thread i copies every fourth 16-byte chunk of row i / 4, so a
+// row's page is looked up once; rows at or past t_end are zero-filled.
+template <int DK>
+__device__ __forceinline__ void stage_rows(bf16* __restrict__ ring, const bf16* __restrict__ kbase,
+                                           const int* __restrict__ table, int page,
+                                           size_t page_stride, size_t tok_stride, int t_begin,
+                                           int t_end, int it) {
+  constexpr int kChunks = DK / 8;
+  static_assert(kTile * 4 == kMmaThreads && kChunks % 4 == 0, "4 threads a row");
+  bf16* dst = ring + (it % kStages) * kTile * DK;
+  const int r = threadIdx.x >> 2;
+  const int t = t_begin + it * kTile + r;
+  const bool ok = t < t_end;
+  const bf16* src =
+      ok ? kbase + size_t(__ldg(table + t / page)) * page_stride + size_t(t % page) * tok_stride
+         : kbase;
+#pragma unroll
+  for (int j = 0; j < kChunks / 4; ++j) {
+    const int c = (threadIdx.x & 3) + 4 * j;
+    repro::cp_async_16(dst + swz<DK>(r, c), src + c * 8, ok);
+  }
+}
+
+template <int DK, int DV, int G>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+    paged_mla_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
+                         const int* __restrict__ block_table, const int* __restrict__ seq_lens,
+                         bf16* __restrict__ o, float* __restrict__ part, int H, int KH, int page,
+                         int max_pages, int partition, int n_split, float scale_log2) {
+  constexpr int kChunks = DK / 8;        // 16-byte chunks of a row
+  constexpr int KS = DK / 16;            // k-steps of Q K^T
+  constexpr int DW = DV / kMmaWarps;     // output columns of one warp
+  constexpr int DT = DW / 8;             // their 8-column tiles
+  static_assert(G <= kM && KS % 2 == 0 && kChunks % 8 == 0 && DT % 2 == 0 && DV <= DK,
+                "shape the MLA tensor-core kernel does not tile");
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);          // [kM][DK], swizzled
+  bf16* ring = Qs + kM * DK;                             // [kStages][kTile][DK], swizzled
+  bf16* Ps = ring + kStages * kTile * DK;                // [kM][kLDP]
+  float* red_m = reinterpret_cast<float*>(Ps + kM * kLDP);  // [kMmaWarps][kM]
+  float* red_l = red_m + kMmaWarps * kM;                 // [kMmaWarps][kM]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int grp = lane >> 2;  // fragment row: heads grp and grp + 8
+  const int quad = lane & 3;  // fragment column pair
+  const int kh = blockIdx.x;
+  const int b = blockIdx.y;
+  const int split = blockIdx.z;
+  const int B = gridDim.y;
+  const int seq_len = seq_lens[b];
+  const int t_begin = split * partition;
+  const int t_end = min(seq_len, t_begin + partition);
+  const size_t bh0 = size_t(b) * H + size_t(kh) * G;
+  float* part_m = part;
+  float* part_l = part + size_t(B) * H * n_split;
+  float* part_o = part + 2 * size_t(B) * H * n_split;
+
+  if (t_begin >= t_end) {  // nothing of this sequence in the partition
+    if (n_split == 1) {
+      for (int idx = tid; idx < G * DV; idx += kMmaThreads)
+        o[bh0 * DV + idx] = __float2bfloat16(0.f);
+    } else if (tid < G) {
+      part_m[(bh0 + tid) * n_split + split] = -INFINITY;
+      part_l[(bh0 + tid) * n_split + split] = 0.f;
+    }
+    return;
+  }
+
+  const int* table = block_table + size_t(b) * max_pages;
+  const size_t tok_stride = size_t(KH) * DK;
+  const size_t page_stride = size_t(page) * tok_stride;
+  const bf16* kbase = kp + size_t(kh) * DK;
+  const int n_tiles = (t_end - t_begin + kTile - 1) / kTile;
+
+  // Q (rows >= G zero) and tile 0 in the first group, tiles 1 .. kStages - 1
+  // in one group each: every stage is in flight before the first product.
+  // A group is committed even when empty, so that the group of tile i is
+  // always followed by kStages - 1 others at i = 0 and kStages - 2 later.
+  for (int idx = tid; idx < kM * kChunks; idx += kMmaThreads) {
+    const int r = idx / kChunks;
+    const int c = idx % kChunks;
+    const bool ok = r < G;
+    repro::cp_async_16(Qs + swz<DK>(r, c), q + (bh0 + (ok ? r : 0)) * DK + c * 8, ok);
+  }
+#pragma unroll
+  for (int i = 0; i < kStages; ++i) {
+    if (i < n_tiles)
+      stage_rows<DK>(ring, kbase, table, page, page_stride, tok_stride, t_begin, t_end, i);
+    repro::cp_async_commit();
+  }
+
+  float acc[DT][4];
+#pragma unroll
+  for (int d = 0; d < DT; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[d][e] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};  // heads grp, grp + 8; the same in every warp
+  float l_run[2] = {0.f, 0.f};              // this lane's share of this warp's tokens
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int t0 = t_begin + it * kTile;
+    const bf16* Kt = ring + (it % kStages) * kTile * DK;
+    // Tile it has landed (the groups after its own may still be in flight).
+    if (it == 0)
+      repro::cp_async_wait<kStages - 1>();
+    else
+      repro::cp_async_wait<kStages - 2>();
+    // (A) Every thread's copies of tile it are visible, and every warp is
+    // done with tile it - 1, whose stage tile it - 1 + kStages now fills.
+    __syncthreads();
+    if (it >= 1) {
+      if (it - 1 + kStages < n_tiles)
+        stage_rows<DK>(ring, kbase, table, page, page_stride, tok_stride, t_begin, t_end,
+                       it - 1 + kStages);
+      repro::cp_async_commit();
+    }
+
+    // S = Q K^T for this warp's 8 tokens: 16 heads x 8 tokens.
+    float s[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[a][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < KS / 2; ++j) {  // k-steps 2j and 2j + 1
+      uint32_t kf[4], qa[4], qb[4];
+      repro::ldmatrix_x4(kf, Kt + swz<DK>(8 * warp + (lane & 7), 4 * j + (lane >> 3)));
+      repro::ldmatrix_x4(qa, Qs + swz<DK>(lane & 15, 4 * j + (lane >> 4)));
+      repro::ldmatrix_x4(qb, Qs + swz<DK>(lane & 15, 4 * j + 2 + (lane >> 4)));
+      repro::mma_bf16_16816(s[(2 * j) & 3], qa, kf[0], kf[1]);
+      repro::mma_bf16_16816(s[(2 * j + 1) & 3], qb, kf[2], kf[3]);
+    }
+    float sc[4];  // log2-domain scores: heads grp (e = 0, 1), grp + 8 (e = 2, 3)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int t = t0 + 8 * warp + 2 * quad + (e & 1);
+      const float v = (s[0][e] + s[1][e]) + (s[2][e] + s[3][e]);
+      sc[e] = t < t_end ? v * scale_log2 : -INFINITY;
+    }
+
+    // The tile's max of each head: the lane's 2 tokens, the quad, the warps.
+    float mx[2] = {fmaxf(sc[0], sc[1]), fmaxf(sc[2], sc[3])};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    }
+    if (quad == 0) {
+      red_m[warp * kM + grp] = mx[0];
+      red_m[warp * kM + grp + 8] = mx[1];
+    }
+    __syncthreads();  // (B)
+    float mu[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float m = red_m[grp + 8 * r];
+#pragma unroll
+      for (int w = 1; w < kMmaWarps; ++w) m = fmaxf(m, red_m[w * kM + grp + 8 * r]);
+      mu[r] = fmaxf(m_run[r], m);  // finite: the tile's first token is visible
+      const float corr = exp2f(m_run[r] - mu[r]);
+      m_run[r] = mu[r];
+      l_run[r] *= corr;
+#pragma unroll
+      for (int d = 0; d < DT; ++d) {
+        acc[d][2 * r] *= corr;
+        acc[d][2 * r + 1] *= corr;
+      }
+    }
+    const float p0 = exp2f(sc[0] - mu[0]);
+    const float p1 = exp2f(sc[1] - mu[0]);
+    const float p2 = exp2f(sc[2] - mu[1]);
+    const float p3 = exp2f(sc[3] - mu[1]);
+    l_run[0] += p0 + p1;
+    l_run[1] += p2 + p3;
+    *reinterpret_cast<uint32_t*>(Ps + grp * kLDP + 8 * warp + 2 * quad) =
+        repro::pack_bf16x2(p0, p1);
+    *reinterpret_cast<uint32_t*>(Ps + (grp + 8) * kLDP + 8 * warp + 2 * quad) =
+        repro::pack_bf16x2(p2, p3);
+    __syncthreads();  // (C)
+
+    // O += P V over the tile's tokens, this warp's output columns.
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      uint32_t pa[4];
+      repro::ldmatrix_x4(pa, Ps + (lane & 15) * kLDP + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int dp = 0; dp < DT / 2; ++dp) {
+        uint32_t vf[4];  // B fragments of column tiles 2 dp and 2 dp + 1
+        repro::ldmatrix_x4_trans(
+            vf, Kt + swz<DK>(kk * 16 + (lane & 15), warp * (DW / 8) + 2 * dp + (lane >> 4)));
+        repro::mma_bf16_16816(acc[2 * dp], pa, vf[0], vf[1]);
+        repro::mma_bf16_16816(acc[2 * dp + 1], pa, vf[2], vf[3]);
+      }
+    }
+  }
+
+  // Each head's sum: the quad, then the warps.
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+  }
+  if (quad == 0) {
+    red_l[warp * kM + grp] = l_run[0];
+    red_l[warp * kM + grp + 8] = l_run[1];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int g = grp + 8 * r;
+    if (g >= G) continue;  // a zero row of the M tile
+    float L = 0.f;
+#pragma unroll
+    for (int w = 0; w < kMmaWarps; ++w) L += red_l[w * kM + g];
+    const size_t bh = bh0 + g;
+    const int col = warp * DW + 2 * quad;
+    if (n_split == 1) {
+      const float inv = L > 0.f ? 1.f / L : 0.f;
+#pragma unroll
+      for (int d = 0; d < DT; ++d)
+        *reinterpret_cast<uint32_t*>(o + bh * DV + col + 8 * d) =
+            repro::pack_bf16x2(acc[d][2 * r] * inv, acc[d][2 * r + 1] * inv);
+    } else {
+      float* prow = part_o + (bh * n_split + split) * DV + col;
+#pragma unroll
+      for (int d = 0; d < DT; ++d)
+        *reinterpret_cast<float2*>(prow + 8 * d) = make_float2(acc[d][2 * r], acc[d][2 * r + 1]);
+      if (warp == 0 && quad == 0) {
+        part_m[bh * n_split + split] = m_run[r];
+        part_l[bh * n_split + split] = L;
+      }
+    }
+  }
+}
+
+template <int DK, int DV, int G>
+cudaError_t launch_mma(const void* q, const void* kp, const void* bt, const void* sl, void* o,
+                       void* part, int B, int H, int KH, int page, int max_pages, int partition,
+                       int n_split, float scale, cudaStream_t stream) {
+  constexpr size_t smem = mma_smem_bytes<DK>();
+  auto kern = paged_mla_mma_kernel<DK, DV, G>;
+  // Set once per instance (a process drives one card), not on every decode
+  // step: the shared memory above 48 KB, and the largest carveout, so that
+  // two blocks fit an SM.
+  static const cudaError_t attr_err = [kern] {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                int(cudaSharedmemCarveoutMaxShared));
+  }();
+  cudaError_t err = attr_err;
+  if (err != cudaSuccess) return err;
+  const dim3 grid(KH, B, n_split);
+  kern<<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(kp), static_cast<const int*>(bt),
+      static_cast<const int*>(sl), static_cast<bf16*>(o), static_cast<float*>(part), H, KH, page,
+      max_pages, partition, n_split, scale * 1.4426950408889634f);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return err;
+  paged_merge_kernel<bf16, DV><<<B * H, DV, 0, stream>>>(static_cast<const float*>(part),
+                                                        static_cast<bf16*>(o), B * H, n_split);
+  return cudaGetLastError();
+}
+
+// f32 runs the CUDA-core split kernel, bf16 the tensor-core one.
+template <typename T, int G>
+cudaError_t launch_typed(const void* q, const void* kp, const void* bt, const void* sl, void* o,
+                         void* part, int B, int H, int KH, int page, int max_pages,
+                         int partition, int n_split, float scale, cudaStream_t st) {
+  if constexpr (std::is_same<T, bf16>::value)
+    return launch_mma<576, 512, G>(q, kp, bt, sl, o, part, B, H, KH, page, max_pages, partition,
+                                   n_split, scale, st);
+  else
+    return launch<T, 576, 512, G>(q, kp, bt, sl, o, part, B, H, KH, page, max_pages, partition,
+                                  n_split, scale, st);
+}
+
 template <typename T>
 cudaError_t launch_group(int G, const void* q, const void* kp, const void* bt, const void* sl,
                          void* o, void* part, int B, int H, int KH, int page, int max_pages,
                          int partition, int n_split, float scale, cudaStream_t st) {
   switch (G) {
     case 4:
-      return launch<T, 576, 512, 4>(q, kp, bt, sl, o, part, B, H, KH, page, max_pages, partition,
-                                    n_split, scale, st);
+      return launch_typed<T, 4>(q, kp, bt, sl, o, part, B, H, KH, page, max_pages, partition,
+                                n_split, scale, st);
     case 16:
-      return launch<T, 576, 512, 16>(q, kp, bt, sl, o, part, B, H, KH, page, max_pages,
-                                     partition, n_split, scale, st);
+      return launch_typed<T, 16>(q, kp, bt, sl, o, part, B, H, KH, page, max_pages, partition,
+                                 n_split, scale, st);
     default:
       return cudaErrorInvalidValue;
   }

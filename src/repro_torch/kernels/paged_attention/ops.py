@@ -10,7 +10,9 @@ pass included.
 Absorbed MLA decode (deepseek-v2-lite) passes keys of ``MLA_DIMS[0]`` (the
 latent ‖ rope row) and, as values, the view ``k_pages[..., :MLA_DIMS[1]]``
 of the same rows: the kernel reads each row once for keys and values, and
-splits sequences into ``MLA_PARTITION``-token partitions.
+splits sequences into ``MLA_PARTITION``-token partitions.  In bf16 it runs
+on the tensor cores and rounds P to bf16 before P·V
+(``ref.py::paged_mla_tiled_ref`` rounds alike); in f32 on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ GROUPS = (1, 2, 4, 8)
 MLA_DIMS = (576, 512)     # (key, value) widths of absorbed MLA decode
 MLA_GROUPS = (4, 16)
 PARTITION = 256   # tokens per split; the kernel takes it as an argument
-MLA_PARTITION = 128
+MLA_PARTITION = 128   # faster on the card than 64 (chip_smoke.py times both)
 
 
 def split_count(table_width: int, page: int) -> int:

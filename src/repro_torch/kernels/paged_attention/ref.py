@@ -6,7 +6,9 @@ cache and runs dense masked attention in f32, as the JAX oracle does
 and the CPU path use it.  ``paged_attention_split_ref`` and
 ``merge_partials_ref`` spell out the CUDA kernel's two passes: partial
 softmax states per partition of the sequence in the log2 domain, then their
-merge."""
+merge.  ``paged_mla_tiled_ref`` walks each partition in token tiles and
+rounds P to bf16 as the bf16 MLA kernel does, so that kernel can be held to
+it element by element."""
 
 from __future__ import annotations
 
@@ -79,6 +81,57 @@ def paged_attention_split_ref(q, k_pages, v_pages, block_table, seq_lens, *,
     mu = torch.where(m == -math.inf, 0.0, m)
     p = torch.exp2(s - mu[..., None])                  # masked -> 0
     return m, p.sum(-1), torch.einsum("bhnt,bnthd->bhnd", p, v)
+
+
+def paged_mla_tiled_ref(q, k_pages, v_pages, block_table, seq_lens, *,
+                        partition: int, tile: int = 32,
+                        scale: float | None = None, round_p: bool = True):
+    """Same layout and result as :func:`paged_attention_ref`, computed as the
+    bf16 MLA kernel (``paged_mla_mma_kernel``) does: each partition of
+    ``partition`` tokens is walked in ``tile``-token tiles keeping a running
+    max and sum per head, scores scaled by ``scale · log2(e)`` after the
+    product and exponentiated with exp2, P rounded to bf16 before P·V when
+    ``round_p`` (the sum takes P unrounded), products accumulated in f32;
+    the partitions' states then merge as :func:`merge_partials_ref` does.
+    Returns (B,H,hd_v) in q's dtype."""
+    B, H, hd = q.shape
+    K = k_pages.shape[2]
+    hd_v = v_pages.shape[3]
+    G = H // K
+    scale = hd ** -0.5 if scale is None else scale
+    k = gather_pages(k_pages, block_table).float()       # (B,T,K,hd)
+    v = gather_pages(v_pages, block_table).float()
+    T = k.shape[1]
+    n = max(1, -(-T // partition))
+    nt = -(-partition // tile)                           # tiles a partition
+    dev = q.device
+    step = torch.arange(nt, device=dev)[:, None] * tile + torch.arange(
+        tile, device=dev)[None]                          # (nt, tile)
+    pos = torch.arange(n, device=dev)[:, None, None] * partition + step
+    valid = ((step < partition)[None, None]
+             & (pos[None] < seq_lens.to(dev).long()[:, None, None, None]))
+    idx = pos.clamp_max(T - 1)
+    kt, vt = k[:, idx], v[:, idx]                # (B, n, nt, tile, K, hd)
+    qf = q.float().reshape(B, K, G, hd)
+    m = torch.full((B, K, G, n), -math.inf, device=dev)
+    l = torch.zeros((B, K, G, n), device=dev)
+    o = torch.zeros((B, K, G, n, hd_v), device=dev)
+    for j in range(nt):
+        s = torch.einsum("bkgd,bntkd->bkgnt", qf, kt[:, :, j])
+        s = s * (scale * math.log2(math.e))
+        s = s.masked_fill(~valid[:, None, None, :, j], -math.inf)
+        m_new = torch.maximum(m, s.amax(-1))
+        mu = torch.where(m_new == -math.inf, 0.0, m_new)  # no token seen yet
+        corr = torch.exp2(m - mu)
+        p = torch.exp2(s - mu[..., None])
+        l = l * corr + p.sum(-1)
+        if round_p:
+            p = p.to(torch.bfloat16).float()
+        o = o * corr[..., None] + torch.einsum("bkgnt,bntkd->bkgnd", p,
+                                               vt[:, :, j])
+        m = m_new
+    return merge_partials_ref(m.reshape(B, H, n), l.reshape(B, H, n),
+                              o.reshape(B, H, n, hd_v), dtype=q.dtype)
 
 
 def merge_partials_ref(m, l, o, dtype=torch.float32):

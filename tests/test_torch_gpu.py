@@ -15,6 +15,7 @@ from repro_torch.core import FCFSScheduler, Request
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_tiled_ref
 from repro_torch.kernels.paged_attention import ops as paged_ops
+from repro_torch.kernels.paged_attention.ref import paged_mla_tiled_ref
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import ssd_chunk_tiled_ref, ssd_ref
 from repro_torch.models import DtypePolicy, init_params
@@ -602,6 +603,84 @@ def test_paged_mla_kernel_matches_plain(cuda, dtype, G, lens, npg):
                                     impl="plain")
     torch.testing.assert_close(out.float(), ref.float(), atol=TOLS[dtype],
                                rtol=TOLS[dtype])
+    if dtype == torch.bfloat16:
+        _assert_matches_mla_tiled(out, q, kp, vp, bt, sl)
+
+
+def _assert_matches_mla_tiled(out, q, kp, vp, bt, sl):
+    """Per element against the plain version that walks each partition in
+    32-token tiles and rounds P and the output to bf16 as the tensor-core
+    kernel does."""
+    tiled = paged_mla_tiled_ref(q, kp, vp, bt, sl,
+                                partition=paged_ops.MLA_PARTITION,
+                                scale=MLA_SCALE)
+    torch.testing.assert_close(out.float(), tiled.float(), atol=TILED_ATOL,
+                               rtol=TILED_RTOL)
+
+
+def _mla_inputs(cuda, dtype, G, lens, npg, seed):
+    rng = np.random.default_rng(seed)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    B, page = len(lens), 16
+    n_pool = B * npg
+    q = torch.randn((B, G, 576), generator=g, device=cuda).to(dtype)
+    kp = torch.randn((n_pool, page, 1, 576), generator=g,
+                     device=cuda).to(dtype)
+    bt = torch.tensor(rng.permutation(n_pool).reshape(B, npg),
+                      dtype=torch.int32, device=cuda)
+    sl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    return q, kp, kp[..., :512], bt, sl
+
+
+@pytest.mark.parametrize("partition", [64, 128])
+@pytest.mark.parametrize("G,lens,npg", [
+    (16, [1, 63, 64, 65, 127, 128, 129, 2048], 128),   # the serve's slots
+    (16, [1, 9, 32, 31, 30, 5, 17, 2], 2),             # one partition
+    (4, [1, 15, 16, 17, 300, 191, 192, 193], 20),
+])
+def test_paged_mla_bf16_tensor_core_kernel(cuda, monkeypatch, partition, G,
+                                           lens, npg):
+    """bf16 MLA decode at each partition size timed on the card runs
+    ``paged_mla_mma_kernel`` (then the merge when the table spans more than
+    one partition) and nothing else, and matches the dense plain version and,
+    per element, the tiled plain version."""
+    monkeypatch.setattr(paged_ops, "MLA_PARTITION", partition)
+    q, kp, vp, bt, sl = _mla_inputs(cuda, torch.bfloat16, G, lens, npg, 8)
+
+    def call():
+        return paged_ops.paged_attention(q, kp, vp, bt, sl, scale=MLA_SCALE)
+    before = paged_ops.KERNEL.launches
+    out = call()
+    assert paged_ops.KERNEL.launches == before + 1
+    assert out.shape == (len(lens), G, 512) and out.dtype == torch.bfloat16
+    ref = paged_ops.paged_attention(q, kp, vp, bt, sl, scale=MLA_SCALE,
+                                    impl="plain")
+    torch.testing.assert_close(out.float(), ref.float(), atol=3e-2,
+                               rtol=3e-2)
+    _assert_matches_mla_tiled(out, q, kp, vp, bt, sl)
+    merged = paged_ops.mla_split_count(npg, 16) > 1
+    assert _device_kernels(call) == (
+        {"paged_mla_mma_kernel", "paged_merge_kernel"} if merged
+        else {"paged_mla_mma_kernel"})
+
+
+@pytest.mark.parametrize("partition", [64, 128])
+def test_paged_mla_f32_runs_the_cuda_core_kernel(cuda, monkeypatch,
+                                                 partition):
+    """f32 MLA decode keeps the CUDA-core split kernel (the parity checks'
+    type), within 1e-4 of its plain version."""
+    monkeypatch.setattr(paged_ops, "MLA_PARTITION", partition)
+    lens = [1, 63, 64, 65, 127, 128, 129, 1000]
+    q, kp, vp, bt, sl = _mla_inputs(cuda, torch.float32, 16, lens, 64, 9)
+
+    def call():
+        return paged_ops.paged_attention(q, kp, vp, bt, sl, scale=MLA_SCALE)
+    out = call()
+    ref = paged_ops.paged_attention(q, kp, vp, bt, sl, scale=MLA_SCALE,
+                                    impl="plain")
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+    assert _device_kernels(call) == {"paged_mla_split_kernel",
+                                     "paged_merge_kernel"}
 
 
 def test_mla_wrappers_refuse_what_they_cannot_take(cuda):

@@ -20,7 +20,8 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_tiled_ref
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.paged_attention.ref import (merge_partials_ref,
-                                                     paged_attention_split_ref)
+                                                     paged_attention_split_ref,
+                                                     paged_mla_tiled_ref)
 from repro_torch.launch.profile_serve import _kernel_class
 
 F32_TOL, BF16_TOL = 2e-5, 3e-2     # tests/test_kernels.py:36-39
@@ -283,6 +284,46 @@ class TestWideKeys:
         np.testing.assert_allclose(merge_partials_ref(m, l, o).numpy(), want,
                                    atol=F32_TOL, rtol=F32_TOL)
 
+    @pytest.mark.parametrize("round_p", [False, True])
+    @pytest.mark.parametrize("G,page,partition,lens", [
+        # one token; partial last pages; both sides of the 64-token edge
+        (16, 16, 64, [1, 31, 32, 33, 63, 64, 65, 130]),
+        (4, 16, 128, [1, 17, 127, 128, 129, 300]),
+        (16, 8, 128, [5, 64, 250]),
+        (4, 16, 64, [64, 65, 96, 129]),
+    ])
+    def test_paged_mla_tiled_matches_dense(self, G, page, partition, lens,
+                                           round_p):
+        """The bf16 MLA kernel's arithmetic (32-token tiles of each
+        partition, exp2 online softmax, P rounded to bf16 before P·V when
+        ``round_p``) against dense softmax attention: exact to F32_TOL
+        without the rounding, within the bf16 limit with it (on bf16
+        inputs, the dense version taking the same rounded values)."""
+        rng = np.random.default_rng(13)
+        dk, dv = paged_ops.MLA_DIMS
+        lens = np.asarray(lens, dtype=np.int32)
+        B = len(lens)
+        npg = -(-int(lens.max()) // page) + 1
+        n_pool = B * npg + 2
+        dtype = torch.bfloat16 if round_p else torch.float32
+        q = torch.from_numpy(_normal(rng, (B, G, dk))).to(dtype)
+        kp = torch.from_numpy(_normal(rng, (n_pool, page, 1, dk))).to(dtype)
+        bt = rng.permutation(n_pool)[:B * npg].astype(np.int32).reshape(B, npg)
+        scale = 192 ** -0.5
+        rows = kp.float().numpy()
+        gathered = rows[bt].reshape(B, npg * page, dk)
+        mask = (np.arange(npg * page)[None] < lens[:, None])[:, None, None]
+        want = _dense_attention(
+            q.float().numpy()[:, :, None], np.repeat(gathered[:, None], G, 1),
+            np.repeat(gathered[:, None, :, :dv], G, 1), scale, mask)[:, :, 0]
+        got = paged_mla_tiled_ref(q, kp, kp[..., :dv], torch.from_numpy(bt),
+                                  torch.from_numpy(lens), partition=partition,
+                                  scale=scale, round_p=round_p)
+        assert got.shape == (B, G, dv) and got.dtype == dtype
+        tol = BF16_TOL if round_p else F32_TOL
+        np.testing.assert_allclose(got.float().numpy(), want, atol=tol,
+                                   rtol=tol)
+
 
 class TestWrappers:
     def test_cpu_never_launches_a_kernel(self):
@@ -334,6 +375,10 @@ class TestWrappers:
      "(...)", "flash_attention"),
     ("void (anonymous namespace)::mla::paged_mla_split_kernel<__nv_bfloat16, "
      "576, 512, 16>", "paged_attention"),
+    ("void (anonymous namespace)::mla::paged_mla_mma_kernel<576, 512, 16>"
+     "(__nv_bfloat16 const*, __nv_bfloat16 const*, int const*, int const*, "
+     "__nv_bfloat16*, float*, int, int, int, int, int, int, float)",
+     "paged_attention"),
     ("void at::native::index_add_cuda_impl<float>", "moe_dispatch"),
     ("void (anonymous namespace)::ssd_chunk_kernel<float, 64, 128>",
      "ssd_chunk"),
