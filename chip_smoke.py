@@ -7,16 +7,19 @@ Phases, in order; any failure raises and exits non-zero:
 
 1. setup: print the card's name and power limit, build the three CUDA
    kernels from ``src/repro_torch/csrc`` (one ``nvcc`` each, in parallel);
-2. kernels: hold flash attention (bf16 on the tensor cores, f32 on the
-   CUDA cores), paged attention (split sequences, then merge) and the SSD
+2. kernels: hold flash attention (bf16 on the tensor cores, f32 as three
+   TF32 products on the tensor cores), paged attention (split sequences,
+   then merge) and the SSD
    chunk kernel against their plain PyTorch versions on the card at the
    main paths' shapes (the llama2 prefill buckets from B=8 S=128 to B=2
    S=2048; 8 decode slots of 2048 tokens, one long among short ones
    included) and, for flash, the chunked-prefill shapes (queries at an
    offset into a 2048-position slot cache whose rows past the visible keys
-   hold NaN, which must never be read); bf16 flash is also held element by
-   element against
-   ``flash_attention_tiled_ref``, bf16 MLA paged attention against
+   hold NaN, which must never be read); flash is also held element by
+   element against ``flash_attention_tiled_ref`` rounding as each kernel
+   does (bf16: P in bf16; f32: three TF32 products of split operands, with
+   the 3xTF32 bound printed beside the CUDA-core f32 one), bf16 MLA paged
+   attention against
    ``paged_mla_tiled_ref`` and the bf16 SSD main case against
    ``ssd_chunk_tiled_ref``, each of which rounds what its kernel rounds.
    Times kernel (graph and eager timers), plain version, the least time the
@@ -32,7 +35,8 @@ Phases, in order; any failure raises and exits non-zero:
    one prefill and a few greedy decode steps through the kernels and
    through the plain versions must give the same tokens and close logits,
    and llama2's prompt fed through ``chunk_step`` in chunks of 512, 512 and
-   the rest must give the prefill's tokens and logits;
+   the rest must give the prefill's tokens and logits (each parity phase
+   counts its f32 flash launches);
 4. serve: ``repro_torch.serving.api.serve`` runs llama2-13b at full width
    and depth (random bf16 weights from a seed) under EWSJF over a mixed
    short/long workload, then the same weights in chunked-prefill +
@@ -58,8 +62,9 @@ Phases, in order; any failure raises and exits non-zero:
    full-width bf16 serve of the same 24 requests under EWSJF (MLA prefill
    through flash, absorbed decode through paged attention, MoE experts by
    capacity dispatch), with peak device memory under 75 GiB;
-5. summary: one call of each kernel's bf16 main case (and of the f32 MLA
-   paged case) under ``torch.profiler`` names the device kernels that ran,
+5. summary: one call of each kernel's bf16 main case (and of the f32
+   flash main, offset and MLA cases and the f32 MLA paged case) under
+   ``torch.profiler`` names the device kernels that ran,
    with their device time (the ``variant`` of its entry); a line of the replaced designs' times as recorded in
    PERF.md (not measured here), each beside this run's time by the same
    timer; one JSON line of per-kernel numbers
@@ -87,12 +92,23 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 BF16_PEAK_FLOPS = 989e12     # H100 SXM data sheet, dense bf16 tensor cores
 F32_PEAK_FLOPS = 67e12       # H100 SXM data sheet, f32 outside tensor cores
+TF32_PEAK_FLOPS = 494.7e12   # H100 SXM data sheet, dense TF32 tensor cores
+# The f32 flash kernel takes each multiply as three TF32 products.
+TF32X3_PEAK_FLOPS = TF32_PEAK_FLOPS / 3
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 F32_TOL, BF16_TOL = 1e-4, 3e-2   # kernel vs plain: summation order differs
 # bf16 flash vs its tiled plain version, per element: |d| <= atol + rtol·|ref|.
 # Both round the same P and the same output to bf16 (an ulp is at most 2^-7
 # of the value); what is left is f32 summation order.
 TILED_ATOL, TILED_RTOL = 1e-3, 1e-2
+# f32 flash vs its 3xTF32 plain version (flash_attention_tiled_ref with
+# tf32_products=3), per element: |d| <= atol + rtol·|ref|.  Both split the
+# same operands into TF32 big + small and drop the same small·small terms,
+# so the split's own error (below 2^-21 of each operand) cancels; what is
+# left is f32 accumulation order (about dk·2^-24 of Σ|q·k| in a score, the
+# tensor cores' adds included) and ex2.approx's 2 ulp.  Never looser than
+# F32_TOL.
+TF32X3_ATOL, TF32X3_RTOL = 1e-5, 1e-4
 # bf16 SSD vs ssd_chunk_tiled_ref, per element: |d| <= atol · max|ref| +
 # rtol·|ref|.  Both round the same P′ and w∘x to bf16; what is left is f32
 # summation order, exp2 and the decay scan's order, which can also move a
@@ -109,14 +125,21 @@ MLA_PARTITIONS_TRIED = (64, 128)
 # that added the SSD kernel; the CUDA-core bf16 SSD kernel's 0.9817 ms by
 # that eager timer and 0.9765 ms by the graph timer of the chip_smoke.py
 # that redesigned attention; the CUDA-core bf16 MLA paged kernel's by both
-# timers of the first call of the chip_smoke.py that added it.  Printed on
-# a line of their own, labelled as recorded, each beside this run's time by
-# the same timer, never in the kernels line.
+# timers of the first call of the chip_smoke.py that added it; the f32
+# flash cases' CUDA-core kernel by the graph timer (the main case on the
+# tree that redesigned bf16 SSD, the MLA case on the one that added
+# deepseek, the offset case the lowest of the calls of the one that added
+# the query offset, which read 0.769-0.780).  Printed on a line of their
+# own, labelled as recorded, each beside this run's time by the same timer,
+# never in the kernels line.
 RECORDED_EARLIER_MS = {"flash_attention": {"eager": 1.0194},
                        "paged_attention": {"eager": 0.3273},
                        "ssd_chunk": {"eager": 0.9817, "graph": 0.9765},
                        "paged_attention_mla": {"graph": 0.0503,
-                                               "eager": 0.0627}}
+                                               "eager": 0.0627},
+                       "flash_attention_f32": {"graph": 1.0365},
+                       "flash_attention_mla_f32": {"graph": 0.9554},
+                       "flash_attention_offset_f32": {"graph": 0.769}}
 
 
 def check(cond: bool, what: str) -> None:
@@ -209,8 +232,9 @@ def flash_case(fa, B, S, H, K, hd, dtype, causal, window, seed, q_offset=0,
     first ``kv_len`` keys (default all) of (B, T, K, hd) keys and (B, T, K,
     hd_v) values (T defaults to S, hd_v to hd); rows past ``kv_len`` hold
     NaN, which must never be read.  Returns (max_abs_err, worst |d| / (atol
-    + rtol·|ref|) against the tiled plain version (bf16; None for f32),
-    kernel_ms, eager kernel_ms, plain_ms, library_ms, the kernel call)."""
+    + rtol·|ref|) against the tiled plain version that rounds as the kernel
+    does (bf16: P in bf16; f32: three TF32 products), kernel_ms, eager
+    kernel_ms, plain_ms, library_ms, the kernel call)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ref import (
@@ -236,14 +260,19 @@ def flash_case(fa, B, S, H, K, hd, dtype, causal, window, seed, q_offset=0,
     check(bool(torch.isfinite(out.float()).all()), f"{what} output finite")
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     check(err <= tol, f"{what} err {err:.3g} <= {tol}")
-    tiled = None
     if dtype == torch.bfloat16:
-        ref_t = flash_attention_tiled_ref(
-            *(t.transpose(1, 2) for t in (q, k, v)), **kw).transpose(1, 2).float()
-        tiled = float(((out.float() - ref_t).abs()
-                       / (TILED_ATOL + TILED_RTOL * ref_t.abs())).max())
-        check(tiled <= 1.0, f"{what} within {TILED_ATOL} + {TILED_RTOL}·|ref| "
-                            f"of the tiled plain version (worst {tiled:.3g})")
+        atol, rtol, rounding = TILED_ATOL, TILED_RTOL, {}
+    else:
+        atol, rtol = TF32X3_ATOL, TF32X3_RTOL
+        rounding = dict(round_p=False, tf32_products=3,
+                        tile=fa.F32_KV_TILE[hd])
+    ref_t = flash_attention_tiled_ref(
+        *(t.transpose(1, 2) for t in (q, k, v)), **kw,
+        **rounding).transpose(1, 2).float()
+    tiled = float(((out.float() - ref_t).abs()
+                   / (atol + rtol * ref_t.abs())).max())
+    check(tiled <= 1.0, f"{what} within {atol} + {rtol}·|ref| of the tiled "
+                        f"plain version (worst {tiled:.3g})")
 
     def call():
         return fa.flash_attention(q, k, v, **kw)
@@ -285,6 +314,44 @@ def flash_bound(B, S, H, K, hd, elem, causal, window, peak, q_offset=0,
     t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def flash_bounds(dtype, B, S, H, K, hd, causal, window, **kw) -> tuple:
+    """``flash_bound`` at the peak of the kernel's products (bf16 tensor
+    cores; f32 as three TF32 products) and, for f32, also at the CUDA
+    cores' f32 peak: (ms, bound_by, CUDA-core ms or None)."""
+    import torch
+    if dtype == torch.bfloat16:
+        return (*flash_bound(B, S, H, K, hd, 2, causal, window,
+                             BF16_PEAK_FLOPS, **kw), None)
+    bms, by = flash_bound(B, S, H, K, hd, 4, causal, window,
+                          TF32X3_PEAK_FLOPS, **kw)
+    cms, _ = flash_bound(B, S, H, K, hd, 4, causal, window, F32_PEAK_FLOPS,
+                         **kw)
+    return bms, by, cms
+
+
+def flash_notes(dtype, tiled, bms, by, cms) -> tuple:
+    """The printed comparison with the tiled plain version and the
+    bound(s) of one flash case."""
+    import torch
+    if dtype == torch.bfloat16:
+        vs = f" worst |d| / ({TILED_ATOL} + {TILED_RTOL}·|tiled|) {tiled:.3g}"
+        return vs, f"bound {bms:.4f} ms ({by})"
+    vs = (f" worst |d| / ({TF32X3_ATOL} + {TF32X3_RTOL}·|3xTF32 plain|) "
+          f"{tiled:.3g}")
+    return vs, (f"3xTF32 bound {bms:.4f} ms ({by}; CUDA-core f32 bound "
+                f"{cms:.4f} ms)")
+
+
+def flash_row(err, tiled, kms, ems, pms, lms, bms, by, cms, case) -> dict:
+    """One flash case's entry: this run's numbers, and for f32 the CUDA-core
+    bound and the worst ratio against the 3xTF32 plain version."""
+    row = dict(max_abs_err=err, ms=kms, eager_ms=ems, plain_ms=pms,
+               library_ms=lms, bound_ms=bms, bound_by=by, case=case)
+    if cms is not None:
+        row.update(bound_cuda_core_ms=cms, worst_vs_tf32x3=tiled)
+    return row
 
 
 def paged_case(pa, B, H, K, hd, page, s_max, dtype, seed, shuffle,
@@ -532,22 +599,19 @@ def phase_kernels(fa, pa) -> tuple:
     for i, (B, S, H, K, hd, dt, causal, window) in enumerate(cases):
         err, tiled, kms, ems, pms, lms, call = flash_case(
             fa, B, S, H, K, hd, dt, causal, window, seed=i)
-        elem = 2 if dt == torch.bfloat16 else 4
-        peak = BF16_PEAK_FLOPS if dt == torch.bfloat16 else F32_PEAK_FLOPS
-        bms, by = flash_bound(B, S, H, K, hd, elem, causal, window, peak)
-        vs_tiled = (f" worst |d| / ({TILED_ATOL} + {TILED_RTOL}·|tiled|) "
-                    f"{tiled:.3g}" if tiled is not None else "")
+        bms, by, cms = flash_bounds(dt, B, S, H, K, hd, causal, window)
+        vs_tiled, bound = flash_notes(dt, tiled, bms, by, cms)
         print(f"[kernels] flash B{B} S{S} H{H} K{K} hd{hd} {str(dt)[6:]} "
               f"causal={causal} window={window}: max_abs_err {err:.3g}"
               f"{vs_tiled} kernel {kms:.4f} ms (eager timer {ems:.4f} ms) "
-              f"plain {pms:.4f} ms sdpa {lms:.4f} ms bound {bms:.4f} ms "
-              f"({by}); kernel / sdpa {kms / lms:.2f} (graph timer both)")
-        if i == 0:
-            rows["flash_attention"] = dict(max_abs_err=err, ms=kms,
-                                           eager_ms=ems, plain_ms=pms,
-                                           library_ms=lms,
-                                           bound_ms=bms, bound_by=by)
-            calls["flash_attention"] = call
+              f"plain {pms:.4f} ms sdpa {lms:.4f} ms {bound}; kernel / sdpa "
+              f"{kms / lms:.2f} (graph timer both)")
+        name = {0: "flash_attention", 1: "flash_attention_f32"}.get(i)
+        if name:
+            rows[name] = flash_row(
+                err, tiled, kms, ems, pms, lms, bms, by, cms,
+                f"B={B}, S=T={S}, H=K={H}, hd={hd}, causal, {str(dt)[6:]}")
+            calls[name] = call
     ocases = [  # C, q_offset, dtype, window: the chunks of the prefix serve
         (512, 1024, torch.bfloat16, 0),     # main offset case: a suffix chunk
         (512, 1024, torch.float32, 0),
@@ -564,25 +628,23 @@ def phase_kernels(fa, pa) -> tuple:
         err, tiled, kms, ems, pms, lms, call = flash_case(
             fa, 1, C, H, K, hd, dt, True, window, seed=40 + i, q_offset=off,
             T=T, kv_len=kv_len)
-        elem = 2 if dt == torch.bfloat16 else 4
-        peak = BF16_PEAK_FLOPS if dt == torch.bfloat16 else F32_PEAK_FLOPS
-        bms, by = flash_bound(1, C, H, K, hd, elem, True, window, peak,
-                              q_offset=off, kv_len=kv_len)
-        vs_tiled = (f" worst |d| / ({TILED_ATOL} + {TILED_RTOL}·|tiled|) "
-                    f"{tiled:.3g}" if tiled is not None else "")
+        bms, by, cms = flash_bounds(dt, 1, C, H, K, hd, True, window,
+                                    q_offset=off, kv_len=kv_len)
+        vs_tiled, bound = flash_notes(dt, tiled, bms, by, cms)
         print(f"[kernels] flash offset B1 C{C} q_offset{off} kv_len{kv_len} "
               f"T{T} H{H} K{K} hd{hd} {str(dt)[6:]} window={window}: "
               f"max_abs_err {err:.3g}{vs_tiled} kernel {kms:.4f} ms (eager "
               f"timer {ems:.4f} ms) plain {pms:.4f} ms sdpa (boolean mask) "
-              f"{lms:.4f} ms bound {bms:.4f} ms ({by}); kernel / sdpa "
-              f"{kms / lms:.2f} (graph timer both)")
-        if i == 0:
-            rows["flash_attention_offset"] = dict(
-                max_abs_err=err, ms=kms, eager_ms=ems, plain_ms=pms,
-                library_ms=lms, bound_ms=bms, bound_by=by,
-                case=f"B=1, C={C}, q_offset={off}, kv_len={kv_len}, T={T}, "
-                     f"H=K={H}, hd={hd}, causal, bf16")
-            calls["flash_attention_offset"] = call
+              f"{lms:.4f} ms {bound}; kernel / sdpa {kms / lms:.2f} (graph "
+              f"timer both)")
+        name = {0: "flash_attention_offset",
+                1: "flash_attention_offset_f32"}.get(i)
+        if name:
+            rows[name] = flash_row(
+                err, tiled, kms, ems, pms, lms, bms, by, cms,
+                f"B=1, C={C}, q_offset={off}, kv_len={kv_len}, T={T}, "
+                f"H=K={H}, hd={hd}, causal, {str(dt)[6:]}")
+            calls[name] = call
     pcases = [(torch.bfloat16, False, None), (torch.float32, False, None),
               (torch.bfloat16, True, None), (torch.float32, True, None),
               (torch.bfloat16, False, LONG_AMONG_SHORT),
@@ -634,23 +696,20 @@ def phase_kernels_mla(fa, pa, rows: dict, calls: dict) -> None:
         err, tiled, kms, ems, pms, lms, call = flash_case(
             fa, B, S, H, H, dk, dt, True, 0, seed=60 + i, hd_v=dv,
             scale=scale)
-        elem = 2 if dt == torch.bfloat16 else 4
-        peak = BF16_PEAK_FLOPS if dt == torch.bfloat16 else F32_PEAK_FLOPS
-        bms, by = flash_bound(B, S, H, H, dk, elem, True, 0, peak, hd_v=dv)
-        vs_tiled = (f" worst |d| / ({TILED_ATOL} + {TILED_RTOL}·|tiled|) "
-                    f"{tiled:.3g}" if tiled is not None else "")
+        bms, by, cms = flash_bounds(dt, B, S, H, H, dk, True, 0, hd_v=dv)
+        vs_tiled, bound = flash_notes(dt, tiled, bms, by, cms)
         print(f"[kernels] flash MLA B{B} S{S} H=K={H} dk{dk} dv{dv} "
               f"{str(dt)[6:]} causal: max_abs_err {err:.3g}{vs_tiled} kernel "
               f"{kms:.4f} ms (eager timer {ems:.4f} ms) plain {pms:.4f} ms "
-              f"sdpa {lms:.4f} ms bound {bms:.4f} ms ({by}); kernel / sdpa "
-              f"{kms / lms:.2f} (graph timer both)")
-        if i == 0:
-            rows["flash_attention_mla"] = dict(
-                max_abs_err=err, ms=kms, eager_ms=ems, plain_ms=pms,
-                library_ms=lms, bound_ms=bms, bound_by=by,
-                case=f"B={B}, S={S}, H=K={H}, dk={dk}, dv={dv}, causal, "
-                     f"scale 192^-0.5, bf16")
-            calls["flash_attention_mla"] = call
+              f"sdpa {lms:.4f} ms {bound}; kernel / sdpa {kms / lms:.2f} "
+              f"(graph timer both)")
+        name = {0: "flash_attention_mla", 1: "flash_attention_mla_f32"}.get(i)
+        if name:
+            rows[name] = flash_row(
+                err, tiled, kms, ems, pms, lms, bms, by, cms,
+                f"B={B}, S={S}, H=K={H}, dk={dk}, dv={dv}, causal, scale "
+                f"192^-0.5, {str(dt)[6:]}")
+            calls[name] = call
     dk, dv = pa.MLA_DIMS
     B, K, page, s_max = 8, 1, 16, 2048
     n_split = pa.mla_split_count(s_max // page, page)
@@ -712,13 +771,17 @@ def phase_kernels_mla(fa, pa, rows: dict, calls: dict) -> None:
 
 def phase_variants(calls: dict) -> dict:
     """Which device kernels each kernel's main case ran, read from the
-    profiler: bf16 flash must run the tensor-core kernel alone, paged
+    profiler: bf16 flash must run the bf16 tensor-core kernel alone and f32
+    flash the 3xTF32 one alone (main, offset and MLA cases), paged
     attention its split and merge kernels (for bf16 MLA the tensor-core
     split kernel, for f32 MLA the CUDA-core one), bf16 SSD its two
     tensor-core kernels and nothing else."""
     want = {"flash_attention": ("flash_fwd_mma_kernel",),
             "flash_attention_offset": ("flash_fwd_mma_kernel",),
             "flash_attention_mla": ("flash_fwd_mma_kernel",),
+            "flash_attention_f32": ("flash_fwd_tf32x3_kernel",),
+            "flash_attention_offset_f32": ("flash_fwd_tf32x3_kernel",),
+            "flash_attention_mla_f32": ("flash_fwd_tf32x3_kernel",),
             "paged_attention": ("paged_split_kernel", "paged_merge_kernel"),
             "paged_attention_mla": ("paged_mla_mma_kernel",
                                     "paged_merge_kernel"),
@@ -740,11 +803,13 @@ def phase_variants(calls: dict) -> dict:
     return variants
 
 
-def phase_parity_llama() -> None:
+def phase_parity_llama() -> dict:
     """llama2-13b widths at 2 layers, f32: prefill + greedy decode through
-    the kernels and through the plain versions."""
+    the kernels and through the plain versions.  Returns the f32 flash
+    launches of its kernel runs (and of the ``chunk_step`` parity's)."""
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.models import (DtypePolicy, decode_step,
                                     init_decode_caches, init_params, prefill)
     cfg = get_config("llama2-13b").scaled(n_layers=2)
@@ -757,7 +822,10 @@ def phase_parity_llama() -> None:
     tokens = torch.tensor(rng.integers(0, cfg.vocab_size, (B, S)),
                           device="cuda")
     results = {}
+    f0 = fa.KERNEL.launches
     for impl in (None, "plain"):
+        if impl == "plain":
+            launches = fa.KERNEL.launches - f0
         logits, pc = prefill(params, {"tokens": tokens}, cfg, policy=pol,
                              impl=impl)
         caches = init_decode_caches(cfg, B, s_max, dtype=torch.float32,
@@ -787,15 +855,18 @@ def phase_parity_llama() -> None:
     # 1e-3: two layers of f32 attention summed in another order
     check(err <= 1e-3, f"parity logits within 1e-3 (got {err:.3g})")
     check(all(bool(torch.isfinite(x).all()) for x in lk), "finite logits")
-    phase_parity_llama_chunks(cfg, params, pol, rng)
+    check(launches > 0, "the f32 kernel run launched flash")
+    chunks, offset = phase_parity_llama_chunks(cfg, params, pol, rng)
+    return {"llama2_parity": launches, "llama2_chunk_parity": chunks,
+            "llama2_chunk_parity_offset": offset}
 
 
-def phase_parity_llama_chunks(cfg, params, pol, rng) -> None:
+def phase_parity_llama_chunks(cfg, params, pol, rng) -> tuple:
     """One prompt of 1024 + (0..100) tokens, fed through ``chunk_step`` in
     chunks of 512, 512 and the rest (each chunk at its offset, flash with
     a query offset over the slot cache) and through one prefill, both on
     the kernels, then greedy decode steps from each: equal tokens, logits
-    within 1e-3."""
+    within 1e-3.  Returns the f32 flash launches, and those with an offset."""
     import torch
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.models import (chunk_step, decode_step,
@@ -805,7 +876,7 @@ def phase_parity_llama_chunks(cfg, params, pol, rng) -> None:
     tokens = torch.tensor(rng.integers(0, cfg.vocab_size, (1, S)),
                           device="cuda")
     results = {}
-    off0 = fa.KERNEL.offset_launches
+    f0, off0 = fa.KERNEL.launches, fa.KERNEL.offset_launches
     for mode in ("prefill", "chunks"):
         caches = init_decode_caches(cfg, 1, 2048, dtype=torch.float32,
                                     device="cuda")
@@ -842,6 +913,7 @@ def phase_parity_llama_chunks(cfg, params, pol, rng) -> None:
     # 1e-3: two layers of f32 attention over other key tilings
     check(err <= 1e-3, f"chunk parity logits within 1e-3 (got {err:.3g})")
     check(all(bool(torch.isfinite(x).all()) for x in lc), "finite logits")
+    return (fa.KERNEL.launches - f0, fa.KERNEL.offset_launches - off0)
 
 
 def phase_parity_mamba2() -> None:
@@ -897,7 +969,7 @@ def phase_parity_mamba2() -> None:
     check(all(bool(torch.isfinite(x).all()) for x in lk), "finite logits")
 
 
-def phase_parity_deepseek(ops: dict) -> None:
+def phase_parity_deepseek(ops: dict) -> int:
     """deepseek-v2-lite at full width and 2 layers (the dense head block and
     one MoE block, 64 experts top-6 plus 2 shared), f32: one prefill of two
     512-token rows and 4 decode steps (row 1 decoding from position 400),
@@ -910,7 +982,7 @@ def phase_parity_deepseek(ops: dict) -> None:
     probabilities within twice the largest router-probability difference
     of the two runs, and a row whose greedy token differs without such a
     flip must hold both tokens within twice the largest logit difference
-    of the rows without one."""
+    of the rows without one.  Returns the card run's f32 flash launches."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import (DtypePolicy, decode_step,
@@ -959,6 +1031,7 @@ def phase_parity_deepseek(ops: dict) -> None:
                 pos = pos + 1
             if dev == "cuda":
                 torch.cuda.synchronize()
+                f32_flash = ops["flash_attention"].KERNEL.launches - f0
                 check(ops["flash_attention"].KERNEL.launches > f0
                       and ops["paged_attention"].KERNEL.launches > p0,
                       "deepseek parity ran flash and paged on the card")
@@ -1020,6 +1093,7 @@ def phase_parity_deepseek(ops: dict) -> None:
           "finite logits")
     if not flips and not parted:
         check(cpu_tok == gpu_tok, "card and CPU greedy tokens equal")
+    return f32_flash
 
 
 def reset_counts(ops: dict) -> None:
@@ -1487,7 +1561,7 @@ def main() -> int:
     phase_setup(kbuild)
     rows, calls = phase_kernels(fa, pa)
     rows["ssd_chunk"], calls["ssd_chunk"] = phase_ssd_kernel(so)
-    phase_parity_llama()
+    f32_launches = phase_parity_llama()
     phase_parity_mamba2()
     torch.cuda.empty_cache()
     ops = {"flash_attention": fa, "paged_attention": pa, "ssd_chunk": so}
@@ -1509,7 +1583,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     # deepseek-v2-lite only once llama2-13b's weights and caches are gone
-    phase_parity_deepseek(ops)
+    f32_launches["deepseek_parity"] = phase_parity_deepseek(ops)
+    print(f"[parity] f32 flash launches (flash_fwd_tf32x3_kernel) by parity "
+          f"phase {f32_launches}")
     gc.collect()
     torch.cuda.empty_cache()
     deepseek, out = phase_serve("deepseek-v2-lite-16b",
@@ -1555,6 +1631,20 @@ def main() -> int:
         if name in variants:
             entry["variant"] = variants[name]
         if name == "flash_attention":
+            # the f32 cases, each with the f32 parity phases' launches at
+            # its kind of shape
+            fl = f32_launches
+            case_launches = {
+                "main": (fl["llama2_parity"] + fl["llama2_chunk_parity"]
+                         - fl["llama2_chunk_parity_offset"]),
+                "offset": fl["llama2_chunk_parity_offset"],
+                "mla": fl["deepseek_parity"]}
+            entry["f32_cases"] = {
+                case: {**rows[f"flash_attention{sfx}_f32"], "launches": n,
+                       "variant": variants[f"flash_attention{sfx}_f32"]}
+                for (case, n), sfx in zip(case_launches.items(),
+                                          ("", "_offset", "_mla"))}
+            entry["f32_launches_by_phase"] = fl
             o = rows["flash_attention_offset"]
             entry["offset_case"] = {
                 "case": o["case"],

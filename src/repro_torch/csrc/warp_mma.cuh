@@ -1,8 +1,10 @@
 // Warp-level tensor-core and asynchronous-copy helpers (sm_80 instructions,
 // all present on sm_90a): 16-byte cp.async with zero fill, ldmatrix of four
 // 8x8 bf16 matrices (plain and transposed), the m16n8k16 bf16 MMA with f32
-// accumulators, packing two f32 values into a bf16 pair, and 2^x on the
-// special-function unit.
+// accumulators, packing two f32 values into a bf16 pair, 2^x on the
+// special-function unit, and f32 products on the tensor cores as three TF32
+// products (the TF32 rounding, the split of an f32 value into two TF32
+// values, the m16n8k8 TF32 MMA).
 //
 // Fragment layouts of mma.m16n8k16 (lane = 4 * group + quad):
 //   A (16x16, row-major), regs a0..a3: rows group / group + 8, columns
@@ -11,6 +13,15 @@
 //     (b0) and 8 + 2 * quad + {0, 1} (b1);
 //   C/D (16x8 f32), c0..c3: row group (c0, c1) and group + 8 (c2, c3),
 //     columns 2 * quad + {0, 1}.
+// Fragment layouts of mma.m16n8k8 with TF32 inputs (one 32-bit register per
+// element; C/D as above):
+//   A (16x8, row-major), a0..a3: (group, quad), (group + 8, quad),
+//     (group, quad + 4), (group + 8, quad + 4);
+//   B (8x8, column-major), b0, b1: column group, rows quad (b0) and
+//     quad + 4 (b1).
+// ldmatrix (b16) loads these from row-major f32 tiles too: an 8x8 b16
+// matrix is 8 rows of 4 f32 words, and a lane receives word lane % 4 of row
+// lane / 4.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -79,6 +90,41 @@ __device__ __forceinline__ float ex2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// f32 -> TF32 rounded to nearest, ties away from zero, on 10 explicit
+// mantissa bits: an f32 bit pattern whose low 13 bits are 0.  Half a TF32
+// ulp is added to the magnitude and the low 13 bits cleared, which gives
+// cvt.rna.tf32.f32's result for every input but a NaN whose top mantissa
+// bits are all set (the canonical 0x7fffffff becomes a zero; split_tf32's
+// small part keeps it a NaN).  Two integer operations: cvt.rna for big made
+// the f32 flash kernel 14-18% slower on an NVIDIA H100 (PERF.md).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x as big + small, the split of every operand of a 3xTF32 product
+// (CUTLASS's "fast accurate f32"): big = tf32_rna(x), and small = x - big
+// (exact in f32) truncated to TF32, one AND.  |small| <= 2^-11 |x|, and the
+// pair holds x to within 2^-21 of it; a NaN or infinite x leaves small a
+// NaN, so it propagates.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(x);
+  small = __float_as_uint(x - __uint_as_float(big)) & 0xffffe000u;
+}
+
+// d += a * b for one 16x8x8 tile, TF32 inputs, f32 accumulators.  Three of
+// these on split operands (big * big + big * small + small * big; the
+// dropped small * small is below 2^-22 of |a| |b|, the order of f32
+// rounding) take an f32 product to f32 accuracy: CUTLASS's "fast accurate
+// f32" scheme.
+__device__ __forceinline__ void mma_tf32_1688(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                              uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 }  // namespace repro

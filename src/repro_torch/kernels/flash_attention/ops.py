@@ -8,6 +8,12 @@ cache as k/v with a query offset and a count of visible keys, so the chunk
 attends to the resident prefix without a slice or a copy.  Keys and values
 may differ in width: MLA prefill (deepseek-v2-lite) passes queries and keys
 of hd + rd = 192 and values of 128.
+
+bf16 runs ``flash_fwd_mma_kernel`` (bf16 tensor-core products, P rounded to
+bf16); f32 runs ``flash_fwd_tf32x3_kernel``, whose every product is three
+TF32 tensor-core products of split operands, f32-accurate whatever
+``torch.backends.cuda.matmul.allow_tf32`` says.  ``ref.py::
+flash_attention_tiled_ref`` rounds as each does.
 """
 
 from __future__ import annotations
@@ -21,6 +27,9 @@ from .ref import flash_attention_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 HEAD_DIMS = ((64, 64), (128, 128), (192, 128))   # (q/k width, v width)
+# Keys a KV tile of the f32 kernel, by q/k width (csrc/flash_attention.cu,
+# tf32x3::kKvTile): 16 at 192 so that two blocks fit an SM.
+F32_KV_TILE = {64: 32, 128: 32, 192: 16}
 
 
 class FlashKernel(CudaKernel):

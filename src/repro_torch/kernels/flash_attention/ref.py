@@ -3,9 +3,11 @@
 ``flash_attention_ref`` is a dense masked softmax in f32 with the GQA /
 causal / window semantics of the JAX oracle
 (``repro/kernels/flash_attention/ref.py``); the wrapper's ``impl="plain"``
-and the CPU path use it.  ``flash_attention_tiled_ref`` spells out the bf16
-tensor-core kernel's arithmetic: 64-key tiles, an online softmax in the
-log2 domain, and P rounded to bf16 before the P·V product.
+and the CPU path use it.  ``flash_attention_tiled_ref`` spells out the
+tensor-core kernels' arithmetic: key tiles, an online softmax in the log2
+domain, and either P rounded to bf16 before the P·V product (the bf16
+kernel) or every product taken as three TF32 products of split operands
+(the f32 kernel; ``split_tf32`` splits as it does).
 
 Both take the kernel's query offset and visible-key count: query row i
 stands at absolute position ``q_offset + i`` and only the first ``kv_len``
@@ -59,15 +61,57 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     return out.to(q.dtype)
 
 
+def tf32_rna(x):
+    """f32 rounded to TF32 as ``cvt.rna.tf32.f32`` does: to nearest, ties
+    away from zero, on 10 explicit mantissa bits, by integer operations on
+    the bits (adding half a TF32 ulp to the magnitude, then clearing the low
+    13 bits), as the f32 kernel does.  Infinities stay infinite."""
+    bits = x.float().contiguous().view(torch.int32)
+    return torch.bitwise_and(bits + 0x1000, -0x2000).view(torch.float32)
+
+
+def split_tf32(x):
+    """``x`` as ``(big, small)``: ``big = tf32_rna(x)``, and ``small = x -
+    big`` (exact in f32) truncated to TF32 (its low 13 bits cleared), the f32
+    kernel's split of every operand (``csrc/warp_mma.cuh::split_tf32``).
+    ``big + small`` holds x to within 2^-21 of it."""
+    big = tf32_rna(x)
+    rest = (x.float() - big).contiguous().view(torch.int32)
+    return big, torch.bitwise_and(rest, -0x2000).view(torch.float32)
+
+
+def _product(eq, a, b, tf32_products):
+    """``einsum(eq, a, b)`` in f32 as the kernel takes it: in f32 (0), as one
+    TF32 product (1) or as three TF32 products of the split operands (3:
+    big·big + big·small + small·big, small·small dropped)."""
+    if tf32_products == 0:
+        return torch.einsum(eq, a, b)
+    (ab, as_), (bb, bs) = split_tf32(a), split_tf32(b)
+    if tf32_products == 1:
+        return torch.einsum(eq, ab, bb)
+    return (torch.einsum(eq, as_, bb) + torch.einsum(eq, ab, bs)
+            + torch.einsum(eq, ab, bb))
+
+
 def flash_attention_tiled_ref(q, k, v, *, causal: bool = True,
                               window: int = 0, scale: float | None = None,
                               q_offset: int = 0, kv_len: int | None = None,
-                              tile: int = 64, round_p: bool = True):
+                              tile: int = 64, round_p: bool = True,
+                              tf32_products: int = 0):
     """Same layout and semantics as :func:`flash_attention_ref`, computed as
-    the bf16 kernel does: walk the keys in ``tile``-key tiles keeping a
-    running max and sum per row, scores scaled by ``scale · log2(e)`` and
-    exponentiated with exp2, P rounded to bf16 before P·V when
-    ``round_p``, products accumulated in f32."""
+    the tensor-core kernels do: walk the keys in ``tile``-key tiles keeping
+    a running max and sum per row, scores left unscaled and then scaled by
+    ``scale · log2(e)`` and exponentiated with exp2, products accumulated in
+    f32.  The bf16 kernel: P rounded to bf16 before P·V when ``round_p``.
+    The f32 kernel (``tf32_products=3``, ``round_p=False``, the tile of
+    ``ops.F32_KV_TILE``): Q·Kᵀ and P·V each as three TF32 products of split
+    operands, the row sums taken on P unsplit; ``tf32_products=1`` is the
+    single TF32 product the kernel never runs."""
+    if tf32_products not in (0, 1, 3):
+        raise ValueError(f"tf32_products must be 0, 1 or 3, got "
+                         f"{tf32_products}")
+    if tf32_products and round_p:
+        raise ValueError("P is rounded to bf16 or split into TF32, not both")
     B, H, S, hd = q.shape
     K = k.shape[1]
     k, v, T = _visible(k, v, kv_len)
@@ -81,7 +125,8 @@ def flash_attention_tiled_ref(q, k, v, *, causal: bool = True,
     l = torch.zeros((B, H, S), device=q.device)
     acc = torch.zeros((B, H, S, v.shape[-1]), device=q.device)
     for k0 in range(0, T, tile):
-        s = torch.einsum("bhsd,bhtd->bhst", qf, kk[:, :, k0:k0 + tile])
+        s = _product("bhsd,bhtd->bhst", qf, kk[:, :, k0:k0 + tile],
+                     tf32_products)
         s = s * (scale * math.log2(math.e))
         k_pos = torch.arange(k0, min(k0 + tile, T), device=q.device)[None, :]
         mask = torch.ones((S, k_pos.shape[1]), dtype=torch.bool,
@@ -98,8 +143,8 @@ def flash_attention_tiled_ref(q, k, v, *, causal: bool = True,
         l = l * corr + p.sum(-1)
         if round_p:
             p = p.to(torch.bfloat16).float()
-        acc = acc * corr[..., None] + torch.einsum(
-            "bhst,bhtd->bhsd", p, vv[:, :, k0:k0 + tile])
+        acc = acc * corr[..., None] + _product(
+            "bhst,bhtd->bhsd", p, vv[:, :, k0:k0 + tile], tf32_products)
         m = m_new
     out = torch.where(l[..., None] > 0, acc / l.clamp_min(1e-30)[..., None],
                       0.0)

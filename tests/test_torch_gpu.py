@@ -36,6 +36,13 @@ TILED_ATOL, TILED_RTOL = 1e-3, 1e-2
 # thousand, where an f32 ulp is ~2e-4), each of which can also move a
 # rounded bf16 operand by one ulp (2^-8 of it).
 SSD_TILED_ATOL, SSD_TILED_RTOL = 1e-3, 1e-2
+# f32 flash kernel vs flash_attention_tiled_ref(tf32_products=3), per
+# element.  Both split the same operands into TF32 big + small and drop the
+# same small·small terms, so the split's own error (below 2^-21 of each
+# operand) cancels; what is left is f32 accumulation order (about dk·2^-24
+# of Σ|q·k| in a score, the tensor cores' adds included) and ex2.approx's 2
+# ulp.  Never looser than the f32 limit of 1e-4 against the dense version.
+TF32X3_ATOL, TF32X3_RTOL = 1e-5, 1e-4
 
 
 def _assert_matches_tiled(out, q, k, v, causal, window):
@@ -43,6 +50,16 @@ def _assert_matches_tiled(out, q, k, v, causal, window):
                                     causal=causal, window=window)
     torch.testing.assert_close(out.float(), ref.transpose(1, 2).float(),
                                atol=TILED_ATOL, rtol=TILED_RTOL)
+
+
+def _assert_matches_tf32x3(out, q, k, v, **kw):
+    """The f32 kernel against the plain version that rounds as it does:
+    three TF32 products of split operands, its KV tile."""
+    ref = flash_attention_tiled_ref(
+        *(t.transpose(1, 2) for t in (q, k, v)), round_p=False,
+        tf32_products=3, tile=flash_ops.F32_KV_TILE[q.shape[-1]], **kw)
+    torch.testing.assert_close(out, ref.transpose(1, 2), atol=TF32X3_ATOL,
+                               rtol=TF32X3_RTOL)
 
 
 @pytest.fixture
@@ -78,6 +95,52 @@ def test_flash_kernel_matches_plain(cuda, dtype, B, S, H, K, hd, causal,
                                rtol=TOLS[dtype])
     if dtype == torch.bfloat16:
         _assert_matches_tiled(out, q, k, v, causal, window)
+    else:
+        _assert_matches_tf32x3(out, q, k, v, causal=causal, window=window)
+
+
+@pytest.mark.parametrize("dk,dv", flash_ops.HEAD_DIMS)
+def test_flash_routes_by_type(cuda, dk, dv):
+    """At every head width, f32 runs the 3xTF32 tensor-core kernel alone and
+    bf16 the bf16 one alone (profiler names): no CUDA-core kernel, no plain
+    version."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    for dtype, want in ((torch.float32, {"flash_fwd_tf32x3_kernel"}),
+                        (torch.bfloat16, {"flash_fwd_mma_kernel"})):
+        q, k = (torch.randn((1, 130, 4, dk), generator=g, device=cuda)
+                .to(dtype) for _ in range(2))
+        v = torch.randn((1, 130, 4, dv), generator=g, device=cuda).to(dtype)
+        flash_ops.flash_attention(q, k, v)          # built and loaded before
+        before = flash_ops.KERNEL.launches
+        assert _device_kernels(lambda: flash_ops.flash_attention(q, k, v)) \
+            == want
+        assert flash_ops.KERNEL.launches == before + 1
+
+
+@pytest.mark.parametrize("bits", [0x7FC00000, 0x7FFFFFFF, -1])
+@pytest.mark.parametrize("where", ["q", "k", "v"])
+def test_flash_f32_propagates_nan(cuda, where, bits):
+    """A NaN in q, k or v (quiet, the card's canonical 0x7fffffff, and a
+    negative one) reaches every output row that reads it, as in the plain
+    version: the TF32 split keeps it in the small part.  q at row t: row t
+    alone; k at key t: the rows that see it (t and after); v at key t: at
+    least those rows (the plain version's 0·NaN spreads it to all)."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    S, t = 150, 70
+    q, k, v = (torch.randn((1, S, 2, 128), generator=g, device=cuda)
+               for _ in range(3))
+    {"q": q, "k": k, "v": v}[where].view(torch.int32)[0, t, 0, 5] = bits
+    out = flash_ops.flash_attention(q, k, v)
+    ref = flash_ops.flash_attention(q, k, v, impl="plain")
+    rows = out[0, :, 0].isnan().any(-1)
+    assert not out[0, :, 1].isnan().any()            # the other head
+    after = torch.arange(S, device=cuda) >= t
+    if where == "v":
+        assert rows[after].all()
+    else:
+        assert torch.equal(rows, ref[0, :, 0].isnan().any(-1))
+        assert torch.equal(rows, after if where == "k"
+                           else torch.arange(S, device=cuda) == t)
 
 
 @pytest.mark.parametrize("B,S,T,H,K,hd,causal,window", [
@@ -286,6 +349,10 @@ def test_ssd_kernel_path_matches_recurrence(cuda, s, chunk):
     (300, 1024, 700, 1000, 4, 4, 128, 256),  # window
     (63, 256, 64, 127, 4, 1, 64, 0),         # MQA, one row short of a tile
     (16, 128, 0, 16, 2, 2, 128, 0),          # first chunk, cache longer
+    (1000, 1280, 0, 1000, 8, 2, 128, 0),     # ragged S, GQA, no offset
+    (77, 160, 0, 77, 4, 4, 64, 30),          # ragged S, window
+    (33, 512, 300, 333, 8, 1, 128, 100),     # MQA, window, at an offset
+    (1, 64, 40, 41, 4, 2, 64, 8),            # one token, window, hd 64
 ])
 def test_flash_offset_kernel_matches_plain(cuda, dtype, C, T, q_offset,
                                            kv_len, H, K, hd, window):
@@ -315,6 +382,8 @@ def test_flash_offset_kernel_matches_plain(cuda, dtype, C, T, q_offset,
             *(t.transpose(1, 2) for t in (q, k, v)), **kw).transpose(1, 2)
         torch.testing.assert_close(out.float(), tiled.float(),
                                    atol=TILED_ATOL, rtol=TILED_RTOL)
+    else:
+        _assert_matches_tf32x3(out, q, k, v, **kw)
 
 
 def _small_cfg():
@@ -571,6 +640,8 @@ def test_flash_mla_dims_kernel_matches_plain(cuda, dtype, B, S, H, q_offset,
             *(t.transpose(1, 2) for t in (q, k, v)), **kw).transpose(1, 2)
         torch.testing.assert_close(out.float(), tiled.float(),
                                    atol=TILED_ATOL, rtol=TILED_RTOL)
+    else:
+        _assert_matches_tf32x3(out, q, k, v, **kw)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -14,10 +14,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.flash_attention.kernel import flash_attention_bhsd
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.paged_attention.ops import paged_attention as jax_paged
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from repro_torch.kernels.flash_attention.ref import flash_attention_tiled_ref
+from repro_torch.kernels.flash_attention.ref import (flash_attention_tiled_ref,
+                                                     split_tf32)
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.paged_attention.ref import (merge_partials_ref,
                                                      paged_attention_split_ref,
@@ -112,6 +114,83 @@ class TestFlashTiled:
         np.testing.assert_allclose(got.float().numpy(),
                                    np.asarray(want.astype(jnp.float32)),
                                    atol=tol, rtol=tol)
+
+
+class TestFlashTF32x3:
+    """The f32 kernel's arithmetic (``flash_attention_tiled_ref`` with
+    ``tf32_products=3``: Q·Kᵀ and P·V as three TF32 products of operands
+    split by ``split_tf32``, the kernel's KV tile) against the JAX Pallas
+    kernel in interpret mode: within F32_TOL, where one TF32 product a
+    multiply is not, which is why the kernel takes three."""
+
+    @pytest.mark.parametrize("tf32_products", [3, 1])
+    @pytest.mark.parametrize("dk,dv,q_offset", [
+        (128, 128, 0),      # llama2's widths
+        (192, 128, 0),      # MLA prefill in MHA form
+        (128, 128, 192),    # a chunk at an offset, NaN past the visible keys
+    ])
+    def test_three_tf32_products_hold_f32_one_does_not(self, dk, dv,
+                                                       q_offset,
+                                                       tf32_products):
+        rng = np.random.default_rng(21)
+        B, H, K = 1, 4, 2
+        C = 64 if q_offset else 128
+        kv_len = q_offset + C
+        q = _normal(rng, (B, kv_len, H, dk))      # every row up to kv_len
+        k = _normal(rng, (B, kv_len + 32, K, dk))
+        v = _normal(rng, (B, kv_len + 32, K, dv))
+        k[:, kv_len:] = np.nan                    # never read
+        v[:, kv_len:] = np.nan
+        # The Pallas kernel has no query offset and one head width: it runs
+        # all kv_len rows causally over the visible keys, values padded
+        # with zero columns to dk, and the chunk's rows and the first dv
+        # columns of its output are kept.
+        vpad = np.concatenate(
+            [v, np.zeros(v.shape[:3] + (dk - dv,), np.float32)], -1)
+        want = flash_attention_bhsd(
+            *(jnp.asarray(a[:, :kv_len]).transpose(0, 2, 1, 3)
+              for a in (q, k, vpad)), causal=True, interpret=True)
+        want = np.asarray(want)[:, :, q_offset:, :dv]
+        got = flash_attention_tiled_ref(
+            torch.from_numpy(q[:, q_offset:]).transpose(1, 2),
+            *(torch.from_numpy(a).transpose(1, 2) for a in (k, v)),
+            q_offset=q_offset, kv_len=kv_len,
+            tile=flash_ops.F32_KV_TILE[dk], round_p=False,
+            tf32_products=tf32_products).numpy()
+        assert got.shape == want.shape == (B, H, C, dv)
+        worst = float(np.max(np.abs(got - want)
+                             / (F32_TOL + F32_TOL * np.abs(want))))
+        err = float(np.max(np.abs(got - want)))
+        print(f"{tf32_products} TF32 product(s) a multiply at ({dk}, {dv}) "
+              f"q_offset {q_offset}: max abs err {err:.3g}, worst |d| / "
+              f"(F32_TOL + F32_TOL·|ref|) {worst:.3g}")
+        if tf32_products == 3:
+            np.testing.assert_allclose(got, want, atol=F32_TOL, rtol=F32_TOL)
+        else:
+            assert worst > 1.0, (f"one TF32 product held F32_TOL (max abs "
+                                 f"err {err:.3g}, worst ratio {worst:.3g})")
+
+    def test_split_tf32_rounds_big_to_nearest_and_truncates_small(self):
+        """big: to nearest on 10 explicit mantissa bits, ties away from zero
+        (``cvt.rna.tf32.f32``); small: the remainder truncated to TF32; the
+        pair holds x to 2^-21 of it; zeros, infinities and NaNs pass."""
+        ulp = 2.0 ** -10                       # TF32's ulp at 1
+        x = torch.tensor([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 2 - 2 ** -23,
+                          1 + 1.5 * ulp, 0.0, float("inf")])
+        big, small = split_tf32(x)
+        assert big.tolist()[:4] == [1 + ulp, -(1 + ulp), 1.0, 1 + 2 * ulp]
+        assert big.tolist()[4:] == [0.0, float("inf")]
+        # the remainder 2^-11 - 2^-23 has 12 significant bits: truncated
+        assert small.tolist()[:5] == [-ulp / 2, ulp / 2, ulp / 2 - 2 ** -22,
+                                      -ulp / 2, 0.0]
+        assert bool(small[5].isnan())          # inf - inf
+        nan = torch.tensor([0x7FFFFFFF], dtype=torch.int32).view(torch.float32)
+        assert bool(split_tf32(nan)[1].isnan())
+        r = torch.from_numpy(_normal(np.random.default_rng(22), (4096,)))
+        big, small = split_tf32(r)
+        for part in (big, small):              # low 13 bits clear
+            assert not (part.view(torch.int32) & 0x1FFF).any()
+        assert float(((big + small - r).abs() / r.abs()).max()) <= 2.0 ** -21
 
 
 class TestPagedSplitMerge:
@@ -365,8 +444,9 @@ class TestWrappers:
 @pytest.mark.parametrize("name,cls", [
     ("void (anonymous namespace)::tensor_core::flash_fwd_mma_kernel<128>(...)",
      "flash_attention"),
-    ("void (anonymous namespace)::cuda_core::flash_fwd_kernel<float, 128>",
-     "flash_attention"),
+    ("void (anonymous namespace)::tf32x3::flash_fwd_tf32x3_kernel<128, 128>"
+     "(float const*, float const*, float const*, float*, int, int, int, int, "
+     "int, int, float, int, int)", "flash_attention"),
     ("void (anonymous namespace)::paged_split_kernel<__nv_bfloat16, 128, 1>",
      "paged_attention"),
     ("void (anonymous namespace)::paged_merge_kernel<__nv_bfloat16, 128>",
