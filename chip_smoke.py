@@ -20,8 +20,10 @@ Phases, in order; any failure raises and exits non-zero:
    does (bf16: P in bf16; f32: three TF32 products of split operands, with
    the 3xTF32 bound printed beside the CUDA-core f32 one), bf16 MLA paged
    attention against
-   ``paged_mla_tiled_ref`` and the bf16 SSD main case against
-   ``ssd_chunk_tiled_ref``, each of which rounds what its kernel rounds.
+   ``paged_mla_tiled_ref`` and the SSD main case against
+   ``ssd_chunk_tiled_ref`` (bf16: P′ and w∘x in bf16; f32: three TF32
+   products of split operands, with the 3xTF32 bound printed beside the
+   CUDA-core f32 one), each of which rounds what its kernel rounds.
    Times kernel (graph and eager timers), plain version, the least time the
    card could take (bound) and, for attention,
    ``torch.nn.functional.scaled_dot_product_attention`` (a yardstick only:
@@ -36,7 +38,7 @@ Phases, in order; any failure raises and exits non-zero:
    through the plain versions must give the same tokens and close logits,
    and llama2's prompt fed through ``chunk_step`` in chunks of 512, 512 and
    the rest must give the prefill's tokens and logits (each parity phase
-   counts its f32 flash launches);
+   counts its f32 flash or SSD launches);
 4. serve: ``repro_torch.serving.api.serve`` runs llama2-13b at full width
    and depth (random bf16 weights from a seed) under EWSJF over a mixed
    short/long workload, then the same weights in chunked-prefill +
@@ -63,7 +65,8 @@ Phases, in order; any failure raises and exits non-zero:
    through flash, absorbed decode through paged attention, MoE experts by
    capacity dispatch), with peak device memory under 75 GiB;
 5. summary: one call of each kernel's bf16 main case (and of the f32
-   flash main, offset and MLA cases and the f32 MLA paged case) under
+   flash main, offset and MLA cases, the f32 MLA paged case and the f32
+   SSD main case) under
    ``torch.profiler`` names the device kernels that ran,
    with their device time (the ``variant`` of its entry); a line of the replaced designs' times as recorded in
    PERF.md (not measured here), each beside this run's time by the same
@@ -114,6 +117,14 @@ TF32X3_ATOL, TF32X3_RTOL = 1e-5, 1e-4
 # summation order, exp2 and the decay scan's order, which can also move a
 # rounded operand by one bf16 ulp (2^-8 of it).
 SSD_TILED_ATOL, SSD_TILED_RTOL = 1e-3, 1e-2
+# f32 SSD vs its 3xTF32 plain version (ssd_chunk_tiled_ref with
+# tf32_products=3), per element: |d| <= atol · max|ref| + rtol·|ref|.  Both
+# split the same operands into TF32 big + small and take the decays from an
+# f64 scan rounded once to f32; what is left is f32 accumulation order
+# (about 2^-24·√K of the summed magnitudes over K <= 256 terms, well under
+# 5e-6 of the scale) and ex2.approx's 2 ulp.  atol + rtol is a quarter of
+# F32_TOL.
+SSD_TF32X3_ATOL, SSD_TF32X3_RTOL = 5e-6, 2e-5
 # The llama2 serve's decode shape at its worst: one long slot among short ones.
 LONG_AMONG_SHORT = [2000, 17, 99, 1, 64, 33, 80, 5]
 # Tokens a partition of the MLA paged kernel: each size is timed on the bf16
@@ -129,9 +140,10 @@ MLA_PARTITIONS_TRIED = (64, 128)
 # flash cases' CUDA-core kernel by the graph timer (the main case on the
 # tree that redesigned bf16 SSD, the MLA case on the one that added
 # deepseek, the offset case the lowest of the calls of the one that added
-# the query offset, which read 0.769-0.780).  Printed on a line of their
-# own, labelled as recorded, each beside this run's time by the same timer,
-# never in the kernels line.
+# the query offset, which read 0.769-0.780); the CUDA-core f32 SSD kernel's
+# by the graph timer (the tree that redesigned f32 flash).  Printed on a
+# line of their own, labelled as recorded, each beside this run's time by
+# the same timer, never in the kernels line.
 RECORDED_EARLIER_MS = {"flash_attention": {"eager": 1.0194},
                        "paged_attention": {"eager": 0.3273},
                        "ssd_chunk": {"eager": 0.9817, "graph": 0.9765},
@@ -139,7 +151,8 @@ RECORDED_EARLIER_MS = {"flash_attention": {"eager": 1.0194},
                                                "eager": 0.0627},
                        "flash_attention_f32": {"graph": 1.0365},
                        "flash_attention_mla_f32": {"graph": 0.9554},
-                       "flash_attention_offset_f32": {"graph": 0.769}}
+                       "flash_attention_offset_f32": {"graph": 0.769},
+                       "ssd_chunk_f32": {"graph": 0.9642}}
 
 
 def check(cond: bool, what: str) -> None:
@@ -469,8 +482,9 @@ def ssd_chunk_case(so, b, S, H, P, G, N, Q, dtype, seed):
     """One SSD-chunk comparison (S a multiple of Q); returns (largest
     absolute error of the four outputs, largest error relative to each
     output's scale, worst |d| / (atol·max|ref| + rtol·|ref|) against the
-    tiled plain version (bf16; None for f32), kernel_ms, eager kernel_ms,
-    plain_ms, the kernel call)."""
+    tiled plain version that rounds as the kernels do (bf16: P′ and w∘x in
+    bf16; f32: three TF32 products), kernel_ms, eager kernel_ms, plain_ms,
+    the kernel call)."""
     import torch
     from repro_torch.kernels.ssd_scan.ref import ssd_chunk_tiled_ref
     x, dt, A_log, B, C = ssd_inputs(b, S, H, P, G, N, dtype, seed)
@@ -485,15 +499,17 @@ def ssd_chunk_case(so, b, S, H, P, G, N, Q, dtype, seed):
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     check(err <= tol, f"ssd_chunk {dtype} b{b} S{S} Q{Q} rel err {err:.3g} "
                       f"<= {tol}")
-    tiled = None
     if dtype == torch.bfloat16:
-        tiled = max(float(((o - r).abs() / (SSD_TILED_ATOL * r.abs().max()
-                                            + SSD_TILED_RTOL * r.abs())).max())
-                    for o, r in zip(out, ssd_chunk_tiled_ref(*args)))
-        check(tiled <= 1.0, f"ssd_chunk bf16 b{b} S{S} Q{Q} within "
-                            f"{SSD_TILED_ATOL}·max|ref| + {SSD_TILED_RTOL}·"
-                            f"|ref| of the tiled plain version (worst "
-                            f"{tiled:.3g})")
+        atol, rtol, rounding = SSD_TILED_ATOL, SSD_TILED_RTOL, {}
+    else:
+        atol, rtol = SSD_TF32X3_ATOL, SSD_TF32X3_RTOL
+        rounding = dict(round=False, tf32_products=3)
+    tiled = max(float(((o - r).abs() / (atol * r.abs().max()
+                                        + rtol * r.abs())).max())
+                for o, r in zip(out, ssd_chunk_tiled_ref(*args, **rounding)))
+    check(tiled <= 1.0, f"ssd_chunk {dtype} b{b} S{S} Q{Q} within "
+                        f"{atol}·max|ref| + {rtol}·|ref| of the tiled plain "
+                        f"version (worst {tiled:.3g})")
 
     def call():
         return so.ssd_chunk(*args)
@@ -525,26 +541,27 @@ def ssd_bound(b, S, H, P, G, N, Q, elem, peak):
     """Least time (ms) of one ssd_chunk call, and what bounds it: x, B and C
     (read by group) in the input type, dt f32 and A_log read once; y,
     states and decays written once in f32; FLOPs of the causal half of
-    C·Bᵀ and of (C·Bᵀ∘L)·(x·dt) plus the chunk-end state, per cell."""
+    C·Bᵀ once a group, and of (C·Bᵀ∘L)·(x·dt) plus the chunk-end state
+    once a head, per chunk."""
     nc = S // Q
     nbytes = (elem * (b * S * H * P + 2 * b * S * G * N) + 4 * (b * S * H + H)
               + 4 * (b * S * H * P + b * nc * H * N * P + b * S * H
                      + b * nc * H))
     pairs = Q * (Q + 1) // 2
-    flops = b * nc * H * (2.0 * pairs * (N + P) + 2.0 * Q * N * P)
+    flops = b * nc * (G * 2.0 * pairs * N
+                      + H * (2.0 * pairs * P + 2.0 * Q * N * P))
     t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
 
-def phase_ssd_kernel(so) -> tuple:
-    """The SSD chunk kernel against its plain version at mamba2-370m's
+def phase_ssd_kernel(so, rows: dict, calls: dict) -> None:
+    """The SSD chunk kernels against their plain versions at mamba2-370m's
     shapes (b=4, S=2048 and 1024, H=32, P=64, N=128, G=1, Q=256), then the
-    whole scan at a ragged S and an S below one chunk.  Returns the bf16
-    main case's row and its kernel call."""
+    whole scan at a ragged S and an S below one chunk.  Adds the bf16 and
+    f32 main cases' rows and kernel calls to ``rows`` and ``calls``."""
     import torch
     b, H, P, G, N, Q = 4, 32, 64, 1, 128, 256
-    row = call = None
     # the main case in both types, then the S = 1000 prefill as the kernel
     # sees it (padded to 4 chunks)
     for i, (S, dt) in enumerate(((2048, torch.bfloat16),
@@ -552,22 +569,35 @@ def phase_ssd_kernel(so) -> tuple:
                                  (1024, torch.bfloat16))):
         aerr, err, tiled, kms, ems, pms, fn = ssd_chunk_case(
             so, b, S, H, P, G, N, Q, dt, seed=20 + i)
-        elem = 2 if dt == torch.bfloat16 else 4
-        peak = BF16_PEAK_FLOPS if dt == torch.bfloat16 else F32_PEAK_FLOPS
-        bms, by = ssd_bound(b, S, H, P, G, N, Q, elem, peak)
-        vs_tiled = (f" worst |d| / ({SSD_TILED_ATOL}·max|tiled| + "
-                    f"{SSD_TILED_RTOL}·|tiled|) {tiled:.3g}"
-                    if tiled is not None else "")
+        if dt == torch.bfloat16:
+            bms, by = ssd_bound(b, S, H, P, G, N, Q, 2, BF16_PEAK_FLOPS)
+            cms = None
+            vs = f"{SSD_TILED_ATOL}·max|tiled| + {SSD_TILED_RTOL}·|tiled|"
+            bound = f"bound {bms:.4f} ms ({by})"
+        else:
+            bms, by = ssd_bound(b, S, H, P, G, N, Q, 4, TF32X3_PEAK_FLOPS)
+            cms, _ = ssd_bound(b, S, H, P, G, N, Q, 4, F32_PEAK_FLOPS)
+            vs = (f"{SSD_TF32X3_ATOL}·max|3xTF32 plain| + {SSD_TF32X3_RTOL}"
+                  f"·|3xTF32 plain|")
+            bound = (f"3xTF32 bound {bms:.4f} ms ({by}; CUDA-core f32 bound "
+                     f"{cms:.4f} ms)")
         print(f"[kernels] ssd_chunk b{b} S{S} H{H} P{P} G{G} N{N} Q{Q} "
               f"{str(dt)[6:]} (B, C read per group): max_abs_err {aerr:.3g} "
-              f"max_rel_err {err:.3g}{vs_tiled} "
+              f"max_rel_err {err:.3g} worst |d| / ({vs}) {tiled:.3g} "
               f"kernel {kms:.4f} ms (eager timer {ems:.4f} ms) plain "
               f"{pms:.4f} ms library n/a (no single PyTorch call computes "
-              f"SSD) bound {bms:.4f} ms ({by})")
-        if row is None:
-            row = dict(max_abs_err=aerr, ms=kms, eager_ms=ems, plain_ms=pms,
-                       library_ms=None, bound_ms=bms, bound_by=by)
-            call = fn
+              f"SSD) {bound}")
+        name = {0: "ssd_chunk", 1: "ssd_chunk_f32"}.get(i)
+        if name:
+            rows[name] = dict(max_abs_err=aerr, ms=kms, eager_ms=ems,
+                              plain_ms=pms, library_ms=None, bound_ms=bms,
+                              bound_by=by,
+                              case=f"b={b}, S={S}, H={H}, P={P}, G={G}, "
+                                   f"N={N}, Q={Q}, {str(dt)[6:]}")
+            if cms is not None:
+                rows[name].update(bound_cuda_core_ms=cms,
+                                  worst_vs_tf32x3=tiled)
+            calls[name] = fn
     for i, (S_, dt) in enumerate(((1000, torch.float32),
                                   (1000, torch.bfloat16),
                                   (200, torch.float32))):
@@ -576,7 +606,6 @@ def phase_ssd_kernel(so) -> tuple:
         print(f"[kernels] ssd scan b{b} S{S_} chunk {Q} {str(dt)[6:]} "
               f"(kernel Q {min(Q, S_)}, padded to {padded}): rel err y "
               f"{ey:.3g} final state {eh:.3g}")
-    return row, call
 
 
 def phase_kernels(fa, pa) -> tuple:
@@ -775,7 +804,8 @@ def phase_variants(calls: dict) -> dict:
     flash the 3xTF32 one alone (main, offset and MLA cases), paged
     attention its split and merge kernels (for bf16 MLA the tensor-core
     split kernel, for f32 MLA the CUDA-core one), bf16 SSD its two
-    tensor-core kernels and nothing else."""
+    tensor-core kernels and f32 SSD its two 3xTF32 ones, and nothing
+    else."""
     want = {"flash_attention": ("flash_fwd_mma_kernel",),
             "flash_attention_offset": ("flash_fwd_mma_kernel",),
             "flash_attention_mla": ("flash_fwd_mma_kernel",),
@@ -788,7 +818,9 @@ def phase_variants(calls: dict) -> dict:
             "paged_attention_mla_f32": ("paged_mla_split_kernel",
                                         "paged_merge_kernel"),
             "ssd_chunk": ("ssd_chunk_y_mma_kernel",
-                          "ssd_chunk_state_mma_kernel")}
+                          "ssd_chunk_state_mma_kernel"),
+            "ssd_chunk_f32": ("ssd_chunk_y_tf32x3_kernel",
+                              "ssd_chunk_state_tf32x3_kernel")}
     variants = {}
     for name, call in calls.items():
         device_us = launched_kernels(call)
@@ -916,10 +948,11 @@ def phase_parity_llama_chunks(cfg, params, pol, rng) -> tuple:
     return (fa.KERNEL.launches - f0, fa.KERNEL.offset_launches - off0)
 
 
-def phase_parity_mamba2() -> None:
+def phase_parity_mamba2(so) -> int:
     """mamba2-370m widths at 2 layers, f32: one prefill of rows of
     different lengths (right-padded, with their true lengths) and greedy
-    decode steps, through the SSD kernel and through its plain version."""
+    decode steps, through the SSD kernel and through its plain version.
+    Returns the f32 SSD launches of its kernel run."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import (DtypePolicy, decode_step,
@@ -938,9 +971,12 @@ def phase_parity_mamba2() -> None:
     tokens = torch.tensor(toks, device="cuda")
     true_lens = torch.tensor(lens, device="cuda")
     results = {}
+    launches0 = so.KERNEL.launches
     for impl in (None, "plain"):
         logits, caches = prefill(params, {"tokens": tokens}, cfg, policy=pol,
                                  true_lens=true_lens, impl=impl)
+        if impl is None:
+            launches = so.KERNEL.launches - launches0
         dec = init_decode_caches(cfg, len(lens), 2048, dtype=torch.float32,
                                  device="cuda")
         for dst, src in zip(dec, caches):
@@ -967,6 +1003,8 @@ def phase_parity_mamba2() -> None:
     # 1e-4: two layers of f32 SSD summed in another order
     check(err <= 1e-4, f"parity logits within 1e-4 of scale (got {err:.3g})")
     check(all(bool(torch.isfinite(x).all()) for x in lk), "finite logits")
+    check(launches > 0, "the f32 prefill ran the SSD kernel")
+    return launches
 
 
 def phase_parity_deepseek(ops: dict) -> int:
@@ -1560,9 +1598,12 @@ def main() -> int:
     t_start = time.monotonic()
     phase_setup(kbuild)
     rows, calls = phase_kernels(fa, pa)
-    rows["ssd_chunk"], calls["ssd_chunk"] = phase_ssd_kernel(so)
+    phase_ssd_kernel(so, rows, calls)
     f32_launches = phase_parity_llama()
-    phase_parity_mamba2()
+    ssd_f32_launches = phase_parity_mamba2(so)
+    print(f"[parity] f32 SSD launches (ssd_chunk_y_tf32x3_kernel, "
+          f"ssd_chunk_state_tf32x3_kernel) in the mamba2 parity's kernel run "
+          f"{ssd_f32_launches}")
     torch.cuda.empty_cache()
     ops = {"flash_attention": fa, "paged_attention": pa, "ssd_chunk": so}
     llama, out = phase_serve("llama2-13b", card_engine_config(), ops,
@@ -1654,6 +1695,10 @@ def main() -> int:
                 "plain_ms": o["plain_ms"], "bound_ms": o["bound_ms"],
                 "bound_by": o["bound_by"], "library_ms": o["library_ms"],
                 "variant": variants["flash_attention_offset"]}
+        if name == "ssd_chunk":
+            entry["f32_case"] = {**rows["ssd_chunk_f32"],
+                                 "launches": ssd_f32_launches,
+                                 "variant": variants["ssd_chunk_f32"]}
         if f"{name}_mla" in rows:
             o = rows[f"{name}_mla"]
             entry["mla_case"] = {

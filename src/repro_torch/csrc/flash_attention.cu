@@ -151,13 +151,6 @@ __device__ __forceinline__ void stage_tile(float* __restrict__ dst, const float*
   }
 }
 
-// The four f32 words of a fragment, each split into TF32 big and small.
-__device__ __forceinline__ void split_x4(const uint32_t (&x)[4], uint32_t (&big)[4],
-                                         uint32_t (&small)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) repro::split_tf32(__uint_as_float(x[i]), big[i], small[i]);
-}
-
 template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -250,7 +243,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int kk = 0; kk < KS; ++kk) {
       uint32_t qf[4], qbig[4], qsml[4];
       repro::ldmatrix_x4(qf, Qw + (lane & 15) * LDQ + kk * 8 + (lane >> 4) * 4);
-      split_x4(qf, qbig, qsml);
+      repro::split_x4(qf, qbig, qsml);
       uint32_t kbig[NT / 2][4], ksml[NT / 2][4];  // key tiles 2 np and 2 np + 1
 #pragma unroll
       for (int np = 0; np < NT / 2; ++np) {
@@ -258,7 +251,7 @@ __global__ void __launch_bounds__(kThreads)
                         ((lane >> 3) & 1) * 4;
         uint32_t kf[4];
         repro::ldmatrix_x4(kf, Kt + off);
-        split_x4(kf, kbig[np], ksml[np]);
+        repro::split_x4(kf, kbig[np], ksml[np]);
       }
 #pragma unroll
       for (int j = 0; j < NT; ++j)

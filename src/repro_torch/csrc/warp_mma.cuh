@@ -113,6 +113,13 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& sma
   small = __float_as_uint(x - __uint_as_float(big)) & 0xffffe000u;
 }
 
+// The four f32 words of a fragment, each split into TF32 big and small.
+__device__ __forceinline__ void split_x4(const uint32_t (&x)[4], uint32_t (&big)[4],
+                                         uint32_t (&small)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(x[i]), big[i], small[i]);
+}
+
 // d += a * b for one 16x8x8 tile, TF32 inputs, f32 accumulators.  Three of
 // these on split operands (big * big + big * small + small * big; the
 // dropped small * small is below 2^-22 of |a| |b|, the order of f32

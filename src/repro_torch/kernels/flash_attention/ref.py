@@ -80,10 +80,10 @@ def split_tf32(x):
     return big, torch.bitwise_and(rest, -0x2000).view(torch.float32)
 
 
-def _product(eq, a, b, tf32_products):
-    """``einsum(eq, a, b)`` in f32 as the kernel takes it: in f32 (0), as one
-    TF32 product (1) or as three TF32 products of the split operands (3:
-    big·big + big·small + small·big, small·small dropped)."""
+def einsum_tf32(eq, a, b, tf32_products):
+    """``einsum(eq, a, b)`` in f32 as the f32 kernels take it: in f32 (0),
+    as one TF32 product (1) or as three TF32 products of the split operands
+    (3: big·big + big·small + small·big, small·small dropped)."""
     if tf32_products == 0:
         return torch.einsum(eq, a, b)
     (ab, as_), (bb, bs) = split_tf32(a), split_tf32(b)
@@ -125,8 +125,8 @@ def flash_attention_tiled_ref(q, k, v, *, causal: bool = True,
     l = torch.zeros((B, H, S), device=q.device)
     acc = torch.zeros((B, H, S, v.shape[-1]), device=q.device)
     for k0 in range(0, T, tile):
-        s = _product("bhsd,bhtd->bhst", qf, kk[:, :, k0:k0 + tile],
-                     tf32_products)
+        s = einsum_tf32("bhsd,bhtd->bhst", qf, kk[:, :, k0:k0 + tile],
+                        tf32_products)
         s = s * (scale * math.log2(math.e))
         k_pos = torch.arange(k0, min(k0 + tile, T), device=q.device)[None, :]
         mask = torch.ones((S, k_pos.shape[1]), dtype=torch.bool,
@@ -143,7 +143,7 @@ def flash_attention_tiled_ref(q, k, v, *, causal: bool = True,
         l = l * corr + p.sum(-1)
         if round_p:
             p = p.to(torch.bfloat16).float()
-        acc = acc * corr[..., None] + _product(
+        acc = acc * corr[..., None] + einsum_tf32(
             "bhst,bhtd->bhsd", p, vv[:, :, k0:k0 + tile], tf32_products)
         m = m_new
     out = torch.where(l[..., None] > 0, acc / l.clamp_min(1e-30)[..., None],

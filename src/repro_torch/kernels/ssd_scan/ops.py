@@ -24,6 +24,9 @@ KERNEL = CudaKernel("ssd_scan", "ssd_chunk_fwd",
                     [_P] * 9 + [_I] * 8 + [_P])
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_STATE = 256
+# Longest chunk the kernels take: a block keeps dt and the decays over the
+# whole chunk in shared memory (csrc/ssd_scan.cu states the sizes).
+MAX_CHUNK = 8192
 
 
 def ssd_chunk(x, dt, A_log, B, C, *, impl: str | None = None):
@@ -80,6 +83,9 @@ def _check(x, dt, A_log, B, C) -> None:
     if P not in HEAD_DIMS or N % 8 or not 0 < N <= MAX_STATE:
         raise ValueError(f"head_dim {P} not in {HEAD_DIMS}, or state {N} not "
                          f"a multiple of 8 up to {MAX_STATE}")
+    if Q > MAX_CHUNK:
+        raise ValueError(f"chunk length {Q} is over {MAX_CHUNK}, the longest "
+                         f"the kernels keep in shared memory")
     for name, t in tensors:
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")

@@ -3,8 +3,9 @@
 ``ssd_chunk_ref`` is the body of the JAX Pallas kernel
 (``repro/kernels/ssd_scan/kernel.py::_ssd_chunk_kernel``) over every
 (batch·head, chunk) cell at once, in f32; ``ssd_chunk_tiled_ref`` spells
-out the bf16 tensor-core kernel's arithmetic (64-key tiles, the decayed
-scores and the decayed inputs rounded to bf16 before their products);
+out the tensor-core kernels' arithmetic (key tiles; in bf16 the decayed
+scores and the decayed inputs rounded to bf16 before their products, in
+f32 every product taken as three TF32 products of split operands);
 ``ssd_ref`` is the sequential state-space recurrence, the oracle of
 ``repro/kernels/ssd_scan/ref.py``.  All take B and C by group (G groups,
 H a multiple of G; head h reads group ``h // (H / G)``), which is the JAX
@@ -16,6 +17,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from ..flash_attention.ref import einsum_tf32
 
 LOG2E = math.log2(math.e)
 
@@ -52,16 +55,29 @@ def ssd_chunk_ref(x, dt, A_log, B, C):
 
 
 def ssd_chunk_tiled_ref(x, dt, A_log, B, C, *, tile: int = 64,
-                        round: bool = True):
+                        round: bool = True, tf32_products: int = 0):
     """Same layout and outputs as :func:`ssd_chunk_ref`, computed as the
-    bf16 kernel does.  Per cell and head, with ``c2 = cumsum(a) · log2(e)``:
-    the scores of a (query tile, key tile) pair on or below the diagonal
-    are ``P′ = (C Bᵀ) · exp2(c2[i] − c2[j]) · dt[j]`` on ``j <= i``, and
-    ``y += P′ · x``; the chunk-end state sums ``Bᵀ · (w ∘ x)`` over the key
-    tiles, ``w[q] = dt[q] · exp(cum[Q−1] − cum[q])``.  With ``round`` P′ and
-    ``w ∘ x`` are rounded to bf16 before their products, as the kernel
-    rounds its tensor-core operands; every sum is f32.  ``round=False``
-    gives :func:`ssd_chunk_ref`'s values up to f32 summation order."""
+    tensor-core kernels do.  Per cell and head, with ``c2 = cumsum(a) ·
+    log2(e)``: the scores of a (query tile, key tile) pair on or below the
+    diagonal are ``P′ = (C Bᵀ) · exp2(c2[i] − c2[j]) · dt[j]`` on ``j <=
+    i``, and ``y += P′ · x``; the chunk-end state sums ``Bᵀ · (w ∘ x)`` over
+    the key tiles, ``w[q] = dt[q] · exp(cum[Q−1] − cum[q])``.
+
+    The bf16 kernels (``round``): P′ and ``w ∘ x`` rounded to bf16 before
+    their products, every sum f32.  The f32 kernels (``tf32_products=3``,
+    ``round=False``): C·Bᵀ, P′·x and Bᵀ·(w∘x) each as three TF32 products of
+    split operands (``einsum_tf32``; ``tf32_products=1``: the single TF32
+    product no kernel runs), and the decays as the kernels' f64 scan gives
+    them: cum summed in f64, ``exp2(c2[i] − c2[j])``, ``exp(cum[Q−1] −
+    cum)`` and ``exp(cum)`` taken in f64 and rounded once to f32.
+    ``round=False`` alone gives :func:`ssd_chunk_ref`'s values up to f32
+    summation order."""
+    if tf32_products not in (0, 1, 3):
+        raise ValueError(f"tf32_products must be 0, 1 or 3, got "
+                         f"{tf32_products}")
+    if tf32_products and round:
+        raise ValueError("operands are rounded to bf16 or split into TF32, "
+                         "not both")
     H, Q = x.shape[3], x.shape[2]
     rnd = ((lambda t: t.to(torch.bfloat16).float()) if round
            else (lambda t: t))
@@ -69,7 +85,9 @@ def ssd_chunk_tiled_ref(x, dt, A_log, B, C, *, tile: int = 64,
     Ch = _heads(C, H, 3).permute(0, 1, 3, 2, 4)
     xh = x.float().permute(0, 1, 3, 2, 4)               # (b,nc,H,Q,P)
     dtf = dt.float().permute(0, 1, 3, 2)               # (b,nc,H,Q)
-    cum = torch.cumsum(-torch.exp(A_log.float())[:, None] * dtf, dim=-1)
+    a = -torch.exp(A_log.float())[:, None] * (dtf.double() if tf32_products
+                                              else dtf)
+    cum = torch.cumsum(a, dim=-1)                       # f64 for tf32
     c2 = cum * LOG2E
     y = torch.zeros_like(xh)
     for q0 in range(0, Q, tile):
@@ -78,19 +96,22 @@ def ssd_chunk_tiled_ref(x, dt, A_log, B, C, *, tile: int = 64,
         for k0 in range(0, q0 + 1, tile):
             ks = slice(k0, min(k0 + tile, Q))
             j = torch.arange(ks.start, ks.stop, device=x.device)[None, :]
-            s = Ch[..., qs, :] @ Bh[..., ks, :].transpose(-1, -2)
-            decay = torch.exp2(c2[..., qs, None] - c2[..., None, ks])
+            s = einsum_tf32("...in,...jn->...ij", Ch[..., qs, :],
+                            Bh[..., ks, :], tf32_products)
+            decay = torch.exp2(c2[..., qs, None] - c2[..., None, ks]).float()
             p = torch.where(j <= i, s * decay * dtf[..., None, ks], 0.0)
-            y[..., qs, :] += rnd(p) @ xh[..., ks, :]
-    w = dtf * torch.exp(cum[..., -1:] - cum)            # (b,nc,H,Q)
+            y[..., qs, :] += einsum_tf32("...ij,...jp->...ip", rnd(p),
+                                         xh[..., ks, :], tf32_products)
+    w = dtf * torch.exp(cum[..., -1:] - cum).float()    # (b,nc,H,Q)
     states = torch.zeros(xh.shape[:3] + (B.shape[-1], x.shape[-1]),
                          dtype=torch.float32, device=x.device)
     for k0 in range(0, Q, tile):
         ks = slice(k0, min(k0 + tile, Q))
-        states += Bh[..., ks, :].transpose(-1, -2) @ rnd(
-            w[..., ks, None] * xh[..., ks, :])
-    in_decay = torch.exp(cum).permute(0, 1, 3, 2)           # (b,nc,Q,H)
-    chunk_decay = torch.exp(cum[..., -1])                   # (b,nc,H)
+        states += einsum_tf32("...jn,...jp->...np", Bh[..., ks, :],
+                              rnd(w[..., ks, None] * xh[..., ks, :]),
+                              tf32_products)
+    in_decay = torch.exp(cum).float().permute(0, 1, 3, 2)   # (b,nc,Q,H)
+    chunk_decay = torch.exp(cum[..., -1]).float()           # (b,nc,H)
     return (y.permute(0, 1, 3, 2, 4).contiguous(), states,
             in_decay.contiguous(), chunk_decay)
 

@@ -43,6 +43,15 @@ SSD_TILED_ATOL, SSD_TILED_RTOL = 1e-3, 1e-2
 # of Σ|q·k| in a score, the tensor cores' adds included) and ex2.approx's 2
 # ulp.  Never looser than the f32 limit of 1e-4 against the dense version.
 TF32X3_ATOL, TF32X3_RTOL = 1e-5, 1e-4
+# f32 SSD kernels vs ssd_chunk_tiled_ref(tf32_products=3), per element: |d|
+# <= SSD_TF32X3_ATOL · max|ref| + SSD_TF32X3_RTOL · |ref|.  Both split the
+# same operands into TF32 big + small and take the decays from an f64 scan
+# rounded once to f32, so what is left is f32 accumulation order (the
+# tensor cores' adds included: about 2^-24·√K of the summed magnitudes over
+# K <= 256 terms, well under 5e-6 of the scale) and ex2.approx's 2 ulp.
+# atol + rtol is a quarter of the f32 limit of 1e-4 of scale against the
+# dense version.
+SSD_TF32X3_ATOL, SSD_TF32X3_RTOL = 5e-6, 2e-5
 
 
 def _assert_matches_tiled(out, q, k, v, causal, window):
@@ -266,6 +275,12 @@ def _ssd_inputs(g, dev, b, s, H, P, G, N, dtype):
     (1, 2, 256, 32, 64, 1, 128),        # mamba2-370m's 32 heads in one group
     (1, 2, 192, 6, 64, 2, 64),          # H / G = 3: slabs of 3 heads
     (2, 1, 150, 4, 32, 2, 24),          # N = 24, not a multiple of 16
+    (1, 2, 130, 4, 64, 1, 256),         # N = 256 at P = 64, ragged Q
+    (1, 1, 256, 16, 16, 1, 64),         # P = 16: a slab of 16 heads
+    (1, 2, 77, 2, 128, 2, 128),         # P = 128, one head a slab, ragged Q
+    (1, 1, 128, 5, 32, 1, 32),          # H / G = 5: slabs of 5 heads
+    (1, 1, 1024, 16, 16, 1, 128),       # a slab of 16 over shared memory
+    (1, 1, 768, 16, 16, 1, 256),        # the widest f32 slab that fits
 ])
 def test_ssd_chunk_kernel_matches_plain(cuda, dtype, b, nc, Q, H, P, G, N):
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -283,10 +298,59 @@ def test_ssd_chunk_kernel_matches_plain(cuda, dtype, b, nc, Q, H, P, G, N):
         err = float((o - r).abs().max() / r.abs().max().clamp_min(1e-30))
         assert err <= TOLS[dtype], err
     if dtype == torch.bfloat16:
-        for o, r in zip(out, ssd_chunk_tiled_ref(*args)):
-            torch.testing.assert_close(
-                o, r, rtol=SSD_TILED_RTOL,
-                atol=SSD_TILED_ATOL * float(r.abs().max()))
+        tiled, atol, rtol = ssd_chunk_tiled_ref(*args), SSD_TILED_ATOL, \
+            SSD_TILED_RTOL
+    else:
+        tiled = ssd_chunk_tiled_ref(*args, round=False, tf32_products=3)
+        atol, rtol = SSD_TF32X3_ATOL, SSD_TF32X3_RTOL
+    for o, r in zip(out, tiled):
+        torch.testing.assert_close(o, r, rtol=rtol,
+                                   atol=atol * float(r.abs().max()))
+
+
+@pytest.mark.parametrize("bits", [0x7FC00000, 0x7FFFFFFF, -1])
+@pytest.mark.parametrize("P,N", [(64, 128), (16, 256)])
+def test_ssd_chunk_f32_propagates_nan(cuda, P, N, bits):
+    """A NaN in x (quiet, the card's canonical 0x7fffffff, and a negative
+    one) reaches every y row at or after its position in its head and
+    column, and its head's chunk-end state column, and no other column,
+    head or chunk: the TF32 split keeps it in the small part.  (Rows before
+    it may be NaN too, as in the dense product, where a masked score is a 0
+    times the NaN.)"""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    b, nc, Q, H, G = 1, 2, 200, 4, 1
+    x, dt, A_log, B, C = _ssd_inputs(g, cuda, b, nc * Q, H, P, G, N,
+                                     torch.float32)
+    x = x.view(b, nc, Q, H, P)
+    q, h, p = 70, 2, 5
+    x.view(torch.int32)[0, 1, q, h, p] = bits
+    y, states, _, _ = ssd_ops.ssd_chunk(x, dt.view(b, nc, Q, H), A_log,
+                                        B.view(b, nc, Q, G, N),
+                                        C.view(b, nc, Q, G, N))
+    torch.cuda.synchronize()
+    assert bool(y[0, 1, q:, h, p].isnan().all())
+    assert bool(states[0, 1, h, :, p].isnan().all())
+    y[0, 1, :, h, p] = 0.0
+    states[0, 1, h, :, p] = 0.0
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(states).all())
+
+
+def test_ssd_chunk_refuses_too_long_chunk(cuda):
+    """A chunk over MAX_CHUNK is refused before launch, with its length
+    named; MAX_CHUNK itself runs at the widest head and state."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    for Q, ok in ((ssd_ops.MAX_CHUNK, True), (ssd_ops.MAX_CHUNK + 1, False)):
+        x, dt, A_log, B, C = _ssd_inputs(g, cuda, 1, Q, 1, 128, 1, 256,
+                                         torch.float32)
+        args = (x.view(1, 1, Q, 1, 128), dt.view(1, 1, Q, 1), A_log,
+                B.view(1, 1, Q, 1, 256), C.view(1, 1, Q, 1, 256))
+        if ok:
+            y = ssd_ops.ssd_chunk(*args)[0]
+            torch.cuda.synchronize()
+            assert bool(torch.isfinite(y).all())
+        else:
+            with pytest.raises(ValueError, match=str(Q)):
+                ssd_ops.ssd_chunk(*args)
 
 
 def _device_kernels(fn) -> set:
@@ -309,8 +373,8 @@ def _device_kernels(fn) -> set:
 
 
 def test_ssd_chunk_kernel_routes_by_type(cuda):
-    """bf16 runs only the tensor-core kernels (every name ``ssd_chunk_``,
-    none the CUDA-core one); f32 runs ``ssd_chunk_kernel`` alone."""
+    """bf16 runs its two tensor-core kernels alone, f32 its two 3xTF32
+    tensor-core kernels alone."""
     g = torch.Generator(device=cuda).manual_seed(3)
     b, nc, Q, H, P, G, N = 1, 2, 256, 8, 64, 1, 128
     ran = {}
@@ -320,10 +384,10 @@ def test_ssd_chunk_kernel_routes_by_type(cuda):
                 B.view(b, nc, Q, G, N), C.view(b, nc, Q, G, N))
         ssd_ops.ssd_chunk(*args)            # built and loaded before
         ran[dtype] = _device_kernels(lambda: ssd_ops.ssd_chunk(*args))
-    assert ran[torch.bfloat16] and all(
-        n.startswith("ssd_chunk_") for n in ran[torch.bfloat16])
-    assert "ssd_chunk_kernel" not in ran[torch.bfloat16]
-    assert ran[torch.float32] == {"ssd_chunk_kernel"}
+    assert ran[torch.bfloat16] == {"ssd_chunk_y_mma_kernel",
+                                   "ssd_chunk_state_mma_kernel"}
+    assert ran[torch.float32] == {"ssd_chunk_y_tf32x3_kernel",
+                                  "ssd_chunk_state_tf32x3_kernel"}
 
 
 @pytest.mark.parametrize("s,chunk", [(1000, 256), (200, 256), (512, 128)])

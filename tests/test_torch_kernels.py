@@ -460,8 +460,9 @@ class TestWrappers:
      "__nv_bfloat16*, float*, int, int, int, int, int, int, float)",
      "paged_attention"),
     ("void at::native::index_add_cuda_impl<float>", "moe_dispatch"),
-    ("void (anonymous namespace)::ssd_chunk_kernel<float, 64, 128>",
-     "ssd_chunk"),
+    ("void (anonymous namespace)::tf32x3::ssd_chunk_y_tf32x3_kernel<64, 16, "
+     "4>(float const*, float const*, float const*, float const*, "
+     "float const*, float*, int, int, int, int, int, int)", "ssd_chunk"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32", "matmul"),
     ("void at::native::vectorized_elementwise_kernel<4>", "other"),
 ])

@@ -175,6 +175,39 @@ class TestSSDKernelPlain:
             assert _rel_err(o.numpy(), np.asarray(w, np.float32)) <= \
                 BF16_SSD_TOL, name
 
+    @pytest.mark.parametrize("tf32_products", [3, 1])
+    @pytest.mark.parametrize("b,s,h,p,g,n,chunk", SSD_TILED_SHAPES)
+    def test_tiled_tf32x3_matches_pallas_interpret(self, b, s, h, p, g, n,
+                                                   chunk, tf32_products):
+        """The f32 kernels' arithmetic (every product as three TF32
+        products of split operands, decays from an f64 scan) against the
+        JAX kernel in interpret mode on the same f32 values: within SSD_TOL
+        of scale, where one TF32 product a multiply is not, which is why
+        the kernels take three."""
+        x, dt, A, B, C = _ssd_inputs(7, b, s, h, p, g, n)
+        nc, rep = s // chunk, h // g
+        xc = x.reshape(b, nc, chunk, h, p)
+        dtc = dt.reshape(b, nc, chunk, h)
+        Bc, Cc = (a.reshape(b, nc, chunk, g, n) for a in (B, C))
+        want = ssd_chunk_call(
+            jnp.asarray(xc), jnp.asarray(dtc), jnp.asarray(A),
+            jnp.asarray(np.repeat(Bc, rep, 3)),
+            jnp.asarray(np.repeat(Cc, rep, 3)), interpret=True)
+        got = ssd_chunk_tiled_ref(*_t(xc, dtc, A, Bc, Cc), round=False,
+                                  tf32_products=tf32_products)
+        errs = {}
+        for name, w, o in zip(("y_diag", "states", "in_decay", "chunk_decay"),
+                              want, got):
+            assert tuple(o.shape) == w.shape and o.dtype == torch.float32
+            errs[name] = _rel_err(o.numpy(), w)
+        print(f"{tf32_products} TF32 product(s) a multiply, {(b, s, h, p, g, n, chunk)}: "
+              f"error relative to scale {errs}")
+        if tf32_products == 3:
+            assert max(errs.values()) <= SSD_TOL, errs
+        else:
+            assert max(errs["y_diag"], errs["states"]) > SSD_TOL, (
+                f"one TF32 product held SSD_TOL: {errs}")
+
     def test_cpu_never_launches_and_refuses_other_devices(self):
         ssd_ops.KERNEL.launches = 0
         x, dt, A, B, C = _ssd_inputs(4, 1, 64, 2, 16, 1, 16)
@@ -190,6 +223,31 @@ class TestSSDKernelPlain:
         with pytest.raises(ValueError):
             ssd_ops.ssd_chunk(*meta)
         assert ssd_ops.KERNEL.launches == 0
+
+    @pytest.mark.parametrize("G", [1, 4, 32])
+    def test_chip_smoke_bound_counts_scores_once_a_group(self, G):
+        """``chip_smoke.ssd_bound`` counts the FLOPs one call needs: C·Bᵀ
+        depends only on the group, so it is counted once a group, and the
+        products with x once a head.  Checked against a count of the
+        multiply-adds of the dense plain version's masked einsums."""
+        import importlib.util
+        from pathlib import Path
+        path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+        spec = importlib.util.spec_from_file_location("chip_smoke", path)
+        smoke = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(smoke)
+        b, S, H, P, N, Q = 4, 2048, 32, 64, 128, 256
+        nc = S // Q
+        causal = int(np.tril(np.ones((Q, Q))).sum())   # key-query pairs
+        macs = b * nc * (G * causal * N                  # C·Bᵀ per group
+                         + H * causal * P                # (C·Bᵀ∘L)·(x·dt)
+                         + H * Q * N * P)                # chunk-end states
+        peak = 1e3      # 1 ms a FLOP, so operations bound the call
+        ms, by = smoke.ssd_bound(b, S, H, P, G, N, Q, 4, peak)
+        assert by == "operations"
+        assert ms == pytest.approx(2.0 * macs, rel=1e-12)
+        if G == 1:      # the main f32 case's 8.9 GFLOP
+            assert 2.0 * macs == pytest.approx(8.876e9, rel=1e-3)
 
 
 @pytest.fixture(scope="module")
