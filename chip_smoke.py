@@ -18,9 +18,10 @@ Phases, in order; any failure raises and exits non-zero:
    hold NaN, which must never be read); flash is also held element by
    element against ``flash_attention_tiled_ref`` rounding as each kernel
    does (bf16: P in bf16; f32: three TF32 products of split operands, with
-   the 3xTF32 bound printed beside the CUDA-core f32 one), bf16 MLA paged
-   attention against
-   ``paged_mla_tiled_ref`` and the SSD main case against
+   the 3xTF32 bound printed beside the CUDA-core f32 one), MLA paged
+   attention against ``paged_mla_tiled_ref`` (bf16: P in bf16; f32: three
+   TF32 products of split operands, its bytes, 3xTF32 and CUDA-core bounds
+   printed) and the SSD main case against
    ``ssd_chunk_tiled_ref`` (bf16: P′ and w∘x in bf16; f32: three TF32
    products of split operands, with the 3xTF32 bound printed beside the
    CUDA-core f32 one), each of which rounds what its kernel rounds.
@@ -31,8 +32,8 @@ Phases, in order; any failure raises and exits non-zero:
    attention kernels also at deepseek-v2-lite's MLA shapes (prefill in MHA
    form with keys of 192 and values of 128, H = K = 16; absorbed decode over
    8 slots of 2048 latent rows, keys of 576 and values the view of their
-   first 512 columns, one KV head and 16 query heads; its bf16 main case
-   also at each partition size of ``MLA_PARTITIONS_TRIED``);
+   first 512 columns, one KV head and 16 query heads; its bf16 and f32
+   main cases also at each partition size of ``MLA_PARTITIONS_TRIED``);
 3. parity: llama2-13b and mamba2-370m at full width and 2 layers, in f32 —
    one prefill and a few greedy decode steps through the kernels and
    through the plain versions must give the same tokens and close logits,
@@ -127,8 +128,9 @@ SSD_TILED_ATOL, SSD_TILED_RTOL = 1e-3, 1e-2
 SSD_TF32X3_ATOL, SSD_TF32X3_RTOL = 5e-6, 2e-5
 # The llama2 serve's decode shape at its worst: one long slot among short ones.
 LONG_AMONG_SHORT = [2000, 17, 99, 1, 64, 33, 80, 5]
-# Tokens a partition of the MLA paged kernel: each size is timed on the bf16
-# main case, and ops.py's MLA_PARTITION is the faster (PERF.md section 6).
+# Tokens a partition of the MLA paged kernels: each size is timed on the
+# bf16 and f32 main cases, and ops.py's MLA_PARTITION is the faster
+# (PERF.md section 6).
 MLA_PARTITIONS_TRIED = (64, 128)
 # Main-case times of the designs the kernels replaced, as PERF.md section 6
 # records them, by the timer each was taken with (NVIDIA H100 80GB HBM3 at
@@ -136,7 +138,8 @@ MLA_PARTITIONS_TRIED = (64, 128)
 # that added the SSD kernel; the CUDA-core bf16 SSD kernel's 0.9817 ms by
 # that eager timer and 0.9765 ms by the graph timer of the chip_smoke.py
 # that redesigned attention; the CUDA-core bf16 MLA paged kernel's by both
-# timers of the first call of the chip_smoke.py that added it; the f32
+# timers of the first call of the chip_smoke.py that added it, the f32 one's
+# by the graph timer (the lowest recorded, 0.0606-0.0627); the f32
 # flash cases' CUDA-core kernel by the graph timer (the main case on the
 # tree that redesigned bf16 SSD, the MLA case on the one that added
 # deepseek, the offset case the lowest of the calls of the one that added
@@ -149,6 +152,7 @@ RECORDED_EARLIER_MS = {"flash_attention": {"eager": 1.0194},
                        "ssd_chunk": {"eager": 0.9817, "graph": 0.9765},
                        "paged_attention_mla": {"graph": 0.0503,
                                                "eager": 0.0627},
+                       "paged_attention_mla_f32": {"graph": 0.0606},
                        "flash_attention_f32": {"graph": 1.0365},
                        "flash_attention_mla_f32": {"graph": 0.9554},
                        "flash_attention_offset_f32": {"graph": 0.769},
@@ -371,11 +375,12 @@ def paged_case(pa, B, H, K, hd, page, s_max, dtype, seed, shuffle,
                lens=None, hd_v=None, scale=None):
     """One paged-attention comparison over a slot cache viewed as pages,
     at ``lens`` or at random lengths; with ``hd_v`` (MLA) the values are
-    the view of the key rows' first hd_v columns, and in bf16 the kernel is
-    also held per element against ``paged_mla_tiled_ref``.  Returns (err,
-    worst |d| / (atol + rtol·|ref|) against the tiled plain version (bf16
-    MLA; else None), kernel_ms, eager kernel_ms, plain_ms, library_ms,
-    seq_lens, the kernel call)."""
+    the view of the key rows' first hd_v columns, and the kernel is also
+    held per element against ``paged_mla_tiled_ref`` rounding as it does
+    (bf16: P in bf16; f32: three TF32 products).  Returns (err, worst |d| /
+    (atol + rtol·|ref|) against the tiled plain version (MLA; else None),
+    kernel_ms, eager kernel_ms, plain_ms, library_ms, seq_lens, the kernel
+    call)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attention.ref import paged_mla_tiled_ref
@@ -411,15 +416,19 @@ def paged_case(pa, B, H, K, hd, page, s_max, dtype, seed, shuffle,
     check(err <= tol, f"paged {dtype} hd{hd}/{hd_v or hd} shuffle={shuffle} "
                       f"err {err:.3g} <= {tol}")
     tiled = None
-    if hd_v is not None and dtype == torch.bfloat16:
+    if hd_v is not None:
+        bf16 = dtype == torch.bfloat16
+        atol, rtol = (TILED_ATOL, TILED_RTOL) if bf16 else (TF32X3_ATOL,
+                                                             TF32X3_RTOL)
         ref_t = paged_mla_tiled_ref(q, kp, vp, table, seq_lens,
-                                    partition=pa.MLA_PARTITION,
-                                    scale=scale).float()
+                                    partition=pa.MLA_PARTITION, scale=scale,
+                                    round_p=bf16,
+                                    tf32_products=0 if bf16 else 3).float()
         tiled = float(((out.float() - ref_t).abs()
-                       / (TILED_ATOL + TILED_RTOL * ref_t.abs())).max())
-        check(tiled <= 1.0, f"paged MLA bf16 shuffle={shuffle} within "
-                            f"{TILED_ATOL} + {TILED_RTOL}·|ref| of the tiled "
-                            f"plain version (worst {tiled:.3g})")
+                       / (atol + rtol * ref_t.abs())).max())
+        check(tiled <= 1.0, f"paged MLA {dtype} shuffle={shuffle} within "
+                            f"{atol} + {rtol}·|ref| of the tiled plain "
+                            f"version (worst {tiled:.3g})")
 
     def call():
         return pa.paged_attention(q, kp, vp, table, seq_lens, scale=scale)
@@ -440,10 +449,19 @@ def paged_case(pa, B, H, K, hd, page, s_max, dtype, seed, shuffle,
 
 
 def paged_bound(B, H, K, hd, elem, lens, hd_v=None, peak=BF16_PEAK_FLOPS):
-    """Least time (ms): the K/V bytes of the tokens each sequence holds
-    (with ``hd_v``, MLA, each row once: the values are its first hd_v
-    columns), q and out, and the 16-token pages' table entries, over HBM
-    bandwidth, against the FLOPs over ``peak``."""
+    """Least time (ms): the bytes over HBM bandwidth against the FLOPs over
+    ``peak`` (:func:`paged_terms`), and which of the two bounds it."""
+    t_bytes, flops = paged_terms(B, H, K, hd, elem, lens, hd_v)
+    t_ops = flops / peak * 1e3
+    return max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def paged_terms(B, H, K, hd, elem, lens, hd_v=None) -> tuple:
+    """The K/V bytes of the tokens each sequence holds (with ``hd_v``, MLA,
+    each row once: the values are its first hd_v columns), q and out, and
+    the 16-token pages' table entries, over HBM bandwidth (ms); and the
+    FLOPs of both products."""
     tokens = int(np.sum(lens))
     pages = int(np.sum(-(-np.asarray(lens) // 16)))
     if hd_v is None:
@@ -453,9 +471,7 @@ def paged_bound(B, H, K, hd, elem, lens, hd_v=None, peak=BF16_PEAK_FLOPS):
         nbytes = elem * (tokens * K * hd + B * H * (hd + hd_v))
         flops = 2.0 * tokens * H * (hd + hd_v)
     nbytes += 4 * (pages + B)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
-    return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    return nbytes / HBM_BYTES_PER_S * 1e3, flops
 
 
 def ssd_inputs(b, S, H, P, G, N, dtype, seed):
@@ -750,60 +766,89 @@ def phase_kernels_mla(fa, pa, rows: dict, calls: dict) -> None:
         err, tiled, kms, ems, pms, lms, lens, call = paged_case(
             pa, B, H, K, dk, page, s_max, dt, seed=70 + i, shuffle=shuffle,
             lens=lens, hd_v=dv, scale=scale)
-        elem = 2 if dt == torch.bfloat16 else 4
-        peak = BF16_PEAK_FLOPS if dt == torch.bfloat16 else F32_PEAK_FLOPS
-        bms, by = paged_bound(B, H, K, dk, elem, lens, hd_v=dv, peak=peak)
+        row = paged_mla_row(dt, B, H, K, dk, dv, lens, err, tiled, kms, ems,
+                            pms, lms)
         lib = f"{lms:.4f} ms" if lms is not None else "n/a"
         ratio = (f"; kernel / sdpa {kms / lms:.2f} (graph timer both)"
                  if lms is not None else "")
-        vs_tiled = (f" worst |d| / ({TILED_ATOL} + {TILED_RTOL}·|tiled|) "
-                    f"{tiled:.3g}" if tiled is not None else "")
+        atol, rtol = ((TILED_ATOL, TILED_RTOL) if dt == torch.bfloat16
+                      else (TF32X3_ATOL, TF32X3_RTOL))
+        bounds = (f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
+                  if dt == torch.bfloat16 else
+                  f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}; bytes "
+                  f"{row['bound_bytes_ms']:.4f}, 3xTF32 "
+                  f"{row['bound_tf32x3_ms']:.4f}, CUDA-core "
+                  f"{row['bound_cuda_core_ms']:.4f})")
         print(f"[kernels] paged MLA B{B} H{H} K{K} dk{dk} dv{dv} (values a "
               f"view of the key rows) page{page} s_max{s_max} {str(dt)[6:]} "
               f"shuffled={shuffle} lens={lens.tolist()} tokens="
               f"{int(lens.sum())} ({n_split} partitions of "
-              f"{pa.MLA_PARTITION} tokens): max_abs_err {err:.3g}{vs_tiled} "
-              f"kernel {kms:.4f} ms (eager timer {ems:.4f} ms) plain "
-              f"{pms:.4f} ms sdpa {lib} bound {bms:.4f} ms ({by}){ratio}")
-        if i == 0:
-            rows["paged_attention_mla"] = dict(
-                max_abs_err=err, ms=kms, eager_ms=ems, plain_ms=pms,
-                library_ms=lms, bound_ms=bms, bound_by=by,
-                case=f"B={B} slots of {s_max}, lens={lens.tolist()}, H={H}, "
-                     f"K={K}, dk={dk}, dv={dv} (a view of the key rows), "
-                     f"page {page}, scale 192^-0.5, bf16")
-            calls["paged_attention_mla"] = call
-        elif i == 1:
-            calls["paged_attention_mla_f32"] = call
-    # MLA_PARTITION is the faster of the sizes tried: the bf16 main case is
+              f"{pa.MLA_PARTITION} tokens): max_abs_err {err:.3g} worst |d| "
+              f"/ ({atol} + {rtol}·|tiled|) {tiled:.3g} kernel {kms:.4f} ms "
+              f"(eager timer {ems:.4f} ms) plain {pms:.4f} ms sdpa {lib} "
+              f"{bounds}{ratio}")
+        name = {0: "paged_attention_mla", 1: "paged_attention_mla_f32"}.get(i)
+        if name:
+            rows[name] = dict(
+                row, case=f"B={B} slots of {s_max}, lens={lens.tolist()}, "
+                          f"H={H}, K={K}, dk={dk}, dv={dv} (a view of the key "
+                          f"rows), page {page}, scale 192^-0.5, "
+                          f"{str(dt)[6:]}")
+            calls[name] = call
+    # MLA_PARTITION is the faster of the sizes tried: each main case is
     # checked and timed again at each other one, then the size restored.
-    chosen, by_partition = pa.MLA_PARTITION, {}
-    for partition in MLA_PARTITIONS_TRIED:
-        if partition == chosen:
-            by_partition[partition] = rows["paged_attention_mla"]["ms"]
-            continue
-        pa.MLA_PARTITION = partition
-        n_parts = pa.mla_split_count(s_max // page, page)
-        err, tiled, kms, ems, *_ = paged_case(
-            pa, B, H, K, dk, page, s_max, torch.bfloat16, seed=70,
-            shuffle=False, hd_v=dv, scale=scale)
-        pa.MLA_PARTITION = chosen
-        by_partition[partition] = kms
-        print(f"[kernels] paged MLA bf16 main case, {n_parts} partitions of "
-              f"{partition} tokens: max_abs_err {err:.3g} worst |d| / "
-              f"({TILED_ATOL} + {TILED_RTOL}·|tiled|) {tiled:.3g} kernel "
-              f"{kms:.4f} ms (eager timer {ems:.4f} ms)")
-    print(f"[kernels] paged MLA bf16 main case ms by partition (graph timer) "
-          f"{by_partition}; MLA_PARTITION is {chosen}")
-    rows["paged_attention_mla"]["ms_by_partition"] = by_partition
+    chosen = pa.MLA_PARTITION
+    for name, dt, seed in (("paged_attention_mla", torch.bfloat16, 70),
+                           ("paged_attention_mla_f32", torch.float32, 71)):
+        by_partition = {}
+        for partition in MLA_PARTITIONS_TRIED:
+            if partition == chosen:
+                by_partition[partition] = rows[name]["ms"]
+                continue
+            pa.MLA_PARTITION = partition
+            n_parts = pa.mla_split_count(s_max // page, page)
+            try:
+                err, tiled, kms, ems, *_ = paged_case(
+                    pa, B, H, K, dk, page, s_max, dt, seed=seed,
+                    shuffle=False, hd_v=dv, scale=scale)
+            finally:
+                pa.MLA_PARTITION = chosen
+            by_partition[partition] = kms
+            print(f"[kernels] paged MLA {str(dt)[6:]} main case, {n_parts} "
+                  f"partitions of {partition} tokens: max_abs_err {err:.3g} "
+                  f"worst |d| / (atol + rtol·|tiled|) {tiled:.3g} kernel "
+                  f"{kms:.4f} ms (eager timer {ems:.4f} ms)")
+        print(f"[kernels] paged MLA {str(dt)[6:]} main case ms by partition "
+              f"(graph timer) {by_partition}; MLA_PARTITION is {chosen}")
+        rows[name]["ms_by_partition"] = by_partition
+
+
+def paged_mla_row(dt, B, H, K, dk, dv, lens, err, tiled, kms, ems, pms,
+                  lms) -> dict:
+    """One MLA paged case's numbers: this run's times and errors, and its
+    bound at the kernel's own peak (bf16 tensor cores; f32 three TF32
+    products a multiply), for f32 with the bytes, 3xTF32 and CUDA-core
+    terms beside it."""
+    import torch
+    elem = 2 if dt == torch.bfloat16 else 4
+    peak = BF16_PEAK_FLOPS if dt == torch.bfloat16 else TF32X3_PEAK_FLOPS
+    bms, by = paged_bound(B, H, K, dk, elem, lens, hd_v=dv, peak=peak)
+    row = dict(max_abs_err=err, worst_vs_tiled=tiled, ms=kms, eager_ms=ems,
+               plain_ms=pms, library_ms=lms, bound_ms=bms, bound_by=by)
+    if dt == torch.float32:
+        t_bytes, flops = paged_terms(B, H, K, dk, elem, lens, hd_v=dv)
+        row.update(bound_bytes_ms=t_bytes,
+                   bound_tf32x3_ms=flops / TF32X3_PEAK_FLOPS * 1e3,
+                   bound_cuda_core_ms=flops / F32_PEAK_FLOPS * 1e3)
+    return row
 
 
 def phase_variants(calls: dict) -> dict:
     """Which device kernels each kernel's main case ran, read from the
     profiler: bf16 flash must run the bf16 tensor-core kernel alone and f32
     flash the 3xTF32 one alone (main, offset and MLA cases), paged
-    attention its split and merge kernels (for bf16 MLA the tensor-core
-    split kernel, for f32 MLA the CUDA-core one), bf16 SSD its two
+    attention its split and merge kernels (for bf16 MLA the bf16
+    tensor-core split kernel, for f32 MLA the 3xTF32 one), bf16 SSD its two
     tensor-core kernels and f32 SSD its two 3xTF32 ones, and nothing
     else."""
     want = {"flash_attention": ("flash_fwd_mma_kernel",),
@@ -815,7 +860,7 @@ def phase_variants(calls: dict) -> dict:
             "paged_attention": ("paged_split_kernel", "paged_merge_kernel"),
             "paged_attention_mla": ("paged_mla_mma_kernel",
                                     "paged_merge_kernel"),
-            "paged_attention_mla_f32": ("paged_mla_split_kernel",
+            "paged_attention_mla_f32": ("paged_mla_tf32x3_kernel",
                                         "paged_merge_kernel"),
             "ssd_chunk": ("ssd_chunk_y_mma_kernel",
                           "ssd_chunk_state_mma_kernel"),
@@ -1007,7 +1052,7 @@ def phase_parity_mamba2(so) -> int:
     return launches
 
 
-def phase_parity_deepseek(ops: dict) -> int:
+def phase_parity_deepseek(ops: dict) -> tuple:
     """deepseek-v2-lite at full width and 2 layers (the dense head block and
     one MoE block, 64 experts top-6 plus 2 shared), f32: one prefill of two
     512-token rows and 4 decode steps (row 1 decoding from position 400),
@@ -1020,7 +1065,8 @@ def phase_parity_deepseek(ops: dict) -> int:
     probabilities within twice the largest router-probability difference
     of the two runs, and a row whose greedy token differs without such a
     flip must hold both tokens within twice the largest logit difference
-    of the rows without one.  Returns the card run's f32 flash launches."""
+    of the rows without one.  Returns the card run's f32 flash and f32
+    paged (MLA) launches."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import (DtypePolicy, decode_step,
@@ -1070,6 +1116,7 @@ def phase_parity_deepseek(ops: dict) -> int:
             if dev == "cuda":
                 torch.cuda.synchronize()
                 f32_flash = ops["flash_attention"].KERNEL.launches - f0
+                f32_paged = ops["paged_attention"].KERNEL.launches - p0
                 check(ops["flash_attention"].KERNEL.launches > f0
                       and ops["paged_attention"].KERNEL.launches > p0,
                       "deepseek parity ran flash and paged on the card")
@@ -1131,7 +1178,7 @@ def phase_parity_deepseek(ops: dict) -> int:
           "finite logits")
     if not flips and not parted:
         check(cpu_tok == gpu_tok, "card and CPU greedy tokens equal")
-    return f32_flash
+    return f32_flash, f32_paged
 
 
 def reset_counts(ops: dict) -> None:
@@ -1624,9 +1671,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     # deepseek-v2-lite only once llama2-13b's weights and caches are gone
-    f32_launches["deepseek_parity"] = phase_parity_deepseek(ops)
+    f32_launches["deepseek_parity"], mla_f32_launches = (
+        phase_parity_deepseek(ops))
     print(f"[parity] f32 flash launches (flash_fwd_tf32x3_kernel) by parity "
-          f"phase {f32_launches}")
+          f"phase {f32_launches}; f32 paged MLA launches "
+          f"(paged_mla_tf32x3_kernel) in the deepseek parity's kernel run "
+          f"{mla_f32_launches}")
     gc.collect()
     torch.cuda.empty_cache()
     deepseek, out = phase_serve("deepseek-v2-lite-16b",
@@ -1711,6 +1761,12 @@ def main() -> int:
                 entry["mla_case"]["ms_by_partition"] = o["ms_by_partition"]
             if f"{name}_mla_f32" in variants:
                 entry["mla_case"]["f32_variant"] = variants[f"{name}_mla_f32"]
+            if name == "paged_attention":
+                # f32 MLA decode, with the deepseek f32 parity's launches
+                entry["mla_case"]["f32_case"] = {
+                    **rows["paged_attention_mla_f32"],
+                    "launches": mla_f32_launches,
+                    "variant": variants["paged_attention_mla_f32"]}
         kernels.append(entry)
     print(f"[summary] all phases passed in {time.monotonic() - t_start:.1f} s")
     print("[summary] recorded, not measured in this run: main-case ms of "

@@ -12,7 +12,7 @@
 // (B, max_pages) int32, seq_lens (B,) int32, out (B, H, hd); f32 or bf16.
 // One more shape, for absorbed MLA decode (deepseek-v2-lite), runs split
 // kernels of its own (see below: `paged_mla_mma_kernel` for bf16,
-// `paged_mla_split_kernel` for f32): keys of 576 (latent 512 ‖ rope 64) and
+// `paged_mla_tf32x3_kernel` for f32): keys of 576 (latent 512 ‖ rope 64) and
 // values that are the first 512 columns of the same rows, one KV head,
 // groups of 16 (or 4) query heads.
 //
@@ -48,9 +48,12 @@
 // or 4).  A token's 1,152-byte bf16 row serves as key and, in its first 512
 // columns, as value for all G heads: 2 * G * (576 + 512) FLOPs a row, ~30 a
 // byte at G = 16.  That is still far under the tensor cores' ~295 FLOP/byte
-// ridge, so bytes bound the bf16 kernel; but on the CUDA cores (~20 FLOP a
-// byte at 67 TFLOP/s against 3.35 TB/s, and every FMA reading shared memory)
-// the work would be the floor.  Two kernels, chosen by type:
+// ridge, so bytes bound the bf16 kernel.  In f32 the bytes double, and the
+// products taken as three TF32 products each (494.7 / 3 TFLOP/s) still sit
+// under them: 2.0 us of products against 6.5 us of bytes at the serve's
+// main case, where the CUDA cores (67 TFLOP/s, every FMA reading shared
+// memory) would need 4.8 us.  Two kernels, chosen by type, on one grid and
+// one ring:
 //
 // bf16 -> `paged_mla_mma_kernel`, tensor cores.  One block of 4 warps per
 // (KV head, sequence, partition); the wrapper passes partitions of
@@ -92,11 +95,59 @@
 //   the whole.  More warps a block, Q held in registers, wgmma with the
 //   tile's tokens as its 64 rows, and a merge folded into the split pass
 //   are the way to the byte bound.
-// f32 -> `paged_mla_split_kernel`, CUDA cores (the parity checks' type:
-//   TF32 would not hold 1e-4): 256 threads stage 32-token tiles as f32 once
-//   for both products; each thread owns 4 heads x 4 tokens of the scores
-//   over a slice of the 576 dims (slices summed through shared memory), one
-//   warp a head runs the softmax, each thread owns dv / 256 output dims.
+// f32 -> `paged_mla_tf32x3_kernel`: both products on the tensor cores as
+//   mma.sync m16n8k8 with TF32 inputs, three products a multiply (big * big
+//   + big * small + small * big of operands split by
+//   warp_mma.cuh::split_tf32, as flash_attention.cu's f32 kernel takes
+//   them), so it holds f32 to its plain version's limit (1e-4), where one
+//   TF32 product would not; `paged_mla_tiled_ref` with `tf32_products=3`
+//   rounds exactly what it rounds.  The bf16 kernel's grid, partitions,
+//   M tile and ring (f32 rows of 2,304 B: 147,456 B for two 32-token
+//   stages; rows past seq_len zero-filled, never read), with 8 warps:
+//   * S = Q K^T: warp w takes k-steps 9w..9w+8 (72 of the 576 dims) for
+//     all 32 tokens of a tile.  Its Q A fragments for those k-steps are
+//     loaded from device memory once, split once and held in registers (72
+//     of them) over the whole partition: Q is never re-read or re-split.
+//     K's B fragments of two token tiles come by one ldmatrix.x4 (b16) from
+//     the row-major f32 tile (an 8x8 b16 matrix is 8 rows of 4 words) and
+//     are split as they are loaded; each product runs over the 4 token
+//     tiles before the next starts.
+//   * The 8 partial sums are reduce-scattered (warp w adds half of token
+//     tile w / 2 over the warps' shares, in warp order) and gathered back
+//     through 18 KB of shared memory: three barriers a tile.  Every warp
+//     then runs the same online softmax (the bf16 kernel's, scale *
+//     log2(e) applied after the product, ex2.approx) over all 32 tokens,
+//     so the max needs no exchange and P goes from the scores straight into
+//     this warp's A fragments of P V (this lane's keys 2 quad and 2 quad + 1
+//     of token tile n stand for the columns quad and quad + 4 of k-step n).
+//   * O += P V: warp w owns output columns 64w..64w+63.  V's B fragments
+//     are scalar loads of rows 2 quad and 2 quad + 1 of the same staged
+//     tile, split as loaded.  The XOR swizzle serves both readers without
+//     bank conflicts: K's ldmatrix rows fall in 8 chunk positions; for V
+//     the chunk (16 w + 2 d + grp / 4) ^ (row & 7) takes 8 positions over
+//     (grp / 4, quad) and grp % 4 picks the word.
+//   * The block's table entries for its first two tiles and Q's loads go
+//     out before seq_len is read, so the first copies wait for one load of
+//     device memory, not two.
+//   * 165,888 B of shared memory (one block an SM), 204 registers at G =
+//     16 (247 at G = 4), no spill.
+//   * Zero-filled rows give scores of 0, masked to -inf, so p = 0 and V = 0:
+//     no 0 * inf.  A NaN in Q or in a visible row reaches the output: the
+//     TF32 split keeps it in the small part, the running max is max.NaN (so
+//     a NaN partial is never taken for an empty one) and the merge passes a
+//     NaN sum on.
+//   What bounds it as built (PERF.md section 6): not the bytes and not the
+//   tensor cores' rate.  A partition's walk is ~5 us fixed (the first
+//   tile's copy behind the table lookup, Q, the epilogue) and ~3.2 us a
+//   32-token tile, in which the S products keep the tensor pipe about half
+//   busy and P V about 60%; the merge adds ~4.6 us.  Timed beside it on
+//   the card and not kept (split pass of one full partition): the bf16
+//   kernel's block of 4 warps with Q split once into big and small planes
+//   in shared memory and P through shared memory, ~20% slower; the same
+//   with Q split at each load, a further 22% (and spilling); 8 warps
+//   reading Q's planes, 6-8%; the next k-step's K and V fragments loaded
+//   before the products, no gain.  64-token partitions: ~25% slower on the
+//   serve's main case, ~15% faster with one long slot among short ones.
 // Both write the partials above (the merge runs dv threads), or with a
 // single partition the output itself.
 #include "common.cuh"
@@ -307,6 +358,8 @@ __global__ void __launch_bounds__(kWarps * 32)
 
 // out[b, h] = sum_i 2^(m_i - M) o_i / sum_i 2^(m_i - M) l_i over the
 // non-empty partials i of (b, h); one block per (b, h), one thread per dim.
+// 0 where no partial holds a token; a NaN partial (a NaN in q or in a
+// visible row) makes the output NaN, as in the plain version.
 template <typename T, int HD>
 __global__ void __launch_bounds__(HD)
     paged_merge_kernel(const float* __restrict__ part, T* __restrict__ o, int BH, int n_split) {
@@ -324,7 +377,7 @@ __global__ void __launch_bounds__(HD)
     L = fmaf(pl[i], wt, L);
     O = fmaf(po[size_t(i) * HD + d], wt, O);
   }
-  o[bh * HD + d] = repro::from_f32<T>(L > 0.f ? O / L : 0.f);
+  o[bh * HD + d] = repro::from_f32<T>(L == 0.f ? 0.f : O / L);
 }
 
 template <typename T, int HD, int G>
@@ -372,246 +425,7 @@ cudaError_t launch_group(int G, const void* q, const void* kp, const void* vp, c
 // MLA: keys of DK, values the first DV columns of the same rows, G heads.
 namespace mla {
 
-constexpr int kThreads = 256;
-constexpr int kTK = 32;  // tokens per shared-memory tile
-
-template <int DK, int G>
-struct Shape {
-  static constexpr int kCombos = (G / 4) * (kTK / 4);     // (4 heads, 4 tokens) tiles
-  static constexpr int kSplits = kThreads / kCombos;       // slices of the DK dims
-  static constexpr int LDK = DK + 1;                       // padded K row (floats)
-  static constexpr size_t kFloats = size_t(DK) * G         // q, transposed
-                                    + size_t(kTK) * LDK    // the tile's rows
-                                    + size_t(kSplits) * G * kTK  // partial scores
-                                    + size_t(kTK) * G            // P
-                                    + G;                         // rescale factors
-};
-
-template <typename T, int DK, int DV, int G>
-__global__ void __launch_bounds__(kThreads)
-    paged_mla_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                           const int* __restrict__ block_table, const int* __restrict__ seq_lens,
-                           T* __restrict__ o, float* __restrict__ part, int H, int KH, int page,
-                           int max_pages, int partition, int n_split, float scale_log2) {
-  using Sh = Shape<DK, G>;
-  constexpr int LDK = Sh::LDK;
-  constexpr int EPL = 16 / sizeof(T);  // elements of one 16-byte load
-  constexpr int kChunks = DK / EPL;
-  constexpr int NHG = G / 4;
-  constexpr int DPS = DK / Sh::kSplits;  // dims of one slice
-  constexpr int DPT = DV / kThreads;     // output dims of one thread
-  constexpr int GW = (G + 7) / 8;        // heads of one warp in the softmax
-  static_assert(G % 4 == 0 && kThreads % Sh::kCombos == 0 && DK % Sh::kSplits == 0 &&
-                    DV % kThreads == 0 && DK % EPL == 0 && DV <= DK,
-                "shape the MLA kernel does not tile");
-
-  extern __shared__ __align__(16) float smem[];
-  float* Qt = smem;                           // [DK][G], pre-scaled
-  float* Ks = Qt + DK * G;                    // [kTK][LDK]
-  float* Sp = Ks + kTK * LDK;                 // [kSplits][G][kTK]
-  float* Ps = Sp + Sh::kSplits * G * kTK;     // [kTK][G]
-  float* corr_s = Ps + kTK * G;               // [G]
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int kh = blockIdx.x;
-  const int b = blockIdx.y;
-  const int split = blockIdx.z;
-  const int B = gridDim.y;
-  const int seq_len = seq_lens[b];
-  const int t_begin = split * partition;
-  const int t_end = min(seq_len, t_begin + partition);
-  const size_t bh0 = size_t(b) * H + size_t(kh) * G;
-  float* part_m = part;
-  float* part_l = part + size_t(B) * H * n_split;
-  float* part_o = part + 2 * size_t(B) * H * n_split;
-
-  if (t_begin >= t_end) {  // nothing of this sequence in the partition
-    if (n_split == 1) {
-      for (int idx = tid; idx < G * DV; idx += kThreads) o[bh0 * DV + idx] = repro::from_f32<T>(0.f);
-    } else if (tid < G) {
-      part_m[(bh0 + tid) * n_split + split] = -INFINITY;
-      part_l[(bh0 + tid) * n_split + split] = 0.f;
-    }
-    return;
-  }
-
-  for (int idx = tid; idx < G * DK; idx += kThreads) {
-    const int g = idx / DK;
-    const int d = idx % DK;
-    Qt[d * G + g] = repro::to_f32(q[(bh0 + g) * DK + d]) * scale_log2;
-  }
-
-  const int* table = block_table + size_t(b) * max_pages;
-  const size_t tok_stride = size_t(KH) * DK;
-  const size_t page_stride = size_t(page) * tok_stride;
-  const int combo = tid % Sh::kCombos;
-  const int hg = combo % NHG;  // this thread's 4 heads in the score tile
-  const int tg = combo / NHG;  // and its 4 tokens
-  const int d_lo = (tid / Sh::kCombos) * DPS;
-
-  float acc[G][DPT];
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) acc[g][j] = 0.f;
-  float m_run[GW], l_run[GW];  // this warp's heads warp + 8 i
-#pragma unroll
-  for (int i = 0; i < GW; ++i) {
-    m_run[i] = -INFINITY;
-    l_run[i] = 0.f;
-  }
-
-  for (int t0 = t_begin; t0 < t_end; t0 += kTK) {
-    __syncthreads();  // Q is staged; the previous tile's rows and P are no longer read
-    for (int idx = tid; idx < kTK * kChunks; idx += kThreads) {
-      const int r = idx / kChunks;
-      const int c = (idx % kChunks) * EPL;
-      const int t = t0 + r;
-      float v[EPL];
-      if (t < t_end) {
-        const size_t off = size_t(__ldg(table + t / page)) * page_stride +
-                           size_t(t % page) * tok_stride + size_t(kh) * DK + c;
-        repro::load_f32<T, EPL>(kp + off, v);
-      } else {
-#pragma unroll
-        for (int i = 0; i < EPL; ++i) v[i] = 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < EPL; ++i) Ks[r * LDK + c + i] = v[i];
-    }
-    __syncthreads();
-
-    // Partial scores of 4 heads x 4 tokens over this thread's dims.
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = d_lo; d < d_lo + DPS; ++d) {
-      const float4 qv = *reinterpret_cast<const float4*>(Qt + d * G + hg * 4);
-      const float qa[4] = {qv.x, qv.y, qv.z, qv.w};
-      float kv[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tg * 4 + j) * LDK + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qa[i], kv[j], s[i][j]);
-    }
-    float* sp = Sp + size_t(tid / Sh::kCombos) * G * kTK;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sp[(hg * 4 + i) * kTK + tg * 4 + j] = s[i][j];
-    __syncthreads();
-
-    // Online softmax: warp w takes heads w, w + 8; lane = token of the tile.
-#pragma unroll
-    for (int i = 0; i < GW; ++i) {
-      const int g = warp + 8 * i;
-      if (g >= G) break;
-      float sc = 0.f;
-#pragma unroll
-      for (int k = 0; k < Sh::kSplits; ++k) sc += Sp[(k * G + g) * kTK + lane];
-      const bool ok = t0 + lane < t_end;
-      sc = ok ? sc : -INFINITY;
-      float mx = sc;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_run[i], mx);  // finite: the tile's first token is visible
-      const float corr = exp2f(m_run[i] - m_new);
-      const float p = ok ? exp2f(sc - m_new) : 0.f;
-      float ps = p;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) ps += __shfl_xor_sync(0xffffffffu, ps, off);
-      l_run[i] = l_run[i] * corr + ps;
-      m_run[i] = m_new;
-      Ps[lane * G + g] = p;
-      if (lane == 0) corr_s[g] = corr;
-    }
-    __syncthreads();
-
-    // acc = acc * corr + P V, V the first DV columns of the tile's rows.
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float c = corr_s[g];
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) acc[g][j] *= c;
-    }
-#pragma unroll 2
-    for (int t = 0; t < kTK; ++t) {  // rows past t_end are zero and their p is 0
-      float vv[DPT];
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) vv[j] = Ks[t * LDK + tid + j * kThreads];
-#pragma unroll
-      for (int gq = 0; gq < NHG; ++gq) {
-        const float4 p4 = *reinterpret_cast<const float4*>(Ps + t * G + gq * 4);
-        const float pa[4] = {p4.x, p4.y, p4.z, p4.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < DPT; ++j) acc[gq * 4 + i][j] = fmaf(pa[i], vv[j], acc[gq * 4 + i][j]);
-      }
-    }
-  }
-
-  __syncthreads();  // Sp is free: it takes each head's max and sum
-  float* sm_m = Sp;
-  float* sm_l = Sp + G;
-#pragma unroll
-  for (int i = 0; i < GW; ++i) {
-    const int g = warp + 8 * i;
-    if (g < G && lane == 0) {
-      sm_m[g] = m_run[i];
-      sm_l[g] = l_run[i];
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    const size_t bh = bh0 + g;
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) {
-      const int d = tid + j * kThreads;
-      if (n_split == 1) {
-        o[bh * DV + d] = repro::from_f32<T>(sm_l[g] > 0.f ? acc[g][j] / sm_l[g] : 0.f);
-      } else {
-        part_o[(bh * n_split + split) * DV + d] = acc[g][j];
-      }
-    }
-    if (n_split > 1 && tid == 0) {
-      part_m[bh * n_split + split] = sm_m[g];
-      part_l[bh * n_split + split] = sm_l[g];
-    }
-  }
-}
-
-template <typename T, int DK, int DV, int G>
-cudaError_t launch(const void* q, const void* kp, const void* bt, const void* sl, void* o,
-                   void* part, int B, int H, int KH, int page, int max_pages, int partition,
-                   int n_split, float scale, cudaStream_t stream) {
-  constexpr size_t smem = Shape<DK, G>::kFloats * sizeof(float);
-  auto kern = paged_mla_split_kernel<T, DK, DV, G>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(KH, B, n_split);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const int*>(bt),
-      static_cast<const int*>(sl), static_cast<T*>(o), static_cast<float*>(part), H, KH, page,
-      max_pages, partition, n_split, scale * 1.4426950408889634f);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || n_split == 1) return err;
-  paged_merge_kernel<T, DV><<<B * H, DV, 0, stream>>>(static_cast<const float*>(part),
-                                                     static_cast<T*>(o), B * H, n_split);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// MLA in bf16: tensor cores.
+// The tile, ring and M tile both MLA kernels share.
 using bf16 = __nv_bfloat16;
 constexpr int kMmaWarps = 4;
 constexpr int kMmaThreads = kMmaWarps * 32;
@@ -621,6 +435,53 @@ constexpr int kTile = 8 * kMmaWarps;  // tokens a stage holds: one n8 column til
 constexpr int kStages = 2;
 static_assert(kStages >= 2, "the refill of a stage waits for the barrier of the next tile");
 constexpr int kM = 16;                // rows of the M tile: the G heads, zero-padded
+
+// Element offset of 16-byte chunk c of row r in a (rows, HD) tile of T whose
+// chunks are XOR-swizzled by row (flash_attention.cu's layout): the 8 rows
+// an ldmatrix reads land in 8 different bank groups.
+template <int HD, typename T = bf16>
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * HD + (c ^ (r & 7)) * int(16 / sizeof(T));
+}
+
+// Start the copy of tile `it` of the partition [t_begin, t_end) into its
+// stage: with TPR = NT / kTile threads a row, thread i copies every TPR-th
+// 16-byte chunk of row i / TPR (token t), whose page `pg` it has looked up;
+// rows at or past t_end are zero-filled.
+template <int DK, int NT, typename T>
+__device__ __forceinline__ void stage_rows_at(T* __restrict__ ring, const T* __restrict__ kbase,
+                                              int pg, int page, size_t page_stride,
+                                              size_t tok_stride, int t_begin, int t_end, int it) {
+  constexpr int kEl = 16 / sizeof(T);  // elements of a chunk
+  constexpr int kChunks = DK / kEl;
+  constexpr int TPR = NT / kTile;
+  static_assert(kTile * TPR == NT && kChunks % TPR == 0, "whole rows, whole chunks");
+  T* dst = ring + (it % kStages) * kTile * DK;
+  const int r = threadIdx.x / TPR;
+  const int t = t_begin + it * kTile + r;
+  const bool ok = t < t_end;
+  const T* src = ok ? kbase + size_t(pg) * page_stride + size_t(t % page) * tok_stride : kbase;
+#pragma unroll
+  for (int j = 0; j < kChunks / TPR; ++j) {
+    const int c = threadIdx.x % TPR + TPR * j;
+    repro::cp_async_16(dst + swz<DK, T>(r, c), src + c * kEl, ok);
+  }
+}
+
+// stage_rows_at, the row's page looked up in the sequence's table row (so a
+// row's page is looked up once).
+template <int DK, int NT = kMmaThreads, typename T>
+__device__ __forceinline__ void stage_rows(T* __restrict__ ring, const T* __restrict__ kbase,
+                                           const int* __restrict__ table, int page,
+                                           size_t page_stride, size_t tok_stride, int t_begin,
+                                           int t_end, int it) {
+  const int t = t_begin + it * kTile + threadIdx.x / (NT / kTile);
+  const int pg = t < t_end ? __ldg(table + t / page) : 0;
+  stage_rows_at<DK, NT>(ring, kbase, pg, page, page_stride, tok_stride, t_begin, t_end, it);
+}
+
+// ---------------------------------------------------------------------------
+// MLA in bf16: tensor cores.
 constexpr int kLDP = kTile + 8;       // P's row in bf16, padded to 80 B: ldmatrix conflict-free
 
 template <int DK>
@@ -629,37 +490,6 @@ constexpr size_t mma_smem_bytes() {  // Q, the ring, P, the tile max and sums of
          sizeof(float) * 2 * kMmaWarps * kM;
 }
 
-// Element offset of 16-byte chunk c of row r in a (rows, HD) bf16 tile whose
-// chunks are XOR-swizzled by row (flash_attention.cu's layout): the 8 rows
-// an ldmatrix reads land in 8 different bank groups.
-template <int HD>
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * HD + ((c ^ (r & 7)) << 3);
-}
-
-// Start the copy of tile `it` of the partition [t_begin, t_end) into its
-// stage: thread i copies every fourth 16-byte chunk of row i / 4, so a
-// row's page is looked up once; rows at or past t_end are zero-filled.
-template <int DK>
-__device__ __forceinline__ void stage_rows(bf16* __restrict__ ring, const bf16* __restrict__ kbase,
-                                           const int* __restrict__ table, int page,
-                                           size_t page_stride, size_t tok_stride, int t_begin,
-                                           int t_end, int it) {
-  constexpr int kChunks = DK / 8;
-  static_assert(kTile * 4 == kMmaThreads && kChunks % 4 == 0, "4 threads a row");
-  bf16* dst = ring + (it % kStages) * kTile * DK;
-  const int r = threadIdx.x >> 2;
-  const int t = t_begin + it * kTile + r;
-  const bool ok = t < t_end;
-  const bf16* src =
-      ok ? kbase + size_t(__ldg(table + t / page)) * page_stride + size_t(t % page) * tok_stride
-         : kbase;
-#pragma unroll
-  for (int j = 0; j < kChunks / 4; ++j) {
-    const int c = (threadIdx.x & 3) + 4 * j;
-    repro::cp_async_16(dst + swz<DK>(r, c), src + c * 8, ok);
-  }
-}
 
 template <int DK, int DV, int G>
 __global__ void __launch_bounds__(kMmaThreads, 2)
@@ -906,7 +736,328 @@ cudaError_t launch_mma(const void* q, const void* kp, const void* bt, const void
   return cudaGetLastError();
 }
 
-// f32 runs the CUDA-core split kernel, bf16 the tensor-core one.
+// ---------------------------------------------------------------------------
+// MLA in f32: three TF32 products on the tensor cores.
+constexpr int kF32Warps = 8;  // each a slice of the key dims for S, of the output for P V
+constexpr int kF32Threads = kF32Warps * 32;
+constexpr int kNT = kTile / 8;  // 8-token column tiles of S = k-steps of P V
+
+template <int DK>
+constexpr size_t tf32x3_smem_bytes() {  // the ring, the partial and the summed scores
+  return sizeof(float) * size_t(kStages) * kTile * DK +
+         sizeof(float4) * (kF32Warps + 1) * kNT * 32;
+}
+
+// max(a, b) that is NaN when either is (max.NaN.f32): a NaN score keeps the
+// running max, and so the partial's max, NaN, so the merge does not take
+// the partial for an empty one.
+__device__ __forceinline__ float fmax_nan(float a, float b) {
+  float y;
+  asm("max.NaN.f32 %0, %1, %2;\n" : "=f"(y) : "f"(a), "f"(b));
+  return y;
+}
+
+template <int DK, int DV, int G>
+__global__ void __launch_bounds__(kF32Threads, 1)
+    paged_mla_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ kp,
+                            const int* __restrict__ block_table, const int* __restrict__ seq_lens,
+                            float* __restrict__ o, float* __restrict__ part, int H, int KH,
+                            int page, int max_pages, int partition, int n_split,
+                            float scale_log2) {
+  constexpr int KW = DK / 8 / kF32Warps;  // k-steps of Q K^T of one warp
+  constexpr int DW = DV / kF32Warps;      // output columns of one warp
+  constexpr int DT = DW / 8;              // their 8-column tiles
+  static_assert(G <= kM && DK % (8 * kF32Warps) == 0 && kNT % 2 == 0 && DV <= DK &&
+                    DW % 8 == 0 && kF32Warps == 2 * kNT,
+                "shape the MLA 3xTF32 kernel does not tile");
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ring = reinterpret_cast<float*>(smem_raw);  // [kStages][kTile][DK], swizzled
+  float4* Sp = reinterpret_cast<float4*>(ring + kStages * kTile * DK);  // [kF32Warps][kNT][32]
+  float4* Sf = Sp + kF32Warps * kNT * 32;                                // [kNT][32]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int grp = lane >> 2;  // fragment row: heads grp and grp + 8
+  const int quad = lane & 3;  // fragment column
+  const int kh = blockIdx.x;
+  const int b = blockIdx.y;
+  const int split = blockIdx.z;
+  const int B = gridDim.y;
+  const int t_begin = split * partition;
+  const size_t bh0 = size_t(b) * H + size_t(kh) * G;
+  const int* table = block_table + size_t(b) * max_pages;
+
+  // What needs no seq_len goes out before it is read, so the first tiles
+  // wait for one load of device memory before their copies, not two: the
+  // table entries of this thread's row of each of the first kStages tiles
+  // (clamped to the table; a row past seq_len is never copied) and Q.  Q
+  // is invariant over the partition: this warp's KW k-steps of its A
+  // fragments (rows >= G zero), split once, stay in registers.
+  int pg[kStages];
+#pragma unroll
+  for (int i = 0; i < kStages; ++i) {
+    const int t = t_begin + i * kTile + tid / (kF32Threads / kTile);
+    pg[i] = __ldg(table + min(t / page, max_pages - 1));
+  }
+  const int kw0 = warp * KW;  // this warp's first k-step of Q K^T
+  uint32_t qf[KW][4];
+#pragma unroll
+  for (int k = 0; k < KW; ++k)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // (grp, quad), (grp + 8, quad), (grp, quad + 4), ...
+      const int r = grp + 8 * (i & 1);
+      const int d = 8 * (kw0 + k) + quad + 4 * (i >> 1);
+      qf[k][i] = r < G ? __float_as_uint(__ldg(q + (bh0 + r) * DK + d)) : 0u;
+    }
+
+  const int t_end = min(seq_lens[b], t_begin + partition);
+  float* part_m = part;
+  float* part_l = part + size_t(B) * H * n_split;
+  float* part_o = part + 2 * size_t(B) * H * n_split;
+  if (t_begin >= t_end) {  // nothing of this sequence in the partition
+    if (n_split == 1) {
+      for (int idx = tid; idx < G * DV; idx += kF32Threads) o[bh0 * DV + idx] = 0.f;
+    } else if (tid < G) {
+      part_m[(bh0 + tid) * n_split + split] = -INFINITY;
+      part_l[(bh0 + tid) * n_split + split] = 0.f;
+    }
+    return;
+  }
+
+  const size_t tok_stride = size_t(KH) * DK;
+  const size_t page_stride = size_t(page) * tok_stride;
+  const float* kbase = kp + size_t(kh) * DK;
+  const int n_tiles = (t_end - t_begin + kTile - 1) / kTile;
+
+  // Every stage is in flight before the first product, each tile a group
+  // of its own, committed even when empty (see the bf16 kernel).
+#pragma unroll
+  for (int i = 0; i < kStages; ++i) {
+    if (i < n_tiles)
+      stage_rows_at<DK, kF32Threads>(ring, kbase, pg[i], page, page_stride, tok_stride, t_begin,
+                                     t_end, i);
+    repro::cp_async_commit();
+  }
+  uint32_t qbig[KW][4], qsml[KW][4];
+#pragma unroll
+  for (int k = 0; k < KW; ++k) repro::split_x4(qf[k], qbig[k], qsml[k]);
+
+  float acc[DT][4];
+#pragma unroll
+  for (int d = 0; d < DT; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[d][e] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};  // heads grp, grp + 8; the same in every warp
+  float l_run[2] = {0.f, 0.f};              // this lane's share of the partition's tokens
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int t0 = t_begin + it * kTile;
+    const float* Kt = ring + (it % kStages) * kTile * DK;
+    if (it == 0)
+      repro::cp_async_wait<kStages - 1>();
+    else
+      repro::cp_async_wait<kStages - 2>();
+    // (A) Tile it is visible to every thread, and every warp is done with
+    // tile it - 1, whose stage tile it - 1 + kStages now fills, and with
+    // its summed scores.
+    __syncthreads();
+    if (it >= 1) {
+      if (it - 1 + kStages < n_tiles)
+        stage_rows<DK, kF32Threads>(ring, kbase, table, page, page_stride, tok_stride,
+                                    t_begin, t_end, it - 1 + kStages);
+      repro::cp_async_commit();
+    }
+
+    // This warp's share of S = Q K^T: 16 heads x all kTile tokens over its
+    // KW k-steps.  K's B fragments of two token tiles come by one ldmatrix
+    // (b16) from the row-major f32 tile and are split as they are loaded;
+    // each product runs over the kNT token tiles before the next starts,
+    // big * big and the cross terms into accumulators of their own.
+    float s_hi[kNT][4], s_lo[kNT][4];
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s_hi[n][e] = s_lo[n][e] = 0.f;
+#pragma unroll
+    for (int k = 0; k < KW; ++k) {
+      uint32_t kbig[kNT / 2][4], ksml[kNT / 2][4];  // token tiles 2 np and 2 np + 1
+#pragma unroll
+      for (int np = 0; np < kNT / 2; ++np) {
+        uint32_t kf[4];
+        repro::ldmatrix_x4(kf, Kt + swz<DK, float>(16 * np + (lane & 7) + ((lane >> 4) << 3),
+                                                   2 * (kw0 + k) + ((lane >> 3) & 1)));
+        repro::split_x4(kf, kbig[np], ksml[np]);
+      }
+      // d[n] += a * (token tile n's b0, b1), over the kNT token tiles
+      const auto product = [](float (&d)[kNT][4], const uint32_t (&a)[4],
+                              const uint32_t (&kb)[kNT / 2][4]) {
+#pragma unroll
+        for (int n = 0; n < kNT; ++n)
+          repro::mma_tf32_1688(d[n], a, kb[n / 2][2 * (n & 1)], kb[n / 2][2 * (n & 1) + 1]);
+      };
+      product(s_lo, qsml[k], kbig);
+      product(s_lo, qbig[k], ksml);
+      product(s_hi, qbig[k], kbig);
+    }
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+      Sp[(warp * kNT + n) * 32 + lane] =
+          make_float4(s_hi[n][0] + s_lo[n][0], s_hi[n][1] + s_lo[n][1], s_hi[n][2] + s_lo[n][2],
+                      s_hi[n][3] + s_lo[n][3]);
+    __syncthreads();  // (B) every warp's share is written
+    // Warp w sums half w % 2 of token tile w / 2 over the warps' shares,
+    // in warp order, and writes it to the summed scores.
+    {
+      const int n = warp >> 1;
+      const float2* src = reinterpret_cast<const float2*>(Sp) + 2 * (n * 32 + lane) + (warp & 1);
+      float2 v = src[0];
+#pragma unroll
+      for (int w = 1; w < kF32Warps; ++w) {
+        const float2 x = src[2 * w * kNT * 32];
+        v.x += x.x;
+        v.y += x.y;
+      }
+      reinterpret_cast<float2*>(Sf)[2 * (n * 32 + lane) + (warp & 1)] = v;
+    }
+    __syncthreads();  // (C) the scores are summed
+
+    // Every warp runs the same online softmax over all kTile tokens: no
+    // exchange of the max, and the scores of token tile n are this lane's
+    // A fragment of k-step n of P V.
+    float sc[kNT][4];  // log2-domain scores: heads grp (e = 0, 1), grp + 8 (e = 2, 3)
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+      const float4 v4 = Sf[n * 32 + lane];
+      const float v[4] = {v4.x, v4.y, v4.z, v4.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int t = t0 + 8 * n + 2 * quad + (e & 1);
+        sc[n][e] = t < t_end ? v[e] * scale_log2 : -INFINITY;
+      }
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+      mx[0] = fmax_nan(mx[0], fmax_nan(sc[n][0], sc[n][1]));
+      mx[1] = fmax_nan(mx[1], fmax_nan(sc[n][2], sc[n][3]));
+    }
+    float mu[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmax_nan(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmax_nan(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      mu[r] = fmax_nan(m_run[r], mx[r]);  // finite inputs: finite, the tile's first token is seen
+      const float corr = repro::ex2_approx(m_run[r] - mu[r]);
+      m_run[r] = mu[r];
+      l_run[r] *= corr;
+#pragma unroll
+      for (int d = 0; d < DT; ++d) {
+        acc[d][2 * r] *= corr;
+        acc[d][2 * r + 1] *= corr;
+      }
+    }
+
+    // O += P V over the tile's tokens, this warp's output columns.  P's A
+    // fragment of k-step n takes this lane's keys 2 quad and 2 quad + 1 of
+    // token tile n as its columns quad and quad + 4 (the sum over keys
+    // takes any order), so V's B fragment b0 = V[2 quad][8 d + grp], b1 =
+    // V[2 quad + 1][8 d + grp]: scalar loads of the staged rows (ldmatrix
+    // would give b16 halves), split as they are loaded.  Each product runs
+    // over the DT independent accumulators before the next starts.
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+      const float p0 = repro::ex2_approx(sc[n][0] - mu[0]);  // (head grp, key 2 quad)
+      const float p1 = repro::ex2_approx(sc[n][1] - mu[0]);  // (head grp, key 2 quad + 1)
+      const float p2 = repro::ex2_approx(sc[n][2] - mu[1]);  // (head grp + 8, key 2 quad)
+      const float p3 = repro::ex2_approx(sc[n][3] - mu[1]);  // (head grp + 8, key 2 quad + 1)
+      l_run[0] += p0 + p1;
+      l_run[1] += p2 + p3;
+      const uint32_t pf[4] = {__float_as_uint(p0), __float_as_uint(p2), __float_as_uint(p1),
+                              __float_as_uint(p3)};
+      uint32_t pbig[4], psml[4];
+      repro::split_x4(pf, pbig, psml);
+      const int r0 = 8 * n + 2 * quad;
+      uint32_t vbig[DT][2], vsml[DT][2];
+#pragma unroll
+      for (int d = 0; d < DT; ++d) {
+        const int col = warp * DW + 8 * d + grp;
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          repro::split_tf32(Kt[swz<DK, float>(r0 + r, col >> 2) + (col & 3)], vbig[d][r],
+                            vsml[d][r]);
+      }
+#pragma unroll
+      for (int d = 0; d < DT; ++d) repro::mma_tf32_1688(acc[d], psml, vbig[d][0], vbig[d][1]);
+#pragma unroll
+      for (int d = 0; d < DT; ++d) repro::mma_tf32_1688(acc[d], pbig, vsml[d][0], vsml[d][1]);
+#pragma unroll
+      for (int d = 0; d < DT; ++d) repro::mma_tf32_1688(acc[d], pbig, vbig[d][0], vbig[d][1]);
+    }
+  }
+
+  // Each head's sum over the quad (every warp holds all the tokens').
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int g = grp + 8 * r;
+    if (g >= G) continue;  // a zero row of the M tile
+    const float L = l_run[r];
+    const size_t bh = bh0 + g;
+    const int col = warp * DW + 2 * quad;
+    if (n_split == 1) {
+      const float inv = L == 0.f ? 0.f : 1.f / L;  // a NaN sum stays NaN
+#pragma unroll
+      for (int d = 0; d < DT; ++d)
+        *reinterpret_cast<float2*>(o + bh * DV + col + 8 * d) =
+            make_float2(acc[d][2 * r] * inv, acc[d][2 * r + 1] * inv);
+    } else {
+      float* prow = part_o + (bh * n_split + split) * DV + col;
+#pragma unroll
+      for (int d = 0; d < DT; ++d)
+        *reinterpret_cast<float2*>(prow + 8 * d) = make_float2(acc[d][2 * r], acc[d][2 * r + 1]);
+      if (warp == 0 && quad == 0) {
+        part_m[bh * n_split + split] = m_run[r];
+        part_l[bh * n_split + split] = L;
+      }
+    }
+  }
+}
+
+template <int DK, int DV, int G>
+cudaError_t launch_tf32x3(const void* q, const void* kp, const void* bt, const void* sl, void* o,
+                          void* part, int B, int H, int KH, int page, int max_pages,
+                          int partition, int n_split, float scale, cudaStream_t stream) {
+  constexpr size_t smem = tf32x3_smem_bytes<DK>();
+  auto kern = paged_mla_tf32x3_kernel<DK, DV, G>;
+  // Set once per instance, as for the bf16 kernel: one block an SM.
+  static const cudaError_t attr_err = [kern] {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                int(cudaSharedmemCarveoutMaxShared));
+  }();
+  cudaError_t err = attr_err;
+  if (err != cudaSuccess) return err;
+  const dim3 grid(KH, B, n_split);
+  kern<<<grid, kF32Threads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(kp), static_cast<const int*>(bt),
+      static_cast<const int*>(sl), static_cast<float*>(o), static_cast<float*>(part), H, KH, page,
+      max_pages, partition, n_split, scale * 1.4426950408889634f);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return err;
+  paged_merge_kernel<float, DV><<<B * H, DV, 0, stream>>>(static_cast<const float*>(part),
+                                                         static_cast<float*>(o), B * H, n_split);
+  return cudaGetLastError();
+}
+
+// bf16 runs the bf16 tensor-core kernel, f32 the 3xTF32 one.
 template <typename T, int G>
 cudaError_t launch_typed(const void* q, const void* kp, const void* bt, const void* sl, void* o,
                          void* part, int B, int H, int KH, int page, int max_pages,
@@ -915,8 +1066,8 @@ cudaError_t launch_typed(const void* q, const void* kp, const void* bt, const vo
     return launch_mma<576, 512, G>(q, kp, bt, sl, o, part, B, H, KH, page, max_pages, partition,
                                    n_split, scale, st);
   else
-    return launch<T, 576, 512, G>(q, kp, bt, sl, o, part, B, H, KH, page, max_pages, partition,
-                                  n_split, scale, st);
+    return launch_tf32x3<576, 512, G>(q, kp, bt, sl, o, part, B, H, KH, page, max_pages,
+                                      partition, n_split, scale, st);
 }
 
 template <typename T>

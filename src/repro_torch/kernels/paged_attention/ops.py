@@ -10,9 +10,10 @@ pass included.
 Absorbed MLA decode (deepseek-v2-lite) passes keys of ``MLA_DIMS[0]`` (the
 latent ‖ rope row) and, as values, the view ``k_pages[..., :MLA_DIMS[1]]``
 of the same rows: the kernel reads each row once for keys and values, and
-splits sequences into ``MLA_PARTITION``-token partitions.  In bf16 it runs
-on the tensor cores and rounds P to bf16 before P·V
-(``ref.py::paged_mla_tiled_ref`` rounds alike); in f32 on the CUDA cores.
+splits sequences into ``MLA_PARTITION``-token partitions.  Both types run
+on the tensor cores: bf16 rounds P to bf16 before P·V, f32 takes each
+product as three TF32 products of split operands, and
+``ref.py::paged_mla_tiled_ref`` rounds as either does.
 """
 
 from __future__ import annotations

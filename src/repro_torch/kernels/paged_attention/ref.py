@@ -7,14 +7,17 @@ and the CPU path use it.  ``paged_attention_split_ref`` and
 ``merge_partials_ref`` spell out the CUDA kernel's two passes: partial
 softmax states per partition of the sequence in the log2 domain, then their
 merge.  ``paged_mla_tiled_ref`` walks each partition in token tiles and
-rounds P to bf16 as the bf16 MLA kernel does, so that kernel can be held to
-it element by element."""
+rounds P to bf16 as the bf16 MLA kernel does, or splits every product into
+three TF32 products as the f32 one does, so each kernel can be held to it
+element by element."""
 
 from __future__ import annotations
 
 import math
 
 import torch
+
+from ..flash_attention.ref import einsum_tf32
 
 NEG_INF = torch.finfo(torch.float32).min
 
@@ -85,15 +88,26 @@ def paged_attention_split_ref(q, k_pages, v_pages, block_table, seq_lens, *,
 
 def paged_mla_tiled_ref(q, k_pages, v_pages, block_table, seq_lens, *,
                         partition: int, tile: int = 32,
-                        scale: float | None = None, round_p: bool = True):
+                        scale: float | None = None, round_p: bool = True,
+                        tf32_products: int = 0):
     """Same layout and result as :func:`paged_attention_ref`, computed as the
-    bf16 MLA kernel (``paged_mla_mma_kernel``) does: each partition of
-    ``partition`` tokens is walked in ``tile``-token tiles keeping a running
-    max and sum per head, scores scaled by ``scale · log2(e)`` after the
-    product and exponentiated with exp2, P rounded to bf16 before P·V when
-    ``round_p`` (the sum takes P unrounded), products accumulated in f32;
-    the partitions' states then merge as :func:`merge_partials_ref` does.
-    Returns (B,H,hd_v) in q's dtype."""
+    MLA kernels do: each partition of ``partition`` tokens is walked in
+    ``tile``-token tiles keeping a running max and sum per head, scores
+    scaled by ``scale · log2(e)`` after the product and exponentiated with
+    exp2, products accumulated in f32; the partitions' states then merge as
+    :func:`merge_partials_ref` does.  The bf16 kernel
+    (``paged_mla_mma_kernel``): P rounded to bf16 before P·V when
+    ``round_p`` (the sum takes P unrounded).  The f32 kernel
+    (``paged_mla_tf32x3_kernel``; ``tf32_products=3``, ``round_p=False``):
+    Q·Kᵀ and P·V each as three TF32 products of split operands
+    (``einsum_tf32``), the sums taken on P unsplit; ``tf32_products=1`` is
+    the single TF32 product the kernel never runs.  Returns (B,H,hd_v) in
+    q's dtype."""
+    if tf32_products not in (0, 1, 3):
+        raise ValueError(f"tf32_products must be 0, 1 or 3, got "
+                         f"{tf32_products}")
+    if tf32_products and round_p:
+        raise ValueError("P is rounded to bf16 or split into TF32, not both")
     B, H, hd = q.shape
     K = k_pages.shape[2]
     hd_v = v_pages.shape[3]
@@ -117,7 +131,7 @@ def paged_mla_tiled_ref(q, k_pages, v_pages, block_table, seq_lens, *,
     l = torch.zeros((B, K, G, n), device=dev)
     o = torch.zeros((B, K, G, n, hd_v), device=dev)
     for j in range(nt):
-        s = torch.einsum("bkgd,bntkd->bkgnt", qf, kt[:, :, j])
+        s = einsum_tf32("bkgd,bntkd->bkgnt", qf, kt[:, :, j], tf32_products)
         s = s * (scale * math.log2(math.e))
         s = s.masked_fill(~valid[:, None, None, :, j], -math.inf)
         m_new = torch.maximum(m, s.amax(-1))
@@ -127,8 +141,8 @@ def paged_mla_tiled_ref(q, k_pages, v_pages, block_table, seq_lens, *,
         l = l * corr + p.sum(-1)
         if round_p:
             p = p.to(torch.bfloat16).float()
-        o = o * corr[..., None] + torch.einsum("bkgnt,bntkd->bkgnd", p,
-                                               vt[:, :, j])
+        o = o * corr[..., None] + einsum_tf32("bkgnt,bntkd->bkgnd", p,
+                                              vt[:, :, j], tf32_products)
         m = m_new
     return merge_partials_ref(m.reshape(B, H, n), l.reshape(B, H, n),
                               o.reshape(B, H, n, hd_v), dtype=q.dtype)

@@ -738,19 +738,27 @@ def test_paged_mla_kernel_matches_plain(cuda, dtype, G, lens, npg):
                                     impl="plain")
     torch.testing.assert_close(out.float(), ref.float(), atol=TOLS[dtype],
                                rtol=TOLS[dtype])
-    if dtype == torch.bfloat16:
-        _assert_matches_mla_tiled(out, q, kp, vp, bt, sl)
+    _assert_matches_mla_tiled(out, q, kp, vp, bt, sl)
 
 
 def _assert_matches_mla_tiled(out, q, kp, vp, bt, sl):
     """Per element against the plain version that walks each partition in
-    32-token tiles and rounds P and the output to bf16 as the tensor-core
-    kernel does."""
-    tiled = paged_mla_tiled_ref(q, kp, vp, bt, sl,
-                                partition=paged_ops.MLA_PARTITION,
-                                scale=MLA_SCALE)
-    torch.testing.assert_close(out.float(), tiled.float(), atol=TILED_ATOL,
-                               rtol=TILED_RTOL)
+    32-token tiles and rounds as the kernel of its type does: bf16, P and
+    the output rounded to bf16; f32, both products as three TF32 products
+    of split operands."""
+    if out.dtype == torch.bfloat16:
+        tiled = paged_mla_tiled_ref(q, kp, vp, bt, sl,
+                                    partition=paged_ops.MLA_PARTITION,
+                                    scale=MLA_SCALE)
+        torch.testing.assert_close(out.float(), tiled.float(),
+                                   atol=TILED_ATOL, rtol=TILED_RTOL)
+    else:
+        tiled = paged_mla_tiled_ref(q, kp, vp, bt, sl,
+                                    partition=paged_ops.MLA_PARTITION,
+                                    scale=MLA_SCALE, round_p=False,
+                                    tf32_products=3)
+        torch.testing.assert_close(out, tiled, atol=TF32X3_ATOL,
+                                   rtol=TF32X3_RTOL)
 
 
 def _mla_inputs(cuda, dtype, G, lens, npg, seed):
@@ -800,22 +808,75 @@ def test_paged_mla_bf16_tensor_core_kernel(cuda, monkeypatch, partition, G,
 
 
 @pytest.mark.parametrize("partition", [64, 128])
-def test_paged_mla_f32_runs_the_cuda_core_kernel(cuda, monkeypatch,
-                                                 partition):
-    """f32 MLA decode keeps the CUDA-core split kernel (the parity checks'
-    type), within 1e-4 of its plain version."""
+@pytest.mark.parametrize("G,lens,npg", [
+    (16, [1, 63, 64, 65, 127, 128, 129, 2000], 128),   # the serve's slots
+    (16, [1, 9, 32, 31, 30, 5, 17, 2], 2),             # one partition
+    (4, [1, 63, 64, 65, 127, 128, 129, 2000], 128),
+])
+def test_paged_mla_f32_tf32x3_kernel(cuda, monkeypatch, partition, G, lens,
+                                     npg):
+    """f32 MLA decode at each partition size timed on the card runs
+    ``paged_mla_tf32x3_kernel`` (then the merge when the table spans more
+    than one partition) and nothing else, within 1e-4 of the dense plain
+    version and, per element, of the plain version that takes both
+    products as three TF32 products."""
     monkeypatch.setattr(paged_ops, "MLA_PARTITION", partition)
-    lens = [1, 63, 64, 65, 127, 128, 129, 1000]
-    q, kp, vp, bt, sl = _mla_inputs(cuda, torch.float32, 16, lens, 64, 9)
+    q, kp, vp, bt, sl = _mla_inputs(cuda, torch.float32, G, lens, npg, 9)
 
     def call():
         return paged_ops.paged_attention(q, kp, vp, bt, sl, scale=MLA_SCALE)
+    before = paged_ops.KERNEL.launches
     out = call()
+    assert paged_ops.KERNEL.launches == before + 1
+    assert out.shape == (len(lens), G, 512) and out.dtype == torch.float32
     ref = paged_ops.paged_attention(q, kp, vp, bt, sl, scale=MLA_SCALE,
                                     impl="plain")
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
-    assert _device_kernels(call) == {"paged_mla_split_kernel",
-                                     "paged_merge_kernel"}
+    _assert_matches_mla_tiled(out, q, kp, vp, bt, sl)
+    merged = paged_ops.mla_split_count(npg, 16) > 1
+    assert _device_kernels(call) == (
+        {"paged_mla_tf32x3_kernel", "paged_merge_kernel"} if merged
+        else {"paged_mla_tf32x3_kernel"})
+
+
+@pytest.mark.parametrize("bits", [0x7FC00000, 0x7FFFFFFF, -1])
+@pytest.mark.parametrize("where", ["q", "latent", "rope"])
+def test_paged_mla_f32_propagates_nan(cuda, where, bits):
+    """A NaN in q (quiet, the card's canonical 0x7fffffff, and a negative
+    one) reaches its head's output and no other; a NaN in a visible row,
+    in its latent (value) or its rope part, reaches every head of its
+    sequence and no other sequence; as in the plain version.  Every row
+    past a sequence's end holds NaN and is never read."""
+    lens = [1, 100, 300, 2000]
+    q, kp, vp, bt, sl = _mla_inputs(cuda, torch.float32, 16, lens, 128, 10)
+    page = kp.shape[1]
+    tok = torch.arange(128 * page, device=cuda)
+    rows = bt.long()[:, tok // page] * page + tok % page     # (B, tokens)
+    past = tok[None] >= sl[:, None].long()
+    flat = kp.view(-1, 576)
+    flat[rows[past]] = float("nan")
+    clean = flat.clone()
+    clean[rows[past]] = 0.0
+    b, t = {"q": (0, 0), "latent": (3, 1500), "rope": (2, 260)}[where]
+    if where == "q":
+        q.view(torch.int32)[b, 5, 7] = bits
+    else:
+        d = 100 if where == "latent" else 550
+        flat.view(torch.int32)[rows[b, t], d] = bits
+        clean[rows[b, t], d] = flat[rows[b, t], d]
+    out = paged_ops.paged_attention(q, kp, vp, bt, sl, scale=MLA_SCALE)
+    ckp = clean.view_as(kp)
+    ref = paged_ops.paged_attention(q, ckp, ckp[..., :512], bt, sl,
+                                    scale=MLA_SCALE, impl="plain")
+    want = torch.zeros((len(lens), 16), dtype=torch.bool, device=cuda)
+    if where == "q":
+        want[b, 5] = True
+    else:
+        want[b] = True
+    assert torch.equal(ref.isnan().all(-1), want)
+    assert torch.equal(out.isnan().all(-1), want)
+    assert not out[~want].isnan().any()
+    torch.testing.assert_close(out[~want], ref[~want], atol=1e-4, rtol=1e-4)
 
 
 def test_mla_wrappers_refuse_what_they_cannot_take(cuda):

@@ -16,6 +16,7 @@ import torch
 
 from repro.kernels.flash_attention.kernel import flash_attention_bhsd
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
+from repro.kernels.paged_attention.kernel import paged_attention_kernel
 from repro.kernels.paged_attention.ops import paged_attention as jax_paged
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import (flash_attention_tiled_ref,
@@ -404,6 +405,70 @@ class TestWideKeys:
                                    rtol=tol)
 
 
+class TestPagedMLATF32x3:
+    """The f32 MLA decode kernel's arithmetic (``paged_mla_tiled_ref`` with
+    ``tf32_products=3``: Q·Kᵀ and P·V as three TF32 products of operands
+    split by ``split_tf32``, 32-token tiles of each ``MLA_PARTITION``-token
+    partition) against the JAX Pallas kernel in interpret mode at keys of
+    576, values the same rows (the Pallas kernel takes one head width, so
+    its output's first 512 columns are kept): within F32_TOL, where one
+    TF32 product a multiply is not."""
+
+    @pytest.mark.parametrize("tf32_products", [3, 1])
+    @pytest.mark.parametrize("G,lens", [
+        # one token; on and across the 32-token tile and 128-token
+        # partition edges; a sequence of three partitions
+        (16, [1, 31, 32, 33, 127, 128, 129, 300]),
+        (4, [1, 32, 64, 128, 129, 256, 257]),
+    ])
+    def test_three_tf32_products_hold_f32_one_does_not(self, G, lens,
+                                                       tf32_products):
+        rng = np.random.default_rng(22)
+        dk, dv = paged_ops.MLA_DIMS
+        page, scale = 16, 192 ** -0.5
+        lens = np.asarray(lens, dtype=np.int32)
+        B = len(lens)
+        npg = -(-int(lens.max()) // page) + 1
+        n_pool = B * npg + 2
+        q = _normal(rng, (B, G, dk))
+        rows = _normal(rng, (n_pool, page, 1, dk))
+        bt = rng.permutation(n_pool)[:B * npg].astype(np.int32).reshape(B, npg)
+        want = paged_attention_kernel(
+            *(jnp.asarray(a) for a in (q, rows, rows, bt, lens)), scale=scale,
+            interpret=True)
+        want = np.asarray(want)[:, :, :dv]
+        kp = torch.from_numpy(rows)
+        got = paged_mla_tiled_ref(
+            torch.from_numpy(q), kp, kp[..., :dv], torch.from_numpy(bt),
+            torch.from_numpy(lens), partition=paged_ops.MLA_PARTITION,
+            scale=scale, round_p=False, tf32_products=tf32_products).numpy()
+        assert got.shape == want.shape == (B, G, dv)
+        worst = float(np.max(np.abs(got - want)
+                             / (F32_TOL + F32_TOL * np.abs(want))))
+        err = float(np.max(np.abs(got - want)))
+        print(f"{tf32_products} TF32 product(s) a multiply, MLA decode G "
+              f"{G}: max abs err {err:.3g}, worst |d| / (F32_TOL + "
+              f"F32_TOL·|ref|) {worst:.3g}")
+        if tf32_products == 3:
+            np.testing.assert_allclose(got, want, atol=F32_TOL, rtol=F32_TOL)
+        else:
+            assert worst > 1.0, (f"one TF32 product held F32_TOL (max abs "
+                                 f"err {err:.3g}, worst ratio {worst:.3g})")
+
+    def test_tf32_products_do_not_round_p_too(self):
+        """P is rounded to bf16 (the bf16 kernel) or split into TF32 (the
+        f32 one), never both; and only 0, 1 or 3 products are known."""
+        z = torch.zeros((1, 16, 576))
+        kp = torch.zeros((2, 16, 1, 576))
+        args = (z, kp, kp[..., :512], torch.zeros((1, 2), dtype=torch.int32),
+                torch.ones((1,), dtype=torch.int32))
+        with pytest.raises(ValueError):
+            paged_mla_tiled_ref(*args, partition=128, tf32_products=3)
+        with pytest.raises(ValueError):
+            paged_mla_tiled_ref(*args, partition=128, round_p=False,
+                                tf32_products=2)
+
+
 class TestWrappers:
     def test_cpu_never_launches_a_kernel(self):
         flash_ops.KERNEL.launches = 0
@@ -453,8 +518,9 @@ class TestWrappers:
      "paged_attention"),
     ("void (anonymous namespace)::tensor_core::flash_fwd_mma_kernel<192, 128>"
      "(...)", "flash_attention"),
-    ("void (anonymous namespace)::mla::paged_mla_split_kernel<__nv_bfloat16, "
-     "576, 512, 16>", "paged_attention"),
+    ("void (anonymous namespace)::mla::paged_mla_tf32x3_kernel<576, 512, 16>"
+     "(float const*, float const*, int const*, int const*, float*, float*, "
+     "int, int, int, int, int, int, float)", "paged_attention"),
     ("void (anonymous namespace)::mla::paged_mla_mma_kernel<576, 512, 16>"
      "(__nv_bfloat16 const*, __nv_bfloat16 const*, int const*, int const*, "
      "__nv_bfloat16*, float*, int, int, int, int, int, int, float)",
