@@ -33,7 +33,12 @@ Phases, in order; any failure raises and exits non-zero:
    form with keys of 192 and values of 128, H = K = 16; absorbed decode over
    8 slots of 2048 latent rows, keys of 576 and values the view of their
    first 512 columns, one KV head and 16 query heads; its bf16 and f32
-   main cases also at each partition size of ``MLA_PARTITIONS_TRIED``);
+   main cases also at each partition size of ``MLA_PARTITIONS_TRIED``) and
+   at minicpm3-4b's (prefill in MHA form with keys of 96 and values of 64,
+   H = K = 40, also as a 512-token chunk at offset 1024; absorbed decode
+   with keys of 288, values the view of their first 256 columns, G = 40 in
+   three head tiles); and, for an MLA chunk in MHA form, the time of the
+   decompression of the latent rows beside the flash call it feeds;
 3. parity: llama2-13b and mamba2-370m at full width and 2 layers, in f32 —
    one prefill and a few greedy decode steps through the kernels and
    through the plain versions must give the same tokens and close logits,
@@ -61,13 +66,21 @@ Phases, in order; any failure raises and exits non-zero:
    then, with llama2-13b's weights freed, deepseek-v2-lite-16b: a
    full-width 2-layer f32 parity (the dense head block and one MoE block)
    of the card's kernels against the CPU's plain versions, whose greedy
-   tokens may part only at a measured router or logit near-tie, and the
-   full-width bf16 serve of the same 24 requests under EWSJF (MLA prefill
-   through flash, absorbed decode through paged attention, MoE experts by
-   capacity dispatch), with peak device memory under 75 GiB;
+   tokens may part only at a measured router or logit near-tie, and
+   ``chunk_step`` over a prompt in three chunks (MoE dense) with equal
+   tokens on card and CPU and the card's one prefill; the full-width bf16
+   serve of the same 24 requests under EWSJF (MLA prefill through flash,
+   absorbed decode through paged attention, MoE experts by capacity
+   dispatch), with peak device memory under 75 GiB; then with the same
+   weights the chunked+radix serve of the shared-prefix traffic (MLA
+   chunks through flash at a query offset, the latent rows as the host KV
+   blocks), held as llama2's; then minicpm3-4b: the same 2-layer f32
+   parities (no MoE), its full-width, full-depth (62 layers) bf16 serve
+   of the 24 requests and, with the same weights, its chunked+radix
+   serve;
 5. summary: one call of each kernel's bf16 main case (and of the f32
-   flash main, offset and MLA cases, the f32 MLA paged case and the f32
-   SSD main case) under
+   flash main, offset and MLA cases, the f32 MLA paged case, the f32
+   SSD main case and every minicpm3-4b case) under
    ``torch.profiler`` names the device kernels that ran,
    with their device time (the ``variant`` of its entry); a line of the replaced designs' times as recorded in
    PERF.md (not measured here), each beside this run's time by the same
@@ -202,8 +215,15 @@ def launched_kernels(fn) -> dict:
     """The device kernels one call of ``fn`` ran, as ``torch.profiler``
     names them (namespace, return type and arguments dropped), each with
     its device time in µs, sorted by name."""
+    import os
+
     import torch
     from torch.profiler import ProfilerActivity, profile
+    # Keep CUPTI initialized from one session to the next: with its
+    # teardown after each session, some later sessions on the card
+    # recorded no device event at all (PyTorch turns teardown off for the
+    # same reason when it profiles CUDA graphs).
+    os.environ["TEARDOWN_CUPTI"] = "0"
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -238,9 +258,38 @@ def phase_setup(kbuild) -> None:
     logs = kbuild.build()
     print(f"[setup] kernels built in {time.monotonic() - t0:.1f} s")
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "built in" in line:
-                print(f"[setup]   {name}: {line.strip()}")
+        print(f"[setup]   {name}: {log.splitlines()[0]}")
+        for kernel, regs, spill in ptxas_usage(log):
+            print(f"[setup]   {name}: {kernel}: {regs} registers, {spill} "
+                  f"bytes spill stores")
+
+
+def ptxas_usage(log: str) -> list:
+    """(kernel<template ints>, registers, spill-store bytes) of every entry
+    function in an ``nvcc -Xptxas -v`` log, in its order."""
+    import re
+    out, kernel, spill = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled = m.group(1)
+            base = mangled      # the length-prefixed name ending in _kernel
+            for i in range(len(mangled)):
+                d = re.match(r"\d+", mangled[i:])
+                name = mangled[i + len(d.group()):][:int(d.group())] if d else ""
+                if name.endswith("_kernel"):
+                    base = name
+            args = re.findall(r"Li(\d+)E", mangled)
+            kernel = f"{base}<{', '.join(args)}>"
+            spill = 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and kernel:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            out.append((kernel, int(m.group(1)), spill))
+            kernel = None
+    return out
 
 
 def flash_case(fa, B, S, H, K, hd, dtype, causal, window, seed, q_offset=0,
@@ -823,6 +872,145 @@ def phase_kernels_mla(fa, pa, rows: dict, calls: dict) -> None:
         rows[name]["ms_by_partition"] = by_partition
 
 
+def phase_kernels_minicpm3(fa, pa, rows: dict, calls: dict) -> None:
+    """Both attention kernels at minicpm3-4b's MLA shapes, against their
+    plain versions: prefill folded into MHA form (H = K = 40, q/k of 64 +
+    32 rope = 96, v of 64, scale 96^-0.5) at the serve's main bucket and
+    as a 512-token chunk at offset 1024 of a 2048-row cache (rows past the
+    visible keys NaN), and absorbed decode over 8 slots of 2048 latent rows
+    (one KV head of 288 = 256 + 32, values the view of the rows' first 256
+    columns, G = 40: three 16-row head tiles).  Each in bf16 and f32; adds
+    the rows and calls under ``*_cpm``."""
+    import torch
+    H, dk, dv, scale = 40, 96, 64, 96 ** -0.5
+    fcases = [  # name, B, S, q_offset, T, dtype
+        ("flash_attention_cpm", 2, 1024, 0, None, torch.bfloat16),
+        ("flash_attention_cpm_f32", 2, 1024, 0, None, torch.float32),
+        ("flash_attention_cpm_offset", 1, 512, 1024, 2048, torch.bfloat16),
+        ("flash_attention_cpm_offset_f32", 1, 512, 1024, 2048,
+         torch.float32),
+    ]
+    for i, (name, B, S, off, T, dt) in enumerate(fcases):
+        kv_len = off + S
+        err, tiled, kms, ems, pms, lms, call = flash_case(
+            fa, B, S, H, H, dk, dt, True, 0, seed=80 + i, q_offset=off, T=T,
+            kv_len=kv_len, hd_v=dv, scale=scale)
+        bms, by, cms = flash_bounds(dt, B, S, H, H, dk, True, 0, hd_v=dv,
+                                    q_offset=off, kv_len=kv_len)
+        vs_tiled, bound = flash_notes(dt, tiled, bms, by, cms)
+        print(f"[kernels] flash minicpm3 B{B} S{S} q_offset{off} kv_len"
+              f"{kv_len} T{T or S} H=K={H} dk{dk} dv{dv} {str(dt)[6:]} "
+              f"causal: max_abs_err {err:.3g}{vs_tiled} kernel {kms:.4f} ms "
+              f"(eager timer {ems:.4f} ms) plain {pms:.4f} ms sdpa "
+              f"{lms:.4f} ms {bound}; kernel / sdpa {kms / lms:.2f} (graph "
+              f"timer both)")
+        rows[name] = flash_row(
+            err, tiled, kms, ems, pms, lms, bms, by, cms,
+            f"B={B}, S={S}, q_offset={off}, kv_len={kv_len}, T={T or S}, "
+            f"H=K={H}, dk={dk}, dv={dv}, causal, scale 96^-0.5, "
+            f"{str(dt)[6:]}")
+        calls[name] = call
+    dk, dv = 288, 256
+    B, K, page, s_max = 8, 1, 16, 2048
+    n_split = pa.mla_split_count(s_max // page, page)
+    pcases = [("paged_attention_cpm", torch.bfloat16, None),
+              ("paged_attention_cpm_f32", torch.float32, None),
+              (None, torch.bfloat16, LONG_AMONG_SHORT),
+              (None, torch.float32, LONG_AMONG_SHORT)]
+    for i, (name, dt, lens) in enumerate(pcases):
+        err, tiled, kms, ems, pms, lms, lens, call = paged_case(
+            pa, B, H, K, dk, page, s_max, dt, seed=90 + i % 2, shuffle=False,
+            lens=lens, hd_v=dv, scale=scale)
+        row = paged_mla_row(dt, B, H, K, dk, dv, lens, err, tiled, kms, ems,
+                            pms, lms)
+        atol, rtol = ((TILED_ATOL, TILED_RTOL) if dt == torch.bfloat16
+                      else (TF32X3_ATOL, TF32X3_RTOL))
+        print(f"[kernels] paged MLA minicpm3 B{B} H{H} K{K} dk{dk} dv{dv} "
+              f"(values a view of the key rows; {-(-H // 16)} head tiles) "
+              f"page{page} s_max{s_max} {str(dt)[6:]} lens={lens.tolist()} "
+              f"tokens={int(lens.sum())} ({n_split} partitions of "
+              f"{pa.MLA_PARTITION} tokens): max_abs_err {err:.3g} worst |d| "
+              f"/ ({atol} + {rtol}·|tiled|) {tiled:.3g} kernel {kms:.4f} ms "
+              f"(eager timer {ems:.4f} ms) plain {pms:.4f} ms sdpa "
+              f"{lms:.4f} ms bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}); kernel / sdpa {kms / lms:.2f} (graph "
+              f"timer both)")
+        if name:
+            rows[name] = dict(
+                row, case=f"B={B} slots of {s_max}, lens={lens.tolist()}, "
+                          f"H={H}, K={K}, dk={dk}, dv={dv} (a view of the key "
+                          f"rows), page {page}, scale 96^-0.5, "
+                          f"{str(dt)[6:]}")
+            calls[name] = call
+
+
+def phase_mla_chunk_cost(fa) -> dict:
+    """What an MLA chunk costs in MHA form (``models/attention.py::
+    mla_chunk_decode``), bf16, one layer, by the graph timer: the
+    decompression (the first T latent rows through W_uk and W_uv, keys
+    ``[nope ‖ rope]`` assembled), as the function runs it, against the
+    flash call over the decompressed keys, for deepseek-v2-lite and
+    minicpm3-4b, at the prefix serves' chunks: a whole prompt's 512-token
+    chunks at offsets 0 and 512, and a 72-token suffix (the mean of
+    ``card_prefix_requests``' 16-128) at offset 1024.  The serve's mix,
+    8 whole prompts (both 512-token chunks and a suffix-sized rest) and 16
+    attached suffixes, weighs them.  The absorbed route (flash at one KV
+    head of r + rd keys) would save the decompression alone, so it pays
+    only where that costs more than the attention.  Returns the times by
+    model and shape, and the mix's sums."""
+    import torch
+    shapes = ((512, 0), (512, 512), (72, 1024))
+    weights = (8, 8, 8 + 16)            # chunks of each shape in the mix
+    out = {}
+    for label, H, hd, rd, r, vd in (("deepseek-v2-lite", 16, 128, 64, 512,
+                                     128),
+                                    ("minicpm3-4b", 40, 64, 32, 256, 64)):
+        g = torch.Generator(device="cuda").manual_seed(95)
+        bf = dict(generator=g, device="cuda")
+        rows = torch.randn((1, 2048, r + rd), **bf).to(torch.bfloat16)
+        w_uk = (torch.randn((r, H * hd), **bf) * r ** -0.5).to(torch.bfloat16)
+        w_uv = (torch.randn((r, H * vd), **bf) * r ** -0.5).to(torch.bfloat16)
+        by_shape = {}
+        for C, off in shapes:
+            T = off + C
+            q = torch.randn((1, C, H, hd + rd), **bf).to(torch.bfloat16)
+
+            def decompress(T=T):
+                part = rows[:, :T]
+                latent = part[..., :r]
+                k_nope = (latent @ w_uk).reshape(1, T, H, hd)
+                v = (latent @ w_uv).reshape(1, T, H, vd)
+                k = torch.cat([k_nope,
+                               part[:, :, None, r:].expand(1, T, H, rd)],
+                              dim=-1)
+                return k.contiguous(), v.contiguous()
+            k, v = decompress()
+
+            def attend(q=q, k=k, v=v, off=off, T=T):
+                return fa.flash_attention(q, k, v, causal=True, q_offset=off,
+                                          kv_len=T, scale=(hd + rd) ** -0.5)
+            dms, ams = time_ms(decompress), time_ms(attend)
+            flops = 2.0 * T * r * H * (hd + vd)
+            print(f"[kernels] MLA chunk in MHA form, {label}, one layer, "
+                  f"bf16, C={C} at offset {off} over T={T} latent rows: "
+                  f"decompression {dms:.4f} ms ({flops / 1e9:.2f} GFLOP) "
+                  f"against flash ({hd + rd}, {vd}) {ams:.4f} ms (graph "
+                  f"timer both)")
+            by_shape[f"C={C}@{off}"] = {"decompress_ms": dms,
+                                        "flash_ms": ams}
+        d_mix = sum(w * t["decompress_ms"]
+                    for w, t in zip(weights, by_shape.values()))
+        a_mix = sum(w * t["flash_ms"]
+                    for w, t in zip(weights, by_shape.values()))
+        print(f"[kernels] MLA chunks in MHA form, {label}, the prefix "
+              f"serve's mix (8 whole prompts, 16 suffixes), one layer: "
+              f"decompression {d_mix:.4f} ms against flash {a_mix:.4f} ms; "
+              f"decompression costs more: {d_mix > a_mix}")
+        out[label] = {"shapes": by_shape, "mix_decompress_ms": d_mix,
+                      "mix_flash_ms": a_mix}
+    return out
+
+
 def paged_mla_row(dt, B, H, K, dk, dv, lens, err, tiled, kms, ems, pms,
                   lms) -> dict:
     """One MLA paged case's numbers: this run's times and errors, and its
@@ -861,6 +1049,14 @@ def phase_variants(calls: dict) -> dict:
             "paged_attention_mla": ("paged_mla_mma_kernel",
                                     "paged_merge_kernel"),
             "paged_attention_mla_f32": ("paged_mla_tf32x3_kernel",
+                                        "paged_merge_kernel"),
+            "flash_attention_cpm": ("flash_fwd_mma_kernel",),
+            "flash_attention_cpm_f32": ("flash_fwd_tf32x3_kernel",),
+            "flash_attention_cpm_offset": ("flash_fwd_mma_kernel",),
+            "flash_attention_cpm_offset_f32": ("flash_fwd_tf32x3_kernel",),
+            "paged_attention_cpm": ("paged_mla_mma_kernel",
+                                    "paged_merge_kernel"),
+            "paged_attention_cpm_f32": ("paged_mla_tf32x3_kernel",
                                         "paged_merge_kernel"),
             "ssd_chunk": ("ssd_chunk_y_mma_kernel",
                           "ssd_chunk_state_mma_kernel"),
@@ -1066,7 +1262,8 @@ def phase_parity_deepseek(ops: dict) -> tuple:
     of the two runs, and a row whose greedy token differs without such a
     flip must hold both tokens within twice the largest logit difference
     of the rows without one.  Returns the card run's f32 flash and f32
-    paged (MLA) launches."""
+    paged (MLA) launches, then ``phase_parity_mla_chunks``'s flash launches
+    and those with an offset."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import (DtypePolicy, decode_step,
@@ -1178,7 +1375,147 @@ def phase_parity_deepseek(ops: dict) -> tuple:
           "finite logits")
     if not flips and not parted:
         check(cpu_tok == gpu_tok, "card and CPU greedy tokens equal")
-    return f32_flash, f32_paged
+    chunk_flash, chunk_offset = phase_parity_mla_chunks(
+        "deepseek-v2-lite", cfg, cpu_params, pol, rng)
+    return f32_flash, f32_paged, chunk_flash, chunk_offset
+
+
+def phase_parity_mla_chunks(label: str, cfg, params, pol, rng) -> tuple:
+    """One 512-token prompt of a 2-layer full-width MLA model through
+    ``chunk_step`` in chunks of 200, 200 and 112 (the last two at offsets
+    200 and 400 of a 1024-row latent cache), on the card (keys and values
+    decompressed from the latent rows, flash at a query offset) and on the
+    CPU (plain versions), MoE ``dense``; then on the card through one
+    prefill.  Card and CPU give equal greedy tokens at every chunk's end
+    and logits within 1e-3, and so do the card's chunks and its one
+    prefill.  Under ``dropping`` a chunk gets the MoE capacity of its own
+    tokens, not the prompt's (``ROADMAP.md`` §3), so chunks and one prefill
+    part in both packages: printed for the card, not held.  ``params``
+    (an ``nn.Module``) moves in place to the card, then to the CPU.
+    Returns the card run's f32 flash launches and those with an offset."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import chunk_step, init_decode_caches, prefill
+    S, widths = 512, (200, 200, 112)
+    prompt = torch.tensor(rng.integers(0, cfg.vocab_size, (1, S)))
+
+    def chunks(params, dev, moe_impl):
+        caches = init_decode_caches(cfg, 1, 1024, dtype=torch.float32,
+                                    device=dev)
+        out, pos = [], 0
+        for w in widths:
+            logits, caches = chunk_step(params, prompt[:, pos:pos + w].to(dev),
+                                        caches, pos, cfg, policy=pol,
+                                        moe_impl=moe_impl)
+            out.append(logits.cpu())
+            pos += w
+        return out, caches
+
+    params = params.to("cuda")
+    f0, off0 = fa.KERNEL.launches, fa.KERNEL.offset_launches
+    card, caches = chunks(params, "cuda", "dense")
+    torch.cuda.synchronize()
+    launches = fa.KERNEL.launches - f0
+    offset = fa.KERNEL.offset_launches - off0
+    one, pc = prefill(params, {"tokens": prompt.cuda()}, cfg, policy=pol,
+                      moe_impl="dense")
+    rows_err = max(max_err(c["ckv"][:, :S], p["ckv"])
+                   for c, p in zip(caches, pc))
+    drop, _ = chunks(params, "cuda", "dropping")
+    one_drop, _ = prefill(params, {"tokens": prompt.cuda()}, cfg, policy=pol)
+    torch.cuda.synchronize()
+    one, one_drop = one.cpu(), one_drop.cpu()
+    del caches, pc
+    cpu, _ = chunks(params.to("cpu"), "cpu", "dense")
+    err_cpu = max(max_err(a, b) for a, b in zip(card, cpu))
+    err_one = max_err(card[-1], one)
+    tok = [int(x.argmax()) for x in card]
+    print(f"[parity] {label} full width, 2 layers, f32, chunk_step in chunks "
+          f"{list(widths)} (MoE dense): chunk-end tokens card {tok} CPU "
+          f"{[int(x.argmax()) for x in cpu]}, max logit diff {err_cpu:.3g}; "
+          f"against one prefill on the card: token {int(one.argmax())}, "
+          f"logit diff {err_one:.3g}, latent rows {rows_err:.3g}; flash "
+          f"launches {launches}, with an offset {offset}; under dropping, "
+          f"chunks against one prefill: tokens {int(drop[-1].argmax())} / "
+          f"{int(one_drop.argmax())}, logit diff "
+          f"{max_err(drop[-1], one_drop):.3g} (not held)")
+    check(tok == [int(x.argmax()) for x in cpu],
+          f"{label} chunk tokens equal on card and CPU")
+    check(err_cpu <= 1e-3, f"{label} chunk logits card vs CPU within 1e-3 "
+                           f"(got {err_cpu:.3g})")
+    check(tok[-1] == int(one.argmax()) and err_one <= 1e-3,
+          f"{label} chunks give one prefill's token and logits within 1e-3 "
+          f"(got {err_one:.3g})")
+    check(rows_err <= 1e-3, f"{label} chunks write one prefill's latent rows")
+    check(offset >= 2 * cfg.n_layers, f"{label} chunks after the first "
+                                      f"launched flash with a query offset")
+    check(all(bool(torch.isfinite(x).all()) for x in card), "finite logits")
+    return launches, offset
+
+
+def phase_parity_minicpm3(ops: dict) -> dict:
+    """minicpm3-4b at full width and 2 layers (MLA, dense MLPs), f32: one
+    prefill of two 512-token rows and 4 decode steps (row 1 decoding from
+    position 400) on the card through the kernels (flash at dk 96 / dv 64,
+    paged MLA at dk 288 / dv 256 with G = 40) and on the CPU through the
+    plain versions, the card fed the CPU run's greedy tokens: equal tokens,
+    logits within 1e-3; then ``phase_parity_mla_chunks``.  Returns the card
+    runs' f32 flash and paged launches by phase."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import (DtypePolicy, decode_step,
+                                    init_decode_caches, init_params, prefill)
+    cfg = get_config("minicpm3-4b").scaled(n_layers=2)
+    cpu_params = init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu", dtype=torch.float32)
+    pol = DtypePolicy(torch.float32, torch.float32, torch.float32)
+    rng = np.random.default_rng(5)
+    B, S, s_max, steps = 2, 512, 1024, 4
+    prompt = torch.tensor(rng.integers(0, cfg.vocab_size, (B, S)))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        params = cpu_params if dev == "cpu" else cpu_params.to(dev)
+        f0 = ops["flash_attention"].KERNEL.launches
+        p0 = ops["paged_attention"].KERNEL.launches
+        logits, pc = prefill(params, {"tokens": prompt.to(dev)}, cfg,
+                             policy=pol)
+        caches = init_decode_caches(cfg, B, s_max, dtype=torch.float32,
+                                    device=dev)
+        for dst, src in zip(caches, pc):
+            dst["ckv"][:, :S].copy_(src["ckv"])
+        pos = np.array([S, 400], dtype=np.int32)
+        all_logits, toks = [logits.cpu()], [logits.argmax(-1).cpu()]
+        feed = runs["cpu"]["tokens"] if dev == "cuda" else None
+        for step in range(steps):
+            tok = feed[step] if feed is not None else toks[-1]
+            logits, caches = decode_step(params, tok.to(dev).to(torch.int32),
+                                         caches, pos, cfg, policy=pol)
+            all_logits.append(logits.cpu())
+            toks.append(logits.argmax(-1).cpu())
+            pos = pos + 1
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = {
+                "flash": ops["flash_attention"].KERNEL.launches - f0,
+                "paged": ops["paged_attention"].KERNEL.launches - p0}
+        runs[dev] = {"logits": all_logits, "tokens": toks}
+        del params, caches, pc
+    cpu, gpu = runs["cpu"], runs["cuda"]
+    err = max(max_err(a, b) for a, b in zip(cpu["logits"], gpu["logits"]))
+    cpu_tok = torch.cat(cpu["tokens"], dim=1).tolist()
+    gpu_tok = torch.cat(gpu["tokens"], dim=1).tolist()
+    print(f"[parity] minicpm3-4b full width, 2 layers, f32, card (kernels) "
+          f"vs CPU (plain versions): tokens card {gpu_tok} CPU {cpu_tok}; "
+          f"max logit diff {err:.3g}; launches {launches}")
+    check(cpu_tok == gpu_tok, "minicpm3 card and CPU greedy tokens equal")
+    check(err <= 1e-3, f"minicpm3 parity logits within 1e-3 (got {err:.3g})")
+    check(all(bool(torch.isfinite(x).all()) for x in gpu["logits"]),
+          "finite logits")
+    check(launches["flash"] > 0 and launches["paged"] > 0,
+          "minicpm3 parity ran flash and paged on the card")
+    launches["chunk_flash"], launches["chunk_flash_offset"] = (
+        phase_parity_mla_chunks("minicpm3-4b", cfg, cpu_params, pol, rng))
+    return launches
 
 
 def reset_counts(ops: dict) -> None:
@@ -1239,27 +1576,31 @@ def phase_serve(arch: str, ecfg, ops: dict, path: tuple,
     return launches, out
 
 
-def phase_prefix_serve(params, ops: dict) -> dict:
-    """llama2-13b at full width and depth (``params``, bf16) in chunked
+def phase_prefix_serve(arch: str, params, ops: dict,
+                       max_peak_gib: float | None = None) -> dict:
+    """``arch`` at full width and depth (``params``, bf16) in chunked
     prefill + radix reuse mode (``card_prefix_engine_config``) over
     shared-prefix traffic (``card_prefix_requests``: one 1024-token prefix,
-    16-128-token suffixes).  Counts are set to 0 just before the run and
-    read just after: flash (also with a query offset) and paged attention
-    must have launched.  Every request must finish with all its tokens, at
-    least 16 must attach the whole prefix (``cached_len == 1024``), the
-    radix must keep its invariants and the pool must hold nothing but radix
-    tenancy.  Returns the launches."""
+    16-128-token suffixes, token ids below the vocabulary).  Counts are set
+    to 0 just before the run and read just after: flash (also with a query
+    offset) and paged attention must have launched.  Every request must
+    finish with all its tokens, at least 16 must attach the whole prefix
+    (``cached_len == 1024``), the radix must keep its invariants and the
+    pool must hold nothing but radix tenancy; the peak device memory of
+    the run must stay under ``max_peak_gib`` when given.  Returns the
+    launches."""
     import resource
 
     import torch
+    from repro_torch.configs import get_config
     from repro_torch.launch.serve import (card_prefix_engine_config,
                                           card_prefix_requests)
     from repro_torch.serving.api import serve
-    reqs = card_prefix_requests()
+    reqs = card_prefix_requests(vocab=get_config(arch).vocab_size)
     torch.cuda.reset_peak_memory_stats()
     reset_counts(ops)
     t0 = time.monotonic()
-    out = serve("llama2-13b", reqs, smoke=False, scheduler="ewsjf",
+    out = serve(arch, reqs, smoke=False, scheduler="ewsjf",
                 params=params, engine_config=card_prefix_engine_config(),
                 device="cuda", dtype=torch.bfloat16)
     torch.cuda.synchronize()
@@ -1291,10 +1632,11 @@ def phase_prefix_serve(params, ops: dict) -> dict:
     full = [r.ttft for r in fin if r.cached_len < 1024]
     cp = st["radix_copies"]
     host_runs = {id(h): h for h, _ in eng._node_kv.values()}
-    host_bytes = sum(t.nbytes for run in host_runs.values() for t in run)
+    host_bytes = sum(slab.nbytes for run in host_runs.values()
+                     for layer in run for slab in layer.values())
     peak_dev = torch.cuda.max_memory_allocated() / 2**30
     rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
-    print(f"[serve] llama2-13b chunked+radix {eng.cfg.n_layers} layers "
+    print(f"[serve] {arch} chunked+radix {eng.cfg.n_layers} layers "
           f"d{eng.cfg.d_model} bf16 EWSJF, chunks of "
           f"{eng.e.chunk_prefill_tokens}: {len(fin)} requests, "
           f"{sum(r.generated for r in fin)} tokens in {st['elapsed_s']:.2f} s "
@@ -1313,8 +1655,13 @@ def phase_prefix_serve(params, ops: dict) -> dict:
               f"blocks, {cp[f'{way}_bytes'] / 1e9:.3f} GB in "
               f"{cp[f'{way}_s']:.4f} s ({rate:.1f} GB/s)")
     print(f"[serve]   peak device memory {peak_dev:.1f} GiB; host KV store "
-          f"{host_bytes / 1e9:.3f} GB in {len(host_runs)} runs; process peak "
-          f"RSS {rss:.1f} GiB; launches {launches}")
+          f"{host_bytes / 1e9:.3f} GB in {len(host_runs)} runs ("
+          f"{eng._block_bytes()} B a 16-token block); process peak RSS "
+          f"{rss:.1f} GiB; launches {launches}")
+    if max_peak_gib is not None:
+        check(peak_dev < max_peak_gib, f"{arch} prefix serve peak device "
+                                       f"memory {peak_dev:.1f} GiB < "
+                                       f"{max_peak_gib}")
     return launches
 
 
@@ -1645,6 +1992,8 @@ def main() -> int:
     t_start = time.monotonic()
     phase_setup(kbuild)
     rows, calls = phase_kernels(fa, pa)
+    phase_kernels_minicpm3(fa, pa, rows, calls)
+    chunk_cost = phase_mla_chunk_cost(fa)
     phase_ssd_kernel(so, rows, calls)
     f32_launches = phase_parity_llama()
     ssd_f32_launches = phase_parity_mamba2(so)
@@ -1660,7 +2009,7 @@ def main() -> int:
     del out
     gc.collect()
     torch.cuda.empty_cache()
-    prefix = phase_prefix_serve(params, ops)
+    prefix = phase_prefix_serve("llama2-13b", params, ops)
     gc.collect()
     torch.cuda.empty_cache()
     replay = phase_replay(cfg, params, ops)
@@ -1671,8 +2020,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     # deepseek-v2-lite only once llama2-13b's weights and caches are gone
-    f32_launches["deepseek_parity"], mla_f32_launches = (
-        phase_parity_deepseek(ops))
+    (f32_launches["deepseek_parity"], mla_f32_launches,
+     f32_launches["deepseek_chunk_parity"],
+     f32_launches["deepseek_chunk_parity_offset"]) = phase_parity_deepseek(ops)
     print(f"[parity] f32 flash launches (flash_fwd_tf32x3_kernel) by parity "
           f"phase {f32_launches}; f32 paged MLA launches "
           f"(paged_mla_tf32x3_kernel) in the deepseek parity's kernel run "
@@ -1684,7 +2034,30 @@ def main() -> int:
                                 ops,
                                 ("flash_attention", "paged_attention"),
                                 max_peak_gib=75)
+    # the chunked+radix run reuses these weights
+    params = out["engine"].params
     del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    deepseek_prefix = phase_prefix_serve("deepseek-v2-lite-16b", params, ops,
+                                         max_peak_gib=75)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cpm_f32 = phase_parity_minicpm3(ops)
+    gc.collect()
+    torch.cuda.empty_cache()
+    minicpm3, out = phase_serve("minicpm3-4b",
+                                CARD_ENGINE_CONFIGS["minicpm3-4b"](), ops,
+                                ("flash_attention", "paged_attention"),
+                                max_peak_gib=75)
+    params = out["engine"].params
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    minicpm3_prefix = phase_prefix_serve("minicpm3-4b", params, ops,
+                                         max_peak_gib=75)
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     mamba, _ = phase_serve("mamba2-370m", ssm_card_engine_config(), ops,
@@ -1703,6 +2076,13 @@ def main() -> int:
             by_path[name][f"replay_{sched}"] = counts[name]
         by_path[name]["fleet"] = fleet[name]
         by_path[name]["deepseek"] = deepseek[name]
+        by_path[name]["deepseek_prefix"] = deepseek_prefix[name]
+        by_path[name]["minicpm3"] = minicpm3[name]
+        by_path[name]["minicpm3_prefix"] = minicpm3_prefix[name]
+    for path, counts in (("deepseek_prefix", deepseek_prefix),
+                         ("minicpm3_prefix", minicpm3_prefix)):
+        by_path["flash_attention"][f"{path}_offset"] = \
+            counts["flash_attention_offset"]
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention/kernel.py:88"),
                "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
@@ -1767,6 +2147,32 @@ def main() -> int:
                     **rows["paged_attention_mla_f32"],
                     "launches": mla_f32_launches,
                     "variant": variants["paged_attention_mla_f32"]}
+            if name == "flash_attention":
+                # deepseek's chunks: flash at (192, 128) with an offset, and
+                # a chunk's decompression against its attention
+                entry["mla_case"]["offset_launches"] = \
+                    deepseek_prefix["flash_attention_offset"]
+                entry["mla_chunk_cost"] = chunk_cost
+        if name in ("flash_attention", "paged_attention"):
+            # minicpm3-4b's instances: bf16 launches from its serves (the
+            # offset case from the chunked+radix one), f32 ones from its
+            # 2-layer parity
+            cpm = {"flash_attention": [
+                       ("main", "", minicpm3["flash_attention"]),
+                       ("main_f32", "_f32", cpm_f32["flash"]
+                        + cpm_f32["chunk_flash"]
+                        - cpm_f32["chunk_flash_offset"]),
+                       ("offset", "_offset",
+                        minicpm3_prefix["flash_attention_offset"]),
+                       ("offset_f32", "_offset_f32",
+                        cpm_f32["chunk_flash_offset"])],
+                   "paged_attention": [
+                       ("main", "", minicpm3["paged_attention"]),
+                       ("main_f32", "_f32", cpm_f32["paged"])]}[name]
+            entry["minicpm3_cases"] = {
+                case: {**rows[f"{name}_cpm{sfx}"], "launches": n,
+                       "variant": variants[f"{name}_cpm{sfx}"]}
+                for case, sfx, n in cpm}
         kernels.append(entry)
     print(f"[summary] all phases passed in {time.monotonic() - t_start:.1f} s")
     print("[summary] recorded, not measured in this run: main-case ms of "

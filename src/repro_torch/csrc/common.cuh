@@ -1,7 +1,8 @@
 // Helpers shared by the port's hand-written Hopper kernels: vector loads
 // that widen f32 / bf16 elements to f32 registers, the
-// narrowing store back to the element type, and the error-string lookup each
-// library exports to its ctypes wrapper.
+// narrowing store back to the element type, the XOR swizzle of staged
+// tiles, and the error-string lookup each library exports to its ctypes
+// wrapper.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -41,6 +42,23 @@ __device__ __forceinline__ void load_f32(const T* __restrict__ src, float (&dst)
   const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
   for (int i = 0; i < N; ++i) dst[i] = to_f32(e[i]);
+}
+
+// Physical 16-byte chunk of chunk c of row r in a shared-memory tile of
+// CHUNKS 16-byte chunks a row, XOR-swizzled so that the 8 rows r0 .. r0 + 7
+// (r0 a multiple of 8) an ldmatrix reads at one chunk land in 8 different
+// groups of 4 banks.  A row of whole groups of 8 chunks starts on a 128-byte
+// line: every group XORs with r & 7.  A row of 8 n + 4 chunks (bf16 rows of
+// 96 or 288 elements) starts half a line after the row before it: chunk c'
+// of a whole group lands in bank group (4 r + (c' ^ (r & 7))) mod 8, and
+// chunk c' of the 4-chunk tail, which XORs with (r >> 1) & 3, in (4 r + (c'
+// ^ ((r >> 1) & 3))) mod 8; each takes 8 values over the 8 rows.
+template <int CHUNKS>
+__device__ __forceinline__ int swizzle_chunk(int r, int c) {
+  static_assert(CHUNKS % 8 == 0 || CHUNKS % 8 == 4, "rows of 8 n or 8 n + 4 chunks");
+  constexpr int kTail = CHUNKS - CHUNKS % 8;  // first chunk of the 4-chunk tail
+  if (CHUNKS % 8 == 0 || c < kTail) return c ^ (r & 7);
+  return kTail + ((c - kTail) ^ ((r >> 1) & 3));
 }
 
 }  // namespace repro

@@ -8,8 +8,12 @@
 //
 // Layout: q (B, S, H, dk), k (B, T, K, dk), v (B, T, K, dv), out (B, S, H,
 // dv), all contiguous, f32 or bf16; query head h reads KV head h / (H / K).
-// (dk, dv) is (64, 64), (128, 128) or, for MLA prefill folded into MHA form
-// (deepseek-v2-lite: keys [nope 128 ‖ rope 64], values 128), (192, 128).  Query row
+// (dk, dv) is (64, 64), (128, 128) or, for MLA prefill and chunks folded
+// into MHA form, (192, 128) (deepseek-v2-lite: keys [nope 128 ‖ rope 64],
+// values 128) and (96, 64) (minicpm3-4b: [nope 64 ‖ rope 32], values 64).
+// At dk 96 a bf16 row is 12 16-byte chunks, so rows alternate between the
+// two halves of a 128-byte line; the swizzle's 4-chunk tail keeps every
+// ldmatrix conflict-free (common.cuh::swizzle_chunk).  Query row
 // i stands at absolute position q_offset + i, and only the first kv_len <= T
 // keys are visible: chunked prefill passes a slot's whole (B, s_max, K, hd)
 // cache with q_offset = pos0 and kv_len = pos0 + C, so the per-batch stride of
@@ -51,7 +55,7 @@
 //   from ldmatrix, V fragments from ldmatrix.trans; tiles stay bf16, rows
 //   XOR-swizzled by 16-byte chunk, so ldmatrix has no bank conflicts.  ~80
 //   KB of shared memory at (128, 128) and ~104 KB at (192, 128): two blocks
-//   an SM.  P is rounded to bf16 pairs.
+//   an SM; ~52 KB at (96, 64): four.  P is rounded to bf16 pairs.
 //
 // f32 -> `flash_fwd_tf32x3_kernel`: both products on the tensor cores as
 //   mma.sync m16n8k8 with TF32 inputs, three products per multiply
@@ -100,7 +104,8 @@
 //       (64, 64):   32-key tiles, 17,408 + 2 x 17,408 =  52,224 B: 4 blocks;
 //       (128, 128): 32-key tiles, 33,792 + 2 x 33,792 = 101,376 B: 2 blocks,
 //                   8 warps an SM;
-//       (192, 128): 16-key tiles, 50,176 + 2 x 20,992 =  92,160 B: 2 blocks.
+//       (192, 128): 16-key tiles, 50,176 + 2 x 20,992 =  92,160 B: 2 blocks;
+//       (96, 64):   32-key tiles, 25,600 + 2 x 21,504 =  68,608 B: 3 blocks.
 //   * Why not wgmma yet.  TF32 wgmma takes its operands K-major from shared
 //     memory only; V, the B operand of P V, is (keys, dv) with dv
 //     contiguous, so it would need a transposing stage, and the split
@@ -436,11 +441,11 @@ constexpr size_t smem_bytes() {  // Q, 2 stages of K and of V
 }
 
 // Element offset of 16-byte chunk c of row r in a (rows, HD) bf16 tile whose
-// chunks are XOR-swizzled by row: the 8 rows an ldmatrix reads land in 8
-// different bank groups.
+// chunks are XOR-swizzled by row (common.cuh::swizzle_chunk): the 8 rows an
+// ldmatrix reads land in 8 different bank groups.
 template <int HD>
 __device__ __forceinline__ int swz(int r, int c) {
-  return r * HD + ((c ^ (r & 7)) << 3);
+  return r * HD + (repro::swizzle_chunk<HD / 8>(r, c) << 3);
 }
 
 // Start the copy of rows [r0, r0 + ROWS) of a (n_rows, HD) slice whose rows
@@ -715,6 +720,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   REPRO_FLASH_CASE(128, 128)
   REPRO_FLASH_CASE(64, 64)
   REPRO_FLASH_CASE(192, 128)
+  REPRO_FLASH_CASE(96, 64)
 #undef REPRO_FLASH_CASE
   return int(cudaErrorInvalidValue);
 }

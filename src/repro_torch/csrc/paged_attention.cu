@@ -10,11 +10,12 @@
 //
 // Layout: q (B, H, hd), k/v pages (P, page, K, hd), block_table
 // (B, max_pages) int32, seq_lens (B,) int32, out (B, H, hd); f32 or bf16.
-// One more shape, for absorbed MLA decode (deepseek-v2-lite), runs split
-// kernels of its own (see below: `paged_mla_mma_kernel` for bf16,
-// `paged_mla_tf32x3_kernel` for f32): keys of 576 (latent 512 ‖ rope 64) and
-// values that are the first 512 columns of the same rows, one KV head,
-// groups of 16 (or 4) query heads.
+// Absorbed MLA decode runs split kernels of its own (see below:
+// `paged_mla_mma_kernel` for bf16, `paged_mla_tf32x3_kernel` for f32): one
+// KV head whose rows are keys and, in their first columns, values.
+// deepseek-v2-lite: keys of 576 (latent 512 ‖ rope 64), values 512, groups
+// of 16 (or 4) query heads; minicpm3-4b: keys of 288 (latent 256 ‖ rope
+// 32), values 256, 40 query heads.
 //
 // What bounds it on this card: bytes.  Each cached token's K and V row is
 // used for 2 * G * hd FLOPs per 4 * hd bytes (bf16), far below the H100's
@@ -52,8 +53,11 @@
 // products taken as three TF32 products each (494.7 / 3 TFLOP/s) still sit
 // under them: 2.0 us of products against 6.5 us of bytes at the serve's
 // main case, where the CUDA cores (67 TFLOP/s, every FMA reading shared
-// memory) would need 4.8 us.  Two kernels, chosen by type, on one grid and
-// one ring:
+// memory) would need 4.8 us.  minicpm3-4b's (288, 256) rows are half as
+// wide and serve 40 heads, three M tiles of 16 (16, 16 and 8 live rows):
+// each head tile is a block of its own along the grid's first axis, which
+// re-reads its slot's rows (from L2, mostly).  Two kernels, chosen by
+// type, on one grid and one ring:
 //
 // bf16 -> `paged_mla_mma_kernel`, tensor cores.  One block of 4 warps per
 // (KV head, sequence, partition); the wrapper passes partitions of
@@ -103,8 +107,9 @@
 //   TF32 product would not; `paged_mla_tiled_ref` with `tf32_products=3`
 //   rounds exactly what it rounds.  The bf16 kernel's grid, partitions,
 //   M tile and ring (f32 rows of 2,304 B: 147,456 B for two 32-token
-//   stages; rows past seq_len zero-filled, never read), with 8 warps:
-//   * S = Q K^T: warp w takes k-steps 9w..9w+8 (72 of the 576 dims) for
+//   stages; rows past seq_len zero-filled, never read), with DK / 72 warps
+//   (8 at 576, 4 at 288):
+//   * S = Q K^T: warp w takes k-steps 9w..9w+8 (72 of the key dims) for
 //     all 32 tokens of a tile.  Its Q A fragments for those k-steps are
 //     loaded from device memory once, split once and held in registers (72
 //     of them) over the whole partition: Q is never re-read or re-split.
@@ -112,9 +117,10 @@
 //     the row-major f32 tile (an 8x8 b16 matrix is 8 rows of 4 words) and
 //     are split as they are loaded; each product runs over the 4 token
 //     tiles before the next starts.
-//   * The 8 partial sums are reduce-scattered (warp w adds half of token
-//     tile w / 2 over the warps' shares, in warp order) and gathered back
-//     through 18 KB of shared memory: three barriers a tile.  Every warp
+//   * The warps' partial sums are reduce-scattered (thread i adds the
+//     i-th float2, or float4 at 4 warps, over the warps' shares, in warp
+//     order) and gathered back through shared memory (18 KB at 8 warps):
+//     three barriers a tile.  Every warp
 //     then runs the same online softmax (the bf16 kernel's, scale *
 //     log2(e) applied after the product, ex2.approx) over all 32 tokens,
 //     so the max needs no exchange and P goes from the scores straight into
@@ -130,7 +136,8 @@
 //     out before seq_len is read, so the first copies wait for one load of
 //     device memory, not two.
 //   * 165,888 B of shared memory (one block an SM), 204 registers at G =
-//     16 (247 at G = 4), no spill.
+//     16 (247 at G = 4), no spill; at (288, 256, 40) 83,968 B and 199
+//     registers.
 //   * Zero-filled rows give scores of 0, masked to -inf, so p = 0 and V = 0:
 //     no 0 * inf.  A NaN in Q or in a visible row reaches the output: the
 //     TF32 split keeps it in the small part, the running max is max.NaN (so
@@ -437,12 +444,21 @@ static_assert(kStages >= 2, "the refill of a stage waits for the barrier of the 
 constexpr int kM = 16;                // rows of the M tile: the G heads, zero-padded
 
 // Element offset of 16-byte chunk c of row r in a (rows, HD) tile of T whose
-// chunks are XOR-swizzled by row (flash_attention.cu's layout): the 8 rows
-// an ldmatrix reads land in 8 different bank groups.
+// chunks are XOR-swizzled by row (common.cuh::swizzle_chunk, as in
+// flash_attention.cu): the 8 rows an ldmatrix reads land in 8 different
+// bank groups.
 template <int HD, typename T = bf16>
 __device__ __forceinline__ int swz(int r, int c) {
-  return r * HD + (c ^ (r & 7)) * int(16 / sizeof(T));
+  constexpr int kEl = 16 / sizeof(T);  // elements of a chunk
+  return r * HD + repro::swizzle_chunk<HD / kEl>(r, c) * kEl;
 }
+
+// Query-head tiles of a group of G heads: the M tile holds kM heads, so a
+// larger group (minicpm3-4b: G = 40) takes ceil(G / kM) blocks, each
+// staging its tile's heads (16, 16 and 8 live rows at G = 40); the
+// latent rows are read once a tile, mostly from L2.
+template <int G>
+constexpr int kHeadTiles = (G + kM - 1) / kM;
 
 // Start the copy of tile `it` of the partition [t_begin, t_end) into its
 // stage: with TPR = NT / kTile threads a row, thread i copies every TPR-th
@@ -501,7 +517,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
   constexpr int KS = DK / 16;            // k-steps of Q K^T
   constexpr int DW = DV / kMmaWarps;     // output columns of one warp
   constexpr int DT = DW / 8;             // their 8-column tiles
-  static_assert(G <= kM && KS % 2 == 0 && kChunks % 8 == 0 && DT % 2 == 0 && DV <= DK,
+  static_assert(KS % 2 == 0 && kChunks % 4 == 0 && DT % 2 == 0 && DV <= DK,
                 "shape the MLA tensor-core kernel does not tile");
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -516,23 +532,25 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
   const int warp = tid >> 5;
   const int grp = lane >> 2;  // fragment row: heads grp and grp + 8
   const int quad = lane & 3;  // fragment column pair
-  const int kh = blockIdx.x;
+  const int kh = blockIdx.x / kHeadTiles<G>;
+  const int g0 = blockIdx.x % kHeadTiles<G> * kM;  // this block's first head of the group
+  const int GL = min(kM, G - g0);                     // and its live rows of the M tile
   const int b = blockIdx.y;
   const int split = blockIdx.z;
   const int B = gridDim.y;
   const int seq_len = seq_lens[b];
   const int t_begin = split * partition;
   const int t_end = min(seq_len, t_begin + partition);
-  const size_t bh0 = size_t(b) * H + size_t(kh) * G;
+  const size_t bh0 = size_t(b) * H + size_t(kh) * G + g0;
   float* part_m = part;
   float* part_l = part + size_t(B) * H * n_split;
   float* part_o = part + 2 * size_t(B) * H * n_split;
 
   if (t_begin >= t_end) {  // nothing of this sequence in the partition
     if (n_split == 1) {
-      for (int idx = tid; idx < G * DV; idx += kMmaThreads)
+      for (int idx = tid; idx < GL * DV; idx += kMmaThreads)
         o[bh0 * DV + idx] = __float2bfloat16(0.f);
-    } else if (tid < G) {
+    } else if (tid < GL) {
       part_m[(bh0 + tid) * n_split + split] = -INFINITY;
       part_l[(bh0 + tid) * n_split + split] = 0.f;
     }
@@ -545,14 +563,14 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
   const bf16* kbase = kp + size_t(kh) * DK;
   const int n_tiles = (t_end - t_begin + kTile - 1) / kTile;
 
-  // Q (rows >= G zero) and tile 0 in the first group, tiles 1 .. kStages - 1
+  // Q (rows >= GL zero) and tile 0 in the first group, tiles 1 .. kStages - 1
   // in one group each: every stage is in flight before the first product.
   // A group is committed even when empty, so that the group of tile i is
   // always followed by kStages - 1 others at i = 0 and kStages - 2 later.
   for (int idx = tid; idx < kM * kChunks; idx += kMmaThreads) {
     const int r = idx / kChunks;
     const int c = idx % kChunks;
-    const bool ok = r < G;
+    const bool ok = r < GL;
     repro::cp_async_16(Qs + swz<DK>(r, c), q + (bh0 + (ok ? r : 0)) * DK + c * 8, ok);
   }
 #pragma unroll
@@ -681,7 +699,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int g = grp + 8 * r;
-    if (g >= G) continue;  // a zero row of the M tile
+    if (g >= GL) continue;  // a zero row of the M tile
     float L = 0.f;
 #pragma unroll
     for (int w = 0; w < kMmaWarps; ++w) L += red_l[w * kM + g];
@@ -724,7 +742,7 @@ cudaError_t launch_mma(const void* q, const void* kp, const void* bt, const void
   }();
   cudaError_t err = attr_err;
   if (err != cudaSuccess) return err;
-  const dim3 grid(KH, B, n_split);
+  const dim3 grid(KH * kHeadTiles<G>, B, n_split);
   kern<<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(kp), static_cast<const int*>(bt),
       static_cast<const int*>(sl), static_cast<bf16*>(o), static_cast<float*>(part), H, KH, page,
@@ -738,15 +756,38 @@ cudaError_t launch_mma(const void* q, const void* kp, const void* bt, const void
 
 // ---------------------------------------------------------------------------
 // MLA in f32: three TF32 products on the tensor cores.
-constexpr int kF32Warps = 8;  // each a slice of the key dims for S, of the output for P V
-constexpr int kF32Threads = kF32Warps * 32;
+constexpr int kF32KW = 9;       // k-steps of Q K^T a warp takes: 72 of the key dims
 constexpr int kNT = kTile / 8;  // 8-token column tiles of S = k-steps of P V
+
+// Warps of a block, each a slice of the key dims for S and of the output
+// for P V: 8 at dk 576, 4 at dk 288.
+template <int DK>
+constexpr int kF32WarpsOf = DK / (8 * kF32KW);
 
 template <int DK>
 constexpr size_t tf32x3_smem_bytes() {  // the ring, the partial and the summed scores
   return sizeof(float) * size_t(kStages) * kTile * DK +
-         sizeof(float4) * (kF32Warps + 1) * kNT * 32;
+         sizeof(float4) * (kF32WarpsOf<DK> + 1) * kNT * 32;
 }
+
+// The partial scores a thread sums across the warps, as one vector: 2
+// floats at 8 warps, 4 at 4.
+template <int N>
+struct ScoreVec;
+template <>
+struct ScoreVec<2> {
+  using type = float2;
+  static __device__ __forceinline__ float2 add(float2 a, float2 b) {
+    return make_float2(a.x + b.x, a.y + b.y);
+  }
+};
+template <>
+struct ScoreVec<4> {
+  using type = float4;
+  static __device__ __forceinline__ float4 add(float4 a, float4 b) {
+    return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+  }
+};
 
 // max(a, b) that is NaN when either is (max.NaN.f32): a NaN score keeps the
 // running max, and so the partial's max, NaN, so the merge does not take
@@ -758,35 +799,40 @@ __device__ __forceinline__ float fmax_nan(float a, float b) {
 }
 
 template <int DK, int DV, int G>
-__global__ void __launch_bounds__(kF32Threads, 1)
+__global__ void __launch_bounds__(kF32WarpsOf<DK> * 32, 1)
     paged_mla_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ kp,
                             const int* __restrict__ block_table, const int* __restrict__ seq_lens,
                             float* __restrict__ o, float* __restrict__ part, int H, int KH,
                             int page, int max_pages, int partition, int n_split,
                             float scale_log2) {
-  constexpr int KW = DK / 8 / kF32Warps;  // k-steps of Q K^T of one warp
-  constexpr int DW = DV / kF32Warps;      // output columns of one warp
+  constexpr int NW = kF32WarpsOf<DK>;
+  constexpr int kF32Threads = NW * 32;
+  constexpr int KW = kF32KW;              // k-steps of Q K^T of one warp
+  constexpr int DW = DV / NW;             // output columns of one warp
   constexpr int DT = DW / 8;              // their 8-column tiles
-  static_assert(G <= kM && DK % (8 * kF32Warps) == 0 && kNT % 2 == 0 && DV <= DK &&
-                    DW % 8 == 0 && kF32Warps == 2 * kNT,
+  constexpr int kSumW = 4 * kNT / NW;     // partial scores a thread sums across the warps
+  static_assert(DK == 8 * KW * NW && kNT % 2 == 0 && DV <= DK && DW % 8 == 0 &&
+                    (kSumW == 2 || kSumW == 4),
                 "shape the MLA 3xTF32 kernel does not tile");
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* ring = reinterpret_cast<float*>(smem_raw);  // [kStages][kTile][DK], swizzled
-  float4* Sp = reinterpret_cast<float4*>(ring + kStages * kTile * DK);  // [kF32Warps][kNT][32]
-  float4* Sf = Sp + kF32Warps * kNT * 32;                                // [kNT][32]
+  float4* Sp = reinterpret_cast<float4*>(ring + kStages * kTile * DK);  // [NW][kNT][32]
+  float4* Sf = Sp + NW * kNT * 32;                                       // [kNT][32]
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int grp = lane >> 2;  // fragment row: heads grp and grp + 8
   const int quad = lane & 3;  // fragment column
-  const int kh = blockIdx.x;
+  const int kh = blockIdx.x / kHeadTiles<G>;
+  const int g0 = blockIdx.x % kHeadTiles<G> * kM;  // this block's first head of the group
+  const int GL = min(kM, G - g0);                     // and its live rows of the M tile
   const int b = blockIdx.y;
   const int split = blockIdx.z;
   const int B = gridDim.y;
   const int t_begin = split * partition;
-  const size_t bh0 = size_t(b) * H + size_t(kh) * G;
+  const size_t bh0 = size_t(b) * H + size_t(kh) * G + g0;
   const int* table = block_table + size_t(b) * max_pages;
 
   // What needs no seq_len goes out before it is read, so the first tiles
@@ -794,7 +840,7 @@ __global__ void __launch_bounds__(kF32Threads, 1)
   // table entries of this thread's row of each of the first kStages tiles
   // (clamped to the table; a row past seq_len is never copied) and Q.  Q
   // is invariant over the partition: this warp's KW k-steps of its A
-  // fragments (rows >= G zero), split once, stay in registers.
+  // fragments (rows >= GL zero), split once, stay in registers.
   int pg[kStages];
 #pragma unroll
   for (int i = 0; i < kStages; ++i) {
@@ -809,7 +855,7 @@ __global__ void __launch_bounds__(kF32Threads, 1)
     for (int i = 0; i < 4; ++i) {  // (grp, quad), (grp + 8, quad), (grp, quad + 4), ...
       const int r = grp + 8 * (i & 1);
       const int d = 8 * (kw0 + k) + quad + 4 * (i >> 1);
-      qf[k][i] = r < G ? __float_as_uint(__ldg(q + (bh0 + r) * DK + d)) : 0u;
+      qf[k][i] = r < GL ? __float_as_uint(__ldg(q + (bh0 + r) * DK + d)) : 0u;
     }
 
   const int t_end = min(seq_lens[b], t_begin + partition);
@@ -818,8 +864,8 @@ __global__ void __launch_bounds__(kF32Threads, 1)
   float* part_o = part + 2 * size_t(B) * H * n_split;
   if (t_begin >= t_end) {  // nothing of this sequence in the partition
     if (n_split == 1) {
-      for (int idx = tid; idx < G * DV; idx += kF32Threads) o[bh0 * DV + idx] = 0.f;
-    } else if (tid < G) {
+      for (int idx = tid; idx < GL * DV; idx += kF32Threads) o[bh0 * DV + idx] = 0.f;
+    } else if (tid < GL) {
       part_m[(bh0 + tid) * n_split + split] = -INFINITY;
       part_l[(bh0 + tid) * n_split + split] = 0.f;
     }
@@ -907,19 +953,16 @@ __global__ void __launch_bounds__(kF32Threads, 1)
           make_float4(s_hi[n][0] + s_lo[n][0], s_hi[n][1] + s_lo[n][1], s_hi[n][2] + s_lo[n][2],
                       s_hi[n][3] + s_lo[n][3]);
     __syncthreads();  // (B) every warp's share is written
-    // Warp w sums half w % 2 of token tile w / 2 over the warps' shares,
-    // in warp order, and writes it to the summed scores.
+    // Thread i sums the i-th kSumW-float vector of the scores over the
+    // warps' shares, in warp order, and writes it to the summed scores (a
+    // warp's share is kF32Threads such vectors).
     {
-      const int n = warp >> 1;
-      const float2* src = reinterpret_cast<const float2*>(Sp) + 2 * (n * 32 + lane) + (warp & 1);
-      float2 v = src[0];
+      using Vec = ScoreVec<kSumW>;
+      const auto* src = reinterpret_cast<const typename Vec::type*>(Sp) + tid;
+      auto v = src[0];
 #pragma unroll
-      for (int w = 1; w < kF32Warps; ++w) {
-        const float2 x = src[2 * w * kNT * 32];
-        v.x += x.x;
-        v.y += x.y;
-      }
-      reinterpret_cast<float2*>(Sf)[2 * (n * 32 + lane) + (warp & 1)] = v;
+      for (int w = 1; w < NW; ++w) v = Vec::add(v, src[w * kF32Threads]);
+      reinterpret_cast<typename Vec::type*>(Sf)[tid] = v;
     }
     __syncthreads();  // (C) the scores are summed
 
@@ -1006,7 +1049,7 @@ __global__ void __launch_bounds__(kF32Threads, 1)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int g = grp + 8 * r;
-    if (g >= G) continue;  // a zero row of the M tile
+    if (g >= GL) continue;  // a zero row of the M tile
     const float L = l_run[r];
     const size_t bh = bh0 + g;
     const int col = warp * DW + 2 * quad;
@@ -1045,8 +1088,8 @@ cudaError_t launch_tf32x3(const void* q, const void* kp, const void* bt, const v
   }();
   cudaError_t err = attr_err;
   if (err != cudaSuccess) return err;
-  const dim3 grid(KH, B, n_split);
-  kern<<<grid, kF32Threads, smem, stream>>>(
+  const dim3 grid(KH * kHeadTiles<G>, B, n_split);
+  kern<<<grid, kF32WarpsOf<DK> * 32, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(kp), static_cast<const int*>(bt),
       static_cast<const int*>(sl), static_cast<float*>(o), static_cast<float*>(part), H, KH, page,
       max_pages, partition, n_split, scale * 1.4426950408889634f);
@@ -1058,32 +1101,34 @@ cudaError_t launch_tf32x3(const void* q, const void* kp, const void* bt, const v
 }
 
 // bf16 runs the bf16 tensor-core kernel, f32 the 3xTF32 one.
-template <typename T, int G>
+template <typename T, int DK, int DV, int G>
 cudaError_t launch_typed(const void* q, const void* kp, const void* bt, const void* sl, void* o,
                          void* part, int B, int H, int KH, int page, int max_pages,
                          int partition, int n_split, float scale, cudaStream_t st) {
   if constexpr (std::is_same<T, bf16>::value)
-    return launch_mma<576, 512, G>(q, kp, bt, sl, o, part, B, H, KH, page, max_pages, partition,
-                                   n_split, scale, st);
+    return launch_mma<DK, DV, G>(q, kp, bt, sl, o, part, B, H, KH, page, max_pages, partition,
+                                 n_split, scale, st);
   else
-    return launch_tf32x3<576, 512, G>(q, kp, bt, sl, o, part, B, H, KH, page, max_pages,
-                                      partition, n_split, scale, st);
+    return launch_tf32x3<DK, DV, G>(q, kp, bt, sl, o, part, B, H, KH, page, max_pages,
+                                    partition, n_split, scale, st);
 }
 
+// The instances: deepseek-v2-lite's (576, 512) at G = 16 (and 4, in the
+// tests), minicpm3-4b's (288, 256) at G = 40.
 template <typename T>
-cudaError_t launch_group(int G, const void* q, const void* kp, const void* bt, const void* sl,
-                         void* o, void* part, int B, int H, int KH, int page, int max_pages,
-                         int partition, int n_split, float scale, cudaStream_t st) {
-  switch (G) {
-    case 4:
-      return launch_typed<T, 4>(q, kp, bt, sl, o, part, B, H, KH, page, max_pages, partition,
-                                n_split, scale, st);
-    case 16:
-      return launch_typed<T, 16>(q, kp, bt, sl, o, part, B, H, KH, page, max_pages, partition,
-                                 n_split, scale, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+cudaError_t launch_group(int hd, int hd_v, int G, const void* q, const void* kp, const void* bt,
+                         const void* sl, void* o, void* part, int B, int H, int KH, int page,
+                         int max_pages, int partition, int n_split, float scale,
+                         cudaStream_t st) {
+#define REPRO_MLA_CASE(DK, DV, GG)                                                            \
+  if (hd == DK && hd_v == DV && G == GG)                                                      \
+    return launch_typed<T, DK, DV, GG>(q, kp, bt, sl, o, part, B, H, KH, page, max_pages,     \
+                                       partition, n_split, scale, st);
+  REPRO_MLA_CASE(576, 512, 16)
+  REPRO_MLA_CASE(576, 512, 4)
+  REPRO_MLA_CASE(288, 256, 40)
+#undef REPRO_MLA_CASE
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace mla
@@ -1095,8 +1140,8 @@ REPRO_EXPORT_ERROR_STRING
 // may be null, when n_split == 1); n_split partitions of `partition` tokens
 // must cover the table's max_pages * page.  v_pages' rows are v_tok_stride
 // elements apart: KH * hd for pages of their own (hd_v == hd), or, for MLA
-// (hd 576, hd_v 512), v_pages is k_pages itself (the values are the first
-// hd_v columns of the key rows).  Returns the CUDA error code of the first
+// (hd, hd_v of 576, 512 or 288, 256), v_pages is k_pages itself (the values
+// are the first hd_v columns of the key rows).  Returns the CUDA error code of the first
 // launch that failed (0 on success).
 extern "C" int paged_attention_fwd(const void* q, const void* k_pages, const void* v_pages,
                                    const void* block_table, const void* seq_lens, void* o,
@@ -1110,15 +1155,16 @@ extern "C" int paged_attention_fwd(const void* q, const void* k_pages, const voi
     return int(cudaErrorInvalidValue);
   const int G = H / KH;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd == 576 && hd_v == 512) {
+  if (hd_v < hd) {  // MLA: the values are the first hd_v columns of the key rows
     if (v_pages != k_pages || v_tok_stride != KH * hd) return int(cudaErrorInvalidValue);
     if (dtype == repro::kF32)
-      return int(mla::launch_group<float>(G, q, k_pages, block_table, seq_lens, o, partials, B,
-                                          H, KH, page, max_pages, partition, n_split, scale, st));
+      return int(mla::launch_group<float>(hd, hd_v, G, q, k_pages, block_table, seq_lens, o,
+                                          partials, B, H, KH, page, max_pages, partition,
+                                          n_split, scale, st));
     if (dtype == repro::kBF16)
-      return int(mla::launch_group<__nv_bfloat16>(G, q, k_pages, block_table, seq_lens, o,
-                                                  partials, B, H, KH, page, max_pages, partition,
-                                                  n_split, scale, st));
+      return int(mla::launch_group<__nv_bfloat16>(hd, hd_v, G, q, k_pages, block_table,
+                                                  seq_lens, o, partials, B, H, KH, page,
+                                                  max_pages, partition, n_split, scale, st));
     return int(cudaErrorInvalidValue);
   }
   if (hd_v != hd || v_tok_stride != KH * hd) return int(cudaErrorInvalidValue);

@@ -6,8 +6,9 @@ through the plain version (``ref.py``); tensors on a GPU launch
 ``csrc/flash_attention.cu`` or raise.  Chunked prefill passes a slot's whole
 cache as k/v with a query offset and a count of visible keys, so the chunk
 attends to the resident prefix without a slice or a copy.  Keys and values
-may differ in width: MLA prefill (deepseek-v2-lite) passes queries and keys
-of hd + rd = 192 and values of 128.
+may differ in width: MLA prefill and chunks pass queries and keys of hd +
+rd and values of vd (deepseek-v2-lite: 192 and 128; minicpm3-4b: 96 and
+64).
 
 bf16 runs ``flash_fwd_mma_kernel`` (bf16 tensor-core products, P rounded to
 bf16); f32 runs ``flash_fwd_tf32x3_kernel``, whose every product is three
@@ -26,10 +27,12 @@ from .._build import DTYPE_CODES, CudaKernel
 from .ref import flash_attention_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-HEAD_DIMS = ((64, 64), (128, 128), (192, 128))   # (q/k width, v width)
+# (q/k width, v width); (192, 128) and (96, 64) are MLA in MHA form
+# (deepseek-v2-lite, minicpm3-4b)
+HEAD_DIMS = ((64, 64), (128, 128), (192, 128), (96, 64))
 # Keys a KV tile of the f32 kernel, by q/k width (csrc/flash_attention.cu,
 # tf32x3::kKvTile): 16 at 192 so that two blocks fit an SM.
-F32_KV_TILE = {64: 32, 128: 32, 192: 16}
+F32_KV_TILE = {64: 32, 96: 32, 128: 32, 192: 16}
 
 
 class FlashKernel(CudaKernel):

@@ -7,10 +7,11 @@ softmax states (``ref.py::paged_attention_split_ref`` / ``merge_partials_ref``
 spell out the arithmetic); one wrapper call is one counted launch, the merge
 pass included.
 
-Absorbed MLA decode (deepseek-v2-lite) passes keys of ``MLA_DIMS[0]`` (the
-latent ‖ rope row) and, as values, the view ``k_pages[..., :MLA_DIMS[1]]``
-of the same rows: the kernel reads each row once for keys and values, and
-splits sequences into ``MLA_PARTITION``-token partitions.  Both types run
+Absorbed MLA decode passes keys of the latent ‖ rope row and, as values,
+the view ``k_pages[..., :r]`` of the same rows, at one of the widths of
+``MLA_SHAPES`` (deepseek-v2-lite's ``MLA_DIMS``, minicpm3-4b's (288,
+256)): the kernel reads each row once for keys and values, and splits
+sequences into ``MLA_PARTITION``-token partitions.  Both types run
 on the tensor cores: bf16 rounds P to bf16 before P·V, f32 takes each
 product as three TF32 products of split operands, and
 ``ref.py::paged_mla_tiled_ref`` rounds as either does.
@@ -31,8 +32,11 @@ KERNEL = CudaKernel("paged_attention", "paged_attention_fwd",
                      _I, _I, _I, _I, ctypes.c_float, _P])
 HEAD_DIMS = (64, 128)     # keys and values of one width, pages of their own
 GROUPS = (1, 2, 4, 8)
-MLA_DIMS = (576, 512)     # (key, value) widths of absorbed MLA decode
-MLA_GROUPS = (4, 16)
+# (key, value) widths of absorbed MLA decode and the query heads a KV head
+# each takes: deepseek-v2-lite (latent 512 ‖ rope 64, 16 heads; 4 in the
+# tests) and minicpm3-4b (latent 256 ‖ rope 32, 40 heads)
+MLA_SHAPES = {(576, 512): (4, 16), (288, 256): (40,)}
+MLA_DIMS = (576, 512)     # deepseek-v2-lite's
 PARTITION = 256   # tokens per split; the kernel takes it as an argument
 MLA_PARTITION = 128   # faster on the card than 64 (chip_smoke.py times both)
 
@@ -59,7 +63,7 @@ def paged_attention(q, k_pages, v_pages, block_table, seq_lens, *,
     """q (B,H,hd); k_pages (P,page,K,hd), v_pages (P,page,K,hd_v);
     block_table (B,max_pages) i32; seq_lens (B,) i32 → (B,H,hd_v).  The
     kernel takes hd_v = hd in ``HEAD_DIMS`` with contiguous pages, or
-    (hd, hd_v) = ``MLA_DIMS`` with ``v_pages = k_pages[..., :hd_v]``.
+    (hd, hd_v) in ``MLA_SHAPES`` with ``v_pages = k_pages[..., :hd_v]``.
 
     Sequence b attends to its first ``seq_lens[b]`` tokens, token t living in
     row ``t % page`` of page ``block_table[b, t // page]``.  The kernel
@@ -77,7 +81,7 @@ def paged_attention(q, k_pages, v_pages, block_table, seq_lens, *,
     hd_v = v_pages.shape[3]
     max_pages = block_table.shape[1]
     scale = hd ** -0.5 if scale is None else scale
-    partition = MLA_PARTITION if (hd, hd_v) == MLA_DIMS else PARTITION
+    partition = MLA_PARTITION if (hd, hd_v) in MLA_SHAPES else PARTITION
     n_split = _splits(max_pages, page, partition)
     out = torch.empty((B, H, hd_v), dtype=q.dtype, device=q.device)
     # per (sequence, query head, partition): max, sum, unnormalised output
@@ -108,8 +112,8 @@ def _check(q, k_pages, v_pages, block_table, seq_lens) -> None:
     B, H, hd = q.shape
     K = k_pages.shape[2]
     hd_v = v_pages.shape[3]
-    mla = (hd, hd_v) == MLA_DIMS
-    groups = MLA_GROUPS if mla else GROUPS
+    mla = (hd, hd_v) in MLA_SHAPES
+    groups = MLA_SHAPES[hd, hd_v] if mla else GROUPS
     if k_pages.shape[3] != hd or H % K or H // K not in groups:
         raise ValueError(f"q {tuple(q.shape)} and pages "
                          f"{tuple(k_pages.shape)} do not match, or H/K not "
@@ -122,7 +126,7 @@ def _check(q, k_pages, v_pages, block_table, seq_lens) -> None:
     elif hd_v != hd or hd not in HEAD_DIMS:
         raise ValueError(f"head dims ({hd}, {hd_v}) not supported (have "
                          f"{HEAD_DIMS} for keys and values alike, and "
-                         f"{MLA_DIMS})")
+                         f"{tuple(MLA_SHAPES)})")
     if (block_table.dim() != 2 or block_table.shape[0] != B
             or tuple(seq_lens.shape) != (B,)):
         raise ValueError(f"expected block_table (B,max_pages) and seq_lens "

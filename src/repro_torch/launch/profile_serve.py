@@ -1,16 +1,17 @@
 """Where the time of the full-width card run goes.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
-        [--arch llama2-13b|mamba2-370m|deepseek-v2-lite-16b] [--prefix] \\
-        [--trace out.json]
+        [--arch llama2-13b|mamba2-370m|deepseek-v2-lite-16b|minicpm3-4b] \\
+        [--prefix] [--trace out.json]
 
 Serves the ``chip_smoke.py`` workload (``card_requests``; the architecture
 at full width and depth, random bf16 weights, EWSJF, its card engine
 config) three times on the GPU: once to warm up (cuBLAS handles,
 first-call allocations), once timed without the profiler, once under
-``torch.profiler``.  ``--prefix`` serves llama2-13b's chunked-prefill +
-radix-reuse run instead (``card_prefix_requests`` under
-``card_prefix_engine_config``).  Prints both runs' engine wall times, the
+``torch.profiler``.  ``--prefix`` serves the architecture's chunked-prefill
++ radix-reuse run instead (``card_prefix_requests`` under
+``card_prefix_engine_config``; any architecture whose stack runs chunked
+decode: llama2-13b, deepseek-v2-lite-16b, minicpm3-4b).  Prints both runs' engine wall times, the
 device time per kernel class (flash attention, paged attention, SSD chunk,
 matrix products, MoE dispatch — the router's top-k, the position cumsum,
 the scatter into and gather from the expert buffers —, host-device copies,
@@ -33,7 +34,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 from ..configs import get_config
 from ..core import EWSJFConfig, EWSJFScheduler
-from ..models import DtypePolicy, init_params
+from ..models import DtypePolicy, init_params, supports_chunked_decode
 from ..models.common import resolve_device
 from ..serving import ServingEngine
 from .serve import (CARD_ENGINE_CONFIGS, card_prefix_engine_config,
@@ -77,15 +78,16 @@ def main() -> None:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--prefix", action="store_true",
-                    help="llama2-13b in chunked-prefill + radix-reuse mode "
-                         "over shared-prefix traffic")
+                    help="chunked-prefill + radix-reuse mode over "
+                         "shared-prefix traffic")
     ap.add_argument("--trace", default=None,
                     help="write a chrome trace of the profiled run here")
     args = ap.parse_args()
-    if args.prefix and args.arch != "llama2-13b":
-        ap.error("--prefix runs llama2-13b only")
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
+    if args.prefix and not supports_chunked_decode(cfg):
+        ap.error(f"--prefix needs a stack that runs chunked decode; "
+                 f"{args.arch} does not")
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     params = init_params(cfg, gen, device=dev, dtype=torch.bfloat16)

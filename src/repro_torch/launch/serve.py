@@ -4,12 +4,16 @@ admission scheduler over the paper's mixed workload.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
         --full --device cuda
 
-(or ``--arch llama2-13b``, ``--arch deepseek-v2-lite-16b``)
+(or ``--arch llama2-13b``, ``--arch deepseek-v2-lite-16b``, ``--arch
+minicpm3-4b``)
 
 ``--full`` builds the architecture's published config (random bf16 weights
 from ``--seed``) and serves the card workload (``card_requests``) with the
 architecture's card engine config; without it the smoke config serves the
-paper's mixed workload in f32.
+paper's mixed workload in f32.  ``--prefix`` (with ``--full``) serves the
+shared-prefix traffic (``card_prefix_requests``) in chunked-prefill +
+radix-reuse mode (``card_prefix_engine_config``), for any architecture
+whose stack runs chunked decode.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ import torch
 from ..configs import get_config, get_smoke_config
 from ..core import (EWSJFConfig, EWSJFScheduler, FCFSScheduler,
                     Request, SJFScheduler)
-from ..models import DtypePolicy, init_params
+from ..models import DtypePolicy, init_params, supports_chunked_decode
 from ..models.common import resolve_device
 from ..serving import EngineConfig, ServingEngine
 
@@ -87,8 +91,8 @@ def ssm_card_engine_config() -> EngineConfig:
 
 def card_prefix_engine_config() -> EngineConfig:
     """``card_engine_config`` with chunked prefill (512-token chunks) and
-    engine-side radix prefix reuse: the full-width llama2-13b run of the
-    chunked and radix paths."""
+    engine-side radix prefix reuse: the full-width run of the chunked and
+    radix paths (llama2-13b, deepseek-v2-lite-16b)."""
     ecfg = card_engine_config()
     ecfg.chunk_prefill_tokens = 512
     ecfg.enable_prefix_cache = True
@@ -116,10 +120,12 @@ def card_prefix_requests(n: int = 24, seed: int = 0, vocab: int = 32000,
 # deepseek-v2-lite-16b serves at llama2-13b's sizing with the MoE
 # ``dropping`` path (the engine's default): at 8 slots a decode step routes
 # 8 tokens, each to 6 distinct experts, against a capacity of 8 an expert,
-# so decode never drops a token.
+# so decode never drops a token.  minicpm3-4b (MLA, dense MLPs, 9.1 GB of
+# bf16 weights at its 62 layers) takes the same sizing.
 CARD_ENGINE_CONFIGS = {"llama2-13b": card_engine_config,
                        "mamba2-370m": ssm_card_engine_config,
-                       "deepseek-v2-lite-16b": card_engine_config}
+                       "deepseek-v2-lite-16b": card_engine_config,
+                       "minicpm3-4b": card_engine_config}
 
 
 def main() -> None:
@@ -135,17 +141,29 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--full", action="store_true",
                     help="published config in bf16 instead of the smoke one")
+    ap.add_argument("--prefix", action="store_true",
+                    help="with --full: shared-prefix traffic in chunked-"
+                         "prefill + radix-reuse mode")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
+    if args.prefix and not args.full:
+        ap.error("--prefix needs --full")
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch) if args.full else get_smoke_config(args.arch)
+    if args.prefix and not supports_chunked_decode(cfg):
+        ap.error(f"--prefix needs a stack that runs chunked decode; "
+                 f"{args.arch} does not")
     dtype = torch.bfloat16 if args.full else torch.float32
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     params = init_params(cfg, gen, device=dev, dtype=dtype)
     sched = make_scheduler(args.scheduler)
-    if args.full:
+    if args.prefix:
+        ecfg = card_prefix_engine_config()
+        reqs = card_prefix_requests(args.requests or 24, args.seed,
+                                    vocab=cfg.vocab_size)
+    elif args.full:
         ecfg = CARD_ENGINE_CONFIGS.get(args.arch, card_engine_config)()
         reqs = card_requests(args.requests or 24, args.seed)
     else:

@@ -8,18 +8,19 @@ wrapper; on CPU tensors both run their plain PyTorch versions.  Shapes: x
 (B, S, d).  A GQA layer's decode cache is ``{"k", "v"}`` of (B, S_max, K,
 hd); an MLA layer's is ``{"ckv"}`` of (B, S_max, 1, r + rd), each row the
 compressed latent followed by the rotated rope key.  :func:`gqa_decode`,
-:func:`mla_decode` and :func:`gqa_chunk_decode` update the cache **in
-place** (the JAX package returns new caches and keeps MLA's two parts as
-``{"latent", "k_rope"}``; ``bridge`` converts).
+:func:`mla_decode`, :func:`gqa_chunk_decode` and :func:`mla_chunk_decode`
+update the cache **in place** (the JAX package returns new caches and keeps
+MLA's two parts as ``{"latent", "k_rope"}``; ``bridge`` converts).
 
-MLA prefill folds into MHA form (queries and keys of hd + rd, values of
-vd) for the flash kernel; MLA decode is absorbed: the query is projected
-through W_uk and attends over the latent cache as one KV head of r + rd
-keys whose values are the first r columns of the same rows, through the
-paged kernel.
+MLA prefill and chunked prefill fold into MHA form (queries and keys of hd
++ rd, values of vd) for the flash kernel, a chunk's keys and values
+decompressed from the resident latent rows; MLA decode is absorbed: the
+query is projected through W_uk and attends over the latent cache as one
+KV head of r + rd keys whose values are the first r columns of the same
+rows, through the paged kernel.
 
-Not ported yet, and raising ``NotImplementedError``: MLA chunked prefill
-and the sliding-window ring cache (h2o-danube, gemma3 local layers).
+Not ported yet, and raising ``NotImplementedError``: the sliding-window
+ring cache (h2o-danube, gemma3 local layers).
 """
 
 from __future__ import annotations
@@ -38,9 +39,6 @@ DECODE_PAGE = 16   # tokens per page when a slot cache is viewed as a page pool
 
 MLA_CACHE = "ckv"   # an MLA layer's decode cache entry: latent ‖ k_rope
 
-_MLA_CHUNK_LATER = ("MLA chunked prefill is not ported yet; it comes with the "
-                    "next slice (MLA chunked prefill and radix reuse, "
-                    "ROADMAP.md section 1)")
 _RING_LATER = ("sliding-window (ring-cache) decode is not ported yet; it comes "
                "with the later step that brings ring/SWA and RG-LRU")
 
@@ -285,10 +283,54 @@ def mla_decode(params, x, cache: dict, cache_pos, cfg: ModelConfig,
 
 def mla_chunk_decode(params, x, cache: dict, pos0, cfg: ModelConfig,
                      *, window: int = 0, impl: str | None = None):
-    """Chunked absorbed-MLA decode (the JAX package's ``mla_chunk_decode``):
-    not ported yet.  It needs flash with a query offset at one KV head of
-    r + rd keys over the latent cache; it raises ``NotImplementedError``."""
-    raise NotImplementedError(_MLA_CHUNK_LATER)
+    """One contiguous C-token span of MLA against a resident latent cache
+    (the JAX package's ``mla_chunk_decode``; contract of
+    :func:`gqa_chunk_decode`): x (B,C,d) at positions ``pos0 .. pos0+C-1``;
+    cache ``{"ckv"}`` (B,S_max,1,r+rd).
+
+    Writes the span's latent ‖ rope-key rows into ``cache`` **in place** at
+    ``pos0``, then attends in MHA form, as :func:`mla_forward` does: the
+    first ``pos0 + C`` latent rows are decompressed through W_uk and W_uv
+    into keys ``[nope ‖ rope]`` of hd + rd and values of vd, and the flash
+    kernel runs the chunk's queries at ``q_offset=pos0`` over them.  JAX
+    scores the absorbed query against the latent rows instead; the two are
+    the same sums in another order.  Decompressing costs 2·T·r·H·(hd + vd)
+    FLOPs for T = pos0 + C rows, about as long on the card as the flash
+    call (``chip_smoke.py::phase_mla_chunk_cost``).  Returns (y (B,C,d),
+    cache)."""
+    if window and window > 0:
+        raise NotImplementedError(_RING_LATER)
+    B, C, _ = x.shape
+    H, hd = cfg.n_heads, cfg.head_dim
+    r, rd, vd = cfg.kv_lora_rank, cfg.rope_head_dim, cfg.v_head_dim
+    pos0 = int(pos0)
+    ckv = cache[MLA_CACHE]
+    if pos0 < 0 or pos0 + C > ckv.shape[1]:
+        raise ValueError(f"chunk of {C} at position {pos0} does not fit a "
+                         f"cache of {ckv.shape[1]} positions")
+    positions = torch.arange(pos0, pos0 + C, dtype=torch.int32,
+                             device=x.device)[None].expand(B, C)
+    q = (x @ params["wq"]).reshape(B, C, H, hd + rd)
+    q_rope = apply_rope(q[..., hd:], positions, cfg.rope_theta)
+    c_new = rms_norm(x @ params["w_dkv"], params["kv_norm"], cfg.norm_eps)
+    k_rope_new = apply_rope((x @ params["w_krope"]).reshape(B, C, 1, rd),
+                            positions, cfg.rope_theta)
+    ckv[:, pos0:pos0 + C, 0] = torch.cat([c_new, k_rope_new[:, :, 0]],
+                                         dim=-1).to(ckv.dtype)
+    T = pos0 + C
+    rows = ckv[:, :T, 0].to(x.dtype)                   # (B, T, r + rd)
+    latent = rows[..., :r]
+    k_nope = (latent @ params["w_uk"]).reshape(B, T, H, hd)
+    v = (latent @ params["w_uv"]).reshape(B, T, H, vd)
+    k_full = torch.cat([k_nope, rows[:, :, None, r:].expand(B, T, H, rd)],
+                       dim=-1)
+    q_full = torch.cat([q[..., :hd], q_rope], dim=-1)
+    out = flash_attention(*(t.to(ckv.dtype).contiguous()
+                            for t in (q_full, k_full, v)),
+                          causal=True, q_offset=pos0, kv_len=T,
+                          scale=_mla_scale(cfg), impl=impl)
+    y = out.to(x.dtype).reshape(B, C, H * vd) @ params["wo"]
+    return y, cache
 
 
 def window_for(cfg: ModelConfig, kind: str) -> int:
@@ -326,8 +368,7 @@ def attn_decode(params, x, cache, cache_pos, cfg: ModelConfig, kind: str,
 
 def attn_chunk_decode(params, x, cache, pos0, cfg: ModelConfig, kind: str,
                       impl: str | None = None):
-    """Chunked-prefill attention of a layer of kind ``kind``.  MLA raises
-    ``NotImplementedError`` (the next slice)."""
+    """Chunked-prefill attention of a layer of kind ``kind``."""
     if cfg.use_mla:
         return mla_chunk_decode(params, x, cache, pos0, cfg,
                                 window=window_for(cfg, kind), impl=impl)

@@ -15,8 +15,8 @@ carries an MoE MLP (``models/moe.py``), run by ``moe_impl`` (``dense`` or
 Attention kinds without a ring cache (GQA and MLA), MoE MLPs and the SSM
 kind are ported: RG-LRU and sliding-window layers raise
 ``NotImplementedError``.  Chunked decode (:func:`stack_chunk`) runs on
-stacks of attention layers (:func:`supports_chunked_decode`); an MLA
-layer raises ``NotImplementedError`` there until the next slice.
+stacks of attention layers, GQA or MLA (:func:`supports_chunked_decode`),
+each chunk's MoE MLP by ``moe_impl`` as in a prefill.
 """
 
 from __future__ import annotations

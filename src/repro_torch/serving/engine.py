@@ -41,12 +41,14 @@ Two opt-in features follow the JAX engine (``docs/ENGINE.md``):
   into the slot, and prefill only the uncached suffix at its offset
   through the same chunked path.  The cached KV lives on the **host**, as
   in the JAX engine (export and import hand host blocks between engines):
-  one pinned tensor per layer for each run of blocks published together.
+  for each run of blocks published together, one pinned tensor per layer
+  that holds a slab of rows for each of the layer's sequence-axis cache
+  entries (GQA's ``"k"`` and ``"v"``, MLA's latent ``"ckv"``), as the JAX
+  engine's tree-map takes whatever its cache holds.
 
 Both raise ``ValueError`` for a family ``supports_chunked_decode`` rejects
-(the SSM family), as the JAX engine does, and ``NotImplementedError`` for
-an MLA config (deepseek-v2-lite), whose chunked prefill and latent host KV
-store come with the next slice of the port.  Both off ⇒ the bucketed path.
+(the SSM family), as the JAX engine does; GQA and MLA stacks run both.
+Both off ⇒ the bucketed path.
 An MoE config runs its experts by ``EngineConfig.moe_impl`` (``dropping``,
 as in the JAX engine, or ``dense``) in every prefill and decode step.
 
@@ -170,11 +172,6 @@ class ServingEngine:
             raise ValueError(
                 f"chunked prefill / prefix cache unsupported for family "
                 f"{cfg.family!r} (ring/recurrent/encoder-only stacks)")
-        if self._chunked and cfg.use_mla:
-            raise NotImplementedError(
-                "chunked prefill / prefix cache for MLA configs is not "
-                "ported yet; it comes with the next slice (MLA chunked "
-                "prefill and radix reuse, ROADMAP.md section 1)")
         self._chunk_budget = (self.e.chunk_prefill_tokens
                               or self.e.max_prefill_tokens)
         self.policy = policy or DtypePolicy(torch.float32, torch.float32,
@@ -185,10 +182,11 @@ class ServingEngine:
                               self.e.block_size)
         self.slots = SlotAllocator(self.e.max_slots)
         self.radix: Optional[RadixPrefixIndex] = None
-        # radix node_id -> (run, i): block i of a run of blocks published
-        # together, whose KV is one host tensor per layer of shape
-        # (2, n·block_size, K, hd), K rows then V rows.  A run's host memory
-        # is released when its last node leaves the tree.
+        # radix node_id -> (run, i): block i of a run of n blocks published
+        # together; a run is, per layer, a dict of (n·block_size, ...) host
+        # slabs, one per sequence-axis cache entry, all views of one pinned
+        # tensor.  A run's host memory is released when its last node
+        # leaves the tree.
         self._node_kv: dict[int, tuple] = {}
         self._new_radix()
         self._prefilling: dict[int, _PrefillState] = {}  # admission order
@@ -486,9 +484,11 @@ class ServingEngine:
         longest locally cached prefix of ``hashes``, root first, capped at
         ``want`` blocks and cut at the first block whose KV is not
         host-resident (so the shipped set is a closed prefix an importer can
-        attach).  Each block is a per-layer list of ``{"k", "v"}`` host
-        tensors of (block_size, K, hd); ``bridge.caches_to_numpy`` gives the
-        JAX engine's layout."""
+        attach).  Each block is a per-layer list of host tensors of the
+        layer's sequence-axis cache entries, block_size rows each (``{"k",
+        "v"}`` of (block_size, K, hd), or MLA's ``{"ckv"}`` of (block_size,
+        1, r + rd)); ``bridge.caches_to_numpy`` gives the JAX engine's
+        layout."""
         if self.radix is None or not hashes or want <= 0:
             return []
         m = self.radix.match(hashes[:want], self.now())
@@ -502,8 +502,8 @@ class ServingEngine:
     def import_prefix_blocks(self, hashes, blocks_kv: list) -> int:
         """Destination side of a host-KV handoff: insert the chain into the
         local radix (allocating real pool blocks — the pool stays the single
-        accountant) and attach the shipped host KV (per-layer lists of
-        ``{"k", "v"}`` of (block_size, K, hd); ``bridge.caches_from_jax``
+        accountant) and attach the shipped host KV (per-layer lists in the
+        layout :meth:`export_prefix_blocks` gives; ``bridge.caches_from_jax``
         converts the JAX engine's) to the newly resident nodes.  Pool
         pressure may stop the insert early; only blocks that landed count.
         Returns blocks landed."""
@@ -517,9 +517,9 @@ class ServingEngine:
         for run in _runs(missing):
             host = self._new_run(len(run))
             for j, i in enumerate(run):
-                for buf, layer in zip(host, blocks_kv[i]):
-                    buf[0, j * bs:(j + 1) * bs].copy_(layer["k"])
-                    buf[1, j * bs:(j + 1) * bs].copy_(layer["v"])
+                for slabs, layer in zip(host, blocks_kv[i]):
+                    for name, slab in slabs.items():
+                        slab[j * bs:(j + 1) * bs].copy_(layer[name])
                 self._node_kv[path[i].node_id] = (host, j)
         return len(path)
 
@@ -681,12 +681,23 @@ class ServingEngine:
     # ---- host KV store (prefix-cache mode) ----------------------------------
 
     def _new_run(self, n: int) -> list:
-        """Host buffers for ``n`` blocks, pinned on a GPU engine: one
-        (2, n·block_size, K, hd) tensor per layer in the cache dtype."""
-        return [torch.empty((2, n * self.e.block_size) + tuple(c["k"].shape[2:]),
-                            dtype=c["k"].dtype,
-                            pin_memory=self.device.type == "cuda")
-                for c in self.caches]
+        """Host buffers for ``n`` blocks, pinned on a GPU engine: per layer,
+        one tensor in the cache dtype cut into an (n·block_size, ...) slab
+        for each sequence-axis cache entry (GQA: ``"k"`` then ``"v"``; MLA:
+        ``"ckv"``).  Returns the per-layer dicts of slabs."""
+        rows = n * self.e.block_size
+        run = []
+        for c in self.caches:
+            entries = {name: t for name, t in c.items()
+                       if name in SEQ_CACHE_ENTRIES}
+            sizes = [rows * t[0, 0].numel() for t in entries.values()]
+            dtype = next(iter(entries.values())).dtype
+            flat = torch.empty(sum(sizes), dtype=dtype,
+                               pin_memory=self.device.type == "cuda")
+            run.append({name: part.view((rows,) + tuple(t.shape[2:]))
+                        for (name, t), part in zip(entries.items(),
+                                                   flat.split(sizes))})
+        return run
 
     def _sync(self) -> None:
         """Wait for the device's queued work, so that a host-timed copy
@@ -695,15 +706,19 @@ class ServingEngine:
             torch.cuda.current_stream(self.device).synchronize()
 
     def _block_bytes(self) -> int:
+        """Host bytes of one block: block_size rows of every sequence-axis
+        cache entry of every layer (GQA 2·K·hd, MLA r + rd elements a row)."""
         bs = self.e.block_size
-        return sum(2 * bs * c["k"][0, 0].numel() * c["k"].element_size()
-                   for c in self.caches)
+        return sum(bs * t[0, 0].numel() * t.element_size()
+                   for c in self.caches for name, t in c.items()
+                   if name in SEQ_CACHE_ENTRIES)
 
     def _publish_blocks(self, slot: int, path: list) -> None:
         """Copy the slot's rows of every block on ``path`` whose KV is not
         host-resident yet into the host store (device to host, one copy per
-        layer and tensor for each run of consecutive blocks).  Allocating
-        (pinning) the host buffers and copying are timed apart."""
+        layer and cache entry for each run of consecutive blocks).
+        Allocating (pinning) the host buffers and copying are timed
+        apart."""
         missing = [i for i, nd in enumerate(path)
                    if nd.node_id not in self._node_kv]
         if not missing:
@@ -715,9 +730,9 @@ class ServingEngine:
             host = self._new_run(len(run))
             t1 = time.monotonic()
             lo, hi = run[0] * bs, (run[-1] + 1) * bs
-            for buf, c in zip(host, self.caches):
-                buf[0].copy_(c["k"][slot, lo:hi])
-                buf[1].copy_(c["v"][slot, lo:hi])
+            for slabs, c in zip(host, self.caches):
+                for name, slab in slabs.items():
+                    slab.copy_(c[name][slot, lo:hi])
             for j, i in enumerate(run):
                 self._node_kv[path[i].node_id] = (host, j)
             self.radix_copies["host_alloc_s"] += t1 - t0
@@ -728,8 +743,9 @@ class ServingEngine:
     def _write_blocks(self, slot: int, path: list) -> None:
         """Copy the host KV of the blocks on ``path`` into the slot's first
         ``len(path)`` blocks — the radix attach: cached prefix blocks land
-        without recompute (host to device, one copy per layer and tensor
-        for each stretch of blocks that are consecutive in one run)."""
+        without recompute (host to device, one copy per layer and cache
+        entry for each stretch of blocks that are consecutive in one
+        run)."""
         bs = self.e.block_size
         groups: list = []                # [host, first j, first i, n]
         for i, nd in enumerate(path):
@@ -740,19 +756,18 @@ class ServingEngine:
             else:
                 groups.append([host, j, i, 1])
         for host, j, i, n in groups:
-            for buf, c in zip(host, self.caches):
-                c["k"][slot, i * bs:(i + n) * bs].copy_(
-                    buf[0, j * bs:(j + n) * bs])
-                c["v"][slot, i * bs:(i + n) * bs].copy_(
-                    buf[1, j * bs:(j + n) * bs])
+            for slabs, c in zip(host, self.caches):
+                for name, slab in slabs.items():
+                    c[name][slot, i * bs:(i + n) * bs].copy_(
+                        slab[j * bs:(j + n) * bs])
 
     def _block_kv(self, node_id: int) -> list:
-        """A host-resident block as the port's per-layer list of ``{"k",
-        "v"}`` tensors of (block_size, K, hd) (views of its run)."""
+        """A host-resident block as the port's per-layer list of dicts of
+        its cache entries' block_size rows (views of its run)."""
         host, j = self._node_kv[node_id]
         bs = self.e.block_size
-        return [{"k": buf[0, j * bs:(j + 1) * bs],
-                 "v": buf[1, j * bs:(j + 1) * bs]} for buf in host]
+        return [{name: slab[j * bs:(j + 1) * bs]
+                 for name, slab in slabs.items()} for slabs in host]
 
     # ---- chunked admission + prefill ------------------------------------------
 

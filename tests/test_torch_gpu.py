@@ -6,6 +6,8 @@ skips where no CUDA device is visible.  On the card:
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -357,6 +359,10 @@ def _device_kernels(fn) -> set:
     """Names of the device kernels one call of ``fn`` ran, by the
     profiler (namespace, template arguments and parameters dropped)."""
     from torch.profiler import ProfilerActivity, profile
+    # Keep CUPTI initialized from one session to the next: with its
+    # teardown after each session, some later sessions recorded no device
+    # event at all (chip_smoke.py::launched_kernels does the same).
+    os.environ["TEARDOWN_CUPTI"] = "0"
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -920,6 +926,238 @@ def test_mla_moe_engine_kernel_path_matches_cpu_run(cuda):
                         arrival_time=0.0,
                         max_new_tokens=int(rng.integers(2, 8)),
                         request_id=60_000 + i) for i in range(8)]
+        eng = ServingEngine(cfg, params.to(dev), FCFSScheduler(),
+                            EngineConfig(max_slots=4, s_max=256,
+                                         kv_pool_tokens=2048,
+                                         buckets=(32, 64, 128)),
+                            policy=pol, device=dev)
+        flash0, paged0 = flash_ops.KERNEL.launches, paged_ops.KERNEL.launches
+        assert len(eng.run(reqs)) == len(reqs)
+        if dev == cuda:
+            assert flash_ops.KERNEL.launches > flash0
+            assert paged_ops.KERNEL.launches > paged0
+        outs[str(dev)] = eng.output_tokens
+    assert outs["cpu"] == outs["cuda"]
+
+
+# ---- MLA chunked prefill, and minicpm3-4b's widths --------------------------
+
+CPM_SCALE = 96 ** -0.5         # (hd + rd)^-0.5 of minicpm3-4b
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,q_offset,T", [
+    (2, 200, 40, 0, 200),        # minicpm3 prefill in MHA form, ragged S
+    (1, 1, 40, 0, 1),            # one token
+    (1, 70, 8, 100, 256),        # a chunk at an offset into a longer cache
+    (1, 512, 40, 1024, 2048),    # a suffix chunk of the prefix serve
+])
+def test_flash_minicpm3_dims_kernel_matches_plain(cuda, dtype, B, S, H,
+                                                  q_offset, T):
+    """Flash attention at (dk, dv) = (96, 64), H = K, against its plain
+    version and, per element, against the tiled plain version that rounds
+    as the kernel of its type does; keys past the visible ones hold NaN
+    and are never read.  ``test_flash_routes_by_type`` holds which kernel
+    each type runs."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q = torch.randn((B, S, H, 96), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, T, H, 96), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, T, H, 64), generator=g, device=cuda).to(dtype)
+    kv_len = q_offset + S
+    k[:, kv_len:] = float("nan")
+    v[:, kv_len:] = float("nan")
+    kw = dict(scale=CPM_SCALE, q_offset=q_offset, kv_len=kv_len)
+    before, off0 = flash_ops.KERNEL.launches, flash_ops.KERNEL.offset_launches
+    out = flash_ops.flash_attention(q, k, v, **kw)
+    assert flash_ops.KERNEL.launches == before + 1
+    assert flash_ops.KERNEL.offset_launches == off0 + (q_offset > 0)
+    assert out.shape == (B, S, H, 64) and out.dtype == dtype
+    assert torch.isfinite(out.float()).all()
+    ref = flash_ops.flash_attention(q, k, v, impl="plain", **kw)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOLS[dtype],
+                               rtol=TOLS[dtype])
+    if dtype == torch.bfloat16:
+        tiled = flash_attention_tiled_ref(
+            *(t.transpose(1, 2) for t in (q, k, v)), **kw).transpose(1, 2)
+        torch.testing.assert_close(out.float(), tiled.float(),
+                                   atol=TILED_ATOL, rtol=TILED_RTOL)
+    else:
+        _assert_matches_tf32x3(out, q, k, v, **kw)
+
+
+def _cpm_inputs(cuda, dtype, lens, npg, seed):
+    """minicpm3-4b's absorbed decode: q (B, 40, 288), one KV head of rows
+    of 288 (latent 256 ‖ rope 32), values the view of their first 256
+    columns, a shuffled table of 16-token pages."""
+    rng = np.random.default_rng(seed)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    B, page = len(lens), 16
+    n_pool = B * npg
+    q = torch.randn((B, 40, 288), generator=g, device=cuda).to(dtype)
+    kp = torch.randn((n_pool, page, 1, 288), generator=g,
+                     device=cuda).to(dtype)
+    bt = torch.tensor(rng.permutation(n_pool).reshape(B, npg),
+                      dtype=torch.int32, device=cuda)
+    sl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    return q, kp, kp[..., :256], bt, sl
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lens,npg", [
+    ([1, 63, 64, 65, 127, 128, 129, 2000], 128),   # the serve's slots
+    ([1, 9, 32, 31, 30, 5, 17, 2], 2),             # one partition
+])
+def test_paged_mla_minicpm3_kernel_matches_plain(cuda, dtype, lens, npg):
+    """Absorbed MLA decode at (dk, dv) = (288, 256) with G = 40 (three
+    16-row head tiles of the M tile: 16, 16 and 8 live rows) runs the MLA
+    kernel of its type (then the merge when the table spans more than one
+    partition), and matches the dense plain version and, per element, the
+    tiled plain version that rounds as the kernel does."""
+    q, kp, vp, bt, sl = _cpm_inputs(cuda, dtype, lens, npg, 12)
+
+    def call():
+        return paged_ops.paged_attention(q, kp, vp, bt, sl, scale=CPM_SCALE)
+    before = paged_ops.KERNEL.launches
+    out = call()
+    assert paged_ops.KERNEL.launches == before + 1
+    assert out.shape == (len(lens), 40, 256) and out.dtype == dtype
+    ref = paged_ops.paged_attention(q, kp, vp, bt, sl, scale=CPM_SCALE,
+                                    impl="plain")
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOLS[dtype],
+                               rtol=TOLS[dtype])
+    bf16 = dtype == torch.bfloat16
+    tiled = paged_mla_tiled_ref(q, kp, vp, bt, sl,
+                                partition=paged_ops.MLA_PARTITION,
+                                scale=CPM_SCALE, round_p=bf16,
+                                tf32_products=0 if bf16 else 3)
+    if bf16:
+        torch.testing.assert_close(out.float(), tiled.float(),
+                                   atol=TILED_ATOL, rtol=TILED_RTOL)
+    else:
+        torch.testing.assert_close(out, tiled, atol=TF32X3_ATOL,
+                                   rtol=TF32X3_RTOL)
+    split = "paged_mla_mma_kernel" if bf16 else "paged_mla_tf32x3_kernel"
+    merged = paged_ops.mla_split_count(npg, 16) > 1
+    assert _device_kernels(call) == (
+        {split, "paged_merge_kernel"} if merged else {split})
+
+
+@pytest.mark.parametrize("head", [3, 20, 37])
+def test_paged_mla_f32_minicpm3_nan_stays_in_its_head(cuda, head):
+    """f32: a NaN in one query head, in the first, second or third head
+    tile, reaches that head's output and no other."""
+    lens = [5, 300, 2000]
+    q, kp, vp, bt, sl = _cpm_inputs(cuda, torch.float32, lens, 128, 13)
+    q[1, head, 40] = float("nan")
+    out = paged_ops.paged_attention(q, kp, vp, bt, sl, scale=CPM_SCALE)
+    want = torch.zeros((len(lens), 40), dtype=torch.bool, device=cuda)
+    want[1, head] = True
+    assert torch.equal(out.isnan().all(-1), want)
+    assert not out[~want].isnan().any()
+
+
+def _mla_cfg(dims: str):
+    """A small MLA model at one family's kernel widths: deepseek-v2-lite's
+    (heads of 128 + 64 rope, latent 512; 8 experts top-2 with one shared,
+    first layer dense) or minicpm3-4b's (40 heads of 64 + 32 rope, latent
+    256, dense MLPs)."""
+    if dims == "deepseek":
+        return _mla_moe_cfg()
+    return ModelConfig(name="gpu-minicpm3", family="dense", n_layers=2,
+                       d_model=256, n_heads=40, n_kv_heads=40, d_ff=512,
+                       vocab_size=512, head_dim=64, use_mla=True,
+                       kv_lora_rank=256, rope_head_dim=32)
+
+
+@pytest.mark.parametrize("dims", ["deepseek", "minicpm3"])
+def test_mla_chunk_step_in_pieces_matches_prefill_on_card(cuda, dims):
+    """A small MLA model's prompt through chunk_step in chunks of 64, 64
+    and 29 on the card (keys and values decompressed from the latent rows,
+    flash at a query offset) gives the logits and latent rows of one
+    prefill on the card, and of the CPU run (MoE ``dense``, so chunks and
+    one prefill route alike)."""
+    from repro_torch.models import chunk_step, init_decode_caches, prefill
+    cfg = _mla_cfg(dims)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    pol = DtypePolicy(torch.float32, torch.float32, torch.float32)
+    toks = torch.tensor(np.random.default_rng(3).integers(0, 512, (1, 157)))
+    got = {}
+    for dev in ("cpu", cuda):
+        p = params.to(dev)
+        ref, ref_c = prefill(p, {"tokens": toks.to(dev)}, cfg, policy=pol,
+                             moe_impl="dense")
+        caches = init_decode_caches(cfg, 1, 256, dtype=torch.float32,
+                                    device=dev)
+        pos, off0 = 0, flash_ops.KERNEL.offset_launches
+        for w in (64, 64, 29):
+            logits, caches = chunk_step(p, toks[:, pos:pos + w].to(dev),
+                                        caches, pos, cfg, policy=pol,
+                                        moe_impl="dense")
+            pos += w
+        if dev == cuda:
+            assert flash_ops.KERNEL.offset_launches == \
+                off0 + 2 * cfg.n_layers
+        torch.testing.assert_close(logits, ref, atol=1e-4, rtol=1e-4)
+        for layer, r in zip(caches, ref_c):
+            torch.testing.assert_close(layer["ckv"][:, :157], r["ckv"],
+                                       atol=1e-4, rtol=1e-4)
+        got[str(dev)] = logits.cpu()
+    torch.testing.assert_close(got["cuda"], got["cpu"], atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dims", ["deepseek", "minicpm3"])
+def test_mla_chunked_radix_engine_kernel_path_matches_cpu_run(cuda, dims):
+    """A small MLA model served on the card in chunked + radix mode over
+    shared-prefix requests (f32; deepseek's widths with MoE ``dropping``)
+    gives the CPU run's greedy tokens and attached prefixes, with flash
+    launched at a query offset and paged MLA decode."""
+    cfg = _mla_cfg(dims)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    pol = DtypePolicy(torch.float32, torch.float32, torch.float32)
+    rng = np.random.default_rng(4)
+    prefix = rng.integers(0, 512, size=(64,)).astype(np.int32)
+    specs = [(np.concatenate([prefix, rng.integers(0, 512, size=(int(n),))
+                              .astype(np.int32)]), int(m))
+             for n, m in zip(rng.integers(5, 60, 10), rng.integers(2, 8, 10))]
+    outs, cached = {}, {}
+    for dev in ("cpu", cuda):
+        reqs = [Request(prompt_len=len(t), arrival_time=0.0,
+                        max_new_tokens=m, prompt_tokens=t.copy(),
+                        request_id=95_000 + i) for i, (t, m) in enumerate(specs)]
+        eng = ServingEngine(cfg, params.to(dev), FCFSScheduler(),
+                            EngineConfig(max_slots=4, s_max=256,
+                                         kv_pool_tokens=4096,
+                                         chunk_prefill_tokens=48,
+                                         enable_prefix_cache=True),
+                            policy=pol, device=dev)
+        off0, paged0 = (flash_ops.KERNEL.offset_launches,
+                        paged_ops.KERNEL.launches)
+        assert len(eng.run(reqs)) == len(reqs)
+        if dev == cuda:
+            assert flash_ops.KERNEL.offset_launches > off0
+            assert paged_ops.KERNEL.launches > paged0
+        eng.radix.check_invariants()
+        outs[str(dev)] = eng.output_tokens
+        cached[str(dev)] = {r.request_id: r.cached_len for r in eng.finished}
+    assert outs["cpu"] == outs["cuda"]
+    assert cached["cpu"] == cached["cuda"]
+    assert sum(c > 0 for c in cached["cuda"].values()) >= 4
+
+
+def test_minicpm3_dims_engine_kernel_path_matches_cpu_run(cuda):
+    """The small model at minicpm3-4b's widths served bucketed on the card
+    in f32 (flash at (96, 64), paged at (288, 256) with G = 40) gives the
+    greedy tokens of the same weights served on the CPU."""
+    cfg = _mla_cfg("minicpm3")
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    pol = DtypePolicy(torch.float32, torch.float32, torch.float32)
+    outs = {}
+    for dev in ("cpu", cuda):
+        rng = np.random.default_rng(7)
+        reqs = [Request(prompt_len=int(rng.integers(5, 120)),
+                        arrival_time=0.0,
+                        max_new_tokens=int(rng.integers(2, 8)),
+                        request_id=61_000 + i) for i in range(8)]
         eng = ServingEngine(cfg, params.to(dev), FCFSScheduler(),
                             EngineConfig(max_slots=4, s_max=256,
                                          kv_pool_tokens=2048,

@@ -129,6 +129,8 @@ class TestFlashTF32x3:
         (128, 128, 0),      # llama2's widths
         (192, 128, 0),      # MLA prefill in MHA form
         (128, 128, 192),    # a chunk at an offset, NaN past the visible keys
+        (96, 64, 0),        # minicpm3's MLA prefill in MHA form
+        (96, 64, 192),      # and its chunk at an offset
     ])
     def test_three_tf32_products_hold_f32_one_does_not(self, dk, dv,
                                                        q_offset,
@@ -405,6 +407,89 @@ class TestWideKeys:
                                    rtol=tol)
 
 
+    @pytest.mark.parametrize("round_p", [False, True])
+    @pytest.mark.parametrize("B,S,q_offset,kv_len", [
+        (2, 70, 0, None),       # minicpm3 prefill in MHA form, H = K
+        (1, 20, 50, 70),        # a chunk at an offset into a cache
+        (1, 1, 69, 70),         # a chunk of one token
+    ])
+    def test_minicpm3_flash_plain_versions_match_dense(self, B, S, q_offset,
+                                                       kv_len, round_p):
+        """minicpm3-4b's widths, q/k 96 (64 + 32 rope) and v 64, scale
+        96^-0.5, through the flash plain version and the tiled one (P
+        rounded to bf16 as the bf16 kernel does, on bf16 inputs, when
+        ``round_p``; each f32 product split into three TF32 products with
+        the f32 kernel's tile otherwise) against dense softmax attention;
+        keys past ``kv_len`` hold NaN and are never read."""
+        rng = np.random.default_rng(14)
+        H, dk, dv, scale = 4, 96, 64, 96 ** -0.5
+        T = q_offset + S if kv_len is None else kv_len + 10
+        vis = q_offset + S if kv_len is None else kv_len
+        dtype = torch.bfloat16 if round_p else torch.float32
+        tq, tk, tv = (torch.from_numpy(_normal(rng, shape)).to(dtype)
+                      for shape in ((B, S, H, dk), (B, T, H, dk),
+                                    (B, T, H, dv)))
+        tk[:, vis:] = float("nan")
+        tv[:, vis:] = float("nan")
+        q, k, v = (t.float().numpy() for t in (tq, tk, tv))
+        qpos = q_offset + np.arange(S)[:, None]
+        mask = (np.arange(vis)[None] <= qpos)[None, None]
+        want = _dense_attention(q.transpose(0, 2, 1, 3),
+                                k[:, :vis].transpose(0, 2, 1, 3),
+                                v[:, :vis].transpose(0, 2, 1, 3), scale, mask)
+        tol = BF16_TOL if round_p else F32_TOL
+        got = flash_ops.flash_attention(tq, tk, tv, scale=scale,
+                                        q_offset=q_offset, kv_len=kv_len)
+        assert got.shape == (B, S, H, dv) and got.dtype == dtype
+        np.testing.assert_allclose(got.float().numpy().transpose(0, 2, 1, 3),
+                                   want, atol=tol, rtol=tol)
+        rounding = (dict(round_p=True) if round_p else
+                    dict(round_p=False, tf32_products=3,
+                         tile=flash_ops.F32_KV_TILE[dk]))
+        tiled = flash_attention_tiled_ref(
+            tq.transpose(1, 2), tk.transpose(1, 2), tv.transpose(1, 2),
+            scale=scale, q_offset=q_offset, kv_len=kv_len, **rounding)
+        np.testing.assert_allclose(tiled.float().numpy(), want, atol=tol,
+                                   rtol=tol)
+
+    @pytest.mark.parametrize("round_p", [False, True])
+    def test_minicpm3_paged_mla_tiled_matches_dense(self, round_p):
+        """minicpm3-4b's absorbed decode, keys of 288 (latent 256 + rope
+        32), values the rows' first 256 columns, G = 40 heads (three M
+        tiles in the kernels), through the wrapper's plain version and the
+        bf16 kernel's tiled arithmetic (P in bf16 when ``round_p``, on bf16
+        inputs) against dense softmax attention; lens on and across the
+        tile and partition edges."""
+        rng = np.random.default_rng(15)
+        G, page, scale = 40, 16, 96 ** -0.5
+        dk, dv = 288, 256
+        assert paged_ops.MLA_SHAPES[dk, dv] == (G,)
+        lens = np.asarray([1, 31, 32, 33, 127, 128, 129, 300], np.int32)
+        B = len(lens)
+        npg = -(-int(lens.max()) // page) + 1
+        n_pool = B * npg + 2
+        dtype = torch.bfloat16 if round_p else torch.float32
+        q = torch.from_numpy(_normal(rng, (B, G, dk))).to(dtype)
+        kp = torch.from_numpy(_normal(rng, (n_pool, page, 1, dk))).to(dtype)
+        bt = rng.permutation(n_pool)[:B * npg].astype(np.int32).reshape(B, npg)
+        rows = kp.float().numpy()
+        gathered = rows[bt].reshape(B, npg * page, dk)
+        mask = (np.arange(npg * page)[None] < lens[:, None])[:, None, None]
+        want = _dense_attention(
+            q.float().numpy()[:, :, None], np.repeat(gathered[:, None], G, 1),
+            np.repeat(gathered[:, None, :, :dv], G, 1), scale, mask)[:, :, 0]
+        args = (q, kp, kp[..., :dv], torch.from_numpy(bt),
+                torch.from_numpy(lens))
+        tol = BF16_TOL if round_p else F32_TOL
+        plain = paged_ops.paged_attention(*args, scale=scale)
+        got = paged_mla_tiled_ref(*args, partition=paged_ops.MLA_PARTITION,
+                                  scale=scale, round_p=round_p)
+        for out in (plain, got):
+            assert out.shape == (B, G, dv) and out.dtype == dtype
+            np.testing.assert_allclose(out.float().numpy(), want, atol=tol,
+                                       rtol=tol)
+
+
 class TestPagedMLATF32x3:
     """The f32 MLA decode kernel's arithmetic (``paged_mla_tiled_ref`` with
     ``tf32_products=3``: Q·Kᵀ and P·V as three TF32 products of operands
@@ -449,6 +534,43 @@ class TestPagedMLATF32x3:
         print(f"{tf32_products} TF32 product(s) a multiply, MLA decode G "
               f"{G}: max abs err {err:.3g}, worst |d| / (F32_TOL + "
               f"F32_TOL·|ref|) {worst:.3g}")
+        if tf32_products == 3:
+            np.testing.assert_allclose(got, want, atol=F32_TOL, rtol=F32_TOL)
+        else:
+            assert worst > 1.0, (f"one TF32 product held F32_TOL (max abs "
+                                 f"err {err:.3g}, worst ratio {worst:.3g})")
+
+    @pytest.mark.parametrize("tf32_products", [3, 1])
+    def test_minicpm3_three_tf32_products_hold_f32_one_does_not(
+            self, tf32_products):
+        """The same at minicpm3-4b's widths: keys of 288, values the first
+        256 columns, G = 40 heads."""
+        rng = np.random.default_rng(23)
+        dk, dv, G = 288, 256, 40
+        page, scale = 16, 96 ** -0.5
+        lens = np.asarray([1, 32, 33, 128, 129, 300], dtype=np.int32)
+        B = len(lens)
+        npg = -(-int(lens.max()) // page) + 1
+        n_pool = B * npg + 2
+        q = _normal(rng, (B, G, dk))
+        rows = _normal(rng, (n_pool, page, 1, dk))
+        bt = rng.permutation(n_pool)[:B * npg].astype(np.int32).reshape(B, npg)
+        want = paged_attention_kernel(
+            *(jnp.asarray(a) for a in (q, rows, rows, bt, lens)), scale=scale,
+            interpret=True)
+        want = np.asarray(want)[:, :, :dv]
+        kp = torch.from_numpy(rows)
+        got = paged_mla_tiled_ref(
+            torch.from_numpy(q), kp, kp[..., :dv], torch.from_numpy(bt),
+            torch.from_numpy(lens), partition=paged_ops.MLA_PARTITION,
+            scale=scale, round_p=False, tf32_products=tf32_products).numpy()
+        assert got.shape == want.shape == (B, G, dv)
+        worst = float(np.max(np.abs(got - want)
+                             / (F32_TOL + F32_TOL * np.abs(want))))
+        err = float(np.max(np.abs(got - want)))
+        print(f"{tf32_products} TF32 product(s) a multiply, MLA decode "
+              f"(288, 256) G 40: max abs err {err:.3g}, worst |d| / "
+              f"(F32_TOL + F32_TOL·|ref|) {worst:.3g}")
         if tf32_products == 3:
             np.testing.assert_allclose(got, want, atol=F32_TOL, rtol=F32_TOL)
         else:

@@ -6,9 +6,12 @@ others MoE with 8 experts, top-2, one shared), d 64, 4 heads, head dim 16
 + 8 rope, latent rank 32.  Weights come from the JAX initializer and cross
 through ``bridge``; the JAX ``{"latent", "k_rope"}`` cache pair crosses
 into the port's one ``{"ckv"}`` tensor and back.  On CPU tensors the port
-runs the plain versions of its kernels: MLA prefill through flash
-attention with keys of hd + rd and values of vd, absorbed decode through
-paged attention over the latent rows.  Everything runs in f32; outputs
+runs the plain versions of its kernels: MLA prefill and chunks through
+flash attention with keys of hd + rd and values of vd (a chunk's
+decompressed from the latent rows, at a query offset), absorbed decode
+through paged attention over the latent rows.  The engine runs bucketed,
+chunked, radix and chunked+radix against the JAX engine, and JAX-exported
+latent prefix blocks import into the port.  Everything runs in f32; outputs
 must agree at 2e-5 relative to their scale (CPU matmuls sum in different
 orders), and greedy tokens exactly.
 """
@@ -23,19 +26,25 @@ import repro.core as jcore
 import repro_torch.core as tcore
 from repro.configs import get_smoke_config as jax_smoke
 from repro.models import DtypePolicy as JaxPolicy
+from repro.models import chunk_step as jax_chunk_step
 from repro.models import decode_step as jax_decode
+from repro.models import init_decode_caches as jax_init_caches
 from repro.models import init_params as jax_init
 from repro.models import prefill as jax_prefill
+from repro.models.attention import mla_chunk_decode as jax_mla_chunk
 from repro.models.attention import mla_decode as jax_mla_decode
 from repro.models.attention import mla_forward as jax_mla_forward
+from repro.models.model import MoECtx as JaxMoECtx
 from repro.models.model import pad_prefill_caches
 from repro.serving import EngineConfig as JaxEngineConfig
 from repro.serving import ServingEngine as JaxEngine
 from repro_torch import bridge
 from repro_torch.configs import get_smoke_config
+from repro_torch.kvplane import chain_block_hashes as tcore_chain
 from repro_torch.models import (DtypePolicy, chunk_step, decode_step,
                                 init_decode_caches, prefill)
-from repro_torch.models.attention import mla_decode, mla_forward
+from repro_torch.models.attention import (mla_chunk_decode, mla_decode,
+                                          mla_forward)
 from repro_torch.serving import EngineConfig, ServingEngine
 
 ARCH = "deepseek-v2-lite-16b"
@@ -229,19 +238,253 @@ def test_ewsjf_engine_tokens_match_jax_engine(weights):
         np.testing.assert_allclose(b, np.asarray(a), atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.parametrize("extra", [dict(chunk_prefill_tokens=16),
-                                   dict(enable_prefix_cache=True)],
-                         ids=["chunked", "radix"])
-def test_chunked_and_prefix_modes_raise_for_mla(weights, extra):
-    """MLA chunked prefill and radix reuse come with the next slice: the
-    engine refuses either mode rather than fall back, and so does
-    ``chunk_step``."""
+# ---- chunked prefill and radix reuse --------------------------------------
+
+ATOL = 5e-5          # tests/test_torch_chunked.py: f32 sums in other orders
+BASE = dict(max_slots=4, s_max=256, kv_pool_tokens=16384)
+MODES = {"chunked": dict(chunk_prefill_tokens=24),
+         "radix": dict(enable_prefix_cache=True),
+         "chunked+radix": dict(chunk_prefill_tokens=32,
+                               enable_prefix_cache=True)}
+
+
+@pytest.mark.parametrize("pos0,C", [(0, 1), (0, 16), (17, 9), (40, 1),
+                                    (64, 16)])
+def test_mla_chunk_decode_matches_jax(weights, pos0, C):
+    """One MLA layer over a random latent cache: the port's chunk (keys and
+    values decompressed from the latent rows, flash at an offset) against
+    JAX's absorbed chunk, output and the cache after the in-place write
+    (rows pos0..pos0+C-1 replaced, every other row untouched)."""
+    jcfg, tcfg, jp, tp = weights
+    rng = np.random.default_rng(pos0 * 10 + C)
+    B, s_max = 2, 96
+    r, rd = jcfg.kv_lora_rank, jcfg.rope_head_dim
+    x = rng.standard_normal((B, C, jcfg.d_model)).astype(np.float32)
+    latent = rng.standard_normal((B, s_max, r)).astype(np.float32)
+    k_rope = rng.standard_normal((B, s_max, rd)).astype(np.float32)
+    jy, jc = jax_mla_chunk(_mixer(jp, 1), jnp.asarray(x),
+                           {"latent": jnp.asarray(latent),
+                            "k_rope": jnp.asarray(k_rope)}, pos0, jcfg)
+    ckv = np.concatenate([latent, k_rope], -1)[:, :, None]
+    cache = {"ckv": torch.from_numpy(ckv.copy())}
+    ty, tc = mla_chunk_decode(tp.blocks[1].mixer, torch.from_numpy(x), cache,
+                              pos0, tcfg)
+    assert tc is cache                              # updated in place
+    assert _rel(ty, jy) <= REL
+    got = cache["ckv"][:, :, 0].numpy()
+    assert _rel(got[..., :r], jc["latent"]) <= REL
+    assert _rel(got[..., r:], jc["k_rope"]) <= REL
+    untouched = np.ones(s_max, bool)
+    untouched[pos0:pos0 + C] = False
+    np.testing.assert_array_equal(got[:, untouched], ckv[:, untouched, 0])
+
+
+def test_mla_chunk_decode_refuses_window_and_overflow(weights):
     _, tcfg, _, tp = weights
-    with pytest.raises(NotImplementedError, match="next slice"):
-        ServingEngine(tcfg, tp, tcore.FCFSScheduler(),
-                      EngineConfig(**ECFG, **extra), device="cpu")
-    caches = init_decode_caches(tcfg, 1, 32, dtype=torch.float32,
-                                device="cpu")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        chunk_step(tp, torch.zeros((1, 4), dtype=torch.int32), caches, 0,
-                   tcfg, policy=T32)
+    cache = {"ckv": torch.zeros((1, 32, 1, tcfg.kv_lora_rank
+                                 + tcfg.rope_head_dim))}
+    x = torch.zeros((1, 4, tcfg.d_model))
+    with pytest.raises(NotImplementedError):
+        mla_chunk_decode(tp.blocks[1].mixer, x, cache, 0, tcfg, window=8)
+    with pytest.raises(ValueError):
+        mla_chunk_decode(tp.blocks[1].mixer, x, cache, 30, tcfg)
+
+
+@pytest.mark.parametrize("moe_impl", ["dense", "dropping"])
+def test_chunk_step_matches_jax(weights, moe_impl):
+    """The whole model in chunks of 16, 16 and 9 through the port's
+    chunk_step against JAX's chunk_step, MoE in either mode: each chunk's
+    logits and the final caches."""
+    jcfg, tcfg, jp, tp = weights
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, tcfg.vocab_size, size=(1, 41)).astype(np.int32)
+    jc = jax_init_caches(jcfg, 1, 64, dtype=np.float32)
+    tc = init_decode_caches(tcfg, 1, 64, dtype=torch.float32, device="cpu")
+    pos = 0
+    for width in (16, 16, 9):
+        chunk = toks[:, pos:pos + width]
+        jl, jc = jax_chunk_step(jp, jnp.asarray(chunk), jc, np.int32(pos),
+                                jcfg, JaxMoECtx(impl=moe_impl), policy=J32)
+        tl, _ = chunk_step(tp, torch.from_numpy(chunk), tc, pos, tcfg,
+                           policy=T32, moe_impl=moe_impl)
+        assert _rel(tl, jl) <= REL
+        pos += width
+    for a, b in zip(jax.tree.leaves(jc),
+                    jax.tree.leaves(bridge.caches_to_numpy(tc, tcfg))):
+        np.testing.assert_allclose(b, np.asarray(a), atol=ATOL, rtol=ATOL)
+
+
+def test_chunk_step_equals_one_prefill_under_dense(weights):
+    """Under ``dense`` the MoE layers see each token alone, so chunks of
+    16, 16 and 9 give one prefill's last logits and latent rows; under
+    ``dropping`` a chunk's capacity differs from the whole prompt's
+    (``ROADMAP.md`` §3, the copied reference fault)."""
+    _, tcfg, _, tp = weights
+    rng = np.random.default_rng(6)
+    toks = rng.integers(0, tcfg.vocab_size, size=(1, 41)).astype(np.int32)
+    tc = init_decode_caches(tcfg, 1, 64, dtype=torch.float32, device="cpu")
+    pos = 0
+    for width in (16, 16, 9):
+        tl, _ = chunk_step(tp, torch.from_numpy(toks[:, pos:pos + width]), tc,
+                           pos, tcfg, policy=T32, moe_impl="dense")
+        pos += width
+    ref_logits, ref_caches = prefill(tp, {"tokens": torch.from_numpy(toks)},
+                                     tcfg, policy=T32, moe_impl="dense")
+    np.testing.assert_allclose(tl.numpy(), ref_logits.numpy(), atol=ATOL)
+    for layer, ref in zip(tc, ref_caches):
+        np.testing.assert_allclose(layer["ckv"][:, :41].numpy(),
+                                   ref["ckv"].numpy(), atol=ATOL)
+        assert not layer["ckv"][:, 41:].any()
+
+
+def _prefix_requests(pkg, n=6, seed=0, base=0, prefix=None, max_new=6,
+                     vocab=256):
+    """tests/test_torch_chunked.py's requests: 40-99-token prompts, the
+    first up to 48 tokens of each the shared ``prefix``."""
+    out = []
+    for i in range(n):
+        rng = np.random.default_rng(seed * 1000 + i)
+        pl = int(rng.integers(40, 100))
+        toks = rng.integers(0, vocab, size=(pl,)).astype(np.int32)
+        if prefix is not None:
+            toks[:min(len(prefix), pl - 8)] = prefix[:min(len(prefix), pl - 8)]
+        out.append(pkg.Request(request_id=base + i, arrival_time=0.0,
+                               prompt_len=pl, max_new_tokens=max_new,
+                               prompt_tokens=toks))
+    return out
+
+
+def _prefix(vocab=256):
+    return np.random.default_rng(7).integers(0, vocab, size=(48,)).astype(
+        np.int32)
+
+
+def _two_waves(pkg):
+    pfx = _prefix()
+    return (_prefix_requests(pkg, seed=3, prefix=pfx)
+            + _prefix_requests(pkg, seed=6, prefix=pfx, base=10))
+
+
+def _run(weights, ecfg: dict, reqs, *, jax_side: bool = False):
+    jcfg, tcfg, jp, tp = weights
+    if jax_side:
+        eng = JaxEngine(jcfg, jp, jcore.FCFSScheduler(),
+                        JaxEngineConfig(**ecfg))
+    else:
+        eng = ServingEngine(tcfg, tp, tcore.FCFSScheduler(),
+                            EngineConfig(**ecfg), device="cpu")
+    eng.run(reqs, max_steps=4000)
+    return eng
+
+
+def _pool_allocs(eng):
+    """Pool allocations with the radix's object id taken out of its keys."""
+    return {(k[0], k[2]) if isinstance(k, tuple) else k: v
+            for k, v in eng.pool.allocs.items()}
+
+
+@pytest.fixture(scope="module", params=list(MODES))
+def mla_engine_pair(request, weights):
+    """The JAX and the port engine over two waves of 6 requests sharing a
+    48-token prefix, in one mode, MoE in the engines' default
+    ``dropping``."""
+    ecfg = {**BASE, **MODES[request.param]}
+    return (request.param,
+            _run(weights, ecfg, _two_waves(jcore), jax_side=True),
+            _run(weights, ecfg, _two_waves(tcore)))
+
+
+def test_chunked_and_prefix_modes_match_jax_for_mla(mla_engine_pair):
+    """deepseek's smoke config in chunked, radix and chunked+radix mode:
+    greedy tokens, dispatch order, pool allocations, cached_len per
+    request, prefix-saved tokens, radix stats and chunk counts equal the
+    JAX engine's, and the radix copies count MLA's latent rows."""
+    mode, jeng, teng = mla_engine_pair
+    assert teng.e.moe_impl == jeng.e.moe_impl == "dropping"
+    assert len(teng.finished) == len(jeng.finished) == 12
+    assert teng.output_tokens == jeng.output_tokens
+    assert all(len(v) == 6 for v in teng.output_tokens.values())
+    assert [rid for _, rid in teng.dispatch_log] == \
+        [rid for _, rid in jeng.dispatch_log]
+    assert _pool_allocs(teng) == _pool_allocs(jeng)
+    assert teng.pool.free_blocks == jeng.pool.free_blocks
+    assert {r.request_id: r.cached_len for r in teng.finished} == \
+        {r.request_id: r.cached_len for r in jeng.finished}
+    js, ts = jeng.stats(), teng.stats()
+    for key in ("prefix_saved_tokens", "radix", "chunks", "chunk_tokens",
+                "preemptions", "padding_waste"):
+        assert ts[key] == js[key], key
+    if "radix" in mode:
+        assert ts["prefix_saved_tokens"] > 0
+        teng.radix.check_invariants()
+        assert sorted(teng._node_kv) == sorted(jeng._node_kv)
+        cfg = teng.cfg
+        row = cfg.n_layers * (cfg.kv_lora_rank + cfg.rope_head_dim) * 4
+        assert teng._block_bytes() == 16 * row
+        copies = ts["radix_copies"]
+        assert copies["h2d_bytes"] == copies["h2d_blocks"] * 16 * row
+        assert copies["h2d_blocks"] * 16 == ts["prefix_saved_tokens"]
+    else:
+        assert ts["chunks"] > len(teng.finished)
+
+
+def test_mla_engine_caches_match_jax(mla_engine_pair):
+    """The slot caches after the run hold the JAX engine's latent and rope
+    rows, within the chunked tests' f32 tolerance."""
+    _, jeng, teng = mla_engine_pair
+    got = bridge.caches_to_numpy(teng.caches, teng.cfg)
+    for a, b in zip(jax.tree.leaves(jeng.caches), jax.tree.leaves(got)):
+        np.testing.assert_allclose(b, np.asarray(a), atol=ATOL, rtol=ATOL)
+
+
+def test_mla_chunked_equals_bucketed_under_dense(weights):
+    """Under ``dense`` MoE the bucketed path and chunked+radix prefill
+    give the same greedy tokens on two waves sharing a prefix; the
+    chunked run really chunks and attaches."""
+    dense = {**BASE, "moe_impl": "dense"}
+    e_leg = _run(weights, dense, _two_waves(tcore))
+    e_chk = _run(weights, {**dense, **MODES["chunked+radix"]},
+                 _two_waves(tcore))
+    assert e_leg.output_tokens == e_chk.output_tokens
+    assert e_chk.stats()["chunks"] > len(e_chk.finished)
+    assert e_chk.prefix_saved_tokens > 0
+
+
+def test_jax_exported_mla_prefix_imports_into_the_port(weights):
+    """MLA prefix blocks exported by a JAX engine (``{"latent",
+    "k_rope"}``), joined by the bridge into ``{"ckv"}`` rows and imported by
+    a port engine, export back bit-exact and give that engine the
+    recompute's greedy tokens, the prefix attached rather than
+    recomputed.  MoE runs ``dense``: under ``dropping`` a suffix prefilled
+    alone gets another capacity than the whole prompt (``ROADMAP.md`` §3),
+    so attach and recompute part in both packages."""
+    jcfg, tcfg, _, tp = weights
+    pfx = _prefix()
+    ecfg = {**BASE, "enable_prefix_cache": True, "moe_impl": "dense"}
+    jeng = _run(weights, ecfg, _prefix_requests(jcore, n=2, seed=3,
+                                                prefix=pfx), jax_side=True)
+    wave = _prefix_requests(tcore, seed=8, prefix=pfx, base=20)
+    hashes = tcore_chain(wave[0].prompt_tokens.tolist(), 16)
+    blocks = jeng.export_prefix_blocks(hashes, want=len(hashes))
+    assert 0 < len(blocks) <= 3                   # within the 48-token prefix
+    teng = ServingEngine(tcfg, tp, tcore.FCFSScheduler(),
+                         EngineConfig(**ecfg), device="cpu")
+    port_blocks = [bridge.caches_from_jax(b, tcfg, device="cpu")
+                   for b in blocks]
+    r, rd = tcfg.kv_lora_rank, tcfg.rope_head_dim
+    assert [tuple(c["ckv"].shape) for c in port_blocks[0]] == \
+        [(16, 1, r + rd)] * tcfg.n_layers
+    landed = teng.import_prefix_blocks(hashes, port_blocks)
+    assert landed == len(blocks)
+    for i, block in enumerate(blocks):
+        back = bridge.caches_to_numpy(
+            teng.export_prefix_blocks(hashes, landed)[i], tcfg)
+        assert _leaves_equal(block, back)
+    teng.run(wave, max_steps=4000)
+    assert all(r.cached_len > 0 for r in teng.finished)
+    assert teng.stats()["radix_copies"]["h2d_blocks"] > 0
+    recompute = _run(weights, {**BASE, "chunk_prefill_tokens": 1024,
+                               "moe_impl": "dense"},
+                     _prefix_requests(tcore, seed=8, prefix=pfx, base=20))
+    assert teng.output_tokens == recompute.output_tokens
+    teng.radix.check_invariants()
