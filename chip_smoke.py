@@ -37,8 +37,13 @@ Phases, in order; any failure raises and exits non-zero:
    at minicpm3-4b's (prefill in MHA form with keys of 96 and values of 64,
    H = K = 40, also as a 512-token chunk at offset 1024; absorbed decode
    with keys of 288, values the view of their first 256 columns, G = 40 in
-   three head tiles); and, for an MLA chunk in MHA form, the time of the
-   decompression of the latent rows beside the flash call it feeds;
+   three head tiles), at h2o-danube-1.8b's (flash (80, 80), B=2, S=1024,
+   H=32, K=8, window 4096; paged hd 80, G = 4, over 8 slots of 2048) and
+   at gemma3-4b's (flash (256, 256), B=2, S=2048, H=8, K=4, window 1024
+   and global; paged hd 256, G = 2, over 8 slots of 2048 and over 8
+   wrapped rings of 1024, a local layer's ring as pages); and, for an MLA
+   chunk in MHA form, the time of the decompression of the latent rows
+   beside the flash call it feeds;
 3. parity: llama2-13b and mamba2-370m at full width and 2 layers, in f32 —
    one prefill and a few greedy decode steps through the kernels and
    through the plain versions must give the same tokens and close logits,
@@ -77,7 +82,14 @@ Phases, in order; any failure raises and exits non-zero:
    blocks), held as llama2's; then minicpm3-4b: the same 2-layer f32
    parities (no MoE), its full-width, full-depth (62 layers) bf16 serve
    of the 24 requests and, with the same weights, its chunked+radix
-   serve;
+   serve; then the sliding-window families in f32 on the card, kernels
+   against plain versions: h2o-danube-1.8b at 2 layers with rings of the
+   published 4096 slots (s_max 4608), a 4090-token prompt and 16 greedy
+   steps across the window, and gemma3-4b at one period (5 local layers
+   of window 1024, 1 global) with a 1100- and a 60-token prompt in one
+   bucket of 2048, whose tokens must also equal each prompt's alone; then
+   both at full width and depth in bf16, bucketed, under EWSJF (at s_max
+   2048 h2o-danube's rings are whole slots: its window is inert there);
 5. summary: one call of each kernel's bf16 main case (and of the f32
    flash main, offset and MLA cases, the f32 MLA paged case, the f32
    SSD main case and every minicpm3-4b case) under
@@ -145,6 +157,10 @@ LONG_AMONG_SHORT = [2000, 17, 99, 1, 64, 33, 80, 5]
 # bf16 and f32 main cases, and ops.py's MLA_PARTITION is the faster
 # (PERF.md section 6).
 MLA_PARTITIONS_TRIED = (64, 128)
+# Profiler sessions tried for one call in ``launched_kernels``: CUPTI on
+# the card's machine now and then records no device event, sometimes in
+# two sessions in a row.
+PROFILER_SESSIONS = 6
 # Main-case times of the designs the kernels replaced, as PERF.md section 6
 # records them, by the timer each was taken with (NVIDIA H100 80GB HBM3 at
 # 700 W): the attention kernels' by the eager timer of the chip_smoke.py
@@ -157,8 +173,10 @@ MLA_PARTITIONS_TRIED = (64, 128)
 # tree that redesigned bf16 SSD, the MLA case on the one that added
 # deepseek, the offset case the lowest of the calls of the one that added
 # the query offset, which read 0.769-0.780); the CUDA-core f32 SSD kernel's
-# by the graph timer (the tree that redesigned f32 flash).  Printed on a
-# line of their own, labelled as recorded, each beside this run's time by
+# by the graph timer (the tree that redesigned f32 flash); bf16 flash at
+# gemma3's (256, 256) with 64-key tiles (one block an SM) by both timers of
+# the first timed call of the tree that added it.  Printed on a line of
+# their own, labelled as recorded, each beside this run's time by
 # the same timer, never in the kernels line.
 RECORDED_EARLIER_MS = {"flash_attention": {"eager": 1.0194},
                        "paged_attention": {"eager": 0.3273},
@@ -169,7 +187,11 @@ RECORDED_EARLIER_MS = {"flash_attention": {"eager": 1.0194},
                        "flash_attention_f32": {"graph": 1.0365},
                        "flash_attention_mla_f32": {"graph": 0.9554},
                        "flash_attention_offset_f32": {"graph": 0.769},
-                       "ssd_chunk_f32": {"graph": 0.9642}}
+                       "ssd_chunk_f32": {"graph": 0.9642},
+                       "flash_attention_gemma3_local": {"graph": 0.1942,
+                                                        "eager": 0.1962},
+                       "flash_attention_gemma3_global": {"graph": 0.2585,
+                                                         "eager": 0.2619}}
 
 
 def check(cond: bool, what: str) -> None:
@@ -214,7 +236,10 @@ def time_ms(fn, iters: int = 20, warmup: int = 3, graph: bool = True) -> float:
 def launched_kernels(fn) -> dict:
     """The device kernels one call of ``fn`` ran, as ``torch.profiler``
     names them (namespace, return type and arguments dropped), each with
-    its device time in µs, sorted by name."""
+    its device time in µs, sorted by name.  A session that records no
+    device event at all is repeated after a pause that doubles from 0.5 s,
+    up to ``PROFILER_SESSIONS`` in all; what a session does record is
+    returned as it is."""
     import os
 
     import torch
@@ -224,19 +249,25 @@ def launched_kernels(fn) -> dict:
     # recorded no device event at all (PyTorch turns teardown off for the
     # same reason when it profiles CUDA graphs).
     os.environ["TEARDOWN_CUPTI"] = "0"
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
     device_us = {}
-    for ev in prof.key_averages():
-        if (ev.device_type == torch.autograd.DeviceType.CUDA
-                and ev.self_device_time_total > 0):
-            name = ev.key.replace("(anonymous namespace)::", "")
-            name = name.removeprefix("void ").split("(")[0]
-            device_us[name] = (device_us.get(name, 0.0)
-                               + ev.self_device_time_total)
+    for attempt in range(PROFILER_SESSIONS):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        for ev in prof.key_averages():
+            if (ev.device_type == torch.autograd.DeviceType.CUDA
+                    and ev.self_device_time_total > 0):
+                name = ev.key.replace("(anonymous namespace)::", "")
+                name = name.removeprefix("void ").split("(")[0]
+                device_us[name] = (device_us.get(name, 0.0)
+                                   + ev.self_device_time_total)
+        if device_us or attempt == PROFILER_SESSIONS - 1:
+            break
+        print(f"[variants] profiler session {attempt + 1} recorded no "
+              f"device event; profiling the call again")
+        time.sleep(0.5 * 2 ** attempt)
     return dict(sorted(device_us.items()))
 
 
@@ -327,7 +358,8 @@ def flash_case(fa, B, S, H, K, hd, dtype, causal, window, seed, q_offset=0,
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     check(err <= tol, f"{what} err {err:.3g} <= {tol}")
     if dtype == torch.bfloat16:
-        atol, rtol, rounding = TILED_ATOL, TILED_RTOL, {}
+        atol, rtol = TILED_ATOL, TILED_RTOL
+        rounding = dict(tile=fa.BF16_KV_TILE[hd])
     else:
         atol, rtol = TF32X3_ATOL, TF32X3_RTOL
         rounding = dict(round_p=False, tf32_products=3,
@@ -944,6 +976,70 @@ def phase_kernels_minicpm3(fa, pa, rows: dict, calls: dict) -> None:
             calls[name] = call
 
 
+def phase_kernels_ring(fa, pa, rows: dict, calls: dict) -> None:
+    """Both attention kernels at the sliding-window families' widths,
+    against their plain versions, each in bf16 and f32: flash at
+    h2o-danube-1.8b's (80, 80) (B=2, S=1024, H=32, K=8, window 4096) and
+    gemma3-4b's (256, 256) (B=2, S=2048, H=8, K=4, local window 1024 and
+    global), and paged decode at hd 80 with G = 4 and hd 256 with G = 2 over
+    8 slots of 2048 tokens (one long slot among short ones), and at hd 256
+    over 8 wrapped rings of 1024 slots (``seq_lens`` 1024: a local layer's
+    ring as pages).  Adds the rows and calls under ``*_danube``,
+    ``*_gemma3_local``, ``*_gemma3_global`` and ``*_gemma3_ring``."""
+    import torch
+    fcases = [  # name, B, S, H, K, hd, window
+        ("flash_attention_danube", 2, 1024, 32, 8, 80, 4096),
+        ("flash_attention_gemma3_local", 2, 2048, 8, 4, 256, 1024),
+        ("flash_attention_gemma3_global", 2, 2048, 8, 4, 256, 0),
+    ]
+    for i, (name, B, S, H, K, hd, window) in enumerate(fcases):
+        for dt, sfx in ((torch.bfloat16, ""), (torch.float32, "_f32")):
+            err, tiled, kms, ems, pms, lms, call = flash_case(
+                fa, B, S, H, K, hd, dt, True, window, seed=100 + i)
+            bms, by, cms = flash_bounds(dt, B, S, H, K, hd, True, window)
+            vs_tiled, bound = flash_notes(dt, tiled, bms, by, cms)
+            print(f"[kernels] flash {name[16:]} B{B} S{S} H{H} K{K} hd{hd} "
+                  f"{str(dt)[6:]} causal window={window}: max_abs_err "
+                  f"{err:.3g}{vs_tiled} kernel {kms:.4f} ms (eager timer "
+                  f"{ems:.4f} ms) plain {pms:.4f} ms sdpa {lms:.4f} ms "
+                  f"{bound}; kernel / sdpa {kms / lms:.2f} (graph timer "
+                  f"both)")
+            rows[name + sfx] = flash_row(
+                err, tiled, kms, ems, pms, lms, bms, by, cms,
+                f"B={B}, S=T={S}, H={H}, K={K}, hd={hd}, causal, window "
+                f"{window}, {str(dt)[6:]}")
+            calls[name + sfx] = call
+    pcases = [  # name, H, K, hd, s_max (rows of a slot or ring), lens
+        ("paged_attention_danube", 32, 8, 80, 2048, LONG_AMONG_SHORT),
+        ("paged_attention_gemma3", 8, 4, 256, 2048, LONG_AMONG_SHORT),
+        ("paged_attention_gemma3_ring", 8, 4, 256, 1024, [1024] * 8),
+    ]
+    B, page = 8, 16
+    for i, (name, H, K, hd, s_max, lens) in enumerate(pcases):
+        n_split = pa.split_count(s_max // page, page)
+        for dt, sfx in ((torch.bfloat16, ""), (torch.float32, "_f32")):
+            err, _, kms, ems, pms, lms, lens_, call = paged_case(
+                pa, B, H, K, hd, page, s_max, dt, seed=110 + i,
+                shuffle=False, lens=lens)
+            elem = 2 if dt == torch.bfloat16 else 4
+            peak = BF16_PEAK_FLOPS if dt == torch.bfloat16 else F32_PEAK_FLOPS
+            bms, by = paged_bound(B, H, K, hd, elem, lens_, peak=peak)
+            print(f"[kernels] paged {name[16:]} B{B} H{H} K{K} hd{hd} "
+                  f"page{page} rows{s_max} {str(dt)[6:]} lens="
+                  f"{lens_.tolist()} tokens={int(lens_.sum())} ({n_split} "
+                  f"partitions of {pa.PARTITION} tokens): max_abs_err "
+                  f"{err:.3g} kernel {kms:.4f} ms (eager timer {ems:.4f} ms) "
+                  f"plain {pms:.4f} ms sdpa {lms:.4f} ms bound {bms:.4f} ms "
+                  f"({by}); kernel / sdpa {kms / lms:.2f} (graph timer both)")
+            rows[name + sfx] = dict(
+                max_abs_err=err, ms=kms, eager_ms=ems, plain_ms=pms,
+                library_ms=lms, bound_ms=bms, bound_by=by,
+                case=f"B={B} {'rings' if s_max == 1024 else 'slots'} of "
+                     f"{s_max}, lens={lens_.tolist()}, H={H}, K={K}, "
+                     f"hd={hd}, page {page}, {str(dt)[6:]}")
+            calls[name + sfx] = call
+
+
 def phase_mla_chunk_cost(fa) -> dict:
     """What an MLA chunk costs in MHA form (``models/attention.py::
     mla_chunk_decode``), bf16, one layer, by the graph timer: the
@@ -1058,6 +1154,14 @@ def phase_variants(calls: dict) -> dict:
                                     "paged_merge_kernel"),
             "paged_attention_cpm_f32": ("paged_mla_tf32x3_kernel",
                                         "paged_merge_kernel"),
+            **{f"flash_attention_{case}{sfx}": (kern,)
+               for case in ("danube", "gemma3_local", "gemma3_global")
+               for sfx, kern in (("", "flash_fwd_mma_kernel"),
+                                 ("_f32", "flash_fwd_tf32x3_kernel"))},
+            **{f"paged_attention_{case}{sfx}": ("paged_split_kernel",
+                                                "paged_merge_kernel")
+               for case in ("danube", "gemma3", "gemma3_ring")
+               for sfx in ("", "_f32")},
             "ssd_chunk": ("ssd_chunk_y_mma_kernel",
                           "ssd_chunk_state_mma_kernel"),
             "ssd_chunk_f32": ("ssd_chunk_y_tf32x3_kernel",
@@ -1518,11 +1622,175 @@ def phase_parity_minicpm3(ops: dict) -> dict:
     return launches
 
 
+def ring_greedy(cfg, params, prompts, s_max, steps, impl, bucket=None,
+                feed=None) -> tuple:
+    """f32 on the card: ``prompts`` right-padded into one batch of
+    ``bucket`` tokens (default the longest prompt) and prefilled with each
+    row's true length, the caches laid into decode caches of ``s_max``
+    positions as the engine's ``_write_slot`` lays them (a ring layer's
+    ring of min(window, bucket) slots at the front of its min(window,
+    s_max)), then ``steps`` greedy decode steps, through the kernels
+    (``impl`` None) or the plain versions (``"plain"``); with ``feed``
+    (B, steps + 1) the decode steps take those tokens.  Returns (each
+    step's logits on the host, the greedy tokens (B, steps + 1))."""
+    import torch
+    from repro_torch.models import (DtypePolicy, decode_step,
+                                    init_decode_caches, prefill)
+    pol = DtypePolicy(torch.float32, torch.float32, torch.float32)
+    lens = [len(p) for p in prompts]
+    toks = np.zeros((len(prompts), bucket or max(lens)), dtype=np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = p
+    logits, pc = prefill(params, {"tokens": torch.tensor(toks, device="cuda")},
+                         cfg, policy=pol, impl=impl,
+                         true_lens=torch.tensor(lens, device="cuda"))
+    caches = init_decode_caches(cfg, len(prompts), s_max,
+                                dtype=torch.float32, device="cuda")
+    for dst, src in zip(caches, pc):
+        for name, t in src.items():
+            dst[name][:, :t.shape[1]].copy_(t)
+    del pc
+    pos = np.asarray(lens, dtype=np.int32)
+    out_logits, out_toks = [logits.cpu()], [logits.argmax(-1).cpu()]
+    for step in range(steps):
+        tok = feed[:, step:step + 1] if feed is not None else out_toks[-1]
+        logits, caches = decode_step(params, tok.to("cuda").to(torch.int32),
+                                     caches, pos, cfg, policy=pol, impl=impl)
+        out_logits.append(logits.cpu())
+        out_toks.append(logits.argmax(-1).cpu())
+        pos = pos + 1
+    return out_logits, torch.cat(out_toks, dim=1)
+
+
+def logit_gap(a: list, b: list) -> tuple:
+    """Largest absolute difference of two runs' logits, and the same over
+    the larger logit magnitude."""
+    err = max(max_err(x, y) for x, y in zip(a, b))
+    scale = max(float(y.abs().max()) for y in b)
+    return err, err / scale
+
+
+def phase_parity_danube(ops: dict) -> dict:
+    """h2o-danube-1.8b at full width and 2 layers, f32, on the card: a
+    4090-token prompt in decode caches of s_max 4608, so that every layer's
+    ring holds the published window W′ = min(4096, 4608) = 4096 slots, then
+    16 greedy steps (positions 4090 .. 4105: the ring is full from step 6
+    and wraps), through the kernels (flash (80, 80), paged hd 80 with G =
+    4 over the ring as pages) and through the plain versions, the kernel
+    run fed the plain run's greedy tokens: equal tokens, logits within
+    1e-3 of scale.  Returns the kernel run's launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_decode_caches, init_params
+    cfg = get_config("h2o-danube-1.8b").scaled(n_layers=2)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda", dtype=torch.float32)
+    s_max, steps = 4608, 16
+    ring = init_decode_caches(cfg, 1, s_max, dtype=torch.float32,
+                              device="cuda")[0]["k"].shape[1]
+    check(ring == 4096, f"h2o-danube ring of {ring} slots at s_max {s_max}")
+    prompt = np.random.default_rng(11).integers(0, cfg.vocab_size, 4090)
+    plain, ptok = ring_greedy(cfg, params, [prompt], s_max, steps, "plain")
+    reset_counts(ops)
+    kern, ktok = ring_greedy(cfg, params, [prompt], s_max, steps, None,
+                             feed=ptok)
+    torch.cuda.synchronize()
+    launches = ring_launches(ops)
+    err, rel = logit_gap(kern, plain)
+    print(f"[parity] h2o-danube-1.8b full width, 2 layers, f32, s_max "
+          f"{s_max} (rings of {ring}), 4090-token prompt, {steps} greedy "
+          f"steps across the window: tokens kernels {ktok.tolist()} plain "
+          f"{ptok.tolist()}; max logit diff {err:.3g} ({rel:.3g} of scale); "
+          f"launches {launches}")
+    check(torch.equal(ktok, ptok), "h2o-danube kernel and plain greedy "
+                                   "tokens equal")
+    check(rel <= 1e-3, f"h2o-danube logits within 1e-3 of scale "
+                       f"(got {rel:.3g})")
+    check(all(bool(torch.isfinite(x).all()) for x in kern), "finite logits")
+    check(launches["flash"] == launches["flash_window"] == 2
+          and launches["paged"] == 2 * steps,
+          "h2o-danube parity ran flash (windowed) and paged on the card")
+    del params
+    return launches
+
+
+def phase_parity_gemma3(ops: dict) -> dict:
+    """gemma3-4b at full width and one period of 6 layers (5 local of
+    window 1024, 1 global), f32, on the card: a 1100-token and a 60-token
+    prompt right-padded into one bucket of 2048, each row's rings built
+    from its true length, then 16 greedy steps, through the kernels (flash
+    (256, 256) windowed and not, paged hd 256 with G = 2 over rings of 1024
+    slots and over the global layer's 2048) and through the plain
+    versions, the kernel run fed the plain run's tokens: equal tokens,
+    logits within 1e-3 of scale; and each prompt prefilled alone at its
+    exact length through the kernels gives the batch's tokens, and its
+    logits within 1e-4 of scale.  Returns
+    the batched kernel run's launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import layer_kinds
+    cfg = get_config("gemma3-4b").scaled(n_layers=6)
+    check(layer_kinds(cfg) == ["local"] * 5 + ["global"],
+          "gemma3 period: 5 local, 1 global")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda", dtype=torch.float32)
+    s_max, steps, bucket = 2048, 16, 2048
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (1100, 60)]
+    plain, ptok = ring_greedy(cfg, params, prompts, s_max, steps, "plain",
+                              bucket=bucket)
+    reset_counts(ops)
+    kern, ktok = ring_greedy(cfg, params, prompts, s_max, steps, None,
+                             bucket=bucket, feed=ptok)
+    torch.cuda.synchronize()
+    launches = ring_launches(ops)
+    err, rel = logit_gap(kern, plain)
+    runs = [ring_greedy(cfg, params, [p], s_max, steps, None)
+            for p in prompts]
+    alone = [tok[0] for _, tok in runs]
+    # each row of the batch against the same prompt alone: its rings were
+    # built from its true length, so the bucket's padding must not show
+    rel_alone = max(logit_gap([x[i:i + 1] for x in kern], lg)[1]
+                    for i, (lg, _) in enumerate(runs))
+    print(f"[parity] gemma3-4b full width, 6 layers (5 local, 1 global), "
+          f"f32, prompts of 1100 and 60 tokens in a bucket of {bucket}, "
+          f"{steps} greedy steps: tokens kernels {ktok.tolist()} plain "
+          f"{ptok.tolist()} each alone at its exact length "
+          f"{[a.tolist() for a in alone]}; max logit diff {err:.3g} "
+          f"({rel:.3g} of scale), batch row against the prompt alone "
+          f"{rel_alone:.3g} of scale; launches {launches}")
+    check(torch.equal(ktok, ptok), "gemma3 kernel and plain greedy tokens "
+                                   "equal")
+    check(rel <= 1e-3, f"gemma3 logits within 1e-3 of scale (got {rel:.3g})")
+    check(all(bool(torch.isfinite(x).all()) for x in kern), "finite logits")
+    check(all(torch.equal(ktok[i], a) for i, a in enumerate(alone)),
+          "gemma3 batched tokens equal each prompt's alone")
+    check(rel_alone <= 1e-4, f"gemma3 batch rows' logits within 1e-4 of "
+                             f"scale of each prompt's alone (got "
+                             f"{rel_alone:.3g})")
+    check(launches["flash"] == 6 and launches["flash_window"] == 5
+          and launches["paged"] == 6 * steps,
+          "gemma3 parity ran flash (5 windowed, 1 not) and paged on the "
+          "card")
+    del params
+    return launches
+
+
+def ring_launches(ops: dict) -> dict:
+    """The attention counts of a ring parity since the last
+    ``reset_counts``: flash, flash with a window, paged."""
+    fa = ops["flash_attention"].KERNEL
+    return {"flash": fa.launches, "flash_window": fa.window_launches,
+            "paged": ops["paged_attention"].KERNEL.launches}
+
+
 def reset_counts(ops: dict) -> None:
     """Set every kernel's launch counts to 0."""
     for mod in ops.values():
         mod.KERNEL.launches = 0
     ops["flash_attention"].KERNEL.offset_launches = 0
+    ops["flash_attention"].KERNEL.window_launches = 0
 
 
 def phase_serve(arch: str, ecfg, ops: dict, path: tuple,
@@ -1544,6 +1812,8 @@ def phase_serve(arch: str, ecfg, ops: dict, path: tuple,
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = {name: mod.KERNEL.launches for name, mod in ops.items()}
+    launches["flash_attention_window"] = \
+        ops["flash_attention"].KERNEL.window_launches
     eng, st = out["engine"], out["stats"]
     fin = out["finished"]
     check(len(fin) == len(reqs), f"all {len(reqs)} requests finished "
@@ -1993,6 +2263,7 @@ def main() -> int:
     phase_setup(kbuild)
     rows, calls = phase_kernels(fa, pa)
     phase_kernels_minicpm3(fa, pa, rows, calls)
+    phase_kernels_ring(fa, pa, rows, calls)
     chunk_cost = phase_mla_chunk_cost(fa)
     phase_ssd_kernel(so, rows, calls)
     f32_launches = phase_parity_llama()
@@ -2060,6 +2331,35 @@ def main() -> int:
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    ring_f32 = {"danube": phase_parity_danube(ops)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    ring_f32["gemma3"] = phase_parity_gemma3(ops)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ecfg = CARD_ENGINE_CONFIGS["h2o-danube-1.8b"]()
+    print(f"[serve] h2o-danube-1.8b at s_max {ecfg.s_max}: its rings hold "
+          f"min(4096, {ecfg.s_max}) = {min(4096, ecfg.s_max)} slots, the "
+          f"whole slot, so the window is inert in this serve; the f32 "
+          f"parity above (s_max 4608, rings of 4096) crosses it")
+    danube, out = phase_serve("h2o-danube-1.8b", ecfg, ops,
+                              ("flash_attention", "paged_attention"),
+                              max_peak_gib=75)
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    gemma3, out = phase_serve("gemma3-4b", CARD_ENGINE_CONFIGS["gemma3-4b"](),
+                              ops, ("flash_attention", "paged_attention"),
+                              max_peak_gib=75)
+    # every prefill runs 29 local (windowed) and 5 global layers
+    local = gemma3["flash_attention_window"]
+    glob = gemma3["flash_attention"] - local
+    check(local > 0 and 5 * local == 29 * glob,
+          f"gemma3 serve's flash launches 29 windowed to 5 not (got {local} "
+          f"and {glob})")
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
     mamba, _ = phase_serve("mamba2-370m", ssm_card_engine_config(), ops,
                            ("ssd_chunk",))
     # after every timed phase: the profiler runs in this process only here
@@ -2079,6 +2379,8 @@ def main() -> int:
         by_path[name]["deepseek_prefix"] = deepseek_prefix[name]
         by_path[name]["minicpm3"] = minicpm3[name]
         by_path[name]["minicpm3_prefix"] = minicpm3_prefix[name]
+        by_path[name]["h2o_danube"] = danube[name]
+        by_path[name]["gemma3"] = gemma3[name]
     for path, counts in (("deepseek_prefix", deepseek_prefix),
                          ("minicpm3_prefix", minicpm3_prefix)):
         by_path["flash_attention"][f"{path}_offset"] = \
@@ -2173,6 +2475,36 @@ def main() -> int:
                 case: {**rows[f"{name}_cpm{sfx}"], "launches": n,
                        "variant": variants[f"{name}_cpm{sfx}"]}
                 for case, sfx, n in cpm}
+            # the sliding-window families' instances: bf16 launches from
+            # their serves, f32 ones from their parities.  Flash counts its
+            # windowed launches (gemma3's local layers) apart; paged counts
+            # one total for hd 256, G = 2, rings and global slots together
+            fd, fg = ring_f32["danube"], ring_f32["gemma3"]
+            if name == "flash_attention":
+                gw = gemma3["flash_attention_window"]
+                ring = [("danube", danube[name]),
+                        ("danube_f32", fd["flash"]),
+                        ("gemma3_local", gw),
+                        ("gemma3_local_f32", fg["flash_window"]),
+                        ("gemma3_global", gemma3[name] - gw),
+                        ("gemma3_global_f32",
+                         fg["flash"] - fg["flash_window"])]
+            else:
+                ring = [("danube", danube[name]),
+                        ("danube_f32", fd["paged"]),
+                        ("gemma3", gemma3[name]),
+                        ("gemma3_f32", fg["paged"])]
+            entry["ring_cases"] = {
+                case: {**rows[f"{name}_{case}"], "launches": n,
+                       "variant": variants[f"{name}_{case}"]}
+                for case, n in ring}
+            if name == "paged_attention":
+                # the same instance over 8 wrapped rings: its launches are
+                # in the gemma3 case's
+                for sfx in ("", "_f32"):
+                    entry["ring_cases"][f"gemma3{sfx}"]["ring_case"] = {
+                        **rows[f"{name}_gemma3_ring{sfx}"],
+                        "variant": variants[f"{name}_gemma3_ring{sfx}"]}
         kernels.append(entry)
     print(f"[summary] all phases passed in {time.monotonic() - t_start:.1f} s")
     print("[summary] recorded, not measured in this run: main-case ms of "

@@ -12,7 +12,10 @@ a block's rows).  An MoE layer's shared experts stay under the ``"shared"``
 key of its ``mlp`` on the JAX side and sit in the port block's ``shared``;
 an MLA layer's ``{"latent", "k_rope"}`` cache pair is the port's one
 ``{"ckv"}`` tensor, the two joined along the last axis under a KV-head axis
-of 1.
+of 1.  A sliding-window layer's ring ``{"k", "v"}`` (min(window, s_max)
+slots, position p at slot p % W) has the same layout on both sides, so it
+crosses as a full cache does; in gemma3's stack, layer j of period p is
+layer ``head + p·6 + j``, global and local layers interleaved.
 
 Both sides of the bridge are numpy: it imports no JAX, and callers hand in
 ``np.asarray`` of the JAX arrays.  The conversion is exact.

@@ -3,7 +3,10 @@
 The port registers the architectures its model path supports so far: the
 paper's own evaluation model (llama2-13b), qwen3-4b (GQA with ``qk_norm``),
 mamba2-370m (the SSM family), deepseek-v2-lite-16b (MLA attention and MoE
-experts) and minicpm3-4b (MLA attention, dense MLPs).  Smoke configs are reduced same-family variants for CPU tests.
+experts), minicpm3-4b (MLA attention, dense MLPs), h2o-danube-1.8b
+(sliding-window attention) and gemma3-4b (five local sliding-window layers
+to one global).  Smoke configs are reduced same-family variants for CPU
+tests.
 """
 
 from __future__ import annotations
@@ -48,9 +51,9 @@ def _ensure_loaded():
     global _loaded
     if _loaded:
         return
-    from . import (deepseek_v2_lite_16b, llama2_13b, mamba2_370m,
-                   minicpm3_4b, qwen3_4b)
+    from . import (deepseek_v2_lite_16b, gemma3_4b, h2o_danube_1p8b,
+                   llama2_13b, mamba2_370m, minicpm3_4b, qwen3_4b)
     # imported for their registration side effect only
-    _ = (deepseek_v2_lite_16b, llama2_13b, mamba2_370m, minicpm3_4b,
-         qwen3_4b)
+    _ = (deepseek_v2_lite_16b, gemma3_4b, h2o_danube_1p8b, llama2_13b,
+         mamba2_370m, minicpm3_4b, qwen3_4b)
     _loaded = True

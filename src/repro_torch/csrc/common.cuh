@@ -52,13 +52,21 @@ __device__ __forceinline__ void load_f32(const T* __restrict__ src, float (&dst)
 // 96 or 288 elements) starts half a line after the row before it: chunk c'
 // of a whole group lands in bank group (4 r + (c' ^ (r & 7))) mod 8, and
 // chunk c' of the 4-chunk tail, which XORs with (r >> 1) & 3, in (4 r + (c'
-// ^ ((r >> 1) & 3))) mod 8; each takes 8 values over the 8 rows.
+// ^ ((r >> 1) & 3))) mod 8; each takes 8 values over the 8 rows.  A row of
+// 8 n + 2 chunks (bf16 rows of 80 elements) starts a quarter line after the
+// row before it: a whole group's chunk c' lands in (2 r + (c' ^ (r & 7)))
+// mod 8, and chunk c' of the 2-chunk tail, which XORs with (r >> 2) & 1, in
+// (2 r + (c' ^ ((r >> 2) & 1))) mod 8: rows r and r + 4 share 2 r mod 8 and
+// part on the low bit.  Each takes 8 values over the 8 rows (checked by
+// enumeration of every row width the kernels stage).
 template <int CHUNKS>
 __device__ __forceinline__ int swizzle_chunk(int r, int c) {
-  static_assert(CHUNKS % 8 == 0 || CHUNKS % 8 == 4, "rows of 8 n or 8 n + 4 chunks");
-  constexpr int kTail = CHUNKS - CHUNKS % 8;  // first chunk of the 4-chunk tail
-  if (CHUNKS % 8 == 0 || c < kTail) return c ^ (r & 7);
-  return kTail + ((c - kTail) ^ ((r >> 1) & 3));
+  constexpr int kRem = CHUNKS % 8;
+  static_assert(kRem == 0 || kRem == 4 || kRem == 2, "rows of 8 n, 8 n + 4 or 8 n + 2 chunks");
+  constexpr int kTail = CHUNKS - kRem;  // first chunk of the tail
+  if (kRem == 0 || c < kTail) return c ^ (r & 7);
+  if (kRem == 4) return kTail + ((c - kTail) ^ ((r >> 1) & 3));
+  return kTail + ((c - kTail) ^ ((r >> 2) & 1));
 }
 
 }  // namespace repro

@@ -8,16 +8,21 @@
 //
 // Layout: q (B, S, H, dk), k (B, T, K, dk), v (B, T, K, dv), out (B, S, H,
 // dv), all contiguous, f32 or bf16; query head h reads KV head h / (H / K).
-// (dk, dv) is (64, 64), (128, 128) or, for MLA prefill and chunks folded
-// into MHA form, (192, 128) (deepseek-v2-lite: keys [nope 128 ‖ rope 64],
-// values 128) and (96, 64) (minicpm3-4b: [nope 64 ‖ rope 32], values 64).
-// At dk 96 a bf16 row is 12 16-byte chunks, so rows alternate between the
-// two halves of a 128-byte line; the swizzle's 4-chunk tail keeps every
-// ldmatrix conflict-free (common.cuh::swizzle_chunk).  Query row
-// i stands at absolute position q_offset + i, and only the first kv_len <= T
-// keys are visible: chunked prefill passes a slot's whole (B, s_max, K, hd)
-// cache with q_offset = pos0 and kv_len = pos0 + C, so the per-batch stride of
-// K and V comes from T, the bounds and masks from kv_len.
+// (dk, dv) is (64, 64), (128, 128), (80, 80) (h2o-danube-1.8b), (256, 256)
+// (gemma3-4b) or, for MLA prefill and chunks folded into MHA form, (192,
+// 128) (deepseek-v2-lite: keys [nope 128 ‖ rope 64], values 128) and (96,
+// 64) (minicpm3-4b: [nope 64 ‖ rope 32], values 64).  At dk 96 a bf16 row is
+// 12 16-byte chunks, so rows alternate between the two halves of a 128-byte
+// line, and at dk 80 it is 10, a quarter line apart; the swizzle's 4- and
+// 2-chunk tails keep every ldmatrix conflict-free (common.cuh::
+// swizzle_chunk).  At (256, 256) the output accumulator alone is 128 f32
+// registers a thread, and the tiles take 98,304 B in bf16 (32-key tiles:
+// two blocks an SM, no spill) and 133,120 B in f32 (16-key tiles: one).
+// Query row i stands at absolute position q_offset + i, and only the first
+// kv_len <= T keys are visible: chunked prefill passes a slot's whole (B,
+// s_max, K, hd) cache with q_offset = pos0 and kv_len = pos0 + C, so the
+// per-batch stride of K and V comes from T, the bounds and masks from
+// kv_len.
 //
 // What bounds it on this card.  Causal prefill does about 2 * S * S * hd
 // FLOPs per (batch, head) against 4 * S * hd elements of q, k, v and out:
@@ -48,14 +53,20 @@
 //     ragged S and T are masked per element, so S need not be a multiple of
 //     the tile (the TPU kernel requires it).
 //
-// bf16 -> `flash_fwd_mma_kernel` (FlashAttention-2's shape): 64-key tiles;
+// bf16 -> `flash_fwd_mma_kernel` (FlashAttention-2's shape): 64-key tiles
+//   (32 at dk 256);
 //   S = Q K^T and O += P V are mma.sync m16n8k16 (bf16 in, f32 out).  Q's A
 //   fragments are loaded once (ldmatrix) up to dk 128, and read from the Q
 //   tile at each k-step at dk 192 (held, they would spill); K fragments come
 //   from ldmatrix, V fragments from ldmatrix.trans; tiles stay bf16, rows
 //   XOR-swizzled by 16-byte chunk, so ldmatrix has no bank conflicts.  ~80
-//   KB of shared memory at (128, 128) and ~104 KB at (192, 128): two blocks
-//   an SM; ~52 KB at (96, 64): four.  P is rounded to bf16 pairs.
+//   KB of shared memory at (128, 128), ~104 KB at (192, 128) and ~96 KB at
+//   (256, 256): two blocks an SM; ~52 KB at (96, 64) and ~51 KB at (80,
+//   80), room for four.  P is rounded to bf16 pairs.  Measured at gemma3's
+//   prefill (B = 2, S = 2048, H = 8, K = 4; NVIDIA H100 80GB HBM3 at 700 W,
+//   graph timer, chip_smoke.py; PERF.md section 6): 64-key tiles at dk
+//   256 (163,840 B, one block an SM, 64 bytes of spill) took 0.194 ms
+//   windowed and 0.259 ms causal, 32-key tiles 0.151 and 0.207.
 //
 // f32 -> `flash_fwd_tf32x3_kernel`: both products on the tensor cores as
 //   mma.sync m16n8k8 with TF32 inputs, three products per multiply
@@ -105,7 +116,9 @@
 //       (128, 128): 32-key tiles, 33,792 + 2 x 33,792 = 101,376 B: 2 blocks,
 //                   8 warps an SM;
 //       (192, 128): 16-key tiles, 50,176 + 2 x 20,992 =  92,160 B: 2 blocks;
-//       (96, 64):   32-key tiles, 25,600 + 2 x 21,504 =  68,608 B: 3 blocks.
+//       (96, 64):   32-key tiles, 25,600 + 2 x 21,504 =  68,608 B: 3 blocks;
+//       (80, 80):   32-key tiles, 21,504 + 2 x 21,504 =  64,512 B: 3 blocks;
+//       (256, 256): 16-key tiles, 66,560 + 2 x 33,280 = 133,120 B: 1 block.
 //   * Why not wgmma yet.  TF32 wgmma takes its operands K-major from shared
 //     memory only; V, the B operand of P V, is (keys, dv) with dv
 //     contiguous, so it would need a transposing stage, and the split
@@ -339,7 +352,7 @@ __global__ void __launch_bounds__(kThreads)
     // + grp] of the k-step's 8 keys, by scalar loads (ldmatrix.trans would
     // cut each f32 word in two), kDG output tiles at a time so that each
     // product runs over kDG independent accumulators.
-    constexpr int kDG = 4;
+    constexpr int kDG = DT % 4 == 0 ? 4 : 2;  // 2 at dv 80 (10 output tiles)
     static_assert(DT % kDG == 0, "whole groups of output tiles");
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
@@ -431,13 +444,17 @@ namespace tensor_core {
 
 using bf16 = __nv_bfloat16;
 constexpr int kBQ = 64;        // query rows per block
-constexpr int kBKV = 64;       // keys per KV tile
+// Keys per KV tile: 64, and 32 at dk 256, where 64-key tiles would take
+// 163,840 B (one block an SM) and spill beside the 128-register output
+// accumulator; 32-key ones take 98,304 B, so two blocks fit an SM.
+template <int DK>
+constexpr int kKvTile = DK > 192 ? 32 : 64;
 constexpr int kWarps = 4;      // each owns 16 query rows
 constexpr int kThreads = kWarps * 32;
 
 template <int DK, int DV>
 constexpr size_t smem_bytes() {  // Q, 2 stages of K and of V
-  return sizeof(bf16) * (size_t(DK) * (kBQ + 2 * kBKV) + size_t(DV) * 2 * kBKV);
+  return sizeof(bf16) * (size_t(DK) * (kBQ + 2 * kKvTile<DK>) + size_t(DV) * 2 * kKvTile<DK>);
 }
 
 // Element offset of 16-byte chunk c of row r in a (rows, HD) bf16 tile whose
@@ -473,6 +490,7 @@ __global__ void __launch_bounds__(kThreads)
                          const bf16* __restrict__ v, bf16* __restrict__ o, int S, int T_len,
                          int kv_len, int q_offset, int H, int KH, float scale_log2, int causal,
                          int window) {
+  constexpr int kBKV = kKvTile<DK>;
   constexpr int KS = DK / 16;   // k-steps of Q K^T
   constexpr int NT = kBKV / 8;  // 8-key column tiles of S
   constexpr int DT = DV / 8;    // 8-dim column tiles of O
@@ -529,7 +547,8 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   // Q's A fragments, held in registers for the whole walk up to dk 128; at
   // dk 192 they would take 48 registers beside the 64 of the accumulator
-  // and spill, so there each k-step reads its fragment from the Q tile.
+  // and spill (at dk 256, 64 beside 128), so there each k-step reads its
+  // fragment from the Q tile.
   constexpr bool kHoldQ = DK <= 128;
   uint32_t qf[kHoldQ ? KS : 1][4];
   if constexpr (kHoldQ) {
@@ -721,6 +740,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   REPRO_FLASH_CASE(64, 64)
   REPRO_FLASH_CASE(192, 128)
   REPRO_FLASH_CASE(96, 64)
+  REPRO_FLASH_CASE(80, 80)
+  REPRO_FLASH_CASE(256, 256)
 #undef REPRO_FLASH_CASE
   return int(cudaErrorInvalidValue);
 }

@@ -9,7 +9,11 @@
 // the pool: the kernel reads them without checking.
 //
 // Layout: q (B, H, hd), k/v pages (P, page, K, hd), block_table
-// (B, max_pages) int32, seq_lens (B,) int32, out (B, H, hd); f32 or bf16.
+// (B, max_pages) int32, seq_lens (B,) int32, out (B, H, hd); f32 or bf16;
+// hd 64, 128, 80 (h2o-danube-1.8b) or 256 (gemma3-4b).  A sliding-window
+// layer's ring cache (B, W, K, hd) is passed as pages too, with seq_len =
+// min(pos + 1, W): keys are stored after RoPE, so the order of the ring's
+// rows does not matter, and the kernel needs no window.
 // Absorbed MLA decode runs split kernels of its own (see below:
 // `paged_mla_mma_kernel` for bf16, `paged_mla_tf32x3_kernel` for f32): one
 // KV head whose rows are keys and, in their first columns, values.
@@ -36,6 +40,8 @@
 //   * every load is 16 bytes a lane: a token's K (or V) row is read by
 //     hd * sizeof(T) / 16 neighbouring lanes, and each lane keeps 8 (f32 at
 //     hd 128) or 4 loads of K and as many of V in flight before using them;
+//     a row of 80 takes 10 (bf16) or 20 (f32) lanes of a group of 16 or 32,
+//     the rest idle, and an f32 row of 256 takes two loads a lane;
 //   * each lane runs its own online softmax over the tokens it loaded; the
 //     lanes' states merge by shuffles, the warps' through shared memory;
 //   * the block writes (max, sum, unnormalised output) per (sequence, query
@@ -164,6 +170,16 @@ namespace {
 
 constexpr int kWarps = 4;
 
+// max(a, b) that is NaN when either is (max.NaN.f32): a NaN score keeps the
+// running max, and so the partial's max, NaN, so neither the warps' merge nor
+// `paged_merge_kernel` takes the partial for an empty one.  For finite
+// inputs it is fmaxf.
+__device__ __forceinline__ float fmax_nan(float a, float b) {
+  float y;
+  asm("max.NaN.f32 %0, %1, %2;\n" : "=f"(y) : "f"(a), "f"(b));
+  return y;
+}
+
 template <typename T, int HD, int G>
 __global__ void __launch_bounds__(kWarps * 32)
     paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
@@ -171,12 +187,19 @@ __global__ void __launch_bounds__(kWarps * 32)
                        const int* __restrict__ seq_lens, T* __restrict__ o,
                        float* __restrict__ part, int H, int KH, int page, int max_pages,
                        int partition, int n_split, float scale_log2) {
-  constexpr int EPL = 16 / sizeof(T);   // elements a lane loads at once
-  constexpr int LPT = HD / EPL;         // lanes that share one token's row
-  constexpr int TPW = 32 / LPT;         // tokens one warp-wide load covers
-  constexpr int NL = TPW >= 2 ? 4 : 8;  // loads of K (and of V) a lane keeps in flight
+  constexpr int EPL = 16 / sizeof(T);   // elements of one 16-byte load
+  // 16-byte loads a lane takes of one row: 2 for f32 rows of 256, else 1
+  constexpr int NV = HD > 32 * EPL ? HD / (32 * EPL) : 1;
+  constexpr int EPT = NV * EPL;         // elements of a row a lane holds
+  constexpr int LPT = HD / EPT;         // lanes that hold one token's row
+  // Lanes a token takes: LPT rounded up to a power of 2, the lanes past LPT
+  // idle (hd 80: 10 of 16 in bf16, 20 of 32 in f32), so that the lanes of a
+  // token reduce by XOR shuffles.
+  constexpr int LPW = LPT <= 4 ? 4 : LPT <= 8 ? 8 : LPT <= 16 ? 16 : 32;
+  constexpr int TPW = 32 / LPW;         // tokens one warp-wide load covers
+  constexpr int NL = (TPW >= 2 ? 4 : 8) / NV;  // loads of K (and of V) a lane keeps in flight
   constexpr int U = NL * TPW;           // tokens a warp takes per step
-  static_assert(LPT >= 1 && LPT <= 32 && 32 % LPT == 0, "a token row spans whole lanes");
+  static_assert(HD % EPT == 0 && LPT >= 1 && LPT <= 32, "a token row spans at most a warp");
 
   const int kh = blockIdx.x;
   const int b = blockIdx.y;
@@ -203,22 +226,27 @@ __global__ void __launch_bounds__(kWarps * 32)
     return;
   }
 
-  const int sub = lane / LPT;          // token of a warp-wide load
-  const int d0 = (lane % LPT) * EPL;   // this lane's first dim
-  float qr[G][EPL];
+  const int sub = lane / LPW;                 // token of a warp-wide load
+  const bool live = lane % LPW < LPT;         // this lane holds dims of the row
+  const int d0 = live ? (lane % LPW) * EPT : 0;   // this lane's first dim
+  float qr[G][EPT];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    repro::load_f32<T, EPL>(q + (bh0 + g) * HD + d0, qr[g]);
 #pragma unroll
-    for (int i = 0; i < EPL; ++i) qr[g][i] *= scale_log2;
+    for (int v = 0; v < NV; ++v) {
+      float part_q[EPL];
+      repro::load_f32<T, EPL>(q + (bh0 + g) * HD + d0 + v * EPL, part_q);
+#pragma unroll
+      for (int i = 0; i < EPL; ++i) qr[g][v * EPL + i] = live ? part_q[i] * scale_log2 : 0.f;
+    }
   }
-  float m[G], l[G], acc[G][EPL];
+  float m[G], l[G], acc[G][EPT];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     m[g] = -INFINITY;
     l[g] = 0.f;
 #pragma unroll
-    for (int i = 0; i < EPL; ++i) acc[g][i] = 0.f;
+    for (int i = 0; i < EPT; ++i) acc[g][i] = 0.f;
   }
 
   const int* table = block_table + size_t(b) * max_pages;
@@ -227,57 +255,68 @@ __global__ void __launch_bounds__(kWarps * 32)
   const size_t lane_off = size_t(kh) * HD + d0;
 
   for (int t0 = t_begin + w * U; t0 < t_end; t0 += kWarps * U) {
-    uint4 kr[NL], vr[NL];
+    uint4 kr[NL][NV], vr[NL][NV];
     bool ok[NL];
 #pragma unroll
     for (int i = 0; i < NL; ++i) {
       const int t = t0 + i * TPW + sub;
       ok[i] = t < t_end;
-      if (ok[i]) {
-        const size_t off =
-            size_t(__ldg(table + t / page)) * page_stride + size_t(t % page) * tok_stride + lane_off;
-        kr[i] = __ldg(reinterpret_cast<const uint4*>(kp + off));
-        vr[i] = __ldg(reinterpret_cast<const uint4*>(vp + off));
+      if (ok[i] && live) {
+        const size_t off = size_t(__ldg(table + t / page)) * page_stride +
+                           size_t(t % page) * tok_stride + lane_off;
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          kr[i][v] = __ldg(reinterpret_cast<const uint4*>(kp + off + v * EPL));
+          vr[i][v] = __ldg(reinterpret_cast<const uint4*>(vp + off + v * EPL));
+        }
       } else {
-        kr[i] = vr[i] = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+        for (int v = 0; v < NV; ++v) kr[i][v] = vr[i][v] = make_uint4(0u, 0u, 0u, 0u);
       }
     }
 
     // Scores of this lane's NL tokens for each head: partial dots, then a
-    // sum over the LPT lanes of the token.
+    // sum over the LPW lanes of the token (idle lanes add 0).
     float s[NL][G];
 #pragma unroll
     for (int i = 0; i < NL; ++i) {
-      const T* kv = reinterpret_cast<const T*>(&kr[i]);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         float dot = 0.f;
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) dot = fmaf(qr[g][e], repro::to_f32(kv[e]), dot);
+        for (int v = 0; v < NV; ++v) {
+          const T* kv = reinterpret_cast<const T*>(&kr[i][v]);
+#pragma unroll
+          for (int e = 0; e < EPL; ++e)
+            dot = fmaf(qr[g][v * EPL + e], repro::to_f32(kv[e]), dot);
+        }
         s[i][g] = dot;
       }
     }
 #pragma unroll
-    for (int off = LPT / 2; off > 0; off >>= 1)
+    for (int off = LPW / 2; off > 0; off >>= 1)
 #pragma unroll
       for (int i = 0; i < NL; ++i)
 #pragma unroll
         for (int g = 0; g < G; ++g) s[i][g] += __shfl_xor_sync(0xffffffffu, s[i][g], off);
 
-    float vf[NL][EPL];
+    float vf[NL][EPT];
 #pragma unroll
     for (int i = 0; i < NL; ++i) {
-      const T* vv = reinterpret_cast<const T*>(&vr[i]);
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) vf[i][e] = repro::to_f32(vv[e]);
+      for (int v = 0; v < NV; ++v) {
+        const T* vv = reinterpret_cast<const T*>(&vr[i][v]);
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) vf[i][v * EPL + e] = repro::to_f32(vv[e]);
+      }
     }
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       float mx = -INFINITY;
 #pragma unroll
       for (int i = 0; i < NL; ++i)
-        if (ok[i]) mx = fmaxf(mx, s[i][g]);
-      const float m_new = fmaxf(m[g], mx);
+        if (ok[i]) mx = fmax_nan(mx, s[i][g]);
+      const float m_new = fmax_nan(m[g], mx);
       const float mu = m_new == -INFINITY ? 0.f : m_new;  // this lane has no token yet
       const float corr = exp2f(m[g] - mu);
       float ps = 0.f;
@@ -289,7 +328,7 @@ __global__ void __launch_bounds__(kWarps * 32)
       }
       l[g] = l[g] * corr + ps;
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) {
+      for (int e = 0; e < EPT; ++e) {
         float a = acc[g][e] * corr;
 #pragma unroll
         for (int i = 0; i < NL; ++i) a = fmaf(p[i], vf[i][e], a);
@@ -301,18 +340,18 @@ __global__ void __launch_bounds__(kWarps * 32)
 
   // Merge the lanes that hold the same dims of different tokens.
 #pragma unroll
-  for (int off = LPT; off < 32; off <<= 1) {
+  for (int off = LPW; off < 32; off <<= 1) {
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       const float m2 = __shfl_xor_sync(0xffffffffu, m[g], off);
       const float l2 = __shfl_xor_sync(0xffffffffu, l[g], off);
-      const float M = fmaxf(m[g], m2);
+      const float M = fmax_nan(m[g], m2);
       const float mu = M == -INFINITY ? 0.f : M;
       const float a = exp2f(m[g] - mu);
       const float c = exp2f(m2 - mu);
       l[g] = l[g] * a + l2 * c;
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) {
+      for (int e = 0; e < EPT; ++e) {
         const float o2 = __shfl_xor_sync(0xffffffffu, acc[g][e], off);
         acc[g][e] = acc[g][e] * a + o2 * c;
       }
@@ -332,7 +371,7 @@ __global__ void __launch_bounds__(kWarps * 32)
         sm_l[w][g] = l[g];
       }
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) sm_acc[w][g][d0 + e] = acc[g][e];
+      for (int e = 0; e < EPT; ++e) sm_acc[w][g][d0 + e] = acc[g][e];
     }
   }
   __syncthreads();
@@ -341,7 +380,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     const int d = idx % HD;
     float M = -INFINITY;
 #pragma unroll
-    for (int ww = 0; ww < kWarps; ++ww) M = fmaxf(M, sm_m[ww][g]);
+    for (int ww = 0; ww < kWarps; ++ww) M = fmax_nan(M, sm_m[ww][g]);
     float L = 0.f, O = 0.f;
 #pragma unroll
     for (int ww = 0; ww < kWarps; ++ww) {
@@ -352,7 +391,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     }
     const size_t bh = bh0 + g;
     if (n_split == 1) {
-      o[bh * HD + d] = repro::from_f32<T>(L > 0.f ? O / L : 0.f);
+      o[bh * HD + d] = repro::from_f32<T>(L == 0.f ? 0.f : O / L);  // a NaN L passes
     } else {
       part_o[(bh * n_split + split) * HD + d] = O;
       if (d == 0) {
@@ -365,8 +404,10 @@ __global__ void __launch_bounds__(kWarps * 32)
 
 // out[b, h] = sum_i 2^(m_i - M) o_i / sum_i 2^(m_i - M) l_i over the
 // non-empty partials i of (b, h); one block per (b, h), one thread per dim.
-// 0 where no partial holds a token; a NaN partial (a NaN in q or in a
-// visible row) makes the output NaN, as in the plain version.
+// 0 where no partial holds a token.  A NaN partial (a NaN in q or in a
+// visible row: the split kernels keep its max NaN) makes M NaN, so every
+// weight and the output are NaN, as in the plain version; for finite
+// partials fmax_nan is fmaxf, so the arithmetic is unchanged.
 template <typename T, int HD>
 __global__ void __launch_bounds__(HD)
     paged_merge_kernel(const float* __restrict__ part, T* __restrict__ o, int BH, int n_split) {
@@ -376,7 +417,7 @@ __global__ void __launch_bounds__(HD)
   const float* pl = part + size_t(BH) * n_split + bh * n_split;
   const float* po = part + 2 * size_t(BH) * n_split + bh * n_split * HD;
   float M = -INFINITY;
-  for (int i = 0; i < n_split; ++i) M = fmaxf(M, pm[i]);
+  for (int i = 0; i < n_split; ++i) M = fmax_nan(M, pm[i]);
   float L = 0.f, O = 0.f;
   for (int i = 0; i < n_split; ++i) {
     if (pm[i] == -INFINITY) continue;  // empty partition
@@ -630,11 +671,11 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
     }
 
     // The tile's max of each head: the lane's 2 tokens, the quad, the warps.
-    float mx[2] = {fmaxf(sc[0], sc[1]), fmaxf(sc[2], sc[3])};
+    float mx[2] = {fmax_nan(sc[0], sc[1]), fmax_nan(sc[2], sc[3])};
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      mx[r] = fmax_nan(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmax_nan(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
     }
     if (quad == 0) {
       red_m[warp * kM + grp] = mx[0];
@@ -646,8 +687,10 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
     for (int r = 0; r < 2; ++r) {
       float m = red_m[grp + 8 * r];
 #pragma unroll
-      for (int w = 1; w < kMmaWarps; ++w) m = fmaxf(m, red_m[w * kM + grp + 8 * r]);
-      mu[r] = fmaxf(m_run[r], m);  // finite: the tile's first token is visible
+      for (int w = 1; w < kMmaWarps; ++w) m = fmax_nan(m, red_m[w * kM + grp + 8 * r]);
+      // finite inputs: finite, the tile's first token is visible; a NaN
+      // score keeps the head's max NaN, so the merge sees a NaN partial
+      mu[r] = fmax_nan(m_run[r], m);
       const float corr = exp2f(m_run[r] - mu[r]);
       m_run[r] = mu[r];
       l_run[r] *= corr;
@@ -706,7 +749,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
     const size_t bh = bh0 + g;
     const int col = warp * DW + 2 * quad;
     if (n_split == 1) {
-      const float inv = L > 0.f ? 1.f / L : 0.f;
+      const float inv = L == 0.f ? 0.f : 1.f / L;  // a NaN L passes
 #pragma unroll
       for (int d = 0; d < DT; ++d)
         *reinterpret_cast<uint32_t*>(o + bh * DV + col + 8 * d) =
@@ -788,15 +831,6 @@ struct ScoreVec<4> {
     return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
   }
 };
-
-// max(a, b) that is NaN when either is (max.NaN.f32): a NaN score keeps the
-// running max, and so the partial's max, NaN, so the merge does not take
-// the partial for an empty one.
-__device__ __forceinline__ float fmax_nan(float a, float b) {
-  float y;
-  asm("max.NaN.f32 %0, %1, %2;\n" : "=f"(y) : "f"(a), "f"(b));
-  return y;
-}
 
 template <int DK, int DV, int G>
 __global__ void __launch_bounds__(kF32WarpsOf<DK> * 32, 1)
@@ -1168,21 +1202,21 @@ extern "C" int paged_attention_fwd(const void* q, const void* k_pages, const voi
     return int(cudaErrorInvalidValue);
   }
   if (hd_v != hd || v_tok_stride != KH * hd) return int(cudaErrorInvalidValue);
-  if (dtype == repro::kF32 && hd == 128)
-    return int(launch_group<float, 128>(G, q, k_pages, v_pages, block_table, seq_lens, o,
-                                        partials, B, H, KH, page, max_pages, partition, n_split,
-                                        scale, st));
-  if (dtype == repro::kF32 && hd == 64)
-    return int(launch_group<float, 64>(G, q, k_pages, v_pages, block_table, seq_lens, o,
-                                       partials, B, H, KH, page, max_pages, partition, n_split,
-                                       scale, st));
-  if (dtype == repro::kBF16 && hd == 128)
-    return int(launch_group<__nv_bfloat16, 128>(G, q, k_pages, v_pages, block_table, seq_lens,
-                                                o, partials, B, H, KH, page, max_pages, partition,
-                                                n_split, scale, st));
-  if (dtype == repro::kBF16 && hd == 64)
-    return int(launch_group<__nv_bfloat16, 64>(G, q, k_pages, v_pages, block_table, seq_lens,
-                                               o, partials, B, H, KH, page, max_pages, partition,
-                                               n_split, scale, st));
+#define REPRO_PAGED_CASE(HD)                                                                  \
+  if (hd == HD) {                                                                             \
+    if (dtype == repro::kF32)                                                                 \
+      return int(launch_group<float, HD>(G, q, k_pages, v_pages, block_table, seq_lens, o,    \
+                                         partials, B, H, KH, page, max_pages, partition,      \
+                                         n_split, scale, st));                                \
+    if (dtype == repro::kBF16)                                                                \
+      return int(launch_group<__nv_bfloat16, HD>(G, q, k_pages, v_pages, block_table,         \
+                                                 seq_lens, o, partials, B, H, KH, page,       \
+                                                 max_pages, partition, n_split, scale, st));  \
+  }
+  REPRO_PAGED_CASE(128)
+  REPRO_PAGED_CASE(64)
+  REPRO_PAGED_CASE(80)
+  REPRO_PAGED_CASE(256)
+#undef REPRO_PAGED_CASE
   return int(cudaErrorInvalidValue);
 }

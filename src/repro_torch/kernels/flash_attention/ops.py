@@ -27,24 +27,31 @@ from .._build import DTYPE_CODES, CudaKernel
 from .ref import flash_attention_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# (q/k width, v width); (192, 128) and (96, 64) are MLA in MHA form
-# (deepseek-v2-lite, minicpm3-4b)
-HEAD_DIMS = ((64, 64), (128, 128), (192, 128), (96, 64))
+# (q/k width, v width); (80, 80) is h2o-danube-1.8b's, (256, 256) gemma3-4b's,
+# (192, 128) and (96, 64) are MLA in MHA form (deepseek-v2-lite, minicpm3-4b)
+HEAD_DIMS = ((64, 64), (128, 128), (192, 128), (96, 64), (80, 80), (256, 256))
 # Keys a KV tile of the f32 kernel, by q/k width (csrc/flash_attention.cu,
-# tf32x3::kKvTile): 16 at 192 so that two blocks fit an SM.
-F32_KV_TILE = {64: 32, 96: 32, 128: 32, 192: 16}
+# tf32x3::kKvTile): 16 above 128, so that two blocks fit an SM at 192 (one
+# at 256).
+F32_KV_TILE = {64: 32, 80: 32, 96: 32, 128: 32, 192: 16, 256: 16}
+# Keys a KV tile of the bf16 kernel (tensor_core::kKvTile): 64, and 32 at
+# 256 so that two blocks fit an SM.  P's rounding follows the tiles, so
+# ``flash_attention_tiled_ref`` takes the kernel's tile.
+BF16_KV_TILE = {64: 64, 80: 64, 96: 64, 128: 64, 192: 64, 256: 32}
 
 
 class FlashKernel(CudaKernel):
     """The flash library, which also counts its launches with a query
     offset (``offset_launches``), so a serve can show that chunked prefill
-    ran through the kernel."""
+    ran through the kernel, and those with a sliding window
+    (``window_launches``), so a serve can show which layers ran windowed."""
 
     def __init__(self):
         super().__init__("flash_attention", "flash_attention_fwd",
                          [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                           _I, ctypes.c_float, _I, _I, _P])
         self.offset_launches = 0
+        self.window_launches = 0
 
 
 KERNEL = FlashKernel()
@@ -87,6 +94,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                   int(window))
     if q_offset > 0:
         KERNEL.offset_launches += 1
+    if window > 0:
+        KERNEL.window_launches += 1
     return out
 
 

@@ -30,7 +30,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("paged_attention", "paged_attention_fwd",
                     [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                      _I, _I, _I, _I, ctypes.c_float, _P])
-HEAD_DIMS = (64, 128)     # keys and values of one width, pages of their own
+# keys and values of one width, pages of their own: 80 is h2o-danube-1.8b's,
+# 256 gemma3-4b's
+HEAD_DIMS = (64, 128, 80, 256)
 GROUPS = (1, 2, 4, 8)
 # (key, value) widths of absorbed MLA decode and the query heads a KV head
 # each takes: deepseek-v2-lite (latent 512 ‖ rope 64, 16 heads; 4 in the

@@ -1,7 +1,8 @@
 """Where the time of the full-width card run goes.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
-        [--arch llama2-13b|mamba2-370m|deepseek-v2-lite-16b|minicpm3-4b] \\
+        [--arch llama2-13b|mamba2-370m|deepseek-v2-lite-16b|minicpm3-4b|
+                h2o-danube-1.8b|gemma3-4b] \\
         [--prefix] [--trace out.json]
 
 Serves the ``chip_smoke.py`` workload (``card_requests``; the architecture

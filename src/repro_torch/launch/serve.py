@@ -5,7 +5,7 @@ admission scheduler over the paper's mixed workload.
         --full --device cuda
 
 (or ``--arch llama2-13b``, ``--arch deepseek-v2-lite-16b``, ``--arch
-minicpm3-4b``)
+minicpm3-4b``, ``--arch h2o-danube-1.8b``, ``--arch gemma3-4b``)
 
 ``--full`` builds the architecture's published config (random bf16 weights
 from ``--seed``) and serves the card workload (``card_requests``) with the
@@ -121,11 +121,17 @@ def card_prefix_requests(n: int = 24, seed: int = 0, vocab: int = 32000,
 # ``dropping`` path (the engine's default): at 8 slots a decode step routes
 # 8 tokens, each to 6 distinct experts, against a capacity of 8 an expert,
 # so decode never drops a token.  minicpm3-4b (MLA, dense MLPs, 9.1 GB of
-# bf16 weights at its 62 layers) takes the same sizing.
+# bf16 weights at its 62 layers) takes the same sizing, and so do the
+# sliding-window families, served bucketed (their ring caches refuse
+# chunked mode): h2o-danube-1.8b (window 4096, so at s_max 2048 its rings
+# are whole slots and the window is inert) and gemma3-4b (29 local layers
+# of window 1024 over rings of 1024 rows, 5 global ones over 2048).
 CARD_ENGINE_CONFIGS = {"llama2-13b": card_engine_config,
                        "mamba2-370m": ssm_card_engine_config,
                        "deepseek-v2-lite-16b": card_engine_config,
-                       "minicpm3-4b": card_engine_config}
+                       "minicpm3-4b": card_engine_config,
+                       "h2o-danube-1.8b": card_engine_config,
+                       "gemma3-4b": card_engine_config}
 
 
 def main() -> None:

@@ -19,8 +19,16 @@ query is projected through W_uk and attends over the latent cache as one
 KV head of r + rd keys whose values are the first r columns of the same
 rows, through the paged kernel.
 
-Not ported yet, and raising ``NotImplementedError``: the sliding-window
-ring cache (h2o-danube, gemma3 local layers).
+A sliding-window layer (h2o-danube's, gemma3's local ones) decodes over a
+*ring* cache ``{"k", "v"}`` of (B, W′, K, hd), W′ = min(window, s_max):
+position p lives in slot ``p % W′``, its key stored after RoPE, so
+:func:`gqa_decode_ring` hands the ring to the paged kernel as a page pool
+with ``seq_lens = min(pos + 1, W′)`` — the slots that hold a position of
+the window, in any order — and the kernel needs no window of its own.
+:func:`ring_cache_from_prefill` builds each row's ring from the row's true
+length (the JAX package keeps the last W positions of the padded length,
+which loses real positions and keeps pads once a bucket is longer than the
+window).
 """
 
 from __future__ import annotations
@@ -39,8 +47,12 @@ DECODE_PAGE = 16   # tokens per page when a slot cache is viewed as a page pool
 
 MLA_CACHE = "ckv"   # an MLA layer's decode cache entry: latent ‖ k_rope
 
-_RING_LATER = ("sliding-window (ring-cache) decode is not ported yet; it comes "
-               "with the later step that brings ring/SWA and RG-LRU")
+_RING_DECODE = ("a sliding-window layer decodes over its ring cache "
+                "(gqa_decode_ring), as the JAX stack routes it; this decode "
+                "takes full caches only")
+_RING_CHUNK = ("chunked decode is refused for sliding-window layers (a later "
+               "chunk token overwrites a ring slot an earlier query of the "
+               "chunk still needs), as in the JAX package")
 
 
 def init_attention(generator: torch.Generator, cfg: ModelConfig, dtype,
@@ -143,10 +155,42 @@ def gqa_decode(params, x, cache: dict, cache_pos, cfg: ModelConfig,
     page pool (``seq_lens = cache_pos + 1``, the JAX mask ``k_pos <= pos``).
     Returns (y (B,1,d), cache)."""
     if window and window > 0:
-        raise NotImplementedError(_RING_LATER)
+        raise NotImplementedError(_RING_DECODE)
+    posv = _pos_vec(cache_pos, x.shape[0], x.device)
+    return _decode_into(params, x, cache, posv, posv, posv + 1, cfg, impl)
+
+
+def gqa_decode_ring(params, x, cache: dict, cache_pos, cfg: ModelConfig,
+                    *, window: int, impl: str | None = None):
+    """Single-token decode of a sliding-window layer over its ring cache
+    (the JAX package's ``gqa_decode_ring``).  x (B,1,d); cache k/v (B,W′,
+    K,hd), W′ = min(window, s_max); cache_pos: int or (B,) absolute
+    positions, which may exceed W′.
+
+    Writes the new token's K/V **in place** at slot ``pos % W′``, then
+    attends with the paged kernel over the ring viewed as a page pool with
+    ``seq_lens = min(pos + 1, W′)``: slot s holds position ``pos - ((pos -
+    s) mod W′)``, valid when it is >= 0 (the JAX mask), which is every slot
+    once the ring is full and the slots ``0 .. pos`` before.  Keys are
+    stored after RoPE, so the slots' order does not matter.  ``window``
+    is the layer's (the ring's length already holds it).  Returns (y
+    (B,1,d), cache)."""
+    W = cache["k"].shape[1]
+    if not 0 < W <= window:
+        raise ValueError(f"a ring of {W} slots for a window of {window}: "
+                         f"it holds min(window, s_max) slots")
+    posv = _pos_vec(cache_pos, x.shape[0], x.device)
+    return _decode_into(params, x, cache, posv, posv % W,
+                        torch.clamp(posv + 1, max=W), cfg, impl)
+
+
+def _decode_into(params, x, cache: dict, posv, slots, lens,
+                 cfg: ModelConfig, impl: str | None):
+    """The token at absolute positions ``posv`` (B,): its K/V written in
+    place at cache rows ``slots``, then paged attention over the first
+    ``lens`` rows of each row's cache."""
     B = x.shape[0]
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    posv = _pos_vec(cache_pos, B, x.device)
     q = (x @ params["wq"]).reshape(B, 1, H, hd)
     k_new = (x @ params["wk"]).reshape(B, 1, K, hd)
     v_new = (x @ params["wv"]).reshape(B, 1, K, hd)
@@ -157,19 +201,49 @@ def gqa_decode(params, x, cache: dict, cache_pos, cfg: ModelConfig,
     k_new = apply_rope(k_new, posv[:, None], cfg.rope_theta)
     rows = torch.arange(B, device=x.device)
     kc, vc = cache["k"], cache["v"]
-    kc[rows, posv] = k_new[:, 0].to(kc.dtype)
-    vc[rows, posv] = v_new[:, 0].to(vc.dtype)
-    n_slots, s_max = kc.shape[:2]
-    page = math.gcd(s_max, DECODE_PAGE)
-    pages = s_max // page
+    kc[rows, slots] = k_new[:, 0].to(kc.dtype)
+    vc[rows, slots] = v_new[:, 0].to(vc.dtype)
+    n_slots, length = kc.shape[:2]
+    page = math.gcd(length, DECODE_PAGE)
+    pages = length // page
     kp = kc.view(n_slots * pages, page, K, hd)
     vp = vc.view(n_slots * pages, page, K, hd)
     table = _slot_block_table(n_slots, pages, kc.device)[:B]
-    seq_lens = (posv + 1).to(torch.int32)
-    out = paged_attention(q[:, 0].to(kc.dtype), kp, vp, table, seq_lens,
-                          impl=impl)
+    out = paged_attention(q[:, 0].to(kc.dtype), kp, vp, table,
+                          lens.to(torch.int32), impl=impl)
     y = out.to(x.dtype).reshape(B, 1, H * hd) @ params["wo"]
     return y, cache
+
+
+def ring_cache_from_prefill(kv: dict, window: int, true_lens=None) -> dict:
+    """A prefill's ``{"k", "v"}`` (B,S,K,hd) as ring caches of W = min(window,
+    S) slots: row b keeps its positions ``max(0, L_b - W) .. L_b - 1``, each
+    at slot ``pos % W``, and zeros elsewhere, where L_b is the row's true
+    length (``true_lens``, default S).  The JAX package's
+    ``ring_cache_from_prefill`` keeps the last W positions of the padded
+    length S instead: the same ring where L_b = S or S <= W, but for a
+    shorter row in a bucket longer than the window it keeps pad positions
+    and loses real ones still inside the window.  When S <= W the slots are
+    the positions themselves, so the ring widens to a decode ring of any
+    W′ >= S by zeros past S (``ServingEngine._write_slot``)."""
+    k = kv["k"]
+    B, S = k.shape[:2]
+    W = min(window, S) if window else S
+    lens = (torch.full((B,), S, dtype=torch.long, device=k.device)
+            if true_lens is None else
+            torch.as_tensor(true_lens, device=k.device).long())
+    last = (lens - 1)[:, None]                                  # (B, 1)
+    slot = torch.arange(W, device=k.device)[None]               # (1, W)
+    pos = last - torch.remainder(last - slot, W)                # (B, W)
+    valid = (pos >= 0)[:, :, None, None]
+    idx = pos.clamp(min=0)[:, :, None, None].expand(B, W, *k.shape[2:])
+    out = {}
+    for name in ("k", "v"):
+        t = kv[name]
+        out[name] = torch.where(valid, torch.gather(t, 1, idx),
+                                torch.zeros((), dtype=t.dtype,
+                                            device=t.device))
+    return out
 
 
 def gqa_chunk_decode(params, x, cache: dict, pos0, cfg: ModelConfig,
@@ -187,7 +261,7 @@ def gqa_chunk_decode(params, x, cache: dict, pos0, cfg: ModelConfig,
     (``transformer.supports_chunked_decode``).  Returns (y (B,C,d),
     cache)."""
     if window and window > 0:
-        raise NotImplementedError(_RING_LATER)
+        raise NotImplementedError(_RING_CHUNK)
     B, C, _ = x.shape
     pos0 = int(pos0)
     kc, vc = cache["k"], cache["v"]
@@ -250,7 +324,7 @@ def mla_decode(params, x, cache: dict, cache_pos, cfg: ModelConfig,
     view, no copy), and the context (B,H,r) goes through W_uv and the
     output projection.  Returns (y (B,1,d), cache)."""
     if window and window > 0:
-        raise NotImplementedError(_RING_LATER)
+        raise NotImplementedError(_RING_DECODE)
     B = x.shape[0]
     H, hd = cfg.n_heads, cfg.head_dim
     r, rd, vd = cfg.kv_lora_rank, cfg.rope_head_dim, cfg.v_head_dim
@@ -299,7 +373,7 @@ def mla_chunk_decode(params, x, cache: dict, pos0, cfg: ModelConfig,
     call (``chip_smoke.py::phase_mla_chunk_cost``).  Returns (y (B,C,d),
     cache)."""
     if window and window > 0:
-        raise NotImplementedError(_RING_LATER)
+        raise NotImplementedError(_RING_CHUNK)
     B, C, _ = x.shape
     H, hd = cfg.n_heads, cfg.head_dim
     r, rd, vd = cfg.kv_lora_rank, cfg.rope_head_dim, cfg.v_head_dim

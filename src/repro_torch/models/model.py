@@ -1,7 +1,8 @@
 """Model facade for serving: parameters, prefill, decode step, decode caches.
 
 Ported from the JAX package's ``models/model.py`` for the dense attention
-families, MLA and MoE (deepseek-v2-lite) and the SSM family; ``moe_impl``
+families (sliding-window and local/global layers included), MLA and MoE
+(deepseek-v2-lite) and the SSM family; ``moe_impl``
 picks the MoE path (``dropping``, the JAX engine's default, or ``dense``).
 ``train_loss`` and the RG-LRU family come with later steps of the port.
 """
@@ -17,8 +18,8 @@ from torch import nn
 from ..configs.base import ModelConfig
 from .common import DtypePolicy, dense_init, embed_init, resolve_device, rms_norm
 from .transformer import (SEQ_CACHE_ENTRIES, check_supported, init_stack,
-                          init_stack_cache, stack_chunk, stack_decode,
-                          stack_forward)
+                          init_stack_cache, layer_kinds, stack_chunk,
+                          stack_decode, stack_forward, uses_ring)
 
 
 class LMParams(nn.Module):
@@ -83,8 +84,10 @@ def prefill(params: LMParams, batch: dict, cfg: ModelConfig, *,
     """Full-prompt forward.  batch {"tokens": (B,S) int}; ``true_lens``
     (B,) the real lengths of right-padded rows, or None for all S.  Returns
     (logits at each row's last real position (B,1,V) f32, per-layer caches:
-    ``{"k", "v"}`` (B,S,K,hd) for GQA, ``{"ckv"}`` (B,S,1,r+rd) for MLA,
-    ``{"ssm", "conv"}`` after the last real position for SSM layers)."""
+    ``{"k", "v"}`` (B,S,K,hd) for GQA — for a sliding-window layer its ring
+    of min(window, S) slots, built from each row's true length —
+    ``{"ckv"}`` (B,S,1,r+rd) for MLA, ``{"ssm", "conv"}`` after the last
+    real position for SSM layers)."""
     x = _embed_inputs(params, batch, cfg, policy.compute)
     B, S = x.shape[:2]
     h, caches = stack_forward(params.blocks, x, cfg, _positions(B, S, x.device),
@@ -107,11 +110,14 @@ def decode_step(params: LMParams, tokens, caches: list, cache_pos,
                 policy: DtypePolicy = DtypePolicy.serve(),
                 impl: str | None = None, moe_impl: str = "dropping"):
     """One token for every sequence.  tokens (B,1) int; cache_pos an int or
-    (B,) per-row positions (tokens already in each cache, < S_max; SSM
-    layers do not read them).  The caches are updated **in place**.
-    Returns (logits (B,1,V) f32, caches)."""
-    s_max = next((t.shape[1] for c in caches for name, t in c.items()
-                  if name in SEQ_CACHE_ENTRIES), None)
+    (B,) per-row positions (tokens already in each cache, < S_max of the
+    full caches; a ring cache takes any position, and SSM layers do not
+    read them).  The caches are updated **in place**.  Returns (logits
+    (B,1,V) f32, caches)."""
+    s_max = next((t.shape[1] for c, kind in zip(caches, layer_kinds(cfg))
+                  if not uses_ring(cfg, kind)
+                  for name, t in c.items() if name in SEQ_CACHE_ENTRIES),
+                 None)
     if s_max is not None and isinstance(cache_pos, (int, np.integer,
                                                     np.ndarray)):
         host = np.asarray(cache_pos)
@@ -156,5 +162,6 @@ def chunk_step(params: LMParams, tokens, caches: list, pos0,
 
 def init_decode_caches(cfg: ModelConfig, batch: int, s_max: int, *,
                        dtype=torch.bfloat16, device="cuda") -> list[dict]:
-    """Zero per-layer decode caches (``transformer.init_block_cache``)."""
+    """Zero per-layer decode caches (``transformer.init_block_cache``):
+    s_max rows for a full layer, min(window, s_max) for a ring."""
     return init_stack_cache(cfg, batch, s_max, dtype, resolve_device(device))

@@ -6,17 +6,20 @@ The JAX package runs ``head`` blocks, a ``jax.lax.scan`` over periods of
 layers are an ``nn.ModuleList`` of per-layer :class:`Block`\\ s in layer
 order and the scan is a Python loop; ``stack_layout`` and ``layer_kinds``
 keep the JAX meaning.  The decode cache is a per-layer list of dicts,
-updated in place by :func:`stack_decode`: ``{"k", "v"}`` for a GQA layer,
-``{"ckv"}`` for an MLA layer, ``{"ssm", "conv"}`` for an SSM layer.  With
+updated in place by :func:`stack_decode`: ``{"k", "v"}`` for a GQA layer
+(of s_max rows, or for a sliding-window layer a ring of min(window, s_max)
+rows), ``{"ckv"}`` for an MLA layer, ``{"ssm", "conv"}`` for an SSM layer.  With
 ``cfg.n_experts`` every block after the first ``cfg.first_dense_layers``
 carries an MoE MLP (``models/moe.py``), run by ``moe_impl`` (``dense`` or
 ``dropping``, the default).
 
-Attention kinds without a ring cache (GQA and MLA), MoE MLPs and the SSM
-kind are ported: RG-LRU and sliding-window layers raise
-``NotImplementedError``.  Chunked decode (:func:`stack_chunk`) runs on
-stacks of attention layers, GQA or MLA (:func:`supports_chunked_decode`),
-each chunk's MoE MLP by ``moe_impl`` as in a prefill.
+The attention kinds (GQA and MLA; sliding-window layers — ``attn_kind``
+``swa``, and the ``local`` layers of ``local_global`` — over ring caches),
+MoE MLPs and the SSM kind are ported: RG-LRU layers, encoder-only stacks
+and embedding inputs raise ``NotImplementedError``.  Chunked decode
+(:func:`stack_chunk`) runs on stacks of attention layers without a ring,
+GQA or MLA (:func:`supports_chunked_decode`), each chunk's MoE MLP by
+``moe_impl`` as in a prefill.
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from .attention import (MLA_CACHE, attn_chunk_decode, attn_decode,
-                        attn_forward, init_attention, init_cache)
+                        attn_forward, gqa_decode_ring, init_attention,
+                        init_cache, ring_cache_from_prefill, window_for)
 from .common import rms_norm
 from .mlp import init_mlp, mlp_forward
 from .moe import init_moe, moe_forward
@@ -38,12 +42,14 @@ PORTED_KINDS = ATTN_KINDS + ("ssm",)
 # up to its bucket's length
 SEQ_CACHE_ENTRIES = ("k", "v", MLA_CACHE)
 
-_FAMILIES_LATER = ("not ported yet; ring/SWA, RG-LRU, encoder-only and "
-                   "embedding-input models come with a later step of the port")
+_FAMILIES_LATER = ("not ported yet; RG-LRU, encoder-only and embedding-input "
+                   "models come with a later step of the port")
 
 
-def _uses_ring(cfg: ModelConfig, kind: str) -> bool:
-    return kind == "local" or (kind == "attn" and cfg.attn_kind == "swa")
+def uses_ring(cfg: ModelConfig, kind: str) -> bool:
+    """True for a sliding-window GQA layer, whose decode cache is a ring."""
+    return not cfg.use_mla and (
+        kind == "local" or (kind == "attn" and cfg.attn_kind == "swa"))
 
 
 def layer_kinds(cfg: ModelConfig) -> list[str]:
@@ -68,9 +74,6 @@ def check_supported(cfg: ModelConfig) -> None:
     for kind in set(layer_kinds(cfg)):
         if kind not in PORTED_KINDS:
             raise NotImplementedError(f"layer kind {kind!r} is {_FAMILIES_LATER}")
-        if _uses_ring(cfg, kind):
-            raise NotImplementedError(f"sliding-window layers are "
-                                      f"{_FAMILIES_LATER}")
 
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
@@ -139,9 +142,11 @@ def block_forward(bp: Block, x, cfg: ModelConfig, positions, *,
                   want_cache: bool, true_lens=None, impl: str | None = None,
                   moe_impl: str = "dropping"):
     """Full-sequence block.  ``true_lens`` (B,) are the real lengths of
-    right-padded rows (read by SSM layers; causal attention needs no mask
-    for right padding, but an MoE layer routes the padding too, as the JAX
-    package does).  Returns (x, the layer's cache or None)."""
+    right-padded rows (read by SSM layers, and by
+    ``ring_cache_from_prefill`` for sliding-window layers; causal attention
+    needs no mask for right padding, but an MoE layer routes the padding
+    too, as the JAX package does).  Returns (x, the layer's cache or
+    None)."""
     h = rms_norm(x, bp.ln1, cfg.norm_eps)
     cache = None
     if bp.kind == "ssm":
@@ -151,6 +156,9 @@ def block_forward(bp: Block, x, cfg: ModelConfig, positions, *,
     elif want_cache:
         mix, cache = attn_forward(bp.mixer, h, cfg, bp.kind, positions,
                                   return_kv=True, impl=impl)
+        if uses_ring(cfg, bp.kind):
+            cache = ring_cache_from_prefill(cache, window_for(cfg, bp.kind),
+                                            true_lens)
     else:
         mix = attn_forward(bp.mixer, h, cfg, bp.kind, positions, impl=impl)
     x = x + mix.to(x.dtype)
@@ -164,6 +172,10 @@ def block_decode(bp: Block, x, cache: dict, cache_pos, cfg: ModelConfig, *,
     h = rms_norm(x, bp.ln1, cfg.norm_eps)
     if bp.kind == "ssm":
         mix, cache = ssm_decode(bp.mixer, h, cache, cfg)
+    elif uses_ring(cfg, bp.kind):
+        mix, cache = gqa_decode_ring(bp.mixer, h, cache, cache_pos, cfg,
+                                     window=window_for(cfg, bp.kind),
+                                     impl=impl)
     else:
         mix, cache = attn_decode(bp.mixer, h, cache, cache_pos, cfg, bp.kind,
                                  impl=impl)
@@ -183,14 +195,14 @@ def supports_chunked_decode(cfg: ModelConfig) -> bool:
     kinds = set(layer_kinds(cfg))
     if not all(k in ATTN_KINDS for k in kinds):
         return False
-    return not any(_uses_ring(cfg, k) for k in kinds)
+    return not any(uses_ring(cfg, k) for k in kinds)
 
 
 def block_chunk(bp: Block, x, cache: dict, pos0, cfg: ModelConfig, *,
                 impl: str | None = None, moe_impl: str = "dropping"):
     """C-token chunk decode through an attention block (x (B,C,d)); the
     cache is updated in place.  Returns (x, cache)."""
-    if bp.kind not in ATTN_KINDS or _uses_ring(cfg, bp.kind):
+    if bp.kind not in ATTN_KINDS or uses_ring(cfg, bp.kind):
         raise ValueError(f"chunked decode unsupported for layer kind "
                          f"{bp.kind}")
     h = rms_norm(x, bp.ln1, cfg.norm_eps)
@@ -214,11 +226,14 @@ def init_stack(generator: torch.Generator, cfg: ModelConfig, dtype,
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, s_max: int,
                      dtype, device) -> dict:
     """Zero decode cache of one layer: ``attention.init_cache`` (``{"k",
-    "v"}`` or MLA's ``{"ckv"}``), or for an SSM layer ``{"ssm": (batch, H,
-    P, N) f32, "conv": (batch, W-1, conv_dim)}``."""
+    "v"}`` of s_max rows, or of min(window, s_max) for a sliding-window
+    layer's ring; MLA's ``{"ckv"}``), or for an SSM layer ``{"ssm": (batch,
+    H, P, N) f32, "conv": (batch, W-1, conv_dim)}``."""
     if kind == "ssm":
         return init_ssm_cache(cfg, batch, dtype, device)
-    return init_cache(cfg, batch, s_max, dtype, device)
+    w = window_for(cfg, kind)
+    length = min(w, s_max) if uses_ring(cfg, kind) and w else s_max
+    return init_cache(cfg, batch, length, dtype, device)
 
 
 def init_stack_cache(cfg: ModelConfig, batch: int, s_max: int, dtype,

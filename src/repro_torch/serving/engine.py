@@ -47,15 +47,20 @@ Two opt-in features follow the JAX engine (``docs/ENGINE.md``):
   engine's tree-map takes whatever its cache holds.
 
 Both raise ``ValueError`` for a family ``supports_chunked_decode`` rejects
-(the SSM family), as the JAX engine does; GQA and MLA stacks run both.
-Both off ⇒ the bucketed path.
+(the SSM family, and stacks with sliding-window layers: h2o-danube,
+gemma3), as the JAX engine does; GQA and MLA stacks without a ring run
+both.  Both off ⇒ the bucketed path.
 An MoE config runs its experts by ``EngineConfig.moe_impl`` (``dropping``,
 as in the JAX engine, or ``dense``) in every prefill and decode step.
 
-One fault of the JAX engine is not copied: a planned request whose prompt
-cannot fit a slot (``prompt_len > s_max - 1``) is shed with
+Two faults of the JAX engine are not copied.  A planned request whose
+prompt cannot fit a slot (``prompt_len > s_max - 1``) is shed with
 ``TerminalState.SHED`` instead of being dropped without a terminal state
-(which leaves the JAX engine's ``run`` spinning to ``max_steps``).
+(which leaves the JAX engine's ``run`` spinning to ``max_steps``).  And a
+sliding-window layer's ring cache is built from each row's true length
+(``attention.ring_cache_from_prefill``): the JAX engine keeps the last W
+positions of the bucket, so a row shorter than a bucket longer than the
+window decodes from pads and loses real positions still in its window.
 """
 
 from __future__ import annotations
@@ -667,8 +672,13 @@ class ServingEngine:
         """Copy row ``row`` of the per-layer prefill caches into the decode
         slot **in place**.  An entry with a sequence axis (GQA's K/V, MLA's
         latent rows) fills the slot's first bucket positions and zeroes the
-        rest (the JAX engine writes a zero-padded row); SSM state and conv
-        entries have none and are copied whole."""
+        rest (the JAX engine writes a zero-padded row).  A ring of a
+        sliding-window layer comes from the prefill with min(window,
+        bucket) slots: a whole ring of the slot's W′ = min(window, s_max)
+        when the bucket is longer than the window, copied whole; else the
+        bucket's positions at their own slots, the rest zeroed as above.
+        SSM state and conv entries have no sequence axis and are copied
+        whole."""
         for dst, src in zip(self.caches, prefill_caches):
             for name, t in src.items():
                 if name in SEQ_CACHE_ENTRIES:

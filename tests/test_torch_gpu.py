@@ -58,7 +58,8 @@ SSD_TF32X3_ATOL, SSD_TF32X3_RTOL = 5e-6, 2e-5
 
 def _assert_matches_tiled(out, q, k, v, causal, window):
     ref = flash_attention_tiled_ref(*(t.transpose(1, 2) for t in (q, k, v)),
-                                    causal=causal, window=window)
+                                    causal=causal, window=window,
+                                    tile=flash_ops.BF16_KV_TILE[q.shape[-1]])
     torch.testing.assert_close(out.float(), ref.transpose(1, 2).float(),
                                atol=TILED_ATOL, rtol=TILED_RTOL)
 
@@ -90,6 +91,12 @@ def cuda():
     (1, 256, 2, 2, 128, True, 64),      # sliding window
     (2, 128, 4, 4, 128, False, 0),      # bidirectional
     (1, 77, 2, 2, 128, True, 30),       # ragged S
+    (1, 300, 8, 2, 80, True, 0),        # h2o-danube's hd 80 (G = 4)
+    (1, 300, 8, 2, 80, True, 64),
+    (2, 130, 32, 8, 80, True, 4096),    # its heads and window
+    (1, 300, 4, 2, 256, True, 0),       # gemma3's hd 256 (G = 2)
+    (1, 300, 4, 2, 256, True, 100),
+    (1, 1100, 8, 4, 256, True, 1024),   # its heads and local window
 ])
 def test_flash_kernel_matches_plain(cuda, dtype, B, S, H, K, hd, causal,
                                     window):
@@ -239,6 +246,10 @@ def test_paged_long_among_short(cuda, dtype, shuffle):
     (2, 4, 2, 128, 16, 4, 32),
     (3, 8, 1, 128, 8, 6, 64),           # MQA (G = 8)
     (4, 8, 8, 64, 16, 3, 16),
+    (8, 32, 8, 80, 16, 128, 1024),      # h2o-danube's hd 80 (G = 4)
+    (4, 32, 8, 80, 16, 1, 4),           # one page, one partition
+    (8, 8, 4, 256, 16, 128, 1024),      # gemma3's hd 256 (G = 2)
+    (4, 8, 4, 256, 16, 1, 4),
 ])
 def test_paged_kernel_matches_plain(cuda, dtype, B, H, K, hd, page, npg, P):
     rng = np.random.default_rng(0)
@@ -428,8 +439,9 @@ def test_flash_offset_kernel_matches_plain(cuda, dtype, C, T, q_offset,
                                            kv_len, H, K, hd, window):
     """Chunked-prefill attention: C queries at ``q_offset`` against the
     first ``kv_len`` keys of a longer cache whose other rows hold NaN
-    (never read), against both plain versions; one counted launch, and one
-    offset launch when ``q_offset > 0``."""
+    (never read), against both plain versions; one counted launch, one
+    offset launch when ``q_offset > 0`` and one window launch when
+    ``window > 0``."""
     g = torch.Generator(device=cuda).manual_seed(2)
     q = torch.randn((1, C, H, hd), generator=g, device=cuda).to(dtype)
     k, v = (torch.randn((1, T, K, hd), generator=g, device=cuda).to(dtype)
@@ -439,10 +451,12 @@ def test_flash_offset_kernel_matches_plain(cuda, dtype, C, T, q_offset,
     kw = dict(window=window, q_offset=q_offset, kv_len=kv_len)
     before = flash_ops.KERNEL.launches
     off_before = flash_ops.KERNEL.offset_launches
+    win_before = flash_ops.KERNEL.window_launches
     out = flash_ops.flash_attention(q, k, v, **kw)
     ref = flash_ops.flash_attention(q, k, v, impl="plain", **kw)
     assert flash_ops.KERNEL.launches == before + 1
     assert flash_ops.KERNEL.offset_launches == off_before + (q_offset > 0)
+    assert flash_ops.KERNEL.window_launches == win_before + (window > 0)
     assert out.dtype == dtype and out.shape == q.shape
     assert torch.isfinite(out.float()).all()
     torch.testing.assert_close(out.float(), ref.float(), atol=TOLS[dtype],
@@ -1170,3 +1184,114 @@ def test_minicpm3_dims_engine_kernel_path_matches_cpu_run(cuda):
             assert paged_ops.KERNEL.launches > paged0
         outs[str(dev)] = eng.output_tokens
     assert outs["cpu"] == outs["cuda"]
+
+
+# ---- the sliding-window families: flash at (80, 80) and (256, 256), paged
+# at hd 80 (G = 4) and 256 (G = 2), over slot caches and wrapped rings ------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,G,W", [(80, 4, 256), (256, 2, 1024)])
+def test_gqa_decode_ring_kernel_matches_plain(cuda, dtype, hd, G, W):
+    """One decode step over ring caches of W slots (random contents), rows
+    before the ring is full, at its last slot and wrapped more than once:
+    the kernel path (the ring as pages, ``seq_lens = min(pos + 1, W)``)
+    against the plain path, and the same ring writes."""
+    from repro_torch.models.attention import gqa_decode_ring, init_attention
+    cfg = ModelConfig(name="gpu-ring", family="dense", n_layers=1,
+                      d_model=256, n_heads=2 * G, n_kv_heads=2, d_ff=512,
+                      vocab_size=64, head_dim=hd, attn_kind="swa", window=W)
+    g = torch.Generator(device=cuda).manual_seed(W)
+    params = init_attention(g, cfg, dtype, cuda)
+    pos = torch.tensor([5, W - 1, 3 * W + 17], device=cuda)
+    x = torch.randn((3, 1, 256), generator=g, device=cuda).to(dtype)
+    ring = {n: torch.randn((3, W, 2, hd), generator=g, device=cuda).to(dtype)
+            for n in ("k", "v")}
+    plain = {n: t.clone() for n, t in ring.items()}
+    before = paged_ops.KERNEL.launches
+    y, ring = gqa_decode_ring(params, x, ring, pos, cfg, window=W)
+    assert paged_ops.KERNEL.launches == before + 1
+    y_ref, plain = gqa_decode_ring(params, x, plain, pos, cfg, window=W,
+                                   impl="plain")
+    torch.testing.assert_close(y.float(), y_ref.float(), atol=TOLS[dtype],
+                               rtol=TOLS[dtype])
+    for n in ("k", "v"):
+        assert torch.equal(ring[n], plain[n])
+
+
+@pytest.mark.parametrize("many", [False, True])
+@pytest.mark.parametrize("hd", [64, 128, 80, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_nan_stays_in_its_head(cuda, dtype, hd, many):
+    """A NaN in one element of one query head gives that head NaN and no
+    other, with one partition (the split kernel writes the output) and
+    with eight (the merge writes it): the tile max takes NaN (max.NaN), so
+    neither the split nor the merge reads the head as empty."""
+    G = {80: 4, 256: 2}.get(hd, 4)
+    lens, npg = ([5, 300, 2000], 128) if many else ([5, 100, 128], 8)
+    q, kp, vp, bt, sl = _paged_inputs(
+        np.random.default_rng(hd), torch.Generator(device=cuda).manual_seed(hd),
+        cuda, dtype, lens, 2 * G, 2, hd, 16, npg, shuffle=True)
+    assert (paged_ops.split_count(npg, 16) > 1) == many
+    head = G + 1                      # a head of the second KV head's group
+    q[1, head, 7] = float("nan")
+    out = paged_ops.paged_attention(q, kp, vp, bt, sl)
+    want = torch.zeros((len(lens), 2 * G), dtype=torch.bool, device=cuda)
+    want[1, head] = True
+    assert torch.equal(out.isnan().all(-1), want)
+    assert not out[~want].isnan().any()
+
+
+@pytest.mark.parametrize("head", [3, 20, 37])
+def test_paged_mla_bf16_minicpm3_nan_stays_in_its_head(cuda, head):
+    """bf16 (``paged_mla_mma_kernel``, 16 partitions and the merge): a NaN
+    in one query head, in the first, second or third head tile, reaches
+    that head's output and no other."""
+    lens = [5, 300, 2000]
+    q, kp, vp, bt, sl = _cpm_inputs(cuda, torch.bfloat16, lens, 128, 13)
+    q[1, head, 40] = float("nan")
+    out = paged_ops.paged_attention(q, kp, vp, bt, sl, scale=CPM_SCALE)
+    want = torch.zeros((len(lens), 40), dtype=torch.bool, device=cuda)
+    want[1, head] = True
+    assert torch.equal(out.isnan().all(-1), want)
+    assert not out[~want].isnan().any()
+
+
+def _spill_bytes(lib: str, kernel: str, type_tag: str, ints: tuple) -> int:
+    """Spill-store bytes ``nvcc -Xptxas -v`` reported for one instance of
+    ``kernel`` in the library built from ``csrc/<lib>.cu``: the entry whose
+    mangled name carries ``type_tag`` (``f`` for float, ``13__nv_bfloat16``;
+    empty for a kernel templated on ints alone) and the template ints."""
+    import re
+    from repro_torch.kernels import _build
+    _build.build((lib,))
+    log = (_build.library_path(lib).parent / "build.log").read_text()
+    want = (kernel + "I" + type_tag
+            + "".join(f"Li{n}E" for n in ints) + "E")
+    entry, found = None, {}
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and entry and want in entry:
+            found[entry] = int(m.group(1))
+    assert len(found) == 1, (want, sorted(found))
+    return next(iter(found.values()))
+
+
+@pytest.mark.parametrize("lib,kernel,type_tag,ints", [
+    ("flash_attention", "flash_fwd_mma_kernel", "", (80, 80)),
+    ("flash_attention", "flash_fwd_mma_kernel", "", (256, 256)),
+    ("flash_attention", "flash_fwd_tf32x3_kernel", "", (80, 80)),
+    ("flash_attention", "flash_fwd_tf32x3_kernel", "", (256, 256)),
+    ("paged_attention", "paged_split_kernel", "f", (80, 4)),
+    ("paged_attention", "paged_split_kernel", "13__nv_bfloat16", (80, 4)),
+    ("paged_attention", "paged_split_kernel", "f", (256, 2)),
+    ("paged_attention", "paged_split_kernel", "13__nv_bfloat16", (256, 2)),
+])
+def test_ring_dims_instances_do_not_spill(cuda, lib, kernel, type_tag, ints):
+    """The sliding-window families' kernel instances keep every register
+    (ptxas reports no spill store): bf16 flash at (256, 256) only since
+    its 32-key tiles (64-key ones spilled 64 bytes beside the
+    128-register accumulator)."""
+    assert _spill_bytes(lib, kernel, type_tag, ints) == 0

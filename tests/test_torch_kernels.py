@@ -42,6 +42,10 @@ class TestFlashAttention:
         (1, 256, 2, 2, 128, True, 64),      # sliding window
         (2, 128, 4, 4, 128, False, 0),      # bidirectional (encoder)
         (1, 384, 2, 2, 128, True, 100),     # non-pow2 seq, odd window
+        (1, 256, 8, 2, 80, True, 0),        # h2o-danube's hd 80, G = 4
+        (1, 256, 8, 2, 80, True, 64),
+        (1, 256, 4, 2, 256, True, 0),       # gemma3's hd 256, G = 2
+        (1, 256, 4, 2, 256, True, 64),
     ])
     def test_matches_pallas_interpret(self, B, S, H, K, hd, causal, window):
         rng = np.random.default_rng(0)
@@ -250,6 +254,8 @@ class TestPagedAttention:
         (2, 4, 2, 128, 16, 4, 32),
         (3, 8, 1, 128, 8, 6, 64),           # MQA
         (1, 2, 2, 128, 32, 2, 8),
+        (3, 8, 2, 80, 16, 4, 12),           # h2o-danube's hd 80, G = 4
+        (3, 4, 2, 256, 16, 4, 12),          # gemma3's hd 256, G = 2
     ])
     def test_matches_pallas_interpret(self, B, H, K, hd, page, npg, P):
         rng = np.random.default_rng(0)

@@ -126,7 +126,7 @@ def test_init_params_seeded_and_gpu_by_default():
 @pytest.mark.parametrize("overrides", [
     dict(family="hybrid", pattern=("rglru",)),           # RG-LRU
     dict(family="encoder", is_encoder_only=True, causal=False),
-    dict(attn_kind="swa", window=8),
+    dict(input_mode="embeddings"),        # embedding inputs
 ])
 def test_unported_families_raise(overrides):
     cfg = ModelConfig(name="x", family=overrides.pop("family", "dense"),
