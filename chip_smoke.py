@@ -41,7 +41,14 @@ Phases, in order; any failure raises and exits non-zero:
    H=32, K=8, window 4096; paged hd 80, G = 4, over 8 slots of 2048) and
    at gemma3-4b's (flash (256, 256), B=2, S=2048, H=8, K=4, window 1024
    and global; paged hd 256, G = 2, over 8 slots of 2048 and over 8
-   wrapped rings of 1024, a local layer's ring as pages); and, for an MLA
+   wrapped rings of 1024, a local layer's ring as pages), at
+   recurrentgemma-9b's (flash (256, 256), B=2, S=2048, H=16, K=1, window
+   2048; paged hd 256 at G = 16, the G = 8 kernel on two head tiles, over
+   8 slots of 2048 and over 8 full rings of 2048; a NaN in one query head
+   of either tile stays in that head), at phi3.5-moe's (flash at H=32, K=8,
+   hd 128 in f32 beside the bf16 GQA case; paged hd 128, G = 4, bf16 and
+   f32, over 8 slots of 2048 at random lengths and with one long slot
+   among short ones); and, for an MLA
    chunk in MHA form, the time of the decompression of the latent rows
    beside the flash call it feeds;
 3. parity: llama2-13b and mamba2-370m at full width and 2 layers, in f32 —
@@ -90,6 +97,15 @@ Phases, in order; any failure raises and exits non-zero:
    bucket of 2048, whose tokens must also equal each prompt's alone; then
    both at full width and depth in bf16, bucketed, under EWSJF (at s_max
    2048 h2o-danube's rings are whole slots: its window is inert there);
+   then recurrentgemma-9b in f32 at full width and 5 layers (one period of
+   rglru, rglru, local and a tail of 2 RG-LRU layers; a 2040- and a
+   300-token prompt in one batch, a ring of 2048 wrapped by 16 greedy
+   steps; equal to each prompt alone) and its 38-layer bf16 serve, every
+   flash launch windowed; then phi3.5-moe-42b-a6.6b: a 2-layer f32 parity
+   and its bf16 serve at 16 of 32 layers (``launch/serve.py::
+   CARD_DEPTH_CUTS``: the whole model is ~84 GB in bf16).  Each serve
+   prints its peak device memory and, beside it, its own peak above what
+   was allocated before it;
 5. summary: one call of each kernel's bf16 main case (and of the f32
    flash main, offset and MLA cases, the f32 MLA paged case, the f32
    SSD main case and every minicpm3-4b case) under
@@ -716,7 +732,7 @@ def phase_kernels(fa, pa) -> tuple:
     cases = [  # B, S, H, K, hd, dtype, causal, window
         (2, 1024, 40, 40, 128, torch.bfloat16, True, 0),    # main path
         (2, 1024, 40, 40, 128, torch.float32, True, 0),
-        (2, 1024, 32, 8, 128, torch.bfloat16, True, 0),     # GQA
+        (2, 1024, 32, 8, 128, torch.bfloat16, True, 0),     # GQA (phi3.5)
         (1, 1024, 40, 40, 128, torch.bfloat16, True, 256),  # window
         (2, 1000, 40, 40, 128, torch.float32, True, 0),     # ragged S
         (8, 128, 40, 40, 128, torch.bfloat16, True, 0),     # short bucket
@@ -732,11 +748,13 @@ def phase_kernels(fa, pa) -> tuple:
               f"{vs_tiled} kernel {kms:.4f} ms (eager timer {ems:.4f} ms) "
               f"plain {pms:.4f} ms sdpa {lms:.4f} ms {bound}; kernel / sdpa "
               f"{kms / lms:.2f} (graph timer both)")
-        name = {0: "flash_attention", 1: "flash_attention_f32"}.get(i)
+        name = {0: "flash_attention", 1: "flash_attention_f32",
+                2: "flash_attention_phi35"}.get(i)
         if name:
             rows[name] = flash_row(
                 err, tiled, kms, ems, pms, lms, bms, by, cms,
-                f"B={B}, S=T={S}, H=K={H}, hd={hd}, causal, {str(dt)[6:]}")
+                f"B={B}, S=T={S}, H={H}, K={K}, hd={hd}, causal, "
+                f"{str(dt)[6:]}")
             calls[name] = call
     ocases = [  # C, q_offset, dtype, window: the chunks of the prefix serve
         (512, 1024, torch.bfloat16, 0),     # main offset case: a suffix chunk
@@ -1040,6 +1058,131 @@ def phase_kernels_ring(fa, pa, rows: dict, calls: dict) -> None:
             calls[name + sfx] = call
 
 
+def phase_kernels_phi35(fa, pa, rows: dict, calls: dict) -> None:
+    """Both attention kernels at phi3.5-moe's GQA widths (32 query heads on
+    8 KV heads, hd 128, G = 4), against their plain versions: flash in f32
+    at B=2, S=1024 (the bf16 case is ``phase_kernels``' GQA case), and paged
+    decode in bf16 and f32 over 8 slots of 2048 tokens at random lengths and
+    with one long slot among short ones.  Adds the rows and calls under
+    ``*_phi35`` and ``paged_attention_phi35_long``."""
+    import torch
+    B, S, H, K, hd = 2, 1024, 32, 8, 128
+    dt = torch.float32
+    err, tiled, kms, ems, pms, lms, call = flash_case(
+        fa, B, S, H, K, hd, dt, True, 0, seed=150)
+    bms, by, cms = flash_bounds(dt, B, S, H, K, hd, True, 0)
+    vs_tiled, bound = flash_notes(dt, tiled, bms, by, cms)
+    print(f"[kernels] flash phi3.5 B{B} S{S} H{H} K{K} hd{hd} float32 "
+          f"causal: max_abs_err {err:.3g}{vs_tiled} kernel {kms:.4f} ms "
+          f"(eager timer {ems:.4f} ms) plain {pms:.4f} ms sdpa {lms:.4f} ms "
+          f"{bound}; kernel / sdpa {kms / lms:.2f} (graph timer both)")
+    rows["flash_attention_phi35_f32"] = flash_row(
+        err, tiled, kms, ems, pms, lms, bms, by, cms,
+        f"B={B}, S=T={S}, H={H}, K={K}, hd={hd}, causal, float32")
+    calls["flash_attention_phi35_f32"] = call
+    B, page, s_max = 8, 16, 2048
+    n_split = pa.split_count(s_max // page, page)
+    for i, (name, lens) in enumerate((("paged_attention_phi35", None),
+                                      ("paged_attention_phi35_long",
+                                       LONG_AMONG_SHORT))):
+        for dt, sfx in ((torch.bfloat16, ""), (torch.float32, "_f32")):
+            err, _, kms, ems, pms, lms, lens_, call = paged_case(
+                pa, B, H, K, hd, page, s_max, dt, seed=160 + i,
+                shuffle=False, lens=lens)
+            elem = 2 if dt == torch.bfloat16 else 4
+            peak = BF16_PEAK_FLOPS if dt == torch.bfloat16 else F32_PEAK_FLOPS
+            bms, by = paged_bound(B, H, K, hd, elem, lens_, peak=peak)
+            print(f"[kernels] paged {name[16:]} B{B} H{H} K{K} hd{hd} (G = 4) "
+                  f"page{page} s_max{s_max} {str(dt)[6:]} lens="
+                  f"{lens_.tolist()} tokens={int(lens_.sum())} ({n_split} "
+                  f"partitions of {pa.PARTITION} tokens): max_abs_err "
+                  f"{err:.3g} kernel {kms:.4f} ms (eager timer {ems:.4f} ms) "
+                  f"plain {pms:.4f} ms sdpa {lms:.4f} ms bound {bms:.4f} ms "
+                  f"({by}); kernel / sdpa {kms / lms:.2f} (graph timer both)")
+            rows[name + sfx] = dict(
+                max_abs_err=err, ms=kms, eager_ms=ems, plain_ms=pms,
+                library_ms=lms, bound_ms=bms, bound_by=by,
+                case=f"B={B} slots of {s_max}, lens={lens_.tolist()}, H={H}, "
+                     f"K={K}, hd={hd}, page {page}, {str(dt)[6:]}")
+            calls[name + sfx] = call
+
+
+def phase_kernels_recurrentgemma(fa, pa, rows: dict, calls: dict) -> None:
+    """Both attention kernels at recurrentgemma-9b's widths (MQA: 16 query
+    heads on 1 KV head, hd 256), against their plain versions, each in bf16
+    and f32: flash (256, 256) at B=2, S=2048, window 2048 (its local layers'
+    prefill), and paged decode at G = 16 (the G = 8 kernel on two head
+    tiles) over 8 slots of 2048 tokens with one 2000-token slot among short
+    ones, and over 8 full rings of 2048 (``seq_lens`` 2048: a local layer's
+    ring as pages); then a NaN in one query head of either head tile must
+    stay in that head.  Adds the rows and calls under ``*_rg`` and
+    ``paged_attention_rg_ring``."""
+    import torch
+    B, S, H, K, hd, window = 2, 2048, 16, 1, 256, 2048
+    for dt, sfx in ((torch.bfloat16, ""), (torch.float32, "_f32")):
+        err, tiled, kms, ems, pms, lms, call = flash_case(
+            fa, B, S, H, K, hd, dt, True, window, seed=120)
+        bms, by, cms = flash_bounds(dt, B, S, H, K, hd, True, window)
+        vs_tiled, bound = flash_notes(dt, tiled, bms, by, cms)
+        print(f"[kernels] flash recurrentgemma B{B} S{S} H{H} K{K} hd{hd} "
+              f"{str(dt)[6:]} causal window={window}: max_abs_err {err:.3g}"
+              f"{vs_tiled} kernel {kms:.4f} ms (eager timer {ems:.4f} ms) "
+              f"plain {pms:.4f} ms sdpa (boolean mask) {lms:.4f} ms {bound}; "
+              f"kernel / sdpa {kms / lms:.2f} (graph timer both)")
+        rows["flash_attention_rg" + sfx] = flash_row(
+            err, tiled, kms, ems, pms, lms, bms, by, cms,
+            f"B={B}, S=T={S}, H={H}, K={K}, hd={hd}, causal, window "
+            f"{window}, {str(dt)[6:]}")
+        calls["flash_attention_rg" + sfx] = call
+    pcases = [("paged_attention_rg", LONG_AMONG_SHORT),
+              ("paged_attention_rg_ring", [2048] * 8)]
+    B, page, s_max = 8, 16, 2048
+    n_split = pa.split_count(s_max // page, page)
+    for i, (name, lens) in enumerate(pcases):
+        for dt, sfx in ((torch.bfloat16, ""), (torch.float32, "_f32")):
+            err, _, kms, ems, pms, lms, lens_, call = paged_case(
+                pa, B, H, K, hd, page, s_max, dt, seed=130 + i,
+                shuffle=False, lens=lens)
+            elem = 2 if dt == torch.bfloat16 else 4
+            peak = BF16_PEAK_FLOPS if dt == torch.bfloat16 else F32_PEAK_FLOPS
+            bms, by = paged_bound(B, H, K, hd, elem, lens_, peak=peak)
+            print(f"[kernels] paged {name[16:]} B{B} H{H} K{K} hd{hd} (G = "
+                  f"16: two head tiles of 8) page{page} rows{s_max} "
+                  f"{str(dt)[6:]} lens={lens_.tolist()} tokens="
+                  f"{int(lens_.sum())} ({n_split} partitions of "
+                  f"{pa.PARTITION} tokens): max_abs_err {err:.3g} kernel "
+                  f"{kms:.4f} ms (eager timer {ems:.4f} ms) plain {pms:.4f} "
+                  f"ms sdpa {lms:.4f} ms bound {bms:.4f} ms ({by}); kernel / "
+                  f"sdpa {kms / lms:.2f} (graph timer both)")
+            rows[name + sfx] = dict(
+                max_abs_err=err, ms=kms, eager_ms=ems, plain_ms=pms,
+                library_ms=lms, bound_ms=bms, bound_by=by,
+                case=f"B={B} {'rings' if i else 'slots'} of {s_max}, lens="
+                     f"{lens_.tolist()}, H={H}, K={K}, hd={hd}, page {page}, "
+                     f"{str(dt)[6:]}")
+            calls[name + sfx] = call
+    g = torch.Generator(device="cuda")
+    g.manual_seed(140)
+    lens = torch.tensor([5, 300, 2000], dtype=torch.int32, device="cuda")
+    table = torch.arange(3 * 128, dtype=torch.int32,
+                         device="cuda").reshape(3, 128)
+    for dt in (torch.bfloat16, torch.float32):
+        kp, vp = (torch.randn((3 * 128, page, 1, hd), generator=g,
+                              device="cuda").to(dt) for _ in range(2))
+        for head in (3, 12):                  # one of each head tile
+            q = torch.randn((3, 16, hd), generator=g, device="cuda").to(dt)
+            q[1, head, 7] = float("nan")
+            out = pa.paged_attention(q, kp, vp, table, lens)
+            want = torch.zeros((3, 16), dtype=torch.bool, device="cuda")
+            want[1, head] = True
+            check(torch.equal(out.isnan().all(-1), want)
+                  and not bool(out[~want].isnan().any()),
+                  f"paged G = 16 {dt}: a NaN in query head {head} stays in "
+                  f"that head")
+    print("[kernels] paged G = 16 bf16 and f32: a NaN in query head 3 or 12 "
+          "(first and second head tile) reaches that head alone")
+
+
 def phase_mla_chunk_cost(fa) -> dict:
     """What an MLA chunk costs in MHA form (``models/attention.py::
     mla_chunk_decode``), bf16, one layer, by the graph timer: the
@@ -1160,8 +1303,13 @@ def phase_variants(calls: dict) -> dict:
                                  ("_f32", "flash_fwd_tf32x3_kernel"))},
             **{f"paged_attention_{case}{sfx}": ("paged_split_kernel",
                                                 "paged_merge_kernel")
-               for case in ("danube", "gemma3", "gemma3_ring")
+               for case in ("danube", "gemma3", "gemma3_ring", "rg",
+                            "rg_ring", "phi35", "phi35_long")
                for sfx in ("", "_f32")},
+            "flash_attention_rg": ("flash_fwd_mma_kernel",),
+            "flash_attention_rg_f32": ("flash_fwd_tf32x3_kernel",),
+            "flash_attention_phi35": ("flash_fwd_mma_kernel",),
+            "flash_attention_phi35_f32": ("flash_fwd_tf32x3_kernel",),
             "ssd_chunk": ("ssd_chunk_y_mma_kernel",
                           "ssd_chunk_state_mma_kernel"),
             "ssd_chunk_f32": ("ssd_chunk_y_tf32x3_kernel",
@@ -1777,6 +1925,108 @@ def phase_parity_gemma3(ops: dict) -> dict:
     return launches
 
 
+def phase_parity_recurrentgemma(ops: dict) -> dict:
+    """recurrentgemma-9b at full width and 5 layers (one period of (rglru,
+    rglru, local) and a tail of 2 RG-LRU layers), f32, on the card: a 2040-
+    and a 300-token prompt in one unpadded batch (2040 tokens), each row's
+    RG-LRU state, conv tail and ring from its true length, decode caches of
+    s_max 2100 (the local layer's ring holds the published window, 2048
+    slots), then 16 greedy steps (positions 2040 .. 2055: the long row's
+    ring wraps), through the kernels (flash (256, 256) windowed at H 16 / K
+    1; paged hd 256 at G = 16 over the ring as pages) and through the plain
+    versions, the kernel run fed the plain run's tokens: equal tokens,
+    logits within 1e-4 of scale; and each prompt prefilled alone through
+    the kernels gives the batch's tokens, and its logits within 1e-4 of
+    scale.  Returns the batched kernel run's launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import layer_kinds, stack_layout
+    cfg = get_config("recurrentgemma-9b").scaled(n_layers=5)
+    check(layer_kinds(cfg) == ["rglru", "rglru", "local", "rglru", "rglru"]
+          and stack_layout(cfg) == (0, 1, 2),
+          "recurrentgemma cut: one period and a tail of 2 RG-LRU layers")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda", dtype=torch.float32)
+    s_max, steps = 2100, 16
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (2040, 300)]
+    plain, ptok = ring_greedy(cfg, params, prompts, s_max, steps, "plain")
+    reset_counts(ops)
+    kern, ktok = ring_greedy(cfg, params, prompts, s_max, steps, None,
+                             feed=ptok)
+    torch.cuda.synchronize()
+    launches = ring_launches(ops)
+    err, rel = logit_gap(kern, plain)
+    runs = [ring_greedy(cfg, params, [p], s_max, steps, None)
+            for p in prompts]
+    alone = [tok[0] for _, tok in runs]
+    rel_alone = max(logit_gap([x[i:i + 1] for x in kern], lg)[1]
+                    for i, (lg, _) in enumerate(runs))
+    print(f"[parity] recurrentgemma-9b full width, 5 layers (rglru, rglru, "
+          f"local; tail rglru, rglru), f32, prompts of 2040 and 300 tokens "
+          f"in one batch, s_max {s_max} (ring of 2048), {steps} greedy steps "
+          f"across the window: tokens kernels {ktok.tolist()} plain "
+          f"{ptok.tolist()} each alone {[a.tolist() for a in alone]}; max "
+          f"logit diff {err:.3g} ({rel:.3g} of scale), batch row against the "
+          f"prompt alone {rel_alone:.3g} of scale; launches {launches}")
+    check(torch.equal(ktok, ptok), "recurrentgemma kernel and plain greedy "
+                                   "tokens equal")
+    check(rel <= 1e-4, f"recurrentgemma logits within 1e-4 of scale (got "
+                       f"{rel:.3g})")
+    check(all(bool(torch.isfinite(x).all()) for x in kern), "finite logits")
+    check(all(torch.equal(ktok[i], a) for i, a in enumerate(alone)),
+          "recurrentgemma batched tokens equal each prompt's alone")
+    check(rel_alone <= 1e-4, f"recurrentgemma batch rows' logits within "
+                             f"1e-4 of scale of each prompt's alone (got "
+                             f"{rel_alone:.3g})")
+    check(launches["flash"] == launches["flash_window"] == 1
+          and launches["paged"] == steps,
+          "recurrentgemma parity ran flash (windowed) and paged on the card")
+    del params
+    return launches
+
+
+def phase_parity_phi35(ops: dict) -> dict:
+    """phi3.5-moe-42b-a6.6b at full width and 2 layers (16 experts top-2,
+    MoE ``dropping``), f32, on the card: a 900- and a 61-token prompt in one
+    batch, then 8 greedy steps, through the kernels (flash and paged at hd
+    128, G = 4) and through the plain versions, the kernel run fed the plain
+    run's tokens: equal tokens, logits within 1e-4 of scale.  Returns the
+    kernel run's launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    cfg = get_config("phi3.5-moe-42b-a6.6b").scaled(n_layers=2)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda", dtype=torch.float32)
+    s_max, steps = 1024, 8
+    rng = np.random.default_rng(14)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (900, 61)]
+    plain, ptok = ring_greedy(cfg, params, prompts, s_max, steps, "plain")
+    reset_counts(ops)
+    kern, ktok = ring_greedy(cfg, params, prompts, s_max, steps, None,
+                             feed=ptok)
+    torch.cuda.synchronize()
+    launches = ring_launches(ops)
+    err, rel = logit_gap(kern, plain)
+    print(f"[parity] phi3.5-moe-42b-a6.6b full width, 2 of 32 layers, f32, "
+          f"MoE dropping, prompts of 900 and 61 tokens in one batch, {steps} "
+          f"greedy steps: tokens kernels {ktok.tolist()} plain "
+          f"{ptok.tolist()}; max logit diff {err:.3g} ({rel:.3g} of scale); "
+          f"launches {launches}")
+    check(torch.equal(ktok, ptok), "phi3.5 kernel and plain greedy tokens "
+                                   "equal")
+    check(rel <= 1e-4, f"phi3.5 logits within 1e-4 of scale (got "
+                       f"{rel:.3g})")
+    check(all(bool(torch.isfinite(x).all()) for x in kern), "finite logits")
+    check(launches["flash"] == 2 and launches["flash_window"] == 0
+          and launches["paged"] == 2 * steps,
+          "phi3.5 parity ran flash and paged on the card")
+    del params
+    return launches
+
+
 def ring_launches(ops: dict) -> dict:
     """The attention counts of a ring parity since the last
     ``reset_counts``: flash, flash with a window, paged."""
@@ -1795,20 +2045,25 @@ def reset_counts(ops: dict) -> None:
 
 def phase_serve(arch: str, ecfg, ops: dict, path: tuple,
                 max_peak_gib: float | None = None) -> tuple:
-    """``arch`` at full width and depth, bf16, EWSJF, on the card.  Every
+    """``arch`` at full width and depth (or at its card cut,
+    ``launch/serve.py::card_config``), bf16, EWSJF, on the card.  Every
     kernel count is set to 0 just before the run and read just after; the
     kernels in ``path`` must have launched, and the peak device memory of
-    the run (weights included) must stay under ``max_peak_gib`` when given.
+    the run (weights included, and whatever earlier phases still hold) must
+    stay under ``max_peak_gib`` when given; the serve's own peak, above what
+    was allocated before it, is printed beside it.
     Returns (the launches, the serve's result)."""
     import torch
-    from repro_torch.launch.serve import card_requests
+    from repro_torch.launch.serve import card_config, card_requests, depth_label
     from repro_torch.serving.api import serve
     reqs = card_requests()       # 24 at t=0: 19 short, 5 long
+    base = torch.cuda.memory_allocated()     # earlier phases' live tensors
     torch.cuda.reset_peak_memory_stats()
     reset_counts(ops)
     t0 = time.monotonic()
-    out = serve(arch, reqs, smoke=False, scheduler="ewsjf",
-                engine_config=ecfg, device="cuda", dtype=torch.bfloat16)
+    out = serve(arch, reqs, smoke=False, config=card_config(arch),
+                scheduler="ewsjf", engine_config=ecfg, device="cuda",
+                dtype=torch.bfloat16)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = {name: mod.KERNEL.launches for name, mod in ops.items()}
@@ -1827,9 +2082,11 @@ def phase_serve(arch: str, ecfg, ops: dict, path: tuple,
     for name in path:
         check(launches[name] > 0, f"{name} launched on the {arch} path")
     cfg = eng.cfg
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    own = peak - base / 2**30
     short = [r.ttft for r in fin if r.prompt_len <= 128]
     long_ = [r.ttft for r in fin if r.prompt_len > 128]
-    print(f"[serve] {arch} {cfg.n_layers} layers d{cfg.d_model} bf16 EWSJF: "
+    print(f"[serve] {arch} {depth_label(cfg)} d{cfg.d_model} bf16 EWSJF: "
           f"{len(fin)} "
           f"requests, {sum(r.generated for r in fin)} tokens in "
           f"{st['elapsed_s']:.2f} s engine time ({wall:.2f} s with weight "
@@ -1837,10 +2094,9 @@ def phase_serve(arch: str, ecfg, ops: dict, path: tuple,
           f"{np.mean(short):.3f} s long {np.mean(long_):.3f} s; prefill "
           f"batches {st['prefill_batches']} padding_waste "
           f"{st['padding_waste']:.3f} preemptions {st['preemptions']}; peak "
-          f"memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
-          f"launches {launches}")
+          f"memory {peak:.1f} GiB, the serve's own {own:.1f} GiB above "
+          f"{base / 2**30:.1f} GiB live before it; launches {launches}")
     if max_peak_gib is not None:
-        peak = torch.cuda.max_memory_allocated() / 2**30
         check(peak < max_peak_gib, f"{arch} serve peak device memory "
                                    f"{peak:.1f} GiB < {max_peak_gib}")
     return launches, out
@@ -2264,6 +2520,8 @@ def main() -> int:
     rows, calls = phase_kernels(fa, pa)
     phase_kernels_minicpm3(fa, pa, rows, calls)
     phase_kernels_ring(fa, pa, rows, calls)
+    phase_kernels_recurrentgemma(fa, pa, rows, calls)
+    phase_kernels_phi35(fa, pa, rows, calls)
     chunk_cost = phase_mla_chunk_cost(fa)
     phase_ssd_kernel(so, rows, calls)
     f32_launches = phase_parity_llama()
@@ -2360,6 +2618,33 @@ def main() -> int:
     del out
     gc.collect()
     torch.cuda.empty_cache()
+    rg_f32 = phase_parity_recurrentgemma(ops)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rgemma, out = phase_serve("recurrentgemma-9b",
+                              CARD_ENGINE_CONFIGS["recurrentgemma-9b"](), ops,
+                              ("flash_attention", "paged_attention"),
+                              max_peak_gib=75)
+    # every prefill runs 12 local layers, all windowed
+    batches = out["stats"]["prefill_batches"]
+    check(rgemma["flash_attention_window"] == rgemma["flash_attention"]
+          == 12 * batches, f"recurrentgemma serve's flash launches all "
+                           f"windowed, 12 a prefill batch (got "
+                           f"{rgemma['flash_attention_window']} windowed of "
+                           f"{rgemma['flash_attention']}, {batches} batches)")
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    phi_f32 = phase_parity_phi35(ops)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phi35, out = phase_serve("phi3.5-moe-42b-a6.6b",
+                             CARD_ENGINE_CONFIGS["phi3.5-moe-42b-a6.6b"](),
+                             ops, ("flash_attention", "paged_attention"),
+                             max_peak_gib=75)
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
     mamba, _ = phase_serve("mamba2-370m", ssm_card_engine_config(), ops,
                            ("ssd_chunk",))
     # after every timed phase: the profiler runs in this process only here
@@ -2381,6 +2666,10 @@ def main() -> int:
         by_path[name]["minicpm3_prefix"] = minicpm3_prefix[name]
         by_path[name]["h2o_danube"] = danube[name]
         by_path[name]["gemma3"] = gemma3[name]
+        by_path[name]["recurrentgemma"] = rgemma[name]
+        by_path[name]["phi35"] = phi35[name]
+        by_path[name]["phi35_parity_f32"] = phi_f32[
+            {"flash_attention": "flash", "paged_attention": "paged"}[name]]
     for path, counts in (("deepseek_prefix", deepseek_prefix),
                          ("minicpm3_prefix", minicpm3_prefix)):
         by_path["flash_attention"][f"{path}_offset"] = \
@@ -2505,6 +2794,36 @@ def main() -> int:
                     entry["ring_cases"][f"gemma3{sfx}"]["ring_case"] = {
                         **rows[f"{name}_gemma3_ring{sfx}"],
                         "variant": variants[f"{name}_gemma3_ring{sfx}"]}
+            # recurrentgemma-9b's instances (MQA at hd 256: flash at H 16 /
+            # K 1 windowed, paged at G = 16): bf16 launches from its serve,
+            # f32 ones from its 5-layer parity
+            short = {"flash_attention": "flash",
+                     "paged_attention": "paged"}[name]
+            entry["recurrentgemma_cases"] = {
+                case: {**rows[f"{name}_rg{sfx}"], "launches": n,
+                       "variant": variants[f"{name}_rg{sfx}"]}
+                for case, sfx, n in (("main", "", rgemma[name]),
+                                     ("main_f32", "_f32", rg_f32[short]))}
+            if name == "paged_attention":
+                # the same instance over 8 full rings of 2048
+                for sfx in ("", "_f32"):
+                    entry["recurrentgemma_cases"][f"main{sfx}"][
+                        "ring_case"] = {
+                        **rows[f"{name}_rg_ring{sfx}"],
+                        "variant": variants[f"{name}_rg_ring{sfx}"]}
+            # phi3.5-moe's instances (GQA at hd 128, G = 4): bf16 launches
+            # from its serve, f32 ones from its 2-layer parity
+            entry["phi35_cases"] = {
+                case: {**rows[f"{name}_phi35{sfx}"], "launches": n,
+                       "variant": variants[f"{name}_phi35{sfx}"]}
+                for case, sfx, n in (("main", "", phi35[name]),
+                                     ("main_f32", "_f32", phi_f32[short]))}
+            if name == "paged_attention":
+                # the same instance with one long slot among short ones
+                for sfx in ("", "_f32"):
+                    entry["phi35_cases"][f"main{sfx}"]["long_case"] = {
+                        **rows[f"{name}_phi35_long{sfx}"],
+                        "variant": variants[f"{name}_phi35_long{sfx}"]}
         kernels.append(entry)
     print(f"[summary] all phases passed in {time.monotonic() - t_start:.1f} s")
     print("[summary] recorded, not measured in this run: main-case ms of "

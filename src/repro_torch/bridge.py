@@ -15,7 +15,11 @@ an MLA layer's ``{"latent", "k_rope"}`` cache pair is the port's one
 of 1.  A sliding-window layer's ring ``{"k", "v"}`` (min(window, s_max)
 slots, position p at slot p % W) has the same layout on both sides, so it
 crosses as a full cache does; in gemma3's stack, layer j of period p is
-layer ``head + p·6 + j``, global and local layers interleaved.
+layer ``head + p·6 + j``, global and local layers interleaved.  An RG-LRU
+layer's weights (9 leaves, gate biases and Λ in f32) and its ``{"h",
+"conv"}`` cache have one layout on both sides; recurrentgemma-9b's 38
+layers are 12 periods of (rglru, rglru, local) and a tail of 2 RG-LRU
+layers, which the ``tail`` list holds.
 
 Both sides of the bridge are numpy: it imports no JAX, and callers hand in
 ``np.asarray`` of the JAX arrays.  The conversion is exact.
@@ -131,7 +135,8 @@ def params_to_numpy(params: LMParams, cfg: ModelConfig) -> dict:
 
 def caches_from_jax(tree: dict, cfg: ModelConfig, *, device="cuda") -> list:
     """A JAX decode-cache tree (numpy leaves) as the port's per-layer list
-    (``{"k", "v"}``, ``{"ckv"}`` or ``{"ssm", "conv"}``) on ``device``.  A
+    (``{"k", "v"}``, ``{"ckv"}``, ``{"ssm", "conv"}`` or ``{"h", "conv"}``)
+    on ``device``.  A
     radix KV block of the JAX engine (its ``export_prefix_blocks``: the
     cache tree with (block_size, K, hd) leaves) converts the same way, into
     the block layout of the port engine's ``import_prefix_blocks``."""

@@ -10,7 +10,8 @@
 //
 // Layout: q (B, H, hd), k/v pages (P, page, K, hd), block_table
 // (B, max_pages) int32, seq_lens (B,) int32, out (B, H, hd); f32 or bf16;
-// hd 64, 128, 80 (h2o-danube-1.8b) or 256 (gemma3-4b).  A sliding-window
+// hd 64, 128, 80 (h2o-danube-1.8b) or 256 (gemma3-4b, recurrentgemma-9b);
+// G = 1, 2, 4, 8 or 16 (16 in two head tiles of 8).  A sliding-window
 // layer's ring cache (B, W, K, hd) is passed as pages too, with seq_len =
 // min(pos + 1, W): keys are stored after RoPE, so the order of the ring's
 // rows does not matter, and the kernel needs no window.
@@ -36,7 +37,8 @@
 //     exits;
 //   * each block serves all G = H / K query heads of its KV head, so every
 //     page is read once (the TPU grid re-reads it for each query head), and
-//     reads its own block-table entries;
+//     reads its own block-table entries.  G = 16 is two head tiles of 8 on
+//     the grid's first axis, so each page is read twice;
 //   * every load is 16 bytes a lane: a token's K (or V) row is read by
 //     hd * sizeof(T) / 16 neighbouring lanes, and each lane keeps 8 (f32 at
 //     hd 128) or 4 loads of K and as many of V in flight before using them;
@@ -180,6 +182,13 @@ __device__ __forceinline__ float fmax_nan(float a, float b) {
   return y;
 }
 
+// G query heads a block: block x of the grid's first axis takes query heads
+// x * G .. x * G + G - 1 of its sequence, of KV head x * G / (H / KH).  The
+// first axis is KH long when a KV head's group is G heads, or KH * tiles
+// when it is `tiles` head tiles of G (a group of 16, such as
+// recurrentgemma-9b's MQA at hd 256: two tiles of 8, so that a lane's Q and accumulator rows stay 2 x 8 x 8
+// floats, as at G = 8); each tile re-reads its partition's K/V rows, mostly
+// from L2.
 template <typename T, int HD, int G>
 __global__ void __launch_bounds__(kWarps * 32)
     paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
@@ -201,7 +210,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   constexpr int U = NL * TPW;           // tokens a warp takes per step
   static_assert(HD % EPT == 0 && LPT >= 1 && LPT <= 32, "a token row spans at most a warp");
 
-  const int kh = blockIdx.x;
+  const int kh = blockIdx.x * G / (H / KH);
   const int b = blockIdx.y;
   const int split = blockIdx.z;
   const int B = gridDim.y;
@@ -210,7 +219,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int seq_len = seq_lens[b];
   const int t_begin = split * partition;
   const int t_end = min(seq_len, t_begin + partition);
-  const size_t bh0 = size_t(b) * H + size_t(kh) * G;  // first query head of the group
+  const size_t bh0 = size_t(b) * H + size_t(blockIdx.x) * G;  // first query head of the tile
   float* part_m = part;
   float* part_l = part + size_t(B) * H * n_split;
   float* part_o = part + 2 * size_t(B) * H * n_split;
@@ -432,7 +441,7 @@ template <typename T, int HD, int G>
 cudaError_t launch(const void* q, const void* kp, const void* vp, const void* bt, const void* sl,
                    void* o, void* part, int B, int H, int KH, int page, int max_pages,
                    int partition, int n_split, float scale, cudaStream_t stream) {
-  const dim3 grid(KH, B, n_split);
+  const dim3 grid(H / G, B, n_split);  // one block a head tile of G
   paged_split_kernel<T, HD, G><<<grid, kWarps * 32, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp),
       static_cast<const int*>(bt), static_cast<const int*>(sl), static_cast<T*>(o),
@@ -461,6 +470,10 @@ cudaError_t launch_group(int G, const void* q, const void* kp, const void* vp, c
       return launch<T, HD, 4>(q, kp, vp, bt, sl, o, part, B, H, KH, page, max_pages,
                               partition, n_split, scale, st);
     case 8:
+      return launch<T, HD, 8>(q, kp, vp, bt, sl, o, part, B, H, KH, page, max_pages,
+                              partition, n_split, scale, st);
+    case 16:  // e.g. recurrentgemma-9b's MQA (16 query heads on 1 KV head):
+              // the G = 8 kernel on two head tiles a KV head
       return launch<T, HD, 8>(q, kp, vp, bt, sl, o, part, B, H, KH, page, max_pages,
                               partition, n_split, scale, st);
     default:

@@ -33,7 +33,9 @@ KERNEL = CudaKernel("paged_attention", "paged_attention_fwd",
 # keys and values of one width, pages of their own: 80 is h2o-danube-1.8b's,
 # 256 gemma3-4b's
 HEAD_DIMS = (64, 128, 80, 256)
-GROUPS = (1, 2, 4, 8)
+# query heads a KV head; 16 (recurrentgemma-9b's MQA at hd 256) runs the
+# kernel of 8 on two head tiles
+GROUPS = (1, 2, 4, 8, 16)
 # (key, value) widths of absorbed MLA decode and the query heads a KV head
 # each takes: deepseek-v2-lite (latent 512 ‖ rope 64, 16 heads; 4 in the
 # tests) and minicpm3-4b (latent 256 ‖ rope 32, 40 heads)

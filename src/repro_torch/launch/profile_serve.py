@@ -2,12 +2,14 @@
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
         [--arch llama2-13b|mamba2-370m|deepseek-v2-lite-16b|minicpm3-4b|
-                h2o-danube-1.8b|gemma3-4b] \\
+                h2o-danube-1.8b|gemma3-4b|recurrentgemma-9b|
+                phi3.5-moe-42b-a6.6b] \\
         [--prefix] [--trace out.json]
 
 Serves the ``chip_smoke.py`` workload (``card_requests``; the architecture
-at full width and depth, random bf16 weights, EWSJF, its card engine
-config) three times on the GPU: once to warm up (cuBLAS handles,
+at full width and depth, or at its card cut (``serve.py::card_config``),
+random bf16 weights, EWSJF, its card engine config) three times on the
+GPU: once to warm up (cuBLAS handles,
 first-call allocations), once timed without the profiler, once under
 ``torch.profiler``.  ``--prefix`` serves the architecture's chunked-prefill
 + radix-reuse run instead (``card_prefix_requests`` under
@@ -15,8 +17,11 @@ first-call allocations), once timed without the profiler, once under
 decode: llama2-13b, deepseek-v2-lite-16b, minicpm3-4b).  Prints both runs' engine wall times, the
 device time per kernel class (flash attention, paged attention, SSD chunk,
 matrix products, MoE dispatch — the router's top-k, the position cumsum,
-the scatter into and gather from the expert buffers —, host-device copies,
-the rest), each of the port's own
+the scatter into and gather from the expert buffers —, the RG-LRU scan and
+gates — every kernel launched inside ``models/rglru.py::linear_scan`` and
+``_gates``, whatever its name, taken out of the class its name gives and
+also listed by range under ``rglru_s`` —, host-device copies, the rest),
+each of the port's own
 kernels by name under its class, the device busy share against the
 unprofiled wall time, and the host time spent in admission and prefill
 (``_admit``), chunked prefill (``_prefill_chunk_tick``) and decode
@@ -33,13 +38,14 @@ import json
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from ..configs import get_config
 from ..core import EWSJFConfig, EWSJFScheduler
 from ..models import DtypePolicy, init_params, supports_chunked_decode
+from ..models import rglru
 from ..models.common import resolve_device
 from ..serving import ServingEngine
-from .serve import (CARD_ENGINE_CONFIGS, card_prefix_engine_config,
-                    card_prefix_requests, card_requests)
+from .serve import (CARD_ENGINE_CONFIGS, card_config,
+                    card_prefix_engine_config, card_prefix_requests,
+                    card_requests)
 
 # The port's own kernels match by the prefix every kernel of their source
 # shares (flash_fwd_kernel / flash_fwd_mma_kernel; paged_split_kernel and
@@ -52,6 +58,8 @@ _CLASSES = (("flash_attention", ("flash_fwd_",)),
                               "cumsum")),
             ("copy_host_device", ("memcpy htod", "memcpy dtoh")))
 _OWN = ("flash_attention", "paged_attention", "ssd_chunk")
+# Profiler ranges around the RG-LRU scan and gates (``_trace_rglru``)
+_RGLRU_RANGES = (("linear_scan", "rglru.scan"), ("_gates", "rglru.gates"))
 
 
 def _kernel_class(name: str) -> str:
@@ -60,6 +68,42 @@ def _kernel_class(name: str) -> str:
         if any(k in low for k in keys):
             return cls
     return "other"
+
+
+def _trace_rglru() -> None:
+    """Wrap ``models/rglru.py``'s scan and gates in profiler ranges
+    (``rglru_forward`` and ``rglru_decode`` look them up in the module at
+    each call)."""
+    for attr, label in _RGLRU_RANGES:
+        fn = getattr(rglru, attr)
+
+        def traced(*a, _fn=fn, _label=label):
+            with record_function(_label):
+                return _fn(*a)
+        setattr(rglru, attr, traced)
+
+
+def _range_kernels(evt) -> list:
+    """(name, device µs) of every kernel launched under a CPU event and its
+    children."""
+    out = [(k.name, k.duration) for k in evt.kernels]
+    for child in evt.cpu_children:
+        out.extend(_range_kernels(child))
+    return out
+
+
+def _rglru_device_us(prof) -> dict:
+    """Device µs by kernel class of the kernels launched inside each RG-LRU
+    range: {label: {class: µs}}."""
+    labels = {label for _, label in _RGLRU_RANGES}
+    out: dict[str, dict] = {label: {} for label in labels}
+    for evt in prof.events():
+        if (evt.name in labels
+                and evt.device_type == torch.autograd.DeviceType.CPU):
+            for name, us in _range_kernels(evt):
+                cls = _kernel_class(name)
+                out[evt.name][cls] = out[evt.name].get(cls, 0.0) + us
+    return out
 
 
 def _engine(cfg, params, dev, prefix: bool) -> ServingEngine:
@@ -85,7 +129,7 @@ def main() -> None:
                     help="write a chrome trace of the profiled run here")
     args = ap.parse_args()
     dev = resolve_device(args.device)
-    cfg = get_config(args.arch)
+    cfg = card_config(args.arch)
     if args.prefix and not supports_chunked_decode(cfg):
         ap.error(f"--prefix needs a stack that runs chunked decode; "
                  f"{args.arch} does not")
@@ -109,6 +153,8 @@ def main() -> None:
     gc.collect()
 
     eng = _engine(cfg, params, dev, args.prefix)
+    if "rglru" in cfg.pattern:
+        _trace_rglru()
     for attr, label in (("_admit", "engine.prefill"),
                         ("_prefill_chunk_tick", "engine.chunk"),
                         ("_decode_tick", "engine.decode")):
@@ -136,6 +182,8 @@ def main() -> None:
             # the CPU range, not its mirror on the GPU timeline
             if ev.device_type == torch.autograd.DeviceType.CPU:
                 host_us[ev.key] = ev.cpu_time_total
+        elif ev.key.startswith("rglru."):
+            pass     # a range's mirror on the GPU timeline, not a kernel
         elif dt > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
             cls = _kernel_class(ev.key)
             device_us[cls] = device_us.get(cls, 0.0) + dt
@@ -143,6 +191,11 @@ def main() -> None:
             if cls in own:
                 own[cls][ev.key[:90]] = {"device_s": dt / 1e6,
                                          "count": ev.count}
+    rglru_us = _rglru_device_us(prof)
+    for by_cls in rglru_us.values():
+        for cls, us in by_cls.items():
+            device_us[cls] -= us
+            device_us["rglru"] = device_us.get("rglru", 0.0) + us
     busy = sum(device_us.values()) / 1e6
     kernels.sort(reverse=True)
     print(json.dumps({
@@ -157,6 +210,9 @@ def main() -> None:
         "device_s_by_class": {k: v / 1e6 for k, v in sorted(
             device_us.items(), key=lambda kv: -kv[1])},
         "own_kernels_by_class": own,
+        "rglru_s": {label.split(".")[1]: {cls: us / 1e6 for cls, us in
+                                          by_cls.items()}
+                    for label, by_cls in rglru_us.items() if by_cls},
         "host_s": {k: v / 1e6 for k, v in host_us.items()},
         "prefill_batches": eng.prefill_batches,
         "chunks": eng.chunks_run,

@@ -5,12 +5,14 @@ admission scheduler over the paper's mixed workload.
         --full --device cuda
 
 (or ``--arch llama2-13b``, ``--arch deepseek-v2-lite-16b``, ``--arch
-minicpm3-4b``, ``--arch h2o-danube-1.8b``, ``--arch gemma3-4b``)
+minicpm3-4b``, ``--arch h2o-danube-1.8b``, ``--arch gemma3-4b``, ``--arch
+recurrentgemma-9b``, ``--arch phi3.5-moe-42b-a6.6b``)
 
 ``--full`` builds the architecture's published config (random bf16 weights
-from ``--seed``) and serves the card workload (``card_requests``) with the
-architecture's card engine config; without it the smoke config serves the
-paper's mixed workload in f32.  ``--prefix`` (with ``--full``) serves the
+from ``--seed``; ``card_config``: for a model larger than one card, its
+published widths at the depth of ``CARD_DEPTH_CUTS``) and serves the card
+workload (``card_requests``) with the architecture's card engine config;
+without it the smoke config serves the paper's mixed workload in f32.  ``--prefix`` (with ``--full``) serves the
 shared-prefix traffic (``card_prefix_requests``) in chunked-prefill +
 radix-reuse mode (``card_prefix_engine_config``), for any architecture
 whose stack runs chunked decode.
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from ..configs import get_config, get_smoke_config
+from ..configs.base import ModelConfig
 from ..core import (EWSJFConfig, EWSJFScheduler, FCFSScheduler,
                     Request, SJFScheduler)
 from ..models import DtypePolicy, init_params, supports_chunked_decode
@@ -126,12 +129,41 @@ def card_prefix_requests(n: int = 24, seed: int = 0, vocab: int = 32000,
 # chunked mode): h2o-danube-1.8b (window 4096, so at s_max 2048 its rings
 # are whole slots and the window is inert) and gemma3-4b (29 local layers
 # of window 1024 over rings of 1024 rows, 5 global ones over 2048).
+# recurrentgemma-9b (26 RG-LRU layers, 12 local MQA layers of window 2048,
+# whose rings at s_max 2048 are whole slots) is served bucketed too, its
+# prompts unpadded (``pad_prompts`` is off for the hybrid family), and
+# phi3.5-moe at its card cut (``CARD_DEPTH_CUTS``) with MoE ``dropping``:
+# 8 decode tokens, top-2 of 16 experts, never pass an expert's capacity.
 CARD_ENGINE_CONFIGS = {"llama2-13b": card_engine_config,
                        "mamba2-370m": ssm_card_engine_config,
                        "deepseek-v2-lite-16b": card_engine_config,
                        "minicpm3-4b": card_engine_config,
                        "h2o-danube-1.8b": card_engine_config,
-                       "gemma3-4b": card_engine_config}
+                       "gemma3-4b": card_engine_config,
+                       "recurrentgemma-9b": card_engine_config,
+                       "phi3.5-moe-42b-a6.6b": card_engine_config}
+# Layers served on one 80 GB card, for models whose published depth does
+# not fit it: phi3.5-moe's 41.87 B parameters are ~84 GB in bf16; 16 of its
+# 32 layers at published widths are ~21.1 B, ~42 GB.
+CARD_DEPTH_CUTS = {"phi3.5-moe-42b-a6.6b": 16}
+
+
+def card_config(arch: str) -> ModelConfig:
+    """The config ``arch`` serves at on one card: its published config,
+    cut to ``CARD_DEPTH_CUTS[arch]`` layers where it has a cut."""
+    cfg = get_config(arch)
+    if arch in CARD_DEPTH_CUTS:
+        cfg = cfg.scaled(n_layers=CARD_DEPTH_CUTS[arch])
+    return cfg
+
+
+def depth_label(cfg: ModelConfig) -> str:
+    """``cfg``'s depth, and against the published depth when it is cut
+    (e.g. "16 of 32 layers (cut)")."""
+    full = get_config(cfg.name).n_layers
+    if cfg.n_layers == full:
+        return f"{full} layers"
+    return f"{cfg.n_layers} of {full} layers (cut)"
 
 
 def main() -> None:
@@ -156,7 +188,7 @@ def main() -> None:
         ap.error("--prefix needs --full")
 
     dev = resolve_device(args.device)
-    cfg = get_config(args.arch) if args.full else get_smoke_config(args.arch)
+    cfg = card_config(args.arch) if args.full else get_smoke_config(args.arch)
     if args.prefix and not supports_chunked_decode(cfg):
         ap.error(f"--prefix needs a stack that runs chunked decode; "
                  f"{args.arch} does not")
@@ -185,7 +217,8 @@ def main() -> None:
     ttft = np.asarray([r.ttft for r in fin if r.ttft is not None])
     short = np.asarray([r.ttft for r in fin
                         if r.ttft is not None and r.prompt_len <= short_len])
-    print(f"scheduler={args.scheduler} arch={cfg.name} device={dev}")
+    print(f"scheduler={args.scheduler} arch={cfg.name} "
+          f"{depth_label(cfg) if args.full else 'smoke'} device={dev}")
     for k, v in st.items():
         print(f"  {k:16s} {v:.3f}" if isinstance(v, float) else f"  {k:16s} {v}")
     print(f"  mean_ttft        {ttft.mean():.3f}s")

@@ -1,5 +1,6 @@
 """Common model building blocks: dtype policy, device choice, RMSNorm, RoPE,
-initializers, the causal depthwise conv of the SSM mixer.
+initializers, the causal depthwise conv of the recurrent mixers (SSM and
+RG-LRU) and its decode state after a prefill.
 
 Plain functions on tensors, ported from the JAX package's ``models/common.py``
 (forward only).  Initializers draw from an explicit ``torch.Generator`` that
@@ -104,3 +105,17 @@ def conv_decode_step(x_t: torch.Tensor, conv_state: torch.Tensor,
     full = torch.cat([conv_state, x_t[:, None, :]], dim=1)     # (B, W, D)
     y = torch.einsum("bwd,wd->bd", full, w)
     return y, full[:, 1:, :]
+
+
+def conv_tail(x: torch.Tensor, width: int, true_lens=None) -> torch.Tensor:
+    """The decode conv state after a prefill: each row's last ``width - 1``
+    pre-conv inputs of x (B, S, D), ending at ``true_len - 1`` (default S -
+    1) and zero-filled in front when the row is shorter."""
+    B_, S, _ = x.shape
+    ends = (torch.full((B_,), S, device=x.device) if true_lens is None
+            else true_lens.to(x.device).long())
+    pos = ends[:, None] - (width - 1) + torch.arange(width - 1,
+                                                     device=x.device)
+    tail = x[torch.arange(B_, device=x.device)[:, None],
+             pos.clamp_min(0)]                                   # (B,W-1,D)
+    return tail * (pos >= 0)[..., None].to(tail.dtype)

@@ -2,9 +2,10 @@
 
 Ported from the JAX package's ``models/model.py`` for the dense attention
 families (sliding-window and local/global layers included), MLA and MoE
-(deepseek-v2-lite) and the SSM family; ``moe_impl``
-picks the MoE path (``dropping``, the JAX engine's default, or ``dense``).
-``train_loss`` and the RG-LRU family come with later steps of the port.
+(deepseek-v2-lite, phi3.5-moe), the SSM family and the RG-LRU hybrid
+family (recurrentgemma); ``moe_impl`` picks the MoE path (``dropping``, the
+JAX engine's default, or ``dense``).  ``train_loss`` comes with a later
+step of the port.
 """
 
 from __future__ import annotations
@@ -86,8 +87,8 @@ def prefill(params: LMParams, batch: dict, cfg: ModelConfig, *,
     (logits at each row's last real position (B,1,V) f32, per-layer caches:
     ``{"k", "v"}`` (B,S,K,hd) for GQA — for a sliding-window layer its ring
     of min(window, S) slots, built from each row's true length —
-    ``{"ckv"}`` (B,S,1,r+rd) for MLA, ``{"ssm", "conv"}`` after the last
-    real position for SSM layers)."""
+    ``{"ckv"}`` (B,S,1,r+rd) for MLA, ``{"ssm", "conv"}`` or ``{"h",
+    "conv"}`` after the last real position for SSM or RG-LRU layers)."""
     x = _embed_inputs(params, batch, cfg, policy.compute)
     B, S = x.shape[:2]
     h, caches = stack_forward(params.blocks, x, cfg, _positions(B, S, x.device),
@@ -111,8 +112,8 @@ def decode_step(params: LMParams, tokens, caches: list, cache_pos,
                 impl: str | None = None, moe_impl: str = "dropping"):
     """One token for every sequence.  tokens (B,1) int; cache_pos an int or
     (B,) per-row positions (tokens already in each cache, < S_max of the
-    full caches; a ring cache takes any position, and SSM layers do not
-    read them).  The caches are updated **in place**.  Returns (logits
+    full caches; a ring cache takes any position, and SSM and RG-LRU
+    layers do not read them).  The caches are updated **in place**.  Returns (logits
     (B,1,V) f32, caches)."""
     s_max = next((t.shape[1] for c, kind in zip(caches, layer_kinds(cfg))
                   if not uses_ring(cfg, kind)

@@ -26,7 +26,8 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels.ssd_scan.ops import ssd
-from .common import causal_depthwise_conv, conv_decode_step, dense_init, rms_norm
+from .common import (causal_depthwise_conv, conv_decode_step, conv_tail,
+                     dense_init, rms_norm)
 
 
 def init_ssm(generator: torch.Generator, cfg: ModelConfig, dtype,
@@ -86,23 +87,8 @@ def ssm_forward(params, x, cfg: ModelConfig, *, true_lens=None,
     out = y @ params["out_proj"]
     if return_state:
         return out, {"ssm": h_final,
-                     "conv": _conv_tail(xBC_pre, cfg, true_lens)}
+                     "conv": conv_tail(xBC_pre, cfg.conv_width, true_lens)}
     return out
-
-
-def _conv_tail(xBC_pre, cfg: ModelConfig, true_lens=None):
-    """The last W-1 pre-conv inputs of each row, ending at ``true_len - 1``
-    and zero-filled in front when the row is shorter (the decode conv state
-    after prefill)."""
-    B_, S, _ = xBC_pre.shape
-    W = cfg.conv_width
-    ends = (torch.full((B_,), S, device=xBC_pre.device) if true_lens is None
-            else true_lens.to(xBC_pre.device).long())
-    pos = ends[:, None] - (W - 1) + torch.arange(W - 1,
-                                                 device=xBC_pre.device)
-    tail = xBC_pre[torch.arange(B_, device=xBC_pre.device)[:, None],
-                   pos.clamp_min(0)]                              # (B,W-1,D)
-    return tail * (pos >= 0)[..., None].to(tail.dtype)
 
 
 def init_ssm_cache(cfg: ModelConfig, batch: int, dtype, device) -> dict:

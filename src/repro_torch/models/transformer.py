@@ -1,5 +1,5 @@
-"""Layer stack assembly for the attention and SSM layer kinds, with dense or
-MoE MLPs.
+"""Layer stack assembly for the attention, SSM and RG-LRU layer kinds, with
+dense or MoE MLPs.
 
 The JAX package runs ``head`` blocks, a ``jax.lax.scan`` over periods of
 ``cfg.pattern`` and ``tail`` blocks, with stacked period weights.  Here the
@@ -8,15 +8,17 @@ order and the scan is a Python loop; ``stack_layout`` and ``layer_kinds``
 keep the JAX meaning.  The decode cache is a per-layer list of dicts,
 updated in place by :func:`stack_decode`: ``{"k", "v"}`` for a GQA layer
 (of s_max rows, or for a sliding-window layer a ring of min(window, s_max)
-rows), ``{"ckv"}`` for an MLA layer, ``{"ssm", "conv"}`` for an SSM layer.  With
+rows), ``{"ckv"}`` for an MLA layer, ``{"ssm", "conv"}`` for an SSM layer,
+``{"h", "conv"}`` for an RG-LRU layer.  With
 ``cfg.n_experts`` every block after the first ``cfg.first_dense_layers``
 carries an MoE MLP (``models/moe.py``), run by ``moe_impl`` (``dense`` or
 ``dropping``, the default).
 
 The attention kinds (GQA and MLA; sliding-window layers — ``attn_kind``
-``swa``, and the ``local`` layers of ``local_global`` — over ring caches),
-MoE MLPs and the SSM kind are ported: RG-LRU layers, encoder-only stacks
-and embedding inputs raise ``NotImplementedError``.  Chunked decode
+``swa``, the ``local`` layers of ``local_global`` and of recurrentgemma's
+hybrid pattern — over ring caches), MoE MLPs, the SSM kind and the RG-LRU
+kind are ported: encoder-only stacks and embedding inputs raise
+``NotImplementedError``.  Chunked decode
 (:func:`stack_chunk`) runs on stacks of attention layers without a ring,
 GQA or MLA (:func:`supports_chunked_decode`), each chunk's MoE MLP by
 ``moe_impl`` as in a prefill.
@@ -34,16 +36,17 @@ from .attention import (MLA_CACHE, attn_chunk_decode, attn_decode,
 from .common import rms_norm
 from .mlp import init_mlp, mlp_forward
 from .moe import init_moe, moe_forward
+from .rglru import init_rglru, init_rglru_cache, rglru_decode, rglru_forward
 from .ssm import init_ssm, init_ssm_cache, ssm_decode, ssm_forward
 
 ATTN_KINDS = ("attn", "local", "global")
-PORTED_KINDS = ATTN_KINDS + ("ssm",)
+PORTED_KINDS = ATTN_KINDS + ("ssm", "rglru")
 # Decode-cache entries with a sequence axis (axis 1), which a prefill fills
 # up to its bucket's length
 SEQ_CACHE_ENTRIES = ("k", "v", MLA_CACHE)
 
-_FAMILIES_LATER = ("not ported yet; RG-LRU, encoder-only and embedding-input "
-                   "models come with a later step of the port")
+_FAMILIES_LATER = ("not ported yet; encoder-only and embedding-input models "
+                   "come with a later step of the port")
 
 
 def uses_ring(cfg: ModelConfig, kind: str) -> bool:
@@ -88,10 +91,11 @@ def _frozen_dict(d: dict | None) -> nn.ParameterDict | None:
 
 class Block(nn.Module):
     """Weights of one layer: ``ln1`` and ``mixer`` (the attention
-    projections or the SSM mixer), then for attention kinds ``ln2`` and the
-    ``mlp``: a SwiGLU MLP, or an MoE layer (``use_moe``: its ``mlp`` has a
-    router) whose shared experts (the ``"shared"`` entry of the JAX tree)
-    sit in ``shared``.  An SSM block has no ``ln2`` and no MLP (``None``).
+    projections, the SSM mixer or the RG-LRU block), then for attention and
+    RG-LRU kinds ``ln2`` and the ``mlp``: a SwiGLU MLP, or an MoE layer
+    (``use_moe``: its ``mlp`` has a router) whose shared experts (the
+    ``"shared"`` entry of the JAX tree) sit in ``shared``.  An SSM block has
+    no ``ln2`` and no MLP (``None``).
     Inference only: the parameters do not require grad."""
 
     def __init__(self, kind: str, ln1: torch.Tensor, mixer: dict,
@@ -121,7 +125,8 @@ def init_block(generator: torch.Generator, cfg: ModelConfig, kind: str,
     zeros = torch.zeros((d,), dtype=dtype, device=device)
     if kind == "ssm":
         return Block(kind, zeros, init_ssm(generator, cfg, dtype, device))
-    mixer = init_attention(generator, cfg, dtype, device)
+    mixer = (init_rglru(generator, cfg, dtype, device) if kind == "rglru"
+             else init_attention(generator, cfg, dtype, device))
     mlp = (init_moe(generator, cfg, dtype, device) if use_moe
            else init_mlp(generator, d, cfg.d_ff, dtype, device))
     return Block(kind, zeros, mixer, zeros.clone(), mlp)
@@ -142,7 +147,7 @@ def block_forward(bp: Block, x, cfg: ModelConfig, positions, *,
                   want_cache: bool, true_lens=None, impl: str | None = None,
                   moe_impl: str = "dropping"):
     """Full-sequence block.  ``true_lens`` (B,) are the real lengths of
-    right-padded rows (read by SSM layers, and by
+    right-padded rows (read by SSM and RG-LRU layers, and by
     ``ring_cache_from_prefill`` for sliding-window layers; causal attention
     needs no mask for right padding, but an MoE layer routes the padding
     too, as the JAX package does).  Returns (x, the layer's cache or
@@ -152,6 +157,10 @@ def block_forward(bp: Block, x, cfg: ModelConfig, positions, *,
     if bp.kind == "ssm":
         out = ssm_forward(bp.mixer, h, cfg, true_lens=true_lens,
                           return_state=want_cache, impl=impl)
+        mix, cache = out if want_cache else (out, None)
+    elif bp.kind == "rglru":
+        out = rglru_forward(bp.mixer, h, cfg, true_lens=true_lens,
+                            return_state=want_cache)
         mix, cache = out if want_cache else (out, None)
     elif want_cache:
         mix, cache = attn_forward(bp.mixer, h, cfg, bp.kind, positions,
@@ -172,6 +181,8 @@ def block_decode(bp: Block, x, cache: dict, cache_pos, cfg: ModelConfig, *,
     h = rms_norm(x, bp.ln1, cfg.norm_eps)
     if bp.kind == "ssm":
         mix, cache = ssm_decode(bp.mixer, h, cache, cfg)
+    elif bp.kind == "rglru":
+        mix, cache = rglru_decode(bp.mixer, h, cache, cfg)
     elif uses_ring(cfg, bp.kind):
         mix, cache = gqa_decode_ring(bp.mixer, h, cache, cache_pos, cfg,
                                      window=window_for(cfg, bp.kind),
@@ -188,7 +199,7 @@ def supports_chunked_decode(cfg: ModelConfig) -> bool:
     chunked prefill or a prefill at an offset against a full-layout cache.
     Excludes ring-buffer (sliding-window/local) attention (a later chunk
     token overwrites the ring slot an earlier in-chunk query still needs),
-    recurrent state (SSM layers need strictly sequential scans),
+    recurrent state (SSM and RG-LRU layers need strictly sequential scans),
     encoder-only stacks and non-token inputs, as the JAX package does."""
     if cfg.is_encoder_only or cfg.input_mode != "tokens":
         return False
@@ -227,10 +238,13 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, s_max: int,
                      dtype, device) -> dict:
     """Zero decode cache of one layer: ``attention.init_cache`` (``{"k",
     "v"}`` of s_max rows, or of min(window, s_max) for a sliding-window
-    layer's ring; MLA's ``{"ckv"}``), or for an SSM layer ``{"ssm": (batch,
-    H, P, N) f32, "conv": (batch, W-1, conv_dim)}``."""
+    layer's ring; MLA's ``{"ckv"}``), for an SSM layer ``{"ssm": (batch,
+    H, P, N) f32, "conv": (batch, W-1, conv_dim)}``, for an RG-LRU layer
+    ``{"h": (batch, w) f32, "conv": (batch, W-1, w)}``."""
     if kind == "ssm":
         return init_ssm_cache(cfg, batch, dtype, device)
+    if kind == "rglru":
+        return init_rglru_cache(cfg, batch, dtype, device)
     w = window_for(cfg, kind)
     length = min(w, s_max) if uses_ring(cfg, kind) and w else s_max
     return init_cache(cfg, batch, length, dtype, device)

@@ -13,6 +13,7 @@ from typing import Optional
 import torch
 
 from ..configs import get_config, get_smoke_config
+from ..configs.base import ModelConfig
 from ..core import EWSJFConfig, EWSJFScheduler, FCFSScheduler, Request, SJFScheduler
 from ..models import DtypePolicy, init_params
 from ..models.common import resolve_device
@@ -27,19 +28,22 @@ _SCHEDULERS = {
 
 
 def serve(arch: str, requests: list[Request], *, scheduler: str = "ewsjf",
-          smoke: bool = True, params=None,
+          smoke: bool = True, config: Optional[ModelConfig] = None,
+          params=None,
           engine_config: Optional[EngineConfig] = None,
           admission=None, seed: int = 0, device="cuda",
           dtype: torch.dtype = torch.float32) -> dict:
     """Serve ``requests`` to completion; returns {finished, stats, engine}.
 
-    ``smoke=False`` builds the architecture's full published config.
+    ``smoke=False`` builds the architecture's full published config;
+    ``config`` replaces either (``launch/serve.py::card_config``: a model
+    larger than one card at a cut depth).
     Without ``params``, random weights are drawn in ``dtype`` on ``device``
     from a generator seeded with ``seed``; the engine computes and caches KV
     in ``dtype``.  ``device`` defaults to ``"cuda"`` and raises when no GPU
     is present."""
     dev = resolve_device(device)
-    cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    cfg = config or (get_smoke_config(arch) if smoke else get_config(arch))
     if params is None:
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)

@@ -18,10 +18,11 @@ The execution model is the JAX engine's legacy path:
 Unlike the JAX engine, the decode caches are updated **in place**: prefill
 K/V (or an SSM layer's state and conv tail) are copied into the slot
 (``_write_slot``) and decode writes each new token's K/V, or the new state,
-into its slot row.  For the SSM family (``pad_prompts`` off, as in the JAX
-engine) a prefill batch is right-padded to its longest prompt; the port
-passes each row's true length into the stack, so a shorter row's state is
-that of the row alone (the JAX engine folds its padding into the state).
+into its slot row.  For the SSM and hybrid (RG-LRU) families
+(``pad_prompts`` off, as in the JAX engine) a prefill batch is
+right-padded to its longest prompt; the port passes each row's true
+length into the stack, so a shorter row's state, conv tail and ring are
+those of the row alone (the JAX engine folds its padding into them).
 
 PyTorch runs eagerly, so the JAX engine's per-shape ``jax.jit`` caches
 become plain calls; ``engine_compile_cache_total`` still counts first calls
@@ -48,7 +49,7 @@ Two opt-in features follow the JAX engine (``docs/ENGINE.md``):
 
 Both raise ``ValueError`` for a family ``supports_chunked_decode`` rejects
 (the SSM family, and stacks with sliding-window layers: h2o-danube,
-gemma3), as the JAX engine does; GQA and MLA stacks without a ring run
+gemma3, recurrentgemma), as the JAX engine does; GQA and MLA stacks without a ring run
 both.  Both off ⇒ the bucketed path.
 An MoE config runs its experts by ``EngineConfig.moe_impl`` (``dropping``,
 as in the JAX engine, or ``dense``) in every prefill and decode step.
@@ -677,8 +678,8 @@ class ServingEngine:
         bucket) slots: a whole ring of the slot's W′ = min(window, s_max)
         when the bucket is longer than the window, copied whole; else the
         bucket's positions at their own slots, the rest zeroed as above.
-        SSM state and conv entries have no sequence axis and are copied
-        whole."""
+        SSM and RG-LRU state and conv entries (``h`` in f32) have no
+        sequence axis and are copied whole."""
         for dst, src in zip(self.caches, prefill_caches):
             for name, t in src.items():
                 if name in SEQ_CACHE_ENTRIES:

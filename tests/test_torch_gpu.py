@@ -1295,3 +1295,102 @@ def test_ring_dims_instances_do_not_spill(cuda, lib, kernel, type_tag, ints):
     its 32-key tiles (64-key ones spilled 64 bytes beside the
     128-register accumulator)."""
     assert _spill_bytes(lib, kernel, type_tag, ints) == 0
+
+
+# ---- recurrentgemma-9b: paged hd 256 at G = 16 (two head tiles of 8),
+# flash (256, 256) at H 16 / K 1 with window 2048, the RG-LRU engine -------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,hd,lens,npg", [
+    (1, 256, [1, 255, 256, 257, 511, 512, 513, 2000], 128),  # partition edges
+    (1, 256, [2048] * 8, 128),                               # 8 full rings
+    (2, 256, [5, 300, 1024], 64),                            # two KV heads
+    (2, 64, [5, 257, 700], 64),                              # other widths
+    (2, 80, [5, 257, 700], 64),
+    (2, 128, [5, 257, 700], 64),
+])
+def test_paged_g16_kernel_matches_plain(cuda, dtype, K, hd, lens, npg):
+    """recurrentgemma's decode instance: 16 query heads a KV head at hd
+    256, shuffled table, against the plain version; one counted launch.
+    G = 16 runs the G = 8 kernel on two head tiles at every width, so hd
+    64, 80 and 128 are held too."""
+    q, kp, vp, bt, sl = _paged_inputs(
+        np.random.default_rng(16), torch.Generator(device=cuda).manual_seed(16),
+        cuda, dtype, lens, 16 * K, K, hd, 16, npg, shuffle=True)
+    before = paged_ops.KERNEL.launches
+    out = paged_ops.paged_attention(q, kp, vp, bt, sl)
+    assert paged_ops.KERNEL.launches == before + 1
+    ref = paged_ops.paged_attention(q, kp, vp, bt, sl, impl="plain")
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOLS[dtype],
+                               rtol=TOLS[dtype])
+
+
+@pytest.mark.parametrize("many", [False, True])
+@pytest.mark.parametrize("head", [3, 8, 15])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_g16_nan_stays_in_its_head(cuda, dtype, head, many):
+    """A NaN in one query head of either head tile (G = 16, hd 256) gives
+    that head NaN and no other, with one partition and with eight."""
+    lens, npg = ([5, 300, 2000], 128) if many else ([5, 100, 128], 8)
+    q, kp, vp, bt, sl = _paged_inputs(
+        np.random.default_rng(head), torch.Generator(device=cuda).manual_seed(
+            head), cuda, dtype, lens, 16, 1, 256, 16, npg, shuffle=True)
+    q[1, head, 7] = float("nan")
+    out = paged_ops.paged_attention(q, kp, vp, bt, sl)
+    want = torch.zeros((len(lens), 16), dtype=torch.bool, device=cuda)
+    want[1, head] = True
+    assert torch.equal(out.isnan().all(-1), want)
+    assert not out[~want].isnan().any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,window", [(2048, 2048), (700, 2048), (700, 256)])
+def test_flash_mqa_hd256_window_matches_plain(cuda, dtype, S, window):
+    """recurrentgemma's prefill shape: 16 query heads on 1 KV head at (256,
+    256), local window 2048 (and 256, so that the window cuts)."""
+    g = torch.Generator(device=cuda).manual_seed(S)
+    q = torch.randn((1, S, 16, 256), generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn((1, S, 1, 256), generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    before = flash_ops.KERNEL.window_launches
+    out = flash_ops.flash_attention(q, k, v, window=window)
+    assert flash_ops.KERNEL.window_launches == before + 1
+    ref = flash_ops.flash_attention(q, k, v, window=window, impl="plain")
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOLS[dtype],
+                               rtol=TOLS[dtype])
+    if dtype == torch.bfloat16:
+        _assert_matches_tiled(out, q, k, v, True, window)
+    else:
+        _assert_matches_tf32x3(out, q, k, v, causal=True, window=window)
+
+
+def test_rglru_engine_kernel_path_matches_cpu_run(cuda):
+    """A small hybrid model at recurrentgemma's attention widths (MQA, hd
+    256, G = 16, window 64) served on the card through flash and paged
+    (mixed prompt lengths, unpadded; some prompts and decodes past the
+    window) gives the greedy tokens of the same weights served on the
+    CPU."""
+    cfg = ModelConfig(name="gpu-rglru", family="hybrid", n_layers=5,
+                      d_model=256, n_heads=16, n_kv_heads=1, d_ff=512,
+                      vocab_size=256, head_dim=256, rnn_width=256,
+                      pattern=("rglru", "rglru", "local"), window=64,
+                      tie_embeddings=True)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    pol = DtypePolicy(torch.float32, torch.float32, torch.float32)
+    outs = {}
+    for dev in ("cpu", cuda):
+        rng = np.random.default_rng(5)
+        reqs = [Request(prompt_len=int(rng.integers(5, 90)), arrival_time=0.0,
+                        max_new_tokens=int(rng.integers(2, 40)),
+                        request_id=90_000 + i) for i in range(8)]
+        eng = ServingEngine(cfg, params.to(dev), FCFSScheduler(),
+                            EngineConfig(max_slots=4, s_max=160,
+                                         kv_pool_tokens=2048),
+                            policy=pol, device=dev)
+        flash0, paged0 = flash_ops.KERNEL.launches, paged_ops.KERNEL.launches
+        assert len(eng.run(reqs)) == len(reqs)
+        if dev == cuda:
+            assert flash_ops.KERNEL.launches > flash0
+            assert paged_ops.KERNEL.launches > paged0
+        outs[str(dev)] = eng.output_tokens
+    assert outs["cpu"] == outs["cuda"]

@@ -286,6 +286,40 @@ class TestPagedAttention:
                                    atol=F32_TOL, rtol=F32_TOL)
 
 
+class TestPagedRecurrentGemma:
+    """recurrentgemma-9b's decode instance: hd 256, G = 16 query heads a KV
+    head (MQA at full width), which the CUDA kernel runs as two head tiles
+    of 8.  Its plain versions (the wrapper's, and split then merge over
+    ``PARTITION``-token partitions) against the Pallas kernel in interpret
+    mode: lengths on and across the partition edges, a shuffled table."""
+
+    @pytest.mark.parametrize("K", [1, 2])
+    def test_g16_plain_versions_match_pallas_interpret(self, K):
+        rng = np.random.default_rng(16 + K)
+        P, page, hd, G = paged_ops.PARTITION, 16, 256, 16
+        lens = np.array([1, P - 1, P, P + 1, 2 * P, 2 * P + 1, 700],
+                        dtype=np.int32)
+        B, npg = len(lens), 3 * P // page
+        n_pool = B * npg + 5
+        q = _normal(rng, (B, G * K, hd))
+        kp, vp = (_normal(rng, (n_pool, page, K, hd)) for _ in range(2))
+        bt = rng.permutation(n_pool)[:B * npg].astype(np.int32).reshape(
+            B, npg)
+        args = (q, kp, vp, bt, lens)
+        want = np.asarray(jax_paged(*(jnp.asarray(a) for a in args),
+                                    impl="pallas_interpret"))
+        got = paged_ops.paged_attention(*(torch.from_numpy(a) for a in args))
+        np.testing.assert_allclose(got.numpy(), want, atol=F32_TOL,
+                                   rtol=F32_TOL)
+        m, l, o = paged_attention_split_ref(
+            *(torch.from_numpy(a) for a in args), partition=P)
+        assert m.shape == (B, G * K, paged_ops.split_count(npg, page))
+        np.testing.assert_allclose(merge_partials_ref(m, l, o).numpy(), want,
+                                   atol=F32_TOL, rtol=F32_TOL)
+        assert paged_ops.KERNEL.launches == 0
+        assert 16 in paged_ops.GROUPS
+
+
 def _dense_attention(q, k, v, scale, mask):
     """Softmax attention in float64 numpy: q (B,H,S,dk), k (B,H,T,dk),
     v (B,H,T,dv), mask (B or 1, 1, S, T) → (B,H,S,dv)."""

@@ -124,7 +124,6 @@ def test_init_params_seeded_and_gpu_by_default():
 
 
 @pytest.mark.parametrize("overrides", [
-    dict(family="hybrid", pattern=("rglru",)),           # RG-LRU
     dict(family="encoder", is_encoder_only=True, causal=False),
     dict(input_mode="embeddings"),        # embedding inputs
 ])
