@@ -19,9 +19,10 @@ Phases, in order; any failure raises and exits non-zero:
    element against ``flash_attention_tiled_ref`` rounding as each kernel
    does (bf16: P in bf16; f32: three TF32 products of split operands, with
    the 3xTF32 bound printed beside the CUDA-core f32 one), MLA paged
-   attention against ``paged_mla_tiled_ref`` (bf16: P in bf16; f32: three
-   TF32 products of split operands, its bytes, 3xTF32 and CUDA-core bounds
-   printed) and the SSD main case against
+   attention and bf16 grouped paged attention (G >= 2) against
+   ``paged_attention_tiled_ref`` (bf16: P in bf16; f32: three TF32 products
+   of split operands, its bytes, 3xTF32 and CUDA-core bounds printed) and
+   the SSD main case against
    ``ssd_chunk_tiled_ref`` (bf16: P′ and w∘x in bf16; f32: three TF32
    products of split operands, with the 3xTF32 bound printed beside the
    CUDA-core f32 one), each of which rounds what its kernel rounds.
@@ -43,12 +44,14 @@ Phases, in order; any failure raises and exits non-zero:
    and global; paged hd 256, G = 2, over 8 slots of 2048 and over 8
    wrapped rings of 1024, a local layer's ring as pages), at
    recurrentgemma-9b's (flash (256, 256), B=2, S=2048, H=16, K=1, window
-   2048; paged hd 256 at G = 16, the G = 8 kernel on two head tiles, over
-   8 slots of 2048 and over 8 full rings of 2048; a NaN in one query head
-   of either tile stays in that head), at phi3.5-moe's (flash at H=32, K=8,
-   hd 128 in f32 beside the bf16 GQA case; paged hd 128, G = 4, bf16 and
-   f32, over 8 slots of 2048 at random lengths and with one long slot
-   among short ones); and, for an MLA
+   2048; paged hd 256 at G = 16, bf16 in one M tile, f32 as the G = 8
+   kernel on two head tiles, over 8 slots of 2048 and over 8 full rings of
+   2048; a NaN in one query head stays in that head), at phi3.5-moe's
+   (flash at H=32, K=8, hd 128 in f32 beside the bf16 GQA case; paged hd
+   128, G = 4, bf16 and f32, over 8 slots of 2048 at random lengths and
+   with one long slot among short ones); the bf16 grouped paged cases
+   (``GQA_CASES``, on ``paged_gqa_mma_kernel``) also at each partition
+   size of ``GQA_PARTITIONS_TRIED``; and, for an MLA
    chunk in MHA form, the time of the decompression of the latent rows
    beside the flash call it feeds;
 3. parity: llama2-13b and mamba2-370m at full width and 2 layers, in f32 —
@@ -173,6 +176,28 @@ LONG_AMONG_SHORT = [2000, 17, 99, 1, 64, 33, 80, 5]
 # bf16 and f32 main cases, and ops.py's MLA_PARTITION is the faster
 # (PERF.md section 6).
 MLA_PARTITIONS_TRIED = (64, 128)
+# The grouped paged decode cases of the kernel phase, each run in bf16
+# (``paged_gqa_mma_kernel``) and f32 (``paged_split_kernel``), by row name:
+# query heads, KV heads, head dim, rows of a slot (or of a ring, whose
+# seq_lens are all full), lengths (None: random) and seed; B = 8, pages of
+# 16.  h2o-danube-1.8b, gemma3-4b (global slots and local rings),
+# recurrentgemma-9b (slots and rings) and phi3.5-moe.
+GQA_CASES = {
+    "paged_attention_danube": (32, 8, 80, 2048, LONG_AMONG_SHORT, 110),
+    "paged_attention_gemma3": (8, 4, 256, 2048, LONG_AMONG_SHORT, 111),
+    "paged_attention_gemma3_ring": (8, 4, 256, 1024, [1024] * 8, 112),
+    "paged_attention_rg": (16, 1, 256, 2048, LONG_AMONG_SHORT, 130),
+    "paged_attention_rg_ring": (16, 1, 256, 2048, [2048] * 8, 131),
+    "paged_attention_phi35": (32, 8, 128, 2048, None, 160),
+    "paged_attention_phi35_long": (32, 8, 128, 2048, LONG_AMONG_SHORT, 161),
+}
+# Tokens a partition of ``paged_gqa_mma_kernel``: the bf16 cases below are
+# timed at each size, and ops.py's GQA_PARTITION is the fastest summed over
+# them (PERF.md section 6).
+GQA_PARTITIONS_TRIED = (64, 128, 256)
+GQA_PARTITION_CASES = ("paged_attention_rg", "paged_attention_rg_ring",
+                       "paged_attention_danube", "paged_attention_gemma3",
+                       "paged_attention_phi35_long")
 # Profiler sessions tried for one call in ``launched_kernels``: CUPTI on
 # the card's machine now and then records no device event, sometimes in
 # two sessions in a row.
@@ -191,9 +216,12 @@ PROFILER_SESSIONS = 6
 # the query offset, which read 0.769-0.780); the CUDA-core f32 SSD kernel's
 # by the graph timer (the tree that redesigned f32 flash); bf16 flash at
 # gemma3's (256, 256) with 64-key tiles (one block an SM) by both timers of
-# the first timed call of the tree that added it.  Printed on a line of
-# their own, labelled as recorded, each beside this run's time by
-# the same timer, never in the kernels line.
+# the first timed call of the tree that added it; the bf16 grouped paged
+# cases on the CUDA-core split kernel (G = 16 as two head tiles of 8) by the
+# graph timer of the tree that added each (h2o-danube-1.8b and gemma3-4b;
+# recurrentgemma-9b and phi3.5-moe).  Printed on a line of their own,
+# labelled as recorded, each beside this run's time by the same timer, never
+# in the kernels line.
 RECORDED_EARLIER_MS = {"flash_attention": {"eager": 1.0194},
                        "paged_attention": {"eager": 0.3273},
                        "ssd_chunk": {"eager": 0.9817, "graph": 0.9765},
@@ -207,7 +235,14 @@ RECORDED_EARLIER_MS = {"flash_attention": {"eager": 1.0194},
                        "flash_attention_gemma3_local": {"graph": 0.1942,
                                                         "eager": 0.1962},
                        "flash_attention_gemma3_global": {"graph": 0.2585,
-                                                         "eager": 0.2619}}
+                                                         "eager": 0.2619},
+                       "paged_attention_rg": {"graph": 0.0689},
+                       "paged_attention_rg_ring": {"graph": 0.0719},
+                       "paged_attention_danube": {"graph": 0.0259},
+                       "paged_attention_gemma3": {"graph": 0.0285},
+                       "paged_attention_gemma3_ring": {"graph": 0.0239},
+                       "paged_attention_phi35": {"graph": 0.0232},
+                       "paged_attention_phi35_long": {"graph": 0.0253}}
 
 
 def check(cond: bool, what: str) -> None:
@@ -472,15 +507,17 @@ def paged_case(pa, B, H, K, hd, page, s_max, dtype, seed, shuffle,
                lens=None, hd_v=None, scale=None):
     """One paged-attention comparison over a slot cache viewed as pages,
     at ``lens`` or at random lengths; with ``hd_v`` (MLA) the values are
-    the view of the key rows' first hd_v columns, and the kernel is also
-    held per element against ``paged_mla_tiled_ref`` rounding as it does
-    (bf16: P in bf16; f32: three TF32 products).  Returns (err, worst |d| /
-    (atol + rtol·|ref|) against the tiled plain version (MLA; else None),
-    kernel_ms, eager kernel_ms, plain_ms, library_ms, seq_lens, the kernel
-    call)."""
+    the view of the key rows' first hd_v columns.  The tensor-core kernels
+    (MLA; bf16 with G >= 2) are also held per element against
+    ``paged_attention_tiled_ref`` rounding as each does (bf16: P in bf16;
+    f32: three TF32 products), over their own partitions.  Returns (err,
+    worst |d| / (atol + rtol·|ref|) against the tiled plain version (MLA
+    and grouped bf16; else None), kernel_ms, eager kernel_ms, plain_ms,
+    library_ms, seq_lens, the kernel call)."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.paged_attention.ref import paged_mla_tiled_ref
+    from repro_torch.kernels.paged_attention.ref import (
+        paged_attention_tiled_ref)
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
     pages = s_max // page
@@ -513,19 +550,21 @@ def paged_case(pa, B, H, K, hd, page, s_max, dtype, seed, shuffle,
     check(err <= tol, f"paged {dtype} hd{hd}/{hd_v or hd} shuffle={shuffle} "
                       f"err {err:.3g} <= {tol}")
     tiled = None
-    if hd_v is not None:
-        bf16 = dtype == torch.bfloat16
+    bf16 = dtype == torch.bfloat16
+    if hd_v is not None or (bf16 and H > K):
         atol, rtol = (TILED_ATOL, TILED_RTOL) if bf16 else (TF32X3_ATOL,
                                                              TF32X3_RTOL)
-        ref_t = paged_mla_tiled_ref(q, kp, vp, table, seq_lens,
-                                    partition=pa.MLA_PARTITION, scale=scale,
-                                    round_p=bf16,
-                                    tf32_products=0 if bf16 else 3).float()
+        ref_t = paged_attention_tiled_ref(
+            q, kp, vp, table, seq_lens,
+            partition=pa.partition_for(hd, hd_v or hd, H // K, dtype),
+            scale=scale, round_p=bf16,
+            tf32_products=0 if bf16 else 3).float()
         tiled = float(((out.float() - ref_t).abs()
                        / (atol + rtol * ref_t.abs())).max())
-        check(tiled <= 1.0, f"paged MLA {dtype} shuffle={shuffle} within "
-                            f"{atol} + {rtol}·|ref| of the tiled plain "
-                            f"version (worst {tiled:.3g})")
+        check(tiled <= 1.0, f"paged {dtype} hd{hd}/{hd_v or hd} G{H // K} "
+                            f"shuffle={shuffle} within {atol} + "
+                            f"{rtol}·|ref| of the tiled plain version "
+                            f"(worst {tiled:.3g})")
 
     def call():
         return pa.paged_attention(q, kp, vp, table, seq_lens, scale=scale)
@@ -569,6 +608,69 @@ def paged_terms(B, H, K, hd, elem, lens, hd_v=None) -> tuple:
         flops = 2.0 * tokens * H * (hd + hd_v)
     nbytes += 4 * (pages + B)
     return nbytes / HBM_BYTES_PER_S * 1e3, flops
+
+
+def gqa_case(pa, name: str, dtype) -> tuple:
+    """One grouped paged case of ``GQA_CASES`` in ``dtype``, against its
+    plain versions (``paged_case``), printed with its bound, SDPA and, for
+    bf16, the worst ratio against the tiled plain version.  Returns its
+    row and the kernel call."""
+    import torch
+    H, K, hd, s_max, lens, seed = GQA_CASES[name]
+    B, page = 8, 16
+    err, tiled, kms, ems, pms, lms, lens_, call = paged_case(
+        pa, B, H, K, hd, page, s_max, dtype, seed=seed, shuffle=False,
+        lens=lens)
+    bf16 = dtype == torch.bfloat16
+    partition = pa.partition_for(hd, hd, H // K, dtype)
+    n_split = -(-s_max // partition)
+    bms, by = paged_bound(B, H, K, hd, 2 if bf16 else 4, lens_,
+                          peak=BF16_PEAK_FLOPS if bf16 else F32_PEAK_FLOPS)
+    kernel = ("paged_gqa_mma_kernel, one M tile of 16 rows" if bf16 else
+              "paged_split_kernel" + (", two head tiles of 8"
+                                      if H // K == 16 else ""))
+    vs_tiled = (f" worst |d| / ({TILED_ATOL} + {TILED_RTOL}·|tiled|) "
+                f"{tiled:.3g}" if tiled is not None else "")
+    ring = s_max == lens_.min() == lens_.max()
+    print(f"[kernels] paged {name[16:]} B{B} H{H} K{K} hd{hd} (G = "
+          f"{H // K}: {kernel}) page{page} {'rings' if ring else 'slots'} of "
+          f"{s_max} {str(dtype)[6:]} lens={lens_.tolist()} tokens="
+          f"{int(lens_.sum())} ({n_split} partitions of {partition} tokens): "
+          f"max_abs_err {err:.3g}{vs_tiled} kernel {kms:.4f} ms (eager timer "
+          f"{ems:.4f} ms) plain {pms:.4f} ms sdpa {lms:.4f} ms bound "
+          f"{bms:.4f} ms ({by}); kernel / sdpa {kms / lms:.2f} (graph timer "
+          f"both)")
+    row = dict(max_abs_err=err, ms=kms, eager_ms=ems, plain_ms=pms,
+               library_ms=lms, bound_ms=bms, bound_by=by,
+               case=f"B={B} {'rings' if ring else 'slots'} of {s_max}, "
+                    f"lens={lens_.tolist()}, H={H}, K={K}, hd={hd}, page "
+                    f"{page}, {str(dtype)[6:]}")
+    if tiled is not None:
+        row.update(worst_vs_tiled=tiled, partition=partition)
+    return row, call
+
+
+def phase_gqa_partitions(pa, rows: dict) -> None:
+    """The bf16 grouped cases of ``GQA_PARTITION_CASES``, checked and timed
+    again at each other partition size of ``GQA_PARTITIONS_TRIED`` (then
+    the size restored); each row gains its ms by partition."""
+    import torch
+    chosen = pa.GQA_PARTITION
+    for name in GQA_PARTITION_CASES:
+        by_partition = {}
+        for partition in GQA_PARTITIONS_TRIED:
+            if partition == chosen:
+                by_partition[partition] = rows[name]["ms"]
+                continue
+            pa.GQA_PARTITION = partition
+            try:
+                row, _ = gqa_case(pa, name, torch.bfloat16)
+            finally:
+                pa.GQA_PARTITION = chosen
+            by_partition[partition] = row["ms"]
+        print(f"[kernels] paged GQA bf16 {name[16:]} ms by partition (graph "
+              f"timer) {by_partition}; GQA_PARTITION is {chosen}")
+        rows[name]["ms_by_partition"] = by_partition
 
 
 def ssd_inputs(b, S, H, P, G, N, dtype, seed):
@@ -1027,35 +1129,10 @@ def phase_kernels_ring(fa, pa, rows: dict, calls: dict) -> None:
                 f"B={B}, S=T={S}, H={H}, K={K}, hd={hd}, causal, window "
                 f"{window}, {str(dt)[6:]}")
             calls[name + sfx] = call
-    pcases = [  # name, H, K, hd, s_max (rows of a slot or ring), lens
-        ("paged_attention_danube", 32, 8, 80, 2048, LONG_AMONG_SHORT),
-        ("paged_attention_gemma3", 8, 4, 256, 2048, LONG_AMONG_SHORT),
-        ("paged_attention_gemma3_ring", 8, 4, 256, 1024, [1024] * 8),
-    ]
-    B, page = 8, 16
-    for i, (name, H, K, hd, s_max, lens) in enumerate(pcases):
-        n_split = pa.split_count(s_max // page, page)
+    for name in ("paged_attention_danube", "paged_attention_gemma3",
+                 "paged_attention_gemma3_ring"):
         for dt, sfx in ((torch.bfloat16, ""), (torch.float32, "_f32")):
-            err, _, kms, ems, pms, lms, lens_, call = paged_case(
-                pa, B, H, K, hd, page, s_max, dt, seed=110 + i,
-                shuffle=False, lens=lens)
-            elem = 2 if dt == torch.bfloat16 else 4
-            peak = BF16_PEAK_FLOPS if dt == torch.bfloat16 else F32_PEAK_FLOPS
-            bms, by = paged_bound(B, H, K, hd, elem, lens_, peak=peak)
-            print(f"[kernels] paged {name[16:]} B{B} H{H} K{K} hd{hd} "
-                  f"page{page} rows{s_max} {str(dt)[6:]} lens="
-                  f"{lens_.tolist()} tokens={int(lens_.sum())} ({n_split} "
-                  f"partitions of {pa.PARTITION} tokens): max_abs_err "
-                  f"{err:.3g} kernel {kms:.4f} ms (eager timer {ems:.4f} ms) "
-                  f"plain {pms:.4f} ms sdpa {lms:.4f} ms bound {bms:.4f} ms "
-                  f"({by}); kernel / sdpa {kms / lms:.2f} (graph timer both)")
-            rows[name + sfx] = dict(
-                max_abs_err=err, ms=kms, eager_ms=ems, plain_ms=pms,
-                library_ms=lms, bound_ms=bms, bound_by=by,
-                case=f"B={B} {'rings' if s_max == 1024 else 'slots'} of "
-                     f"{s_max}, lens={lens_.tolist()}, H={H}, K={K}, "
-                     f"hd={hd}, page {page}, {str(dt)[6:]}")
-            calls[name + sfx] = call
+            rows[name + sfx], calls[name + sfx] = gqa_case(pa, name, dt)
 
 
 def phase_kernels_phi35(fa, pa, rows: dict, calls: dict) -> None:
@@ -1080,43 +1157,21 @@ def phase_kernels_phi35(fa, pa, rows: dict, calls: dict) -> None:
         err, tiled, kms, ems, pms, lms, bms, by, cms,
         f"B={B}, S=T={S}, H={H}, K={K}, hd={hd}, causal, float32")
     calls["flash_attention_phi35_f32"] = call
-    B, page, s_max = 8, 16, 2048
-    n_split = pa.split_count(s_max // page, page)
-    for i, (name, lens) in enumerate((("paged_attention_phi35", None),
-                                      ("paged_attention_phi35_long",
-                                       LONG_AMONG_SHORT))):
+    for name in ("paged_attention_phi35", "paged_attention_phi35_long"):
         for dt, sfx in ((torch.bfloat16, ""), (torch.float32, "_f32")):
-            err, _, kms, ems, pms, lms, lens_, call = paged_case(
-                pa, B, H, K, hd, page, s_max, dt, seed=160 + i,
-                shuffle=False, lens=lens)
-            elem = 2 if dt == torch.bfloat16 else 4
-            peak = BF16_PEAK_FLOPS if dt == torch.bfloat16 else F32_PEAK_FLOPS
-            bms, by = paged_bound(B, H, K, hd, elem, lens_, peak=peak)
-            print(f"[kernels] paged {name[16:]} B{B} H{H} K{K} hd{hd} (G = 4) "
-                  f"page{page} s_max{s_max} {str(dt)[6:]} lens="
-                  f"{lens_.tolist()} tokens={int(lens_.sum())} ({n_split} "
-                  f"partitions of {pa.PARTITION} tokens): max_abs_err "
-                  f"{err:.3g} kernel {kms:.4f} ms (eager timer {ems:.4f} ms) "
-                  f"plain {pms:.4f} ms sdpa {lms:.4f} ms bound {bms:.4f} ms "
-                  f"({by}); kernel / sdpa {kms / lms:.2f} (graph timer both)")
-            rows[name + sfx] = dict(
-                max_abs_err=err, ms=kms, eager_ms=ems, plain_ms=pms,
-                library_ms=lms, bound_ms=bms, bound_by=by,
-                case=f"B={B} slots of {s_max}, lens={lens_.tolist()}, H={H}, "
-                     f"K={K}, hd={hd}, page {page}, {str(dt)[6:]}")
-            calls[name + sfx] = call
+            rows[name + sfx], calls[name + sfx] = gqa_case(pa, name, dt)
 
 
 def phase_kernels_recurrentgemma(fa, pa, rows: dict, calls: dict) -> None:
     """Both attention kernels at recurrentgemma-9b's widths (MQA: 16 query
     heads on 1 KV head, hd 256), against their plain versions, each in bf16
     and f32: flash (256, 256) at B=2, S=2048, window 2048 (its local layers'
-    prefill), and paged decode at G = 16 (the G = 8 kernel on two head
-    tiles) over 8 slots of 2048 tokens with one 2000-token slot among short
-    ones, and over 8 full rings of 2048 (``seq_lens`` 2048: a local layer's
-    ring as pages); then a NaN in one query head of either head tile must
-    stay in that head.  Adds the rows and calls under ``*_rg`` and
-    ``paged_attention_rg_ring``."""
+    prefill), and paged decode at G = 16 (bf16: one M tile of 16 rows; f32:
+    the G = 8 kernel on two head tiles) over 8 slots of 2048 tokens with one
+    2000-token slot among short ones, and over 8 full rings of 2048
+    (``seq_lens`` 2048: a local layer's ring as pages); then a NaN in one
+    query head (of either f32 head tile) must stay in that head.  Adds the
+    rows and calls under ``*_rg`` and ``paged_attention_rg_ring``."""
     import torch
     B, S, H, K, hd, window = 2, 2048, 16, 1, 256, 2048
     for dt, sfx in ((torch.bfloat16, ""), (torch.float32, "_f32")):
@@ -1134,33 +1189,10 @@ def phase_kernels_recurrentgemma(fa, pa, rows: dict, calls: dict) -> None:
             f"B={B}, S=T={S}, H={H}, K={K}, hd={hd}, causal, window "
             f"{window}, {str(dt)[6:]}")
         calls["flash_attention_rg" + sfx] = call
-    pcases = [("paged_attention_rg", LONG_AMONG_SHORT),
-              ("paged_attention_rg_ring", [2048] * 8)]
-    B, page, s_max = 8, 16, 2048
-    n_split = pa.split_count(s_max // page, page)
-    for i, (name, lens) in enumerate(pcases):
+    for name in ("paged_attention_rg", "paged_attention_rg_ring"):
         for dt, sfx in ((torch.bfloat16, ""), (torch.float32, "_f32")):
-            err, _, kms, ems, pms, lms, lens_, call = paged_case(
-                pa, B, H, K, hd, page, s_max, dt, seed=130 + i,
-                shuffle=False, lens=lens)
-            elem = 2 if dt == torch.bfloat16 else 4
-            peak = BF16_PEAK_FLOPS if dt == torch.bfloat16 else F32_PEAK_FLOPS
-            bms, by = paged_bound(B, H, K, hd, elem, lens_, peak=peak)
-            print(f"[kernels] paged {name[16:]} B{B} H{H} K{K} hd{hd} (G = "
-                  f"16: two head tiles of 8) page{page} rows{s_max} "
-                  f"{str(dt)[6:]} lens={lens_.tolist()} tokens="
-                  f"{int(lens_.sum())} ({n_split} partitions of "
-                  f"{pa.PARTITION} tokens): max_abs_err {err:.3g} kernel "
-                  f"{kms:.4f} ms (eager timer {ems:.4f} ms) plain {pms:.4f} "
-                  f"ms sdpa {lms:.4f} ms bound {bms:.4f} ms ({by}); kernel / "
-                  f"sdpa {kms / lms:.2f} (graph timer both)")
-            rows[name + sfx] = dict(
-                max_abs_err=err, ms=kms, eager_ms=ems, plain_ms=pms,
-                library_ms=lms, bound_ms=bms, bound_by=by,
-                case=f"B={B} {'rings' if i else 'slots'} of {s_max}, lens="
-                     f"{lens_.tolist()}, H={H}, K={K}, hd={hd}, page {page}, "
-                     f"{str(dt)[6:]}")
-            calls[name + sfx] = call
+            rows[name + sfx], calls[name + sfx] = gqa_case(pa, name, dt)
+    page = 16
     g = torch.Generator(device="cuda")
     g.manual_seed(140)
     lens = torch.tensor([5, 300, 2000], dtype=torch.int32, device="cuda")
@@ -1169,7 +1201,7 @@ def phase_kernels_recurrentgemma(fa, pa, rows: dict, calls: dict) -> None:
     for dt in (torch.bfloat16, torch.float32):
         kp, vp = (torch.randn((3 * 128, page, 1, hd), generator=g,
                               device="cuda").to(dt) for _ in range(2))
-        for head in (3, 12):                  # one of each head tile
+        for head in (3, 12):                  # one of each f32 head tile
             q = torch.randn((3, 16, hd), generator=g, device="cuda").to(dt)
             q[1, head, 7] = float("nan")
             out = pa.paged_attention(q, kp, vp, table, lens)
@@ -1179,8 +1211,8 @@ def phase_kernels_recurrentgemma(fa, pa, rows: dict, calls: dict) -> None:
                   and not bool(out[~want].isnan().any()),
                   f"paged G = 16 {dt}: a NaN in query head {head} stays in "
                   f"that head")
-    print("[kernels] paged G = 16 bf16 and f32: a NaN in query head 3 or 12 "
-          "(first and second head tile) reaches that head alone")
+    print("[kernels] paged G = 16 bf16 (one M tile) and f32 (two head "
+          "tiles): a NaN in query head 3 or 12 reaches that head alone")
 
 
 def phase_mla_chunk_cost(fa) -> dict:
@@ -1274,10 +1306,11 @@ def phase_variants(calls: dict) -> dict:
     """Which device kernels each kernel's main case ran, read from the
     profiler: bf16 flash must run the bf16 tensor-core kernel alone and f32
     flash the 3xTF32 one alone (main, offset and MLA cases), paged
-    attention its split and merge kernels (for bf16 MLA the bf16
-    tensor-core split kernel, for f32 MLA the 3xTF32 one), bf16 SSD its two
-    tensor-core kernels and f32 SSD its two 3xTF32 ones, and nothing
-    else."""
+    attention its split and merge kernels (for bf16 groups of 2 or more the
+    grouped tensor-core split kernel, for bf16 MLA the MLA tensor-core one,
+    for f32 MLA the 3xTF32 one; llama2's bf16 G = 1 and every other f32
+    case the CUDA-core split kernel), bf16 SSD its two tensor-core kernels
+    and f32 SSD its two 3xTF32 ones, and nothing else."""
     want = {"flash_attention": ("flash_fwd_mma_kernel",),
             "flash_attention_offset": ("flash_fwd_mma_kernel",),
             "flash_attention_mla": ("flash_fwd_mma_kernel",),
@@ -1301,11 +1334,11 @@ def phase_variants(calls: dict) -> dict:
                for case in ("danube", "gemma3_local", "gemma3_global")
                for sfx, kern in (("", "flash_fwd_mma_kernel"),
                                  ("_f32", "flash_fwd_tf32x3_kernel"))},
-            **{f"paged_attention_{case}{sfx}": ("paged_split_kernel",
-                                                "paged_merge_kernel")
+            **{f"paged_attention_{case}{sfx}": (kern, "paged_merge_kernel")
                for case in ("danube", "gemma3", "gemma3_ring", "rg",
                             "rg_ring", "phi35", "phi35_long")
-               for sfx in ("", "_f32")},
+               for sfx, kern in (("", "paged_gqa_mma_kernel"),
+                                 ("_f32", "paged_split_kernel"))},
             "flash_attention_rg": ("flash_fwd_mma_kernel",),
             "flash_attention_rg_f32": ("flash_fwd_tf32x3_kernel",),
             "flash_attention_phi35": ("flash_fwd_mma_kernel",),
@@ -2522,6 +2555,7 @@ def main() -> int:
     phase_kernels_ring(fa, pa, rows, calls)
     phase_kernels_recurrentgemma(fa, pa, rows, calls)
     phase_kernels_phi35(fa, pa, rows, calls)
+    phase_gqa_partitions(pa, rows)
     chunk_cost = phase_mla_chunk_cost(fa)
     phase_ssd_kernel(so, rows, calls)
     f32_launches = phase_parity_llama()
@@ -2690,6 +2724,8 @@ def main() -> int:
                  "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                  "library_ms": r["library_ms"]}
         entry["launches_by_path"] = by_path[name]
+        if name == "paged_attention":
+            entry["gqa_partition"] = pa.GQA_PARTITION
         if name in variants:
             entry["variant"] = variants[name]
         if name == "flash_attention":

@@ -11,7 +11,7 @@
 // Layout: q (B, H, hd), k/v pages (P, page, K, hd), block_table
 // (B, max_pages) int32, seq_lens (B,) int32, out (B, H, hd); f32 or bf16;
 // hd 64, 128, 80 (h2o-danube-1.8b) or 256 (gemma3-4b, recurrentgemma-9b);
-// G = 1, 2, 4, 8 or 16 (16 in two head tiles of 8).  A sliding-window
+// G = 1, 2, 4, 8 or 16.  A sliding-window
 // layer's ring cache (B, W, K, hd) is passed as pages too, with seq_len =
 // min(pos + 1, W): keys are stored after RoPE, so the order of the ring's
 // rows does not matter, and the kernel needs no window.
@@ -26,7 +26,10 @@
 // used for 2 * G * hd FLOPs per 4 * hd bytes (bf16), far below the H100's
 // ~295 FLOP/byte ridge, so the floor is the KV bytes over 3.35 TB/s.  To
 // reach it the card needs thousands of loads in flight at once, whatever
-// the batch's lengths.  What the design does about it:
+// the batch's lengths.  Two kernels, chosen by type and group: bf16 with G
+// >= 2 runs `paged_gqa_mma_kernel` on the tensor cores (below); G = 1 and
+// every f32 group run `paged_split_kernel` on the CUDA cores.  What the
+// split kernel's design does about the bytes:
 //   * split the sequence: `paged_split_kernel` runs one block per (KV head,
 //     sequence, partition of `partition` tokens; the wrapper passes 256), so
 //     a long sequence is walked by many blocks at once and the call no
@@ -37,8 +40,8 @@
 //     exits;
 //   * each block serves all G = H / K query heads of its KV head, so every
 //     page is read once (the TPU grid re-reads it for each query head), and
-//     reads its own block-table entries.  G = 16 is two head tiles of 8 on
-//     the grid's first axis, so each page is read twice;
+//     reads its own block-table entries.  f32 G = 16 is two head tiles of 8
+//     on the grid's first axis, so each page is read twice;
 //   * every load is 16 bytes a lane: a token's K (or V) row is read by
 //     hd * sizeof(T) / 16 neighbouring lanes, and each lane keeps 8 (f32 at
 //     hd 128) or 4 loads of K and as many of V in flight before using them;
@@ -52,6 +55,60 @@
 //     and sums them.  With a single partition the split kernel normalises
 //     and writes the output itself, and no merge is launched.
 // Scores live in the log2 domain (q is pre-scaled by scale * log2(e)).
+//
+// Grouped bf16 -> `paged_gqa_mma_kernel<HD, G>`, tensor cores (replaces the
+// same TPU kernel, `paged_attention_kernel`, kernel.py:75, at G >= 2).  A
+// cached token's K and V rows (4 * HD bytes) serve 2 * G * 2 * HD FLOPs:
+// at most 16 a byte, so bytes bound it; on the CUDA-core split kernel the
+// in-block work bound it instead: at hd 256 a row spans the warp's 32 lanes
+// and every score of every head took 5 shuffles, at G = 16 each row was
+// read by two head tiles, and 255 registers held 8 loads in flight.  It
+// takes the design of `paged_mla_mma_kernel` (below), with values in pages
+// of their own:
+//   * one block of 4 warps per (KV head, sequence, partition of
+//     `GQA_PARTITION` tokens, ops.py); the group's G heads are the rows of
+//     the m16n8k16 M tile, rows >= G zero and never written back, so at G =
+//     16 each K and V row is read once for all 16 heads.  Q is staged once,
+//     bf16 and unscaled; scale * log2(e) multiplies the f32 scores.  Up to
+//     hd 128 Q's A fragments are held in registers over the walk;
+//   * 32-token tiles of K and of V are copied from their pages by 16-byte
+//     cp.async into a 2-stage ring (2 * 32 * 2 * HD bytes a stage: 32 KB at
+//     hd 256); a row's page is looked up once for its K and V copies; rows
+//     past seq_len are zero-filled and never read.  Rows are XOR-swizzled
+//     by 16-byte chunk (rows of 80 take the swizzle's 2-chunk tail), so
+//     every ldmatrix is free of bank conflicts;
+//   * S = Q K^T: warp w owns the tile's tokens 8w..8w+7 over all HD / 16
+//     k-steps (5 at hd 80: the last by a half ldmatrix), K's B fragments by
+//     ldmatrix from the row-major tile;
+//   * online softmax in f32 per head in the log2 domain on the fragments,
+//     every max by fmax_nan: a head's tile max over the quad, then over the
+//     4 warps through shared memory (one barrier), so every warp rescales
+//     by the same max and P is rounded to bf16 against the tile's max, as
+//     `paged_attention_tiled_ref` rounds it; the sum takes P unrounded;
+//   * O += P V over the warp's own 8 tokens and all HD columns by m16n8k8:
+//     the scores' accumulator layout is that product's A fragment, so P
+//     never leaves registers (the MLA kernel passes it through shared
+//     memory, a third barrier a tile); V's B fragments are ldmatrix.trans
+//     of the staged rows.  Each warp holds a 16 x HD accumulator (128
+//     registers at hd 256);
+//   * after the walk the ring's space takes the 4 warps' outputs, summed in
+//     warp order with their sums (one max for all of them, so no
+//     rescaling), and the block writes the (max, sum, output) partials that
+//     `paged_merge_kernel` merges, or with a single partition the output.
+//   What bounds it as built (PERF.md section 6): not the bytes; latency.
+//   At 128-token partitions (faster than 64 and 256 in sum over the
+//   serves' cases) it beats SDPA at every bf16 group, and G = 16 at hd 256
+//   runs at 0.94x SDPA, but 3.3x (8 full rings) to 23x (one long slot
+//   among short ones) its byte bound.  A block keeps 2 stages (64 KB at hd
+//   256) in flight, and a partition's walk is a chain of them: ~1.6 us a
+//   32-token tile beyond the fourth (256-token partitions, fewer blocks
+//   than SMs at one KV head, are 40% slower); below that the fixed costs
+//   set the time: the launch, the first tile's copy behind the table
+//   lookup, the epilogue's sum through shared memory, and the merge pass
+//   (15-28% of the call).  A deeper ring or a second block an SM for
+//   the full rings, and the merge folded into the split pass, are the way
+//   to the bound.  245 registers at hd 256 (G only pads the M tile), 156
+//   at 128, 124 at 80, 98 at 64; no spill.
 //
 // MLA (dk 576 = latent 512 ‖ rope 64, dv 512, one KV head, G = H / K of 16
 // or 4).  A token's 1,152-byte bf16 row serves as key and, in its first 512
@@ -112,7 +169,7 @@
 //   + big * small + small * big of operands split by
 //   warp_mma.cuh::split_tf32, as flash_attention.cu's f32 kernel takes
 //   them), so it holds f32 to its plain version's limit (1e-4), where one
-//   TF32 product would not; `paged_mla_tiled_ref` with `tf32_products=3`
+//   TF32 product would not; `paged_attention_tiled_ref` with `tf32_products=3`
 //   rounds exactly what it rounds.  The bf16 kernel's grid, partitions,
 //   M tile and ring (f32 rows of 2,304 B: 147,456 B for two 32-token
 //   stages; rows past seq_len zero-filled, never read), with DK / 72 warps
@@ -185,10 +242,10 @@ __device__ __forceinline__ float fmax_nan(float a, float b) {
 // G query heads a block: block x of the grid's first axis takes query heads
 // x * G .. x * G + G - 1 of its sequence, of KV head x * G / (H / KH).  The
 // first axis is KH long when a KV head's group is G heads, or KH * tiles
-// when it is `tiles` head tiles of G (a group of 16, such as
-// recurrentgemma-9b's MQA at hd 256: two tiles of 8, so that a lane's Q and accumulator rows stay 2 x 8 x 8
-// floats, as at G = 8); each tile re-reads its partition's K/V rows, mostly
-// from L2.
+// when it is `tiles` head tiles of G (an f32 group of 16, such as
+// recurrentgemma-9b's MQA at hd 256: two tiles of 8, so that a lane's Q and
+// accumulator rows stay 2 x 8 x 8 floats, as at G = 8); each tile re-reads
+// its partition's K/V rows, mostly from L2.
 template <typename T, int HD, int G>
 __global__ void __launch_bounds__(kWarps * 32)
     paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
@@ -437,6 +494,374 @@ __global__ void __launch_bounds__(HD)
   o[bh * HD + d] = repro::from_f32<T>(L == 0.f ? 0.f : O / L);
 }
 
+// ---------------------------------------------------------------------------
+// The tile, ring and M tile of the tensor-core split kernels (grouped bf16
+// below, and both MLA kernels).
+using bf16 = __nv_bfloat16;
+constexpr int kMmaWarps = 4;
+constexpr int kMmaThreads = kMmaWarps * 32;
+constexpr int kTile = 8 * kMmaWarps;  // tokens a stage holds: one n8 column tile of S a warp
+// Depth of the cp.async ring: three and four stages (one block an SM) timed
+// no faster than two at the MLA serve's shapes (PERF.md section 6).
+constexpr int kStages = 2;
+static_assert(kStages >= 2, "the refill of a stage waits for the barrier of the next tile");
+constexpr int kM = 16;                // rows of the M tile: the G heads, zero-padded
+
+// Element offset of 16-byte chunk c of row r in a (rows, HD) tile of T whose
+// chunks are XOR-swizzled by row (common.cuh::swizzle_chunk, as in
+// flash_attention.cu): the 8 rows an ldmatrix reads land in 8 different
+// bank groups.
+template <int HD, typename T = bf16>
+__device__ __forceinline__ int swz(int r, int c) {
+  constexpr int kEl = 16 / sizeof(T);  // elements of a chunk
+  return r * HD + repro::swizzle_chunk<HD / kEl>(r, c) * kEl;
+}
+
+// ---------------------------------------------------------------------------
+// Grouped bf16 decode on the tensor cores: G = H / KH of 2, 4, 8 or 16 query
+// heads a KV head, keys and values of HD in pages of their own.
+namespace gqa {
+
+// Row of one warp's f32 output in the sum over the warps at the end of the
+// walk, padded by 8 words: the float2 stores of a fragment's 8 rows fall in
+// 32 different banks.
+template <int HD>
+constexpr int kLDO = HD + 8;
+
+// Bytes of the ring (kStages stages of a K and a V tile), whose space then
+// takes every warp's output rows after the walk.
+template <int HD>
+constexpr size_t kRingBytes = sizeof(bf16) * size_t(kStages) * 2 * kTile * HD;
+template <int HD>
+constexpr size_t kSumsBytes = sizeof(float) * size_t(kMmaWarps) * kM * kLDO<HD>;
+template <int HD>
+constexpr size_t kScratchBytes = kRingBytes<HD> > kSumsBytes<HD> ? kRingBytes<HD> : kSumsBytes<HD>;
+
+template <int HD>
+constexpr size_t smem_bytes() {  // Q, the ring (then the sums), the tile max and sums of each warp
+  return sizeof(bf16) * size_t(kM) * HD + kScratchBytes<HD> + sizeof(float) * 2 * kMmaWarps * kM;
+}
+
+// Start the copy of tile `it` of the partition [t_begin, t_end) into its
+// stage: the K rows and the V rows of its kTile tokens, from their pages,
+// one 16-byte chunk of each a copy; a row's page is looked up once for both.
+// Rows at or past t_end are zero-filled and never read.
+template <int HD>
+__device__ __forceinline__ void stage_kv(bf16* __restrict__ ring, const bf16* __restrict__ kbase,
+                                         const bf16* __restrict__ vbase,
+                                         const int* __restrict__ table, int page,
+                                         size_t page_stride, size_t tok_stride, int t_begin,
+                                         int t_end, int it) {
+  constexpr int kChunks = HD / 8;
+  constexpr int kCopies = kTile * kChunks;
+  bf16* kdst = ring + (it % kStages) * 2 * kTile * HD;
+  bf16* vdst = kdst + kTile * HD;
+  const int t0 = t_begin + it * kTile;
+#pragma unroll
+  for (int i = 0; i < (kCopies + kMmaThreads - 1) / kMmaThreads; ++i) {
+    const int idx = i * kMmaThreads + threadIdx.x;
+    if (kCopies % kMmaThreads != 0 && idx >= kCopies) break;
+    const int r = idx / kChunks;
+    const int c = idx % kChunks;
+    const int t = t0 + r;
+    const bool ok = t < t_end;
+    const size_t off =
+        ok ? size_t(__ldg(table + t / page)) * page_stride + size_t(t % page) * tok_stride : 0;
+    repro::cp_async_16(kdst + swz<HD>(r, c), kbase + off + c * 8, ok);
+    repro::cp_async_16(vdst + swz<HD>(r, c), vbase + off + c * 8, ok);
+  }
+}
+
+template <int HD, int G>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+    paged_gqa_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
+                         const bf16* __restrict__ vp, const int* __restrict__ block_table,
+                         const int* __restrict__ seq_lens, bf16* __restrict__ o,
+                         float* __restrict__ part, int H, int KH, int page, int max_pages,
+                         int partition, int n_split, float scale_log2) {
+  constexpr int kChunks = HD / 8;  // 16-byte chunks of a row = 8-column tiles of O
+  constexpr int KS = HD / 16;      // k-steps of Q K^T (5 at hd 80)
+  constexpr int DT = kChunks;      // 8-column tiles of the output, each warp all of them
+  // Q's A fragments held in registers for the whole walk up to hd 128; at
+  // hd 256 they would take 64 registers beside the 128 of the accumulator,
+  // so there each k-step reads its fragment from the Q tile (as flash does).
+  constexpr bool kHoldQ = HD <= 128;
+  static_assert(G >= 2 && G <= kM && HD % 16 == 0 && (DT % 4 == 0 || DT % 4 == 2) &&
+                    (kHoldQ || KS % 2 == 0),
+                "shape the grouped tensor-core kernel does not tile");
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [kM][HD], swizzled
+  bf16* ring = Qs + kM * HD;                     // [kStages][K, V][kTile][HD], swizzled
+  float* sums = reinterpret_cast<float*>(ring);  // [kMmaWarps][kM][kLDO], once the walk is done
+  float* red_m = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(ring) +
+                                          kScratchBytes<HD>);
+  float* red_l = red_m + kMmaWarps * kM;  // [kMmaWarps][kM] each
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int grp = lane >> 2;  // fragment row: heads grp and grp + 8
+  const int quad = lane & 3;  // fragment column pair
+  const int kh = blockIdx.x;
+  const int b = blockIdx.y;
+  const int split = blockIdx.z;
+  const int B = gridDim.y;
+  const int seq_len = seq_lens[b];
+  const int t_begin = split * partition;
+  const int t_end = min(seq_len, t_begin + partition);
+  const size_t bh0 = size_t(b) * H + size_t(kh) * G;
+  float* part_m = part;
+  float* part_l = part + size_t(B) * H * n_split;
+  float* part_o = part + 2 * size_t(B) * H * n_split;
+
+  if (t_begin >= t_end) {  // nothing of this sequence in the partition
+    if (n_split == 1) {
+      for (int idx = tid; idx < G * HD; idx += kMmaThreads)
+        o[bh0 * HD + idx] = __float2bfloat16(0.f);
+    } else if (tid < G) {
+      part_m[(bh0 + tid) * n_split + split] = -INFINITY;
+      part_l[(bh0 + tid) * n_split + split] = 0.f;
+    }
+    return;
+  }
+
+  const int* table = block_table + size_t(b) * max_pages;
+  const size_t tok_stride = size_t(KH) * HD;
+  const size_t page_stride = size_t(page) * tok_stride;
+  const bf16* kbase = kp + size_t(kh) * HD;
+  const bf16* vbase = vp + size_t(kh) * HD;
+  const int n_tiles = (t_end - t_begin + kTile - 1) / kTile;
+
+  // Q (rows >= G zero) and tile 0 in the first group, tiles 1 .. kStages - 1
+  // in one group each, committed even when empty (as in the MLA kernel).
+  for (int idx = tid; idx < kM * kChunks; idx += kMmaThreads) {
+    const int r = idx / kChunks;
+    const int c = idx % kChunks;
+    const bool ok = r < G;
+    repro::cp_async_16(Qs + swz<HD>(r, c), q + (bh0 + (ok ? r : 0)) * HD + c * 8, ok);
+  }
+#pragma unroll
+  for (int i = 0; i < kStages; ++i) {
+    if (i < n_tiles)
+      stage_kv<HD>(ring, kbase, vbase, table, page, page_stride, tok_stride, t_begin, t_end, i);
+    repro::cp_async_commit();
+  }
+
+  float acc[DT][4];  // this warp's tokens' share of O: 16 heads x HD
+#pragma unroll
+  for (int d = 0; d < DT; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[d][e] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};  // heads grp, grp + 8; the same in every warp
+  float l_run[2] = {0.f, 0.f};              // this lane's share of this warp's tokens
+  uint32_t qf[kHoldQ ? KS : 1][4];
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int t0 = t_begin + it * kTile;
+    const bf16* Kt = ring + (it % kStages) * 2 * kTile * HD;
+    const bf16* Vt = Kt + kTile * HD;
+    if (it == 0)
+      repro::cp_async_wait<kStages - 1>();
+    else
+      repro::cp_async_wait<kStages - 2>();
+    // (A) Tile it (and at it = 0, Q) is visible to every thread, and every
+    // warp is done with tile it - 1, whose stage tile it - 1 + kStages now
+    // fills.
+    __syncthreads();
+    if (it >= 1) {
+      if (it - 1 + kStages < n_tiles)
+        stage_kv<HD>(ring, kbase, vbase, table, page, page_stride, tok_stride, t_begin, t_end,
+                     it - 1 + kStages);
+      repro::cp_async_commit();
+    }
+    if constexpr (kHoldQ) {
+      if (it == 0) {
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk)
+          repro::ldmatrix_x4(qf[kk], Qs + swz<HD>(lane & 15, 2 * kk + (lane >> 4)));
+      }
+    }
+
+    // S = Q K^T for this warp's 8 tokens: 16 heads x 8 tokens; K's B
+    // fragments of two k-steps by one ldmatrix, of an odd last one (hd 80)
+    // by a half one; four accumulators taken in turn.
+    float s[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[a][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < KS / 2; ++j) {  // k-steps 2j and 2j + 1
+      uint32_t kf[4];
+      repro::ldmatrix_x4(kf, Kt + swz<HD>(8 * warp + (lane & 7), 4 * j + (lane >> 3)));
+      if constexpr (kHoldQ) {
+        repro::mma_bf16_16816(s[(2 * j) & 3], qf[2 * j], kf[0], kf[1]);
+        repro::mma_bf16_16816(s[(2 * j + 1) & 3], qf[2 * j + 1], kf[2], kf[3]);
+      } else {
+        uint32_t qa[4], qb[4];
+        repro::ldmatrix_x4(qa, Qs + swz<HD>(lane & 15, 4 * j + (lane >> 4)));
+        repro::ldmatrix_x4(qb, Qs + swz<HD>(lane & 15, 4 * j + 2 + (lane >> 4)));
+        repro::mma_bf16_16816(s[(2 * j) & 3], qa, kf[0], kf[1]);
+        repro::mma_bf16_16816(s[(2 * j + 1) & 3], qb, kf[2], kf[3]);
+      }
+    }
+    if constexpr (KS % 2 == 1) {
+      uint32_t kf[2];
+      repro::ldmatrix_x2(kf, Kt + swz<HD>(8 * warp + (lane & 7), 2 * (KS - 1) + ((lane >> 3) & 1)));
+      repro::mma_bf16_16816(s[(KS - 1) & 3], qf[KS - 1], kf[0], kf[1]);
+    }
+    float sc[4];  // log2-domain scores: heads grp (e = 0, 1), grp + 8 (e = 2, 3)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int t = t0 + 8 * warp + 2 * quad + (e & 1);
+      const float v = (s[0][e] + s[1][e]) + (s[2][e] + s[3][e]);
+      sc[e] = t < t_end ? v * scale_log2 : -INFINITY;
+    }
+
+    // The tile's max of each head: the lane's 2 tokens, the quad, the warps.
+    float mx[2] = {fmax_nan(sc[0], sc[1]), fmax_nan(sc[2], sc[3])};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmax_nan(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmax_nan(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    }
+    if (quad == 0) {
+      red_m[warp * kM + grp] = mx[0];
+      red_m[warp * kM + grp + 8] = mx[1];
+    }
+    // (B) Every warp's max is written; no warp writes red_m again before
+    // the next tile's barrier (A), by which every warp has read it.
+    __syncthreads();
+    float mu[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float m = red_m[grp + 8 * r];
+#pragma unroll
+      for (int w = 1; w < kMmaWarps; ++w) m = fmax_nan(m, red_m[w * kM + grp + 8 * r]);
+      // finite inputs: finite, the tile's first token is visible; a NaN
+      // score keeps the head's max NaN, so the merge sees a NaN partial
+      mu[r] = fmax_nan(m_run[r], m);
+      const float corr = exp2f(m_run[r] - mu[r]);
+      m_run[r] = mu[r];
+      l_run[r] *= corr;
+#pragma unroll
+      for (int d = 0; d < DT; ++d) {
+        acc[d][2 * r] *= corr;
+        acc[d][2 * r + 1] *= corr;
+      }
+    }
+    const float p0 = exp2f(sc[0] - mu[0]);
+    const float p1 = exp2f(sc[1] - mu[0]);
+    const float p2 = exp2f(sc[2] - mu[1]);
+    const float p3 = exp2f(sc[3] - mu[1]);
+    l_run[0] += p0 + p1;
+    l_run[1] += p2 + p3;
+
+    // O += P V over this warp's 8 tokens, all HD columns: the scores'
+    // accumulator layout is the A fragment of m16n8k8, so P (rounded to
+    // bf16) stays in registers; V's B fragments are ldmatrix.trans of the
+    // staged rows, four column tiles a load (two for the last two at hd 80).
+    const uint32_t pa[2] = {repro::pack_bf16x2(p0, p1), repro::pack_bf16x2(p2, p3)};
+#pragma unroll
+    for (int j = 0; j < DT / 4; ++j) {
+      uint32_t vf[4];
+      repro::ldmatrix_x4_trans(vf, Vt + swz<HD>(8 * warp + (lane & 7), 4 * j + (lane >> 3)));
+#pragma unroll
+      for (int i = 0; i < 4; ++i) repro::mma_bf16_1688(acc[4 * j + i], pa, vf[i]);
+    }
+    if constexpr (DT % 4 == 2) {
+      uint32_t vf[2];
+      repro::ldmatrix_x2_trans(vf, Vt + swz<HD>(8 * warp + (lane & 7), DT - 2 + ((lane >> 3) & 1)));
+      repro::mma_bf16_1688(acc[DT - 2], pa, vf[0]);
+      repro::mma_bf16_1688(acc[DT - 1], pa, vf[1]);
+    }
+  }
+
+  // Sum the warps' outputs and sums (every warp took the same max): the
+  // ring's copies have all landed (the groups after the last tile are
+  // empty) and every warp is done with the last tile, so it takes the sums.
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+  }
+  repro::cp_async_wait<0>();
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float* row = sums + (warp * kM + grp + 8 * r) * kLDO<HD> + 2 * quad;
+#pragma unroll
+    for (int d = 0; d < DT; ++d)
+      *reinterpret_cast<float2*>(row + 8 * d) = make_float2(acc[d][2 * r], acc[d][2 * r + 1]);
+  }
+  if (quad == 0) {
+    red_l[warp * kM + grp] = l_run[0];
+    red_l[warp * kM + grp + 8] = l_run[1];
+  }
+  if (n_split > 1 && warp == 0 && quad == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (grp + 8 * r < G) part_m[(bh0 + grp + 8 * r) * n_split + split] = m_run[r];
+  }
+  __syncthreads();
+  // Rows >= G are zero rows of the M tile and never written back.
+  for (int idx = tid; idx < G * (HD / 4); idx += kMmaThreads) {
+    const int g = idx / (HD / 4);
+    const int c = idx % (HD / 4) * 4;
+    float4 O = *reinterpret_cast<const float4*>(sums + g * kLDO<HD> + c);
+    float L = red_l[g];
+#pragma unroll
+    for (int w = 1; w < kMmaWarps; ++w) {
+      const float4 x = *reinterpret_cast<const float4*>(sums + (w * kM + g) * kLDO<HD> + c);
+      O = make_float4(O.x + x.x, O.y + x.y, O.z + x.z, O.w + x.w);
+      L += red_l[w * kM + g];
+    }
+    const size_t bh = bh0 + g;
+    if (n_split == 1) {
+      const float inv = L == 0.f ? 0.f : 1.f / L;  // a NaN L passes
+      *reinterpret_cast<uint2*>(o + bh * HD + c) =
+          make_uint2(repro::pack_bf16x2(O.x * inv, O.y * inv),
+                     repro::pack_bf16x2(O.z * inv, O.w * inv));
+    } else {
+      *reinterpret_cast<float4*>(part_o + (bh * n_split + split) * HD + c) = O;
+      if (c == 0) part_l[bh * n_split + split] = L;
+    }
+  }
+}
+
+template <int HD, int G>
+cudaError_t launch(const void* q, const void* kp, const void* vp, const void* bt, const void* sl,
+                   void* o, void* part, int B, int H, int KH, int page, int max_pages,
+                   int partition, int n_split, float scale, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<HD>();
+  auto kern = paged_gqa_mma_kernel<HD, G>;
+  // Set once per instance, as for the MLA kernels: the shared memory above
+  // 48 KB (at hd 256), and the largest carveout.
+  static const cudaError_t attr_err = [kern] {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                int(cudaSharedmemCarveoutMaxShared));
+  }();
+  cudaError_t err = attr_err;
+  if (err != cudaSuccess) return err;
+  const dim3 grid(KH, B, n_split);  // one block a KV head's group
+  kern<<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(kp), static_cast<const bf16*>(vp),
+      static_cast<const int*>(bt), static_cast<const int*>(sl), static_cast<bf16*>(o),
+      static_cast<float*>(part), H, KH, page, max_pages, partition, n_split,
+      scale * 1.4426950408889634f);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return err;
+  paged_merge_kernel<bf16, HD><<<B * H, HD, 0, stream>>>(static_cast<const float*>(part),
+                                                        static_cast<bf16*>(o), B * H, n_split);
+  return cudaGetLastError();
+}
+
+}  // namespace gqa
+
 template <typename T, int HD, int G>
 cudaError_t launch(const void* q, const void* kp, const void* vp, const void* bt, const void* sl,
                    void* o, void* part, int B, int H, int KH, int page, int max_pages,
@@ -454,30 +879,54 @@ cudaError_t launch(const void* q, const void* kp, const void* vp, const void* bt
   return cudaGetLastError();
 }
 
+// bf16 groups of 2 or more run the tensor-core kernel; one query head a KV
+// head (llama2's MHA) and every f32 group run `paged_split_kernel`.
 template <typename T, int HD>
 cudaError_t launch_group(int G, const void* q, const void* kp, const void* vp, const void* bt,
                          const void* sl, void* o, void* part, int B, int H, int KH, int page,
                          int max_pages, int partition, int n_split, float scale,
                          cudaStream_t st) {
-  switch (G) {
-    case 1:
-      return launch<T, HD, 1>(q, kp, vp, bt, sl, o, part, B, H, KH, page, max_pages,
-                              partition, n_split, scale, st);
-    case 2:
-      return launch<T, HD, 2>(q, kp, vp, bt, sl, o, part, B, H, KH, page, max_pages,
-                              partition, n_split, scale, st);
-    case 4:
-      return launch<T, HD, 4>(q, kp, vp, bt, sl, o, part, B, H, KH, page, max_pages,
-                              partition, n_split, scale, st);
-    case 8:
-      return launch<T, HD, 8>(q, kp, vp, bt, sl, o, part, B, H, KH, page, max_pages,
-                              partition, n_split, scale, st);
-    case 16:  // e.g. recurrentgemma-9b's MQA (16 query heads on 1 KV head):
-              // the G = 8 kernel on two head tiles a KV head
-      return launch<T, HD, 8>(q, kp, vp, bt, sl, o, part, B, H, KH, page, max_pages,
-                              partition, n_split, scale, st);
-    default:
-      return cudaErrorInvalidValue;
+  if constexpr (std::is_same<T, bf16>::value) {
+    switch (G) {
+      case 1:
+        return launch<T, HD, 1>(q, kp, vp, bt, sl, o, part, B, H, KH, page, max_pages,
+                                partition, n_split, scale, st);
+      case 2:
+        return gqa::launch<HD, 2>(q, kp, vp, bt, sl, o, part, B, H, KH, page, max_pages,
+                                  partition, n_split, scale, st);
+      case 4:
+        return gqa::launch<HD, 4>(q, kp, vp, bt, sl, o, part, B, H, KH, page, max_pages,
+                                  partition, n_split, scale, st);
+      case 8:
+        return gqa::launch<HD, 8>(q, kp, vp, bt, sl, o, part, B, H, KH, page, max_pages,
+                                  partition, n_split, scale, st);
+      case 16:  // e.g. recurrentgemma-9b's MQA (16 query heads on 1 KV head)
+        return gqa::launch<HD, 16>(q, kp, vp, bt, sl, o, part, B, H, KH, page, max_pages,
+                                   partition, n_split, scale, st);
+      default:
+        return cudaErrorInvalidValue;
+    }
+  } else {
+    switch (G) {
+      case 1:
+        return launch<T, HD, 1>(q, kp, vp, bt, sl, o, part, B, H, KH, page, max_pages,
+                                partition, n_split, scale, st);
+      case 2:
+        return launch<T, HD, 2>(q, kp, vp, bt, sl, o, part, B, H, KH, page, max_pages,
+                                partition, n_split, scale, st);
+      case 4:
+        return launch<T, HD, 4>(q, kp, vp, bt, sl, o, part, B, H, KH, page, max_pages,
+                                partition, n_split, scale, st);
+      case 8:
+        return launch<T, HD, 8>(q, kp, vp, bt, sl, o, part, B, H, KH, page, max_pages,
+                                partition, n_split, scale, st);
+      case 16:  // recurrentgemma-9b's MQA in f32: the G = 8 kernel on two head
+                // tiles a KV head
+        return launch<T, HD, 8>(q, kp, vp, bt, sl, o, part, B, H, KH, page, max_pages,
+                                partition, n_split, scale, st);
+      default:
+        return cudaErrorInvalidValue;
+    }
   }
 }
 
@@ -485,27 +934,6 @@ cudaError_t launch_group(int G, const void* q, const void* kp, const void* vp, c
 // ---------------------------------------------------------------------------
 // MLA: keys of DK, values the first DV columns of the same rows, G heads.
 namespace mla {
-
-// The tile, ring and M tile both MLA kernels share.
-using bf16 = __nv_bfloat16;
-constexpr int kMmaWarps = 4;
-constexpr int kMmaThreads = kMmaWarps * 32;
-constexpr int kTile = 8 * kMmaWarps;  // tokens a stage holds: one n8 column tile of S a warp
-// Depth of the cp.async ring: three and four stages (one block an SM) timed
-// no faster than two at the serve's shapes (PERF.md section 6).
-constexpr int kStages = 2;
-static_assert(kStages >= 2, "the refill of a stage waits for the barrier of the next tile");
-constexpr int kM = 16;                // rows of the M tile: the G heads, zero-padded
-
-// Element offset of 16-byte chunk c of row r in a (rows, HD) tile of T whose
-// chunks are XOR-swizzled by row (common.cuh::swizzle_chunk, as in
-// flash_attention.cu): the 8 rows an ldmatrix reads land in 8 different
-// bank groups.
-template <int HD, typename T = bf16>
-__device__ __forceinline__ int swz(int r, int c) {
-  constexpr int kEl = 16 / sizeof(T);  // elements of a chunk
-  return r * HD + repro::swizzle_chunk<HD / kEl>(r, c) * kEl;
-}
 
 // Query-head tiles of a group of G heads: the M tile holds kM heads, so a
 // larger group (minicpm3-4b: G = 40) takes ceil(G / kM) blocks, each

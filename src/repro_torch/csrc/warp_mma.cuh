@@ -1,10 +1,10 @@
 // Warp-level tensor-core and asynchronous-copy helpers (sm_80 instructions,
 // all present on sm_90a): 16-byte cp.async with zero fill, ldmatrix of four
-// 8x8 bf16 matrices (plain and transposed), the m16n8k16 bf16 MMA with f32
-// accumulators, packing two f32 values into a bf16 pair, 2^x on the
-// special-function unit, and f32 products on the tensor cores as three TF32
-// products (the TF32 rounding, the split of an f32 value into two TF32
-// values, the m16n8k8 TF32 MMA).
+// or two 8x8 bf16 matrices (plain and transposed), the m16n8k16 and m16n8k8
+// bf16 MMAs with f32 accumulators, packing two f32 values into a bf16 pair,
+// 2^x on the special-function unit, and f32 products on the tensor cores as
+// three TF32 products (the TF32 rounding, the split of an f32 value into two
+// TF32 values, the m16n8k8 TF32 MMA).
 //
 // Fragment layouts of mma.m16n8k16 (lane = 4 * group + quad):
 //   A (16x16, row-major), regs a0..a3: rows group / group + 8, columns
@@ -67,6 +67,20 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
                : "r"(smem_u32(smem)));
 }
 
+// As ldmatrix_x4 for two matrices: lanes 0..15 give the row addresses.
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* smem) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(smem)));
+}
+
+// As ldmatrix_x4_trans for two matrices: lanes 0..15 give the row addresses.
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const void* smem) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(smem)));
+}
+
 // d += a * b for one 16x8x16 tile, bf16 inputs, f32 accumulators.
 __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
                                                uint32_t b0, uint32_t b1) {
@@ -75,6 +89,18 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a * b for one 16x8x8 tile, bf16 inputs, f32 accumulators: A (16x8)
+// a0 = row group, columns 2 * quad + {0, 1}, a1 the same of row group + 8
+// (the C/D layout of those rows, packed to bf16 pairs); B (8x8) b0 = rows
+// 2 * quad + {0, 1}, column group.
+__device__ __forceinline__ void mma_bf16_1688(float (&d)[4], const uint32_t (&a)[2], uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b0));
 }
 
 // Two f32 values rounded to a bf16 pair, `lo` in the low half (the lower

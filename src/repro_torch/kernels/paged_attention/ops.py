@@ -5,7 +5,10 @@ GPU launch ``csrc/paged_attention.cu`` or raise.  The kernel splits every
 sequence into partitions of ``PARTITION`` tokens and merges their partial
 softmax states (``ref.py::paged_attention_split_ref`` / ``merge_partials_ref``
 spell out the arithmetic); one wrapper call is one counted launch, the merge
-pass included.
+pass included.  bf16 with G >= 2 query heads a KV head runs on the tensor
+cores over ``GQA_PARTITION``-token partitions, P rounded to bf16 before P·V
+as ``ref.py::paged_attention_tiled_ref`` rounds it; G = 1 and f32 run on the
+CUDA cores.
 
 Absorbed MLA decode passes keys of the latent ‖ rope row and, as values,
 the view ``k_pages[..., :r]`` of the same rows, at one of the widths of
@@ -14,7 +17,7 @@ the view ``k_pages[..., :r]`` of the same rows, at one of the widths of
 sequences into ``MLA_PARTITION``-token partitions.  Both types run
 on the tensor cores: bf16 rounds P to bf16 before P·V, f32 takes each
 product as three TF32 products of split operands, and
-``ref.py::paged_mla_tiled_ref`` rounds as either does.
+``paged_attention_tiled_ref`` rounds as either does.
 """
 
 from __future__ import annotations
@@ -33,8 +36,8 @@ KERNEL = CudaKernel("paged_attention", "paged_attention_fwd",
 # keys and values of one width, pages of their own: 80 is h2o-danube-1.8b's,
 # 256 gemma3-4b's
 HEAD_DIMS = (64, 128, 80, 256)
-# query heads a KV head; 16 (recurrentgemma-9b's MQA at hd 256) runs the
-# kernel of 8 on two head tiles
+# query heads a KV head; in f32, 16 (recurrentgemma-9b's MQA at hd 256) runs
+# the CUDA-core kernel of 8 on two head tiles (bf16 takes all 16 in one M tile)
 GROUPS = (1, 2, 4, 8, 16)
 # (key, value) widths of absorbed MLA decode and the query heads a KV head
 # each takes: deepseek-v2-lite (latent 512 ‖ rope 64, 16 heads; 4 in the
@@ -43,6 +46,9 @@ MLA_SHAPES = {(576, 512): (4, 16), (288, 256): (40,)}
 MLA_DIMS = (576, 512)     # deepseek-v2-lite's
 PARTITION = 256   # tokens per split; the kernel takes it as an argument
 MLA_PARTITION = 128   # faster on the card than 64 (chip_smoke.py times both)
+# bf16 with G >= 2 (``paged_gqa_mma_kernel``): faster on the card, summed
+# over chip_smoke.py's grouped cases, than 64 and 256 (it times all three)
+GQA_PARTITION = 128
 
 
 def split_count(table_width: int, page: int) -> int:
@@ -56,6 +62,16 @@ def split_count(table_width: int, page: int) -> int:
 def mla_split_count(table_width: int, page: int) -> int:
     """:func:`split_count` for MLA's ``MLA_PARTITION``-token partitions."""
     return _splits(table_width, page, MLA_PARTITION)
+
+
+def partition_for(hd: int, hd_v: int, group: int, dtype) -> int:
+    """Tokens a partition of the kernel that runs this instance: MLA's
+    widths, bf16 with ``group`` >= 2 query heads a KV head, or the rest."""
+    if (hd, hd_v) in MLA_SHAPES:
+        return MLA_PARTITION
+    if dtype == torch.bfloat16 and group > 1:
+        return GQA_PARTITION
+    return PARTITION
 
 
 def _splits(table_width: int, page: int, partition: int) -> int:
@@ -85,7 +101,7 @@ def paged_attention(q, k_pages, v_pages, block_table, seq_lens, *,
     hd_v = v_pages.shape[3]
     max_pages = block_table.shape[1]
     scale = hd ** -0.5 if scale is None else scale
-    partition = MLA_PARTITION if (hd, hd_v) in MLA_SHAPES else PARTITION
+    partition = partition_for(hd, hd_v, H // K, q.dtype)
     n_split = _splits(max_pages, page, partition)
     out = torch.empty((B, H, hd_v), dtype=q.dtype, device=q.device)
     # per (sequence, query head, partition): max, sum, unnormalised output

@@ -6,10 +6,10 @@ cache and runs dense masked attention in f32, as the JAX oracle does
 and the CPU path use it.  ``paged_attention_split_ref`` and
 ``merge_partials_ref`` spell out the CUDA kernel's two passes: partial
 softmax states per partition of the sequence in the log2 domain, then their
-merge.  ``paged_mla_tiled_ref`` walks each partition in token tiles and
-rounds P to bf16 as the bf16 MLA kernel does, or splits every product into
-three TF32 products as the f32 one does, so each kernel can be held to it
-element by element."""
+merge.  ``paged_attention_tiled_ref`` walks each partition in token tiles and
+rounds P to bf16 as the bf16 tensor-core kernels (grouped and MLA) do, or
+splits every product into three TF32 products as the f32 MLA kernel does, so
+each tensor-core kernel can be held to it element by element."""
 
 from __future__ import annotations
 
@@ -86,18 +86,21 @@ def paged_attention_split_ref(q, k_pages, v_pages, block_table, seq_lens, *,
     return m, p.sum(-1), torch.einsum("bhnt,bnthd->bhnd", p, v)
 
 
-def paged_mla_tiled_ref(q, k_pages, v_pages, block_table, seq_lens, *,
-                        partition: int, tile: int = 32,
-                        scale: float | None = None, round_p: bool = True,
-                        tf32_products: int = 0):
+def paged_attention_tiled_ref(q, k_pages, v_pages, block_table, seq_lens, *,
+                              partition: int, tile: int = 32,
+                              scale: float | None = None,
+                              round_p: bool = True, tf32_products: int = 0):
     """Same layout and result as :func:`paged_attention_ref`, computed as the
-    MLA kernels do: each partition of ``partition`` tokens is walked in
-    ``tile``-token tiles keeping a running max and sum per head, scores
+    tensor-core kernels do, for any group G, key width and value width
+    (values from pages of their own, or a view of the key rows): each
+    partition of ``partition`` tokens is walked in ``tile``-token tiles
+    keeping a running max (over the whole tile) and sum per head, scores
     scaled by ``scale · log2(e)`` after the product and exponentiated with
     exp2, products accumulated in f32; the partitions' states then merge as
-    :func:`merge_partials_ref` does.  The bf16 kernel
-    (``paged_mla_mma_kernel``): P rounded to bf16 before P·V when
-    ``round_p`` (the sum takes P unrounded).  The f32 kernel
+    :func:`merge_partials_ref` does.  The bf16 kernels
+    (``paged_gqa_mma_kernel`` at G >= 2, ``paged_mla_mma_kernel``): P
+    rounded to bf16 before P·V when ``round_p`` (the sum takes P
+    unrounded).  The f32 MLA kernel
     (``paged_mla_tf32x3_kernel``; ``tf32_products=3``, ``round_p=False``):
     Q·Kᵀ and P·V each as three TF32 products of split operands
     (``einsum_tf32``), the sums taken on P unsplit; ``tf32_products=1`` is

@@ -17,7 +17,7 @@ from repro_torch.core import FCFSScheduler, Request
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_tiled_ref
 from repro_torch.kernels.paged_attention import ops as paged_ops
-from repro_torch.kernels.paged_attention.ref import paged_mla_tiled_ref
+from repro_torch.kernels.paged_attention.ref import paged_attention_tiled_ref
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import ssd_chunk_tiled_ref, ssd_ref
 from repro_torch.models import DtypePolicy, init_params
@@ -207,7 +207,8 @@ def _paged_inputs(rng, g, dev, dtype, lens, H, K, hd, page, npg, shuffle):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_paged_split_boundaries(cuda, dtype, G):
     """Sequence lengths on either side of every 256-token partition edge of
-    a 1024-token table (4 partitions), through split and merge."""
+    a 1024-token table (4 partitions of the split kernel; bf16 with G >= 2
+    walks ``GQA_PARTITION``-token ones), through split and merge."""
     p = paged_ops.PARTITION
     lens = [1] + [e * p + d for e in (1, 2, 3) for d in (-1, 0, 1)] + [4 * p]
     q, kp, vp, bt, sl = _paged_inputs(np.random.default_rng(2),
@@ -267,6 +268,72 @@ def test_paged_kernel_matches_plain(cuda, dtype, B, H, K, hd, page, npg, P):
     assert paged_ops.KERNEL.launches == before + 1
     torch.testing.assert_close(out.float(), ref.float(), atol=TOLS[dtype],
                                rtol=TOLS[dtype])
+    if dtype == torch.bfloat16 and H > K:
+        _assert_matches_gqa_tiled(out, q, kp, vp, bt, sl)
+
+
+def _assert_matches_gqa_tiled(out, q, kp, vp, bt, sl):
+    """bf16 grouped decode per element against the plain version that
+    walks each ``GQA_PARTITION``-token partition in 32-token tiles and
+    rounds P to bf16 against the tile's max, as the kernel does."""
+    tiled = paged_attention_tiled_ref(q, kp, vp, bt, sl,
+                                      partition=paged_ops.GQA_PARTITION)
+    torch.testing.assert_close(out.float(), tiled.float(), atol=TILED_ATOL,
+                               rtol=TILED_RTOL)
+
+
+@pytest.mark.parametrize("partition", [64, 128, 256])
+@pytest.mark.parametrize("G", [2, 4, 8, 16])
+@pytest.mark.parametrize("hd", [64, 80, 128, 256])
+def test_paged_gqa_mma_kernel_matches_plain(cuda, monkeypatch, hd, G,
+                                            partition):
+    """bf16 with G >= 2 query heads a KV head (``paged_gqa_mma_kernel``)
+    at every width and group and each partition size timed on the card:
+    one token, lengths on both sides of the 32-token tile edges and of the
+    partition edges, a full table; two KV heads, a shuffled table.  Within
+    the bf16 limit of the dense plain version and, per element, of the
+    tiled one; one counted launch."""
+    monkeypatch.setattr(paged_ops, "GQA_PARTITION", partition)
+    P = partition
+    lens = [1, 31, 32, 33, P - 1, P, P + 1, 2 * P + 17, 3 * P]
+    q, kp, vp, bt, sl = _paged_inputs(
+        np.random.default_rng(hd + G), torch.Generator(device=cuda).manual_seed(
+            hd + G), cuda, torch.bfloat16, lens, 2 * G, 2, hd, 16,
+        3 * P // 16, shuffle=True)
+    assert bt.shape[1] * 16 == 3 * P           # three partitions
+    before = paged_ops.KERNEL.launches
+    out = paged_ops.paged_attention(q, kp, vp, bt, sl)
+    assert paged_ops.KERNEL.launches == before + 1
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    ref = paged_ops.paged_attention(q, kp, vp, bt, sl, impl="plain")
+    torch.testing.assert_close(out.float(), ref.float(), atol=3e-2,
+                               rtol=3e-2)
+    _assert_matches_gqa_tiled(out, q, kp, vp, bt, sl)
+
+
+@pytest.mark.parametrize("dtype,G,merged,kernel", [
+    (torch.bfloat16, 2, False, "paged_gqa_mma_kernel"),
+    (torch.bfloat16, 16, True, "paged_gqa_mma_kernel"),
+    (torch.bfloat16, 1, True, "paged_split_kernel"),
+    (torch.float32, 4, True, "paged_split_kernel"),
+    (torch.float32, 16, True, "paged_split_kernel"),
+])
+def test_paged_routes_by_type_and_group(cuda, dtype, G, merged, kernel):
+    """bf16 with G >= 2 runs ``paged_gqa_mma_kernel``, bf16 G = 1 and every
+    f32 group ``paged_split_kernel``, then the merge where the table spans
+    more than one partition, and nothing else."""
+    lens, npg = ([5, 300, 2000], 128) if merged else ([5, 17, 32], 2)
+    q, kp, vp, bt, sl = _paged_inputs(
+        np.random.default_rng(G), torch.Generator(device=cuda).manual_seed(G),
+        cuda, dtype, lens, G, 1, 256, 16, npg, shuffle=False)
+    partition = paged_ops.partition_for(256, 256, G, dtype)
+    assert (npg * 16 > partition) == merged
+
+    def call():
+        return paged_ops.paged_attention(q, kp, vp, bt, sl)
+    call()                              # built and loaded before
+    assert _device_kernels(call) == ({kernel, "paged_merge_kernel"} if merged
+                                     else {kernel})
 
 
 def _ssd_inputs(g, dev, b, s, H, P, G, N, dtype):
@@ -767,13 +834,13 @@ def _assert_matches_mla_tiled(out, q, kp, vp, bt, sl):
     the output rounded to bf16; f32, both products as three TF32 products
     of split operands."""
     if out.dtype == torch.bfloat16:
-        tiled = paged_mla_tiled_ref(q, kp, vp, bt, sl,
+        tiled = paged_attention_tiled_ref(q, kp, vp, bt, sl,
                                     partition=paged_ops.MLA_PARTITION,
                                     scale=MLA_SCALE)
         torch.testing.assert_close(out.float(), tiled.float(),
                                    atol=TILED_ATOL, rtol=TILED_RTOL)
     else:
-        tiled = paged_mla_tiled_ref(q, kp, vp, bt, sl,
+        tiled = paged_attention_tiled_ref(q, kp, vp, bt, sl,
                                     partition=paged_ops.MLA_PARTITION,
                                     scale=MLA_SCALE, round_p=False,
                                     tf32_products=3)
@@ -1040,7 +1107,7 @@ def test_paged_mla_minicpm3_kernel_matches_plain(cuda, dtype, lens, npg):
     torch.testing.assert_close(out.float(), ref.float(), atol=TOLS[dtype],
                                rtol=TOLS[dtype])
     bf16 = dtype == torch.bfloat16
-    tiled = paged_mla_tiled_ref(q, kp, vp, bt, sl,
+    tiled = paged_attention_tiled_ref(q, kp, vp, bt, sl,
                                 partition=paged_ops.MLA_PARTITION,
                                 scale=CPM_SCALE, round_p=bf16,
                                 tf32_products=0 if bf16 else 3)
@@ -1224,14 +1291,14 @@ def test_gqa_decode_ring_kernel_matches_plain(cuda, dtype, hd, G, W):
 def test_paged_nan_stays_in_its_head(cuda, dtype, hd, many):
     """A NaN in one element of one query head gives that head NaN and no
     other, with one partition (the split kernel writes the output) and
-    with eight (the merge writes it): the tile max takes NaN (max.NaN), so
-    neither the split nor the merge reads the head as empty."""
+    with several (the merge writes it): the tile max takes NaN (max.NaN),
+    so neither the split nor the merge reads the head as empty."""
     G = {80: 4, 256: 2}.get(hd, 4)
     lens, npg = ([5, 300, 2000], 128) if many else ([5, 100, 128], 8)
     q, kp, vp, bt, sl = _paged_inputs(
         np.random.default_rng(hd), torch.Generator(device=cuda).manual_seed(hd),
         cuda, dtype, lens, 2 * G, 2, hd, 16, npg, shuffle=True)
-    assert (paged_ops.split_count(npg, 16) > 1) == many
+    assert (npg * 16 > paged_ops.partition_for(hd, hd, G, dtype)) == many
     head = G + 1                      # a head of the second KV head's group
     q[1, head, 7] = float("nan")
     out = paged_ops.paged_attention(q, kp, vp, bt, sl)
@@ -1285,15 +1352,17 @@ def _spill_bytes(lib: str, kernel: str, type_tag: str, ints: tuple) -> int:
     ("flash_attention", "flash_fwd_tf32x3_kernel", "", (80, 80)),
     ("flash_attention", "flash_fwd_tf32x3_kernel", "", (256, 256)),
     ("paged_attention", "paged_split_kernel", "f", (80, 4)),
-    ("paged_attention", "paged_split_kernel", "13__nv_bfloat16", (80, 4)),
     ("paged_attention", "paged_split_kernel", "f", (256, 2)),
-    ("paged_attention", "paged_split_kernel", "13__nv_bfloat16", (256, 2)),
+    ("paged_attention", "paged_gqa_mma_kernel", "", (80, 4)),
+    ("paged_attention", "paged_gqa_mma_kernel", "", (256, 2)),
+    ("paged_attention", "paged_gqa_mma_kernel", "", (256, 16)),
 ])
 def test_ring_dims_instances_do_not_spill(cuda, lib, kernel, type_tag, ints):
     """The sliding-window families' kernel instances keep every register
     (ptxas reports no spill store): bf16 flash at (256, 256) only since
     its 32-key tiles (64-key ones spilled 64 bytes beside the
-    128-register accumulator)."""
+    128-register accumulator); bf16 paged decode runs the grouped
+    tensor-core kernel, recurrentgemma's G = 16 at hd 256 too."""
     assert _spill_bytes(lib, kernel, type_tag, ints) == 0
 
 
@@ -1312,8 +1381,9 @@ def test_ring_dims_instances_do_not_spill(cuda, lib, kernel, type_tag, ints):
 def test_paged_g16_kernel_matches_plain(cuda, dtype, K, hd, lens, npg):
     """recurrentgemma's decode instance: 16 query heads a KV head at hd
     256, shuffled table, against the plain version; one counted launch.
-    G = 16 runs the G = 8 kernel on two head tiles at every width, so hd
-    64, 80 and 128 are held too."""
+    f32 G = 16 runs the G = 8 kernel on two head tiles and bf16 the
+    grouped tensor-core kernel at every width, so hd 64, 80 and 128 are
+    held too."""
     q, kp, vp, bt, sl = _paged_inputs(
         np.random.default_rng(16), torch.Generator(device=cuda).manual_seed(16),
         cuda, dtype, lens, 16 * K, K, hd, 16, npg, shuffle=True)
@@ -1323,14 +1393,17 @@ def test_paged_g16_kernel_matches_plain(cuda, dtype, K, hd, lens, npg):
     ref = paged_ops.paged_attention(q, kp, vp, bt, sl, impl="plain")
     torch.testing.assert_close(out.float(), ref.float(), atol=TOLS[dtype],
                                rtol=TOLS[dtype])
+    if dtype == torch.bfloat16:
+        _assert_matches_gqa_tiled(out, q, kp, vp, bt, sl)
 
 
 @pytest.mark.parametrize("many", [False, True])
 @pytest.mark.parametrize("head", [3, 8, 15])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_paged_g16_nan_stays_in_its_head(cuda, dtype, head, many):
-    """A NaN in one query head of either head tile (G = 16, hd 256) gives
-    that head NaN and no other, with one partition and with eight."""
+    """A NaN in one query head of either head tile of f32 G = 16 (hd 256),
+    or of bf16's one M tile, gives that head NaN and no other, with one
+    partition and with several."""
     lens, npg = ([5, 300, 2000], 128) if many else ([5, 100, 128], 8)
     q, kp, vp, bt, sl = _paged_inputs(
         np.random.default_rng(head), torch.Generator(device=cuda).manual_seed(
@@ -1338,6 +1411,34 @@ def test_paged_g16_nan_stays_in_its_head(cuda, dtype, head, many):
     q[1, head, 7] = float("nan")
     out = paged_ops.paged_attention(q, kp, vp, bt, sl)
     want = torch.zeros((len(lens), 16), dtype=torch.bool, device=cuda)
+    want[1, head] = True
+    assert torch.equal(out.isnan().all(-1), want)
+    assert not out[~want].isnan().any()
+
+
+@pytest.mark.parametrize("many", [False, True])
+@pytest.mark.parametrize("G,K,head", [
+    (16, 1, 0), (16, 1, 15),            # the M tile's first and last row
+    (16, 2, 16 + 9),                    # a head of the second KV head
+    (4, 2, 4 + 3),                      # rows 4..15 of the M tile are zero
+    (4, 1, 0),
+])
+def test_paged_gqa_nan_stays_in_its_head(cuda, G, K, head, many):
+    """bf16 grouped decode (``paged_gqa_mma_kernel``, hd 256): a NaN in one
+    query head reaches that head's output and no other, with one partition
+    and with several (the merge); at G = 4 the zero rows of the M tile leak
+    nothing."""
+    P = paged_ops.GQA_PARTITION
+    lens, npg = ([5, P - 3, P], P // 16) if not many else ([5, 300, 2000],
+                                                            128)
+    q, kp, vp, bt, sl = _paged_inputs(
+        np.random.default_rng(head), torch.Generator(device=cuda).manual_seed(
+            head), cuda, torch.bfloat16, lens, G * K, K, 256, 16, npg,
+        shuffle=True)
+    assert (npg * 16 > P) == many
+    q[1, head, 11] = float("nan")
+    out = paged_ops.paged_attention(q, kp, vp, bt, sl)
+    want = torch.zeros((len(lens), G * K), dtype=torch.bool, device=cuda)
     want[1, head] = True
     assert torch.equal(out.isnan().all(-1), want)
     assert not out[~want].isnan().any()

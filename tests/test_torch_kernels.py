@@ -24,7 +24,7 @@ from repro_torch.kernels.flash_attention.ref import (flash_attention_tiled_ref,
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.paged_attention.ref import (merge_partials_ref,
                                                      paged_attention_split_ref,
-                                                     paged_mla_tiled_ref)
+                                                     paged_attention_tiled_ref)
 from repro_torch.launch.profile_serve import _kernel_class
 
 F32_TOL, BF16_TOL = 2e-5, 3e-2     # tests/test_kernels.py:36-39
@@ -320,6 +320,62 @@ class TestPagedRecurrentGemma:
         assert 16 in paged_ops.GROUPS
 
 
+class TestPagedGQATiled:
+    """The bf16 grouped tensor-core kernel's arithmetic
+    (``paged_attention_tiled_ref`` over ``GQA_PARTITION``-token partitions:
+    32-token tiles, the tile's max over all its tokens, exp2 online softmax,
+    P rounded to bf16 before P·V when ``round_p``) with keys and values in
+    pages of their own, at every width and group the kernel takes, against
+    the Pallas kernel in interpret mode: exact to F32_TOL without the
+    rounding, within the bf16 limit with it (on bf16-representable inputs).
+    Lengths of one token, on both sides of a tile edge and of the partition
+    edge; a shuffled table."""
+
+    _want = {}
+
+    @classmethod
+    def _case(cls, hd, G):
+        """The inputs (rounded to bf16) and the Pallas kernel's output in
+        f32, once for each (hd, G)."""
+        if (hd, G) not in cls._want:
+            rng = np.random.default_rng(hd * 100 + G)
+            P, page = paged_ops.GQA_PARTITION, 16
+            K = 2 if G <= 4 else 1
+            lens = np.array([1, 31, 33, P - 1, P + 1], dtype=np.int32)
+            B, npg = len(lens), (P + 32) // page
+            n_pool = B * npg + 3
+            bf = lambda a: torch.from_numpy(a).bfloat16().float().numpy()
+            q = bf(_normal(rng, (B, G * K, hd)))
+            kp, vp = (bf(_normal(rng, (n_pool, page, K, hd)))
+                      for _ in range(2))
+            bt = rng.permutation(n_pool)[:B * npg].astype(np.int32).reshape(
+                B, npg)
+            args = (q, kp, vp, bt, lens)
+            want = np.asarray(jax_paged(*(jnp.asarray(a) for a in args),
+                                        impl="pallas_interpret"))
+            cls._want[hd, G] = args, want
+        return cls._want[hd, G]
+
+    @pytest.mark.parametrize("round_p", [False, True])
+    @pytest.mark.parametrize("G", [2, 4, 8, 16])
+    @pytest.mark.parametrize("hd", [64, 80, 128, 256])
+    def test_tiled_matches_pallas_interpret(self, hd, G, round_p):
+        (q, kp, vp, bt, lens), want = self._case(hd, G)
+        dtype = torch.bfloat16 if round_p else torch.float32
+        t = [torch.from_numpy(a) for a in (q, kp, vp)]
+        got = paged_attention_tiled_ref(
+            *(a.to(dtype) for a in t), torch.from_numpy(bt),
+            torch.from_numpy(lens), partition=paged_ops.GQA_PARTITION,
+            round_p=round_p)
+        assert got.shape == want.shape and got.dtype == dtype
+        P = paged_ops.GQA_PARTITION
+        assert P < bt.shape[1] * 16 <= 2 * P      # two partitions
+        tol = BF16_TOL if round_p else F32_TOL
+        np.testing.assert_allclose(got.float().numpy(), want, atol=tol,
+                                   rtol=tol)
+        assert paged_ops.KERNEL.launches == 0
+
+
 def _dense_attention(q, k, v, scale, mask):
     """Softmax attention in float64 numpy: q (B,H,S,dk), k (B,H,T,dk),
     v (B,H,T,dv), mask (B or 1, 1, S, T) → (B,H,S,dv)."""
@@ -438,7 +494,7 @@ class TestWideKeys:
         want = _dense_attention(
             q.float().numpy()[:, :, None], np.repeat(gathered[:, None], G, 1),
             np.repeat(gathered[:, None, :, :dv], G, 1), scale, mask)[:, :, 0]
-        got = paged_mla_tiled_ref(q, kp, kp[..., :dv], torch.from_numpy(bt),
+        got = paged_attention_tiled_ref(q, kp, kp[..., :dv], torch.from_numpy(bt),
                                   torch.from_numpy(lens), partition=partition,
                                   scale=scale, round_p=round_p)
         assert got.shape == (B, G, dv) and got.dtype == dtype
@@ -522,7 +578,7 @@ class TestWideKeys:
                 torch.from_numpy(lens))
         tol = BF16_TOL if round_p else F32_TOL
         plain = paged_ops.paged_attention(*args, scale=scale)
-        got = paged_mla_tiled_ref(*args, partition=paged_ops.MLA_PARTITION,
+        got = paged_attention_tiled_ref(*args, partition=paged_ops.MLA_PARTITION,
                                   scale=scale, round_p=round_p)
         for out in (plain, got):
             assert out.shape == (B, G, dv) and out.dtype == dtype
@@ -531,7 +587,7 @@ class TestWideKeys:
 
 
 class TestPagedMLATF32x3:
-    """The f32 MLA decode kernel's arithmetic (``paged_mla_tiled_ref`` with
+    """The f32 MLA decode kernel's arithmetic (``paged_attention_tiled_ref`` with
     ``tf32_products=3``: Q·Kᵀ and P·V as three TF32 products of operands
     split by ``split_tf32``, 32-token tiles of each ``MLA_PARTITION``-token
     partition) against the JAX Pallas kernel in interpret mode at keys of
@@ -563,7 +619,7 @@ class TestPagedMLATF32x3:
             interpret=True)
         want = np.asarray(want)[:, :, :dv]
         kp = torch.from_numpy(rows)
-        got = paged_mla_tiled_ref(
+        got = paged_attention_tiled_ref(
             torch.from_numpy(q), kp, kp[..., :dv], torch.from_numpy(bt),
             torch.from_numpy(lens), partition=paged_ops.MLA_PARTITION,
             scale=scale, round_p=False, tf32_products=tf32_products).numpy()
@@ -600,7 +656,7 @@ class TestPagedMLATF32x3:
             interpret=True)
         want = np.asarray(want)[:, :, :dv]
         kp = torch.from_numpy(rows)
-        got = paged_mla_tiled_ref(
+        got = paged_attention_tiled_ref(
             torch.from_numpy(q), kp, kp[..., :dv], torch.from_numpy(bt),
             torch.from_numpy(lens), partition=paged_ops.MLA_PARTITION,
             scale=scale, round_p=False, tf32_products=tf32_products).numpy()
@@ -625,9 +681,9 @@ class TestPagedMLATF32x3:
         args = (z, kp, kp[..., :512], torch.zeros((1, 2), dtype=torch.int32),
                 torch.ones((1,), dtype=torch.int32))
         with pytest.raises(ValueError):
-            paged_mla_tiled_ref(*args, partition=128, tf32_products=3)
+            paged_attention_tiled_ref(*args, partition=128, tf32_products=3)
         with pytest.raises(ValueError):
-            paged_mla_tiled_ref(*args, partition=128, round_p=False,
+            paged_attention_tiled_ref(*args, partition=128, round_p=False,
                                 tf32_products=2)
 
 
@@ -687,6 +743,10 @@ class TestWrappers:
      "(__nv_bfloat16 const*, __nv_bfloat16 const*, int const*, int const*, "
      "__nv_bfloat16*, float*, int, int, int, int, int, int, float)",
      "paged_attention"),
+    ("void (anonymous namespace)::gqa::paged_gqa_mma_kernel<256, 16>"
+     "(__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, "
+     "int const*, int const*, __nv_bfloat16*, float*, int, int, int, int, "
+     "int, int, float)", "paged_attention"),
     ("void at::native::index_add_cuda_impl<float>", "moe_dispatch"),
     ("void (anonymous namespace)::tf32x3::ssd_chunk_y_tf32x3_kernel<64, 16, "
      "4>(float const*, float const*, float const*, float const*, "
