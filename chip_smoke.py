@@ -49,9 +49,14 @@ Phases, in order; any failure raises and exits non-zero:
    2048; a NaN in one query head stays in that head), at phi3.5-moe's
    (flash at H=32, K=8, hd 128 in f32 beside the bf16 GQA case; paged hd
    128, G = 4, bf16 and f32, over 8 slots of 2048 at random lengths and
-   with one long slot among short ones); the bf16 grouped paged cases
-   (``GQA_CASES``, on ``paged_gqa_mma_kernel``) also at each partition
-   size of ``GQA_PARTITIONS_TRIED``; and, for an MLA
+   with one long slot among short ones), at hubert-xlarge's (flash (80,
+   80) bidirectional, B=8, S=1024, H = K = 16, bf16 and f32, timed beside
+   SDPA without a mask; S=1000 and S=1 for error only) and at
+   internvl2-76b's (flash (128, 128) causal at B=2, S=1024, H=64, K=8;
+   paged hd 128, G = 8, over 8 slots of 2048 at random lengths and with
+   one long slot among short ones; bf16 and f32); the bf16 grouped paged
+   cases (``GQA_CASES``, on ``paged_gqa_mma_kernel``) also at each
+   partition size of ``GQA_PARTITIONS_TRIED``; and, for an MLA
    chunk in MHA form, the time of the decompression of the latent rows
    beside the flash call it feeds;
 3. parity: llama2-13b and mamba2-370m at full width and 2 layers, in f32 —
@@ -106,9 +111,17 @@ Phases, in order; any failure raises and exits non-zero:
    steps; equal to each prompt alone) and its 38-layer bf16 serve, every
    flash launch windowed; then phi3.5-moe-42b-a6.6b: a 2-layer f32 parity
    and its bf16 serve at 16 of 32 layers (``launch/serve.py::
-   CARD_DEPTH_CUTS``: the whole model is ~84 GB in bf16).  Each serve
-   prints its peak device memory and, beside it, its own peak above what
-   was allocated before it;
+   CARD_DEPTH_CUTS``: the whole model is ~84 GB in bf16); then qwen3-4b: a
+   2-layer f32 parity, its 36-layer bf16 serve and, with the same weights,
+   its chunked+radix serve; then hubert-xlarge: a 2-layer f32 parity of
+   per-position logits (bidirectional flash at (80, 80) against the plain
+   versions on the card) and its 48-layer bf16 forward over 8 clips of
+   1024 frames (finite logits of (8, 1024, 504), ms a batch, frames/s);
+   then internvl2-76b: a 2-layer f32 parity prefilled with embeddings
+   (the prompt tokens' table rows) and 16 greedy steps, and its bf16 serve
+   at 24 of 80 layers (the whole model is ~141 GB in bf16), its own peak
+   under 60 GiB.  Each serve prints its peak device memory and, beside it,
+   its own peak above what was allocated before it;
 5. summary: one call of each kernel's bf16 main case (and of the f32
    flash main, offset and MLA cases, the f32 MLA paged case, the f32
    SSD main case and every minicpm3-4b case) under
@@ -181,7 +194,7 @@ MLA_PARTITIONS_TRIED = (64, 128)
 # query heads, KV heads, head dim, rows of a slot (or of a ring, whose
 # seq_lens are all full), lengths (None: random) and seed; B = 8, pages of
 # 16.  h2o-danube-1.8b, gemma3-4b (global slots and local rings),
-# recurrentgemma-9b (slots and rings) and phi3.5-moe.
+# recurrentgemma-9b (slots and rings), phi3.5-moe and internvl2-76b.
 GQA_CASES = {
     "paged_attention_danube": (32, 8, 80, 2048, LONG_AMONG_SHORT, 110),
     "paged_attention_gemma3": (8, 4, 256, 2048, LONG_AMONG_SHORT, 111),
@@ -190,6 +203,10 @@ GQA_CASES = {
     "paged_attention_rg_ring": (16, 1, 256, 2048, [2048] * 8, 131),
     "paged_attention_phi35": (32, 8, 128, 2048, None, 160),
     "paged_attention_phi35_long": (32, 8, 128, 2048, LONG_AMONG_SHORT, 161),
+    # seed 10 draws llama2's main paged lengths: 9,198 tokens
+    "paged_attention_internvl2": (64, 8, 128, 2048, None, 10),
+    "paged_attention_internvl2_long": (64, 8, 128, 2048, LONG_AMONG_SHORT,
+                                       171),
 }
 # Tokens a partition of ``paged_gqa_mma_kernel``: the bf16 cases below are
 # timed at each size, and ops.py's GQA_PARTITION is the fastest summed over
@@ -375,14 +392,15 @@ def ptxas_usage(log: str) -> list:
 
 
 def flash_case(fa, B, S, H, K, hd, dtype, causal, window, seed, q_offset=0,
-               T=None, kv_len=None, hd_v=None, scale=None):
+               T=None, kv_len=None, hd_v=None, scale=None, timed=True):
     """One flash-attention comparison: S queries at ``q_offset`` against the
     first ``kv_len`` keys (default all) of (B, T, K, hd) keys and (B, T, K,
     hd_v) values (T defaults to S, hd_v to hd); rows past ``kv_len`` hold
     NaN, which must never be read.  Returns (max_abs_err, worst |d| / (atol
     + rtol·|ref|) against the tiled plain version that rounds as the kernel
     does (bf16: P in bf16; f32: three TF32 products), kernel_ms, eager
-    kernel_ms, plain_ms, library_ms, the kernel call)."""
+    kernel_ms, plain_ms, library_ms, the kernel call); without ``timed``
+    the four times are None (checked for error only)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ref import (
@@ -425,6 +443,8 @@ def flash_case(fa, B, S, H, K, hd, dtype, causal, window, seed, q_offset=0,
 
     def call():
         return fa.flash_attention(q, k, v, **kw)
+    if not timed:
+        return err, tiled, None, None, None, None, call
     kms = time_ms(call)
     ems = time_ms(call, graph=False)
     pms = time_ms(lambda: fa.flash_attention(q, k, v, impl="plain", **kw),
@@ -501,6 +521,30 @@ def flash_row(err, tiled, kms, ems, pms, lms, bms, by, cms, case) -> dict:
     if cms is not None:
         row.update(bound_cuda_core_ms=cms, worst_vs_tf32x3=tiled)
     return row
+
+
+def flash_family_case(fa, rows: dict, calls: dict, name: str, label: str,
+                      B, S, H, K, hd, dtype, causal, window, seed) -> None:
+    """One timed flash case at a model family's widths (``flash_case``),
+    printed with its bound and SDPA, its row and call added under
+    ``name``."""
+    err, tiled, kms, ems, pms, lms, call = flash_case(
+        fa, B, S, H, K, hd, dtype, causal, window, seed=seed)
+    bms, by, cms = flash_bounds(dtype, B, S, H, K, hd, causal, window)
+    vs_tiled, bound = flash_notes(dtype, tiled, bms, by, cms)
+    kind = "causal" if causal else "bidirectional"
+    mask = ""
+    if window:
+        kind, mask = f"{kind}, window {window}", " (boolean mask)"
+    print(f"[kernels] flash {label} B{B} S{S} H{H} K{K} hd{hd} "
+          f"{str(dtype)[6:]} {kind}: max_abs_err {err:.3g}{vs_tiled} kernel "
+          f"{kms:.4f} ms (eager timer {ems:.4f} ms) plain {pms:.4f} ms "
+          f"sdpa{mask} {lms:.4f} ms {bound}; kernel / sdpa {kms / lms:.2f} "
+          f"(graph timer both)")
+    rows[name] = flash_row(err, tiled, kms, ems, pms, lms, bms, by, cms,
+                           f"B={B}, S=T={S}, H={H}, K={K}, hd={hd}, {kind}, "
+                           f"{str(dtype)[6:]}")
+    calls[name] = call
 
 
 def paged_case(pa, B, H, K, hd, page, s_max, dtype, seed, shuffle,
@@ -1114,21 +1158,8 @@ def phase_kernels_ring(fa, pa, rows: dict, calls: dict) -> None:
     ]
     for i, (name, B, S, H, K, hd, window) in enumerate(fcases):
         for dt, sfx in ((torch.bfloat16, ""), (torch.float32, "_f32")):
-            err, tiled, kms, ems, pms, lms, call = flash_case(
-                fa, B, S, H, K, hd, dt, True, window, seed=100 + i)
-            bms, by, cms = flash_bounds(dt, B, S, H, K, hd, True, window)
-            vs_tiled, bound = flash_notes(dt, tiled, bms, by, cms)
-            print(f"[kernels] flash {name[16:]} B{B} S{S} H{H} K{K} hd{hd} "
-                  f"{str(dt)[6:]} causal window={window}: max_abs_err "
-                  f"{err:.3g}{vs_tiled} kernel {kms:.4f} ms (eager timer "
-                  f"{ems:.4f} ms) plain {pms:.4f} ms sdpa {lms:.4f} ms "
-                  f"{bound}; kernel / sdpa {kms / lms:.2f} (graph timer "
-                  f"both)")
-            rows[name + sfx] = flash_row(
-                err, tiled, kms, ems, pms, lms, bms, by, cms,
-                f"B={B}, S=T={S}, H={H}, K={K}, hd={hd}, causal, window "
-                f"{window}, {str(dt)[6:]}")
-            calls[name + sfx] = call
+            flash_family_case(fa, rows, calls, name + sfx, name[16:], B, S, H,
+                              K, hd, dt, True, window, seed=100 + i)
     for name in ("paged_attention_danube", "paged_attention_gemma3",
                  "paged_attention_gemma3_ring"):
         for dt, sfx in ((torch.bfloat16, ""), (torch.float32, "_f32")):
@@ -1143,20 +1174,8 @@ def phase_kernels_phi35(fa, pa, rows: dict, calls: dict) -> None:
     with one long slot among short ones.  Adds the rows and calls under
     ``*_phi35`` and ``paged_attention_phi35_long``."""
     import torch
-    B, S, H, K, hd = 2, 1024, 32, 8, 128
-    dt = torch.float32
-    err, tiled, kms, ems, pms, lms, call = flash_case(
-        fa, B, S, H, K, hd, dt, True, 0, seed=150)
-    bms, by, cms = flash_bounds(dt, B, S, H, K, hd, True, 0)
-    vs_tiled, bound = flash_notes(dt, tiled, bms, by, cms)
-    print(f"[kernels] flash phi3.5 B{B} S{S} H{H} K{K} hd{hd} float32 "
-          f"causal: max_abs_err {err:.3g}{vs_tiled} kernel {kms:.4f} ms "
-          f"(eager timer {ems:.4f} ms) plain {pms:.4f} ms sdpa {lms:.4f} ms "
-          f"{bound}; kernel / sdpa {kms / lms:.2f} (graph timer both)")
-    rows["flash_attention_phi35_f32"] = flash_row(
-        err, tiled, kms, ems, pms, lms, bms, by, cms,
-        f"B={B}, S=T={S}, H={H}, K={K}, hd={hd}, causal, float32")
-    calls["flash_attention_phi35_f32"] = call
+    flash_family_case(fa, rows, calls, "flash_attention_phi35_f32", "phi3.5",
+                      2, 1024, 32, 8, 128, torch.float32, True, 0, seed=150)
     for name in ("paged_attention_phi35", "paged_attention_phi35_long"):
         for dt, sfx in ((torch.bfloat16, ""), (torch.float32, "_f32")):
             rows[name + sfx], calls[name + sfx] = gqa_case(pa, name, dt)
@@ -1173,22 +1192,11 @@ def phase_kernels_recurrentgemma(fa, pa, rows: dict, calls: dict) -> None:
     query head (of either f32 head tile) must stay in that head.  Adds the
     rows and calls under ``*_rg`` and ``paged_attention_rg_ring``."""
     import torch
-    B, S, H, K, hd, window = 2, 2048, 16, 1, 256, 2048
+    hd = 256
     for dt, sfx in ((torch.bfloat16, ""), (torch.float32, "_f32")):
-        err, tiled, kms, ems, pms, lms, call = flash_case(
-            fa, B, S, H, K, hd, dt, True, window, seed=120)
-        bms, by, cms = flash_bounds(dt, B, S, H, K, hd, True, window)
-        vs_tiled, bound = flash_notes(dt, tiled, bms, by, cms)
-        print(f"[kernels] flash recurrentgemma B{B} S{S} H{H} K{K} hd{hd} "
-              f"{str(dt)[6:]} causal window={window}: max_abs_err {err:.3g}"
-              f"{vs_tiled} kernel {kms:.4f} ms (eager timer {ems:.4f} ms) "
-              f"plain {pms:.4f} ms sdpa (boolean mask) {lms:.4f} ms {bound}; "
-              f"kernel / sdpa {kms / lms:.2f} (graph timer both)")
-        rows["flash_attention_rg" + sfx] = flash_row(
-            err, tiled, kms, ems, pms, lms, bms, by, cms,
-            f"B={B}, S=T={S}, H={H}, K={K}, hd={hd}, causal, window "
-            f"{window}, {str(dt)[6:]}")
-        calls["flash_attention_rg" + sfx] = call
+        flash_family_case(fa, rows, calls, "flash_attention_rg" + sfx,
+                          "recurrentgemma", 2, 2048, 16, 1, hd, dt, True,
+                          2048, seed=120)
     for name in ("paged_attention_rg", "paged_attention_rg_ring"):
         for dt, sfx in ((torch.bfloat16, ""), (torch.float32, "_f32")):
             rows[name + sfx], calls[name + sfx] = gqa_case(pa, name, dt)
@@ -1213,6 +1221,46 @@ def phase_kernels_recurrentgemma(fa, pa, rows: dict, calls: dict) -> None:
                   f"that head")
     print("[kernels] paged G = 16 bf16 (one M tile) and f32 (two head "
           "tiles): a NaN in query head 3 or 12 reaches that head alone")
+
+
+def phase_kernels_encoder(fa, rows: dict, calls: dict) -> None:
+    """Flash attention at hubert-xlarge's widths (H = K = 16, (80, 80)),
+    bidirectional (``causal=False``: every query tile walks every key tile,
+    and only the visible-key test masks the keys past S in the last tile),
+    against its plain version in bf16 and f32: B=8, S=1024 (the main case,
+    timed beside SDPA without a mask and the bound), then S=1000 and S=1
+    (one key) for error only.  Adds the rows and calls under
+    ``flash_attention_hubert``."""
+    import torch
+    B, H, K, hd = 8, 16, 16, 80
+    for dt, sfx in ((torch.bfloat16, ""), (torch.float32, "_f32")):
+        flash_family_case(fa, rows, calls, "flash_attention_hubert" + sfx,
+                          "hubert", B, 1024, H, K, hd, dt, False, 0, seed=180)
+        for S in (1000, 1):
+            err, tiled, *_ = flash_case(fa, B, S, H, K, hd, dt, False, 0,
+                                        seed=181 + S, timed=False)
+            print(f"[kernels] flash hubert B{B} S{S} H{H} K{K} hd{hd} "
+                  f"{str(dt)[6:]} bidirectional: max_abs_err {err:.3g}"
+                  f"{flash_notes(dt, tiled, 0.0, '', 0.0)[0]} (error only)")
+
+
+def phase_kernels_internvl2(fa, pa, rows: dict, calls: dict) -> None:
+    """Both attention kernels at internvl2-76b's GQA widths (64 query heads
+    on 8 KV heads, hd 128, G = 8), against their plain versions, each in
+    bf16 and f32: flash causal at B=2, S=1024 (its prefill), and paged
+    decode over 8 slots of 2048 tokens at random lengths (llama2's 9,198
+    tokens) and with one long slot among short ones (bf16 on
+    ``paged_gqa_mma_kernel``, held per element against the tiled plain
+    version; f32 on ``paged_split_kernel``).  Adds the rows and calls
+    under ``*_internvl2`` and ``paged_attention_internvl2_long``."""
+    import torch
+    for dt, sfx in ((torch.bfloat16, ""), (torch.float32, "_f32")):
+        flash_family_case(fa, rows, calls, "flash_attention_internvl2" + sfx,
+                          "internvl2", 2, 1024, 64, 8, 128, dt, True, 0,
+                          seed=170)
+    for name in ("paged_attention_internvl2", "paged_attention_internvl2_long"):
+        for dt, sfx in ((torch.bfloat16, ""), (torch.float32, "_f32")):
+            rows[name + sfx], calls[name + sfx] = gqa_case(pa, name, dt)
 
 
 def phase_mla_chunk_cost(fa) -> dict:
@@ -1336,13 +1384,16 @@ def phase_variants(calls: dict) -> dict:
                                  ("_f32", "flash_fwd_tf32x3_kernel"))},
             **{f"paged_attention_{case}{sfx}": (kern, "paged_merge_kernel")
                for case in ("danube", "gemma3", "gemma3_ring", "rg",
-                            "rg_ring", "phi35", "phi35_long")
+                            "rg_ring", "phi35", "phi35_long", "internvl2",
+                            "internvl2_long")
                for sfx, kern in (("", "paged_gqa_mma_kernel"),
                                  ("_f32", "paged_split_kernel"))},
             "flash_attention_rg": ("flash_fwd_mma_kernel",),
             "flash_attention_rg_f32": ("flash_fwd_tf32x3_kernel",),
-            "flash_attention_phi35": ("flash_fwd_mma_kernel",),
-            "flash_attention_phi35_f32": ("flash_fwd_tf32x3_kernel",),
+            **{f"flash_attention_{case}{sfx}": (kern,)
+               for case in ("phi35", "hubert", "internvl2")
+               for sfx, kern in (("", "flash_fwd_mma_kernel"),
+                                 ("_f32", "flash_fwd_tf32x3_kernel"))},
             "ssd_chunk": ("ssd_chunk_y_mma_kernel",
                           "ssd_chunk_state_mma_kernel"),
             "ssd_chunk_f32": ("ssd_chunk_y_tf32x3_kernel",
@@ -1812,8 +1863,10 @@ def ring_greedy(cfg, params, prompts, s_max, steps, impl, bucket=None,
     ring of min(window, bucket) slots at the front of its min(window,
     s_max)), then ``steps`` greedy decode steps, through the kernels
     (``impl`` None) or the plain versions (``"plain"``); with ``feed``
-    (B, steps + 1) the decode steps take those tokens.  Returns (each
-    step's logits on the host, the greedy tokens (B, steps + 1))."""
+    (B, steps + 1) the decode steps take those tokens.  A model fed
+    embeddings is prefilled with the prompt tokens' table rows, as the
+    engine's bucketed prefill feeds it.  Returns (each step's logits on the
+    host, the greedy tokens (B, steps + 1))."""
     import torch
     from repro_torch.models import (DtypePolicy, decode_step,
                                     init_decode_caches, prefill)
@@ -1822,9 +1875,12 @@ def ring_greedy(cfg, params, prompts, s_max, steps, impl, bucket=None,
     toks = np.zeros((len(prompts), bucket or max(lens)), dtype=np.int64)
     for i, p in enumerate(prompts):
         toks[i, :len(p)] = p
-    logits, pc = prefill(params, {"tokens": torch.tensor(toks, device="cuda")},
-                         cfg, policy=pol, impl=impl,
+    toks = torch.tensor(toks, device="cuda")
+    batch = ({"tokens": toks} if cfg.input_mode == "tokens" else
+             {"embeddings": params.embed[toks].float()})
+    logits, pc = prefill(params, batch, cfg, policy=pol, impl=impl,
                          true_lens=torch.tensor(lens, device="cuda"))
+    del batch
     caches = init_decode_caches(cfg, len(prompts), s_max,
                                 dtype=torch.float32, device="cuda")
     for dst, src in zip(caches, pc):
@@ -2020,44 +2076,130 @@ def phase_parity_recurrentgemma(ops: dict) -> dict:
     return launches
 
 
-def phase_parity_phi35(ops: dict) -> dict:
-    """phi3.5-moe-42b-a6.6b at full width and 2 layers (16 experts top-2,
-    MoE ``dropping``), f32, on the card: a 900- and a 61-token prompt in one
-    batch, then 8 greedy steps, through the kernels (flash and paged at hd
-    128, G = 4) and through the plain versions, the kernel run fed the plain
-    run's tokens: equal tokens, logits within 1e-4 of scale.  Returns the
-    kernel run's launches."""
+def phase_parity_decoder(arch: str, ops: dict, seed: int, steps: int,
+                         bucket: int | None = None, note: str = "") -> dict:
+    """``arch`` at full width and 2 layers, f32, on the card: a 900- and a
+    61-token prompt in one batch (right-padded to ``bucket``, default the
+    longer, with their true lengths; a model fed embeddings gets their table
+    rows), then ``steps`` greedy steps, through the kernels (flash, and
+    paged over slots of 1024) and through the plain versions, the kernel
+    run fed the plain run's tokens: equal tokens, logits within 1e-4 of
+    scale.  Returns the kernel run's launches."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
-    cfg = get_config("phi3.5-moe-42b-a6.6b").scaled(n_layers=2)
+    cfg = get_config(arch).scaled(n_layers=2)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          device="cuda", dtype=torch.float32)
-    s_max, steps = 1024, 8
-    rng = np.random.default_rng(14)
+    s_max = 1024
+    rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in (900, 61)]
-    plain, ptok = ring_greedy(cfg, params, prompts, s_max, steps, "plain")
+    plain, ptok = ring_greedy(cfg, params, prompts, s_max, steps, "plain",
+                              bucket=bucket)
     reset_counts(ops)
     kern, ktok = ring_greedy(cfg, params, prompts, s_max, steps, None,
-                             feed=ptok)
+                             bucket=bucket, feed=ptok)
     torch.cuda.synchronize()
     launches = ring_launches(ops)
     err, rel = logit_gap(kern, plain)
-    print(f"[parity] phi3.5-moe-42b-a6.6b full width, 2 of 32 layers, f32, "
-          f"MoE dropping, prompts of 900 and 61 tokens in one batch, {steps} "
-          f"greedy steps: tokens kernels {ktok.tolist()} plain "
-          f"{ptok.tolist()}; max logit diff {err:.3g} ({rel:.3g} of scale); "
-          f"launches {launches}")
-    check(torch.equal(ktok, ptok), "phi3.5 kernel and plain greedy tokens "
-                                   "equal")
-    check(rel <= 1e-4, f"phi3.5 logits within 1e-4 of scale (got "
+    print(f"[parity] {arch} full width, 2 of {get_config(arch).n_layers} "
+          f"layers, f32{note}, prompts of 900 and 61 tokens in one batch of "
+          f"{bucket or 900}, {steps} greedy steps: tokens kernels "
+          f"{ktok.tolist()} plain {ptok.tolist()}; max logit diff {err:.3g} "
+          f"({rel:.3g} of scale); launches {launches}")
+    check(torch.equal(ktok, ptok), f"{arch} kernel and plain greedy tokens "
+                                   f"equal")
+    check(rel <= 1e-4, f"{arch} logits within 1e-4 of scale (got "
                        f"{rel:.3g})")
     check(all(bool(torch.isfinite(x).all()) for x in kern), "finite logits")
     check(launches["flash"] == 2 and launches["flash_window"] == 0
           and launches["paged"] == 2 * steps,
-          "phi3.5 parity ran flash and paged on the card")
+          f"{arch} parity ran flash and paged on the card")
     del params
     return launches
+
+
+def phase_parity_hubert(ops: dict) -> dict:
+    """hubert-xlarge on the card.  First its published widths at 2 of 48
+    layers in f32: per-position logits of one forward (``models.prefill``
+    of an encoder: bidirectional flash at (80, 80), H = K = 16, GeLU MLPs)
+    through the kernels against the plain versions, for frame embeddings
+    drawn with numpy from a seed (B=2, S=1000: the last key tile ragged),
+    within 1e-4 of the logits' scale.  Then the 48-layer bf16 forward at
+    B=8 × S=1024, random weights from a seed: the counts set to 0 just
+    before its first forward and read just after (48 flash launches, all
+    bidirectional), logits finite and of shape (8, 1024, 504), then the
+    mean of three more forwards timed by CUDA events.  Returns the f32 and
+    bf16 launches and the timings."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import DtypePolicy, init_params, prefill
+    fa = ops["flash_attention"]
+    full = get_config("hubert-xlarge")
+    cfg = full.scaled(n_layers=2)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda", dtype=torch.float32)
+    pol = DtypePolicy(torch.float32, torch.float32, torch.float32)
+    frames = torch.tensor(np.random.default_rng(18).standard_normal(
+        (2, 1000, cfg.d_model)).astype(np.float32), device="cuda")
+    plain, _ = prefill(params, {"embeddings": frames}, cfg, policy=pol,
+                       impl="plain")
+    reset_counts(ops)
+    kern, cache = prefill(params, {"embeddings": frames}, cfg, policy=pol)
+    torch.cuda.synchronize()
+    f32 = fa.KERNEL.launches
+    err, rel = logit_gap([kern], [plain])
+    print(f"[parity] hubert-xlarge full width, 2 of 48 layers, f32, "
+          f"bidirectional, frames (2, 1000, {cfg.d_model}): per-position "
+          f"logits {tuple(kern.shape)}, max diff kernels vs plain {err:.3g} "
+          f"({rel:.3g} of scale); flash launches {f32}")
+    check(cache is None and tuple(kern.shape) == (2, 1000, cfg.vocab_size),
+          "hubert prefill returns per-position logits and no cache")
+    check(rel <= 1e-4, f"hubert logits within 1e-4 of scale (got {rel:.3g})")
+    check(bool(torch.isfinite(kern).all()), "finite logits")
+    check(f32 == 2 and fa.KERNEL.window_launches == 0,
+          "hubert parity ran flash on the card, twice")
+    del params, plain, kern, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    B, S = 8, 1024
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(full, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda", dtype=torch.bfloat16)
+    pol = DtypePolicy(torch.bfloat16, torch.bfloat16, torch.float32)
+    frames = torch.tensor(np.random.default_rng(19).standard_normal(
+        (B, S, full.d_model)).astype(np.float32), device="cuda")
+    batch = {"embeddings": frames}
+    reset_counts(ops)
+    logits, _ = prefill(params, batch, full, policy=pol)
+    torch.cuda.synchronize()
+    launches = fa.KERNEL.launches
+    check(tuple(logits.shape) == (B, S, full.vocab_size),
+          f"hubert logits of shape {(B, S, full.vocab_size)}")
+    check(bool(torch.isfinite(logits).all()), "hubert bf16 logits finite")
+    check(launches == full.n_layers and fa.KERNEL.window_launches == 0,
+          f"hubert forward launched flash once a layer (got {launches})")
+    del logits
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        prefill(params, batch, full, policy=pol)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / 3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    own = peak - base / 2**30
+    print(f"[serve] hubert-xlarge {full.n_layers} layers d{full.d_model} "
+          f"bf16 forward, B={B} S={S}: {ms:.2f} ms a batch, "
+          f"{B * S / ms * 1e3:.0f} frames/s; peak memory {peak:.2f} GiB, the "
+          f"phase's own {own:.2f} GiB above {base / 2**30:.2f} GiB live "
+          f"before it; flash launches {launches} (bidirectional)")
+    del params, frames, batch
+    return {"flash": launches, "flash_f32": f32, "ms": ms,
+            "frames_per_s": B * S / ms * 1e3, "own_peak_gib": own}
 
 
 def ring_launches(ops: dict) -> dict:
@@ -2077,14 +2219,16 @@ def reset_counts(ops: dict) -> None:
 
 
 def phase_serve(arch: str, ecfg, ops: dict, path: tuple,
-                max_peak_gib: float | None = None) -> tuple:
+                max_peak_gib: float | None = None,
+                max_own_gib: float | None = None) -> tuple:
     """``arch`` at full width and depth (or at its card cut,
     ``launch/serve.py::card_config``), bf16, EWSJF, on the card.  Every
     kernel count is set to 0 just before the run and read just after; the
     kernels in ``path`` must have launched, and the peak device memory of
     the run (weights included, and whatever earlier phases still hold) must
     stay under ``max_peak_gib`` when given; the serve's own peak, above what
-    was allocated before it, is printed beside it.
+    was allocated before it, is printed beside it, and must stay under
+    ``max_own_gib`` when given.
     Returns (the launches, the serve's result)."""
     import torch
     from repro_torch.launch.serve import card_config, card_requests, depth_label
@@ -2132,6 +2276,9 @@ def phase_serve(arch: str, ecfg, ops: dict, path: tuple,
     if max_peak_gib is not None:
         check(peak < max_peak_gib, f"{arch} serve peak device memory "
                                    f"{peak:.1f} GiB < {max_peak_gib}")
+    if max_own_gib is not None:
+        check(own < max_own_gib, f"{arch} serve's own peak device memory "
+                                 f"{own:.1f} GiB < {max_own_gib}")
     return launches, out
 
 
@@ -2555,6 +2702,8 @@ def main() -> int:
     phase_kernels_ring(fa, pa, rows, calls)
     phase_kernels_recurrentgemma(fa, pa, rows, calls)
     phase_kernels_phi35(fa, pa, rows, calls)
+    phase_kernels_encoder(fa, rows, calls)
+    phase_kernels_internvl2(fa, pa, rows, calls)
     phase_gqa_partitions(pa, rows)
     chunk_cost = phase_mla_chunk_cost(fa)
     phase_ssd_kernel(so, rows, calls)
@@ -2669,13 +2818,46 @@ def main() -> int:
     del out
     gc.collect()
     torch.cuda.empty_cache()
-    phi_f32 = phase_parity_phi35(ops)
+    phi_f32 = phase_parity_decoder("phi3.5-moe-42b-a6.6b", ops, seed=14,
+                                   steps=8, note=", MoE dropping")
     gc.collect()
     torch.cuda.empty_cache()
     phi35, out = phase_serve("phi3.5-moe-42b-a6.6b",
                              CARD_ENGINE_CONFIGS["phi3.5-moe-42b-a6.6b"](),
                              ops, ("flash_attention", "paged_attention"),
                              max_peak_gib=75)
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    qwen3_f32 = phase_parity_decoder("qwen3-4b", ops, seed=15, steps=8,
+                                     bucket=1024, note=", qk_norm")
+    gc.collect()
+    torch.cuda.empty_cache()
+    qwen3, out = phase_serve("qwen3-4b", CARD_ENGINE_CONFIGS["qwen3-4b"](),
+                             ops, ("flash_attention", "paged_attention"),
+                             max_peak_gib=75)
+    # the chunked+radix run reuses these weights
+    params = out["engine"].params
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    qwen3_prefix = phase_prefix_serve("qwen3-4b", params, ops,
+                                      max_peak_gib=75)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    hubert = phase_parity_hubert(ops)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ivl_f32 = phase_parity_decoder("internvl2-76b", ops, seed=16, steps=16,
+                                   bucket=1024,
+                                   note=", prefilled with embeddings")
+    gc.collect()
+    torch.cuda.empty_cache()
+    internvl2, out = phase_serve("internvl2-76b",
+                                 CARD_ENGINE_CONFIGS["internvl2-76b"](), ops,
+                                 ("flash_attention", "paged_attention"),
+                                 max_peak_gib=75, max_own_gib=60)
     del out
     gc.collect()
     torch.cuda.empty_cache()
@@ -2704,6 +2886,12 @@ def main() -> int:
         by_path[name]["phi35"] = phi35[name]
         by_path[name]["phi35_parity_f32"] = phi_f32[
             {"flash_attention": "flash", "paged_attention": "paged"}[name]]
+        by_path[name]["qwen3"] = qwen3[name]
+        by_path[name]["qwen3_prefix"] = qwen3_prefix[name]
+        by_path[name]["internvl2"] = internvl2[name]
+    by_path["flash_attention"]["hubert"] = hubert["flash"]
+    by_path["flash_attention"]["qwen3_prefix_offset"] = \
+        qwen3_prefix["flash_attention_offset"]
     for path, counts in (("deepseek_prefix", deepseek_prefix),
                          ("minicpm3_prefix", minicpm3_prefix)):
         by_path["flash_attention"][f"{path}_offset"] = \
@@ -2860,6 +3048,46 @@ def main() -> int:
                     entry["phi35_cases"][f"main{sfx}"]["long_case"] = {
                         **rows[f"{name}_phi35_long{sfx}"],
                         "variant": variants[f"{name}_phi35_long{sfx}"]}
+            # qwen3-4b runs phi3.5's instances at its heads (H 32 / K 8, hd
+            # 128): the phi3.5 rows, with qwen3's launches (bf16 from its
+            # serve, f32 from its 2-layer parity, and its chunked+radix
+            # serve's)
+            entry["qwen3_cases"] = {
+                case: {**rows[f"{name}_phi35{sfx}"], "launches": n,
+                       "variant": variants[f"{name}_phi35{sfx}"],
+                       "timed_as": f"{name}_phi35{sfx}"}
+                for case, sfx, n in (("main", "", qwen3[name]),
+                                     ("main_f32", "_f32", qwen3_f32[short]))}
+            entry["qwen3_cases"]["prefix"] = {
+                "launches": qwen3_prefix[name],
+                **({"offset_launches": qwen3_prefix["flash_attention_offset"]}
+                   if name == "flash_attention" else {})}
+            # internvl2-76b's instances (GQA at hd 128, G = 8): bf16
+            # launches from its serve at 24 of 80 layers, f32 ones from its
+            # 2-layer parity
+            entry["internvl2_cases"] = {
+                case: {**rows[f"{name}_internvl2{sfx}"], "launches": n,
+                       "variant": variants[f"{name}_internvl2{sfx}"]}
+                for case, sfx, n in (("main", "", internvl2[name]),
+                                     ("main_f32", "_f32", ivl_f32[short]))}
+            if name == "paged_attention":
+                for sfx in ("", "_f32"):
+                    entry["internvl2_cases"][f"main{sfx}"]["long_case"] = {
+                        **rows[f"{name}_internvl2_long{sfx}"],
+                        "variant": variants[f"{name}_internvl2_long{sfx}"]}
+            else:
+                # hubert-xlarge's instance: flash (80, 80) bidirectional,
+                # bf16 launches from its 48-layer forward, f32 ones from its
+                # 2-layer parity
+                entry["hubert_cases"] = {
+                    case: {**rows[f"{name}_hubert{sfx}"], "launches": n,
+                           "variant": variants[f"{name}_hubert{sfx}"]}
+                    for case, sfx, n in (("main", "", hubert["flash"]),
+                                         ("main_f32", "_f32",
+                                          hubert["flash_f32"]))}
+                entry["hubert_cases"]["forward"] = {
+                    k: hubert[k] for k in ("ms", "frames_per_s",
+                                           "own_peak_gib")}
         kernels.append(entry)
     print(f"[summary] all phases passed in {time.monotonic() - t_start:.1f} s")
     print("[summary] recorded, not measured in this run: main-case ms of "

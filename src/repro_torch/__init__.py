@@ -2,7 +2,8 @@
 
 The package mirrors the JAX package's layout (``configs``, ``core``,
 ``predict``, ``models``, ``kernels``, ``serving``, ``kvplane``, ``cluster``,
-``launch``, ``obs``) so every module has a named counterpart there.  It imports neither JAX nor the JAX package:
+``distributed``, ``launch``, ``obs``) so every module has a named
+counterpart there.  It imports neither JAX nor the JAX package:
 the pure-Python scheduler, config and observability modules are copies.
 
 Entry points take an explicit ``device`` (default ``"cuda"``) and raise when

@@ -19,7 +19,9 @@ layer ``head + p·6 + j``, global and local layers interleaved.  An RG-LRU
 layer's weights (9 leaves, gate biases and Λ in f32) and its ``{"h",
 "conv"}`` cache have one layout on both sides; recurrentgemma-9b's 38
 layers are 12 periods of (rglru, rglru, local) and a tail of 2 RG-LRU
-layers, which the ``tail`` list holds.
+layers, which the ``tail`` list holds.  An encoder-only model fed
+embeddings (hubert) has no ``"embed"`` in its tree, only ``"head"``, and
+its GeLU MLPs no ``w_gate``.
 
 Both sides of the bridge are numpy: it imports no JAX, and callers hand in
 ``np.asarray`` of the JAX arrays.  The conversion is exact.
@@ -107,9 +109,9 @@ def params_from_jax(tree: dict, cfg: ModelConfig, *,
             {k: _to_torch(v, dev) for k, v in bp["mixer"].items()},
             _to_torch(bp["ln2"], dev) if has_mlp else None,
             _map(lambda a: _to_torch(a, dev), bp["mlp"]) if has_mlp else None))
+    embed = _to_torch(tree["embed"], dev) if "embed" in tree else None
     head = _to_torch(tree["head"], dev) if "head" in tree else None
-    return LMParams(blocks, _to_torch(tree["final_norm"], dev),
-                    _to_torch(tree["embed"], dev), head)
+    return LMParams(blocks, _to_torch(tree["final_norm"], dev), embed, head)
 
 
 def params_to_numpy(params: LMParams, cfg: ModelConfig) -> dict:
@@ -126,8 +128,9 @@ def params_to_numpy(params: LMParams, cfg: ModelConfig) -> dict:
                                           for k, v in bp.shared.items()}
         layers.append(layer)
     out = {"blocks": tree_from_layers(layers, cfg),
-           "final_norm": _to_numpy(params.final_norm),
-           "embed": _to_numpy(params.embed)}
+           "final_norm": _to_numpy(params.final_norm)}
+    if params.embed is not None:
+        out["embed"] = _to_numpy(params.embed)
     if params.head is not None:
         out["head"] = _to_numpy(params.head)
     return out

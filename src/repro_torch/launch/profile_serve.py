@@ -1,9 +1,9 @@
 """Where the time of the full-width card run goes.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
-        [--arch llama2-13b|mamba2-370m|deepseek-v2-lite-16b|minicpm3-4b|
-                h2o-danube-1.8b|gemma3-4b|recurrentgemma-9b|
-                phi3.5-moe-42b-a6.6b] \\
+        [--arch llama2-13b|qwen3-4b|mamba2-370m|deepseek-v2-lite-16b|
+                minicpm3-4b|h2o-danube-1.8b|gemma3-4b|recurrentgemma-9b|
+                phi3.5-moe-42b-a6.6b|internvl2-76b] \\
         [--prefix] [--trace out.json]
 
 Serves the ``chip_smoke.py`` workload (``card_requests``; the architecture
@@ -14,7 +14,7 @@ first-call allocations), once timed without the profiler, once under
 ``torch.profiler``.  ``--prefix`` serves the architecture's chunked-prefill
 + radix-reuse run instead (``card_prefix_requests`` under
 ``card_prefix_engine_config``; any architecture whose stack runs chunked
-decode: llama2-13b, deepseek-v2-lite-16b, minicpm3-4b).  Prints both runs' engine wall times, the
+decode: llama2-13b, qwen3-4b, deepseek-v2-lite-16b, minicpm3-4b).  Prints both runs' engine wall times, the
 device time per kernel class (flash attention, paged attention, SSD chunk,
 matrix products, MoE dispatch — the router's top-k, the position cumsum,
 the scatter into and gather from the expert buffers —, the RG-LRU scan and

@@ -4,9 +4,12 @@ admission scheduler over the paper's mixed workload.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
         --full --device cuda
 
-(or ``--arch llama2-13b``, ``--arch deepseek-v2-lite-16b``, ``--arch
-minicpm3-4b``, ``--arch h2o-danube-1.8b``, ``--arch gemma3-4b``, ``--arch
-recurrentgemma-9b``, ``--arch phi3.5-moe-42b-a6.6b``)
+(or ``--arch llama2-13b``, ``--arch qwen3-4b``, ``--arch
+deepseek-v2-lite-16b``, ``--arch minicpm3-4b``, ``--arch h2o-danube-1.8b``,
+``--arch gemma3-4b``, ``--arch recurrentgemma-9b``, ``--arch
+phi3.5-moe-42b-a6.6b``, ``--arch internvl2-76b``: every architecture the
+engine serves; hubert-xlarge is encoder-only, has no decode, and the engine
+refuses it)
 
 ``--full`` builds the architecture's published config (random bf16 weights
 from ``--seed``; ``card_config``: for a model larger than one card, its
@@ -134,18 +137,26 @@ def card_prefix_requests(n: int = 24, seed: int = 0, vocab: int = 32000,
 # prompts unpadded (``pad_prompts`` is off for the hybrid family), and
 # phi3.5-moe at its card cut (``CARD_DEPTH_CUTS``) with MoE ``dropping``:
 # 8 decode tokens, top-2 of 16 experts, never pass an expert's capacity.
+# qwen3-4b (36 layers, d 2560, GQA at hd 128 with qk_norm, ~8.8 GB in bf16)
+# and internvl2-76b at its card cut (prompts embedded through the table
+# and prefilled as embeddings) take llama2-13b's sizing too.
 CARD_ENGINE_CONFIGS = {"llama2-13b": card_engine_config,
+                       "qwen3-4b": card_engine_config,
                        "mamba2-370m": ssm_card_engine_config,
                        "deepseek-v2-lite-16b": card_engine_config,
                        "minicpm3-4b": card_engine_config,
                        "h2o-danube-1.8b": card_engine_config,
                        "gemma3-4b": card_engine_config,
                        "recurrentgemma-9b": card_engine_config,
-                       "phi3.5-moe-42b-a6.6b": card_engine_config}
+                       "phi3.5-moe-42b-a6.6b": card_engine_config,
+                       "internvl2-76b": card_engine_config}
 # Layers served on one 80 GB card, for models whose published depth does
-# not fit it: phi3.5-moe's 41.87 B parameters are ~84 GB in bf16; 16 of its
-# 32 layers at published widths are ~21.1 B, ~42 GB.
-CARD_DEPTH_CUTS = {"phi3.5-moe-42b-a6.6b": 16}
+# not fit it: phi3.5-moe's 41.87 B parameters are ~84 GB in bf16, and 16 of
+# its 32 layers at published widths are ~21.1 B, ~42 GB; internvl2-76b's
+# 70.55 B are ~141 GB, and 24 of its 80 layers (0.856 B each) with the
+# embedding table and head are ~22.6 B, ~45.3 GB, beside a KV pool of
+# ~1.6 GB at ``card_engine_config``.
+CARD_DEPTH_CUTS = {"phi3.5-moe-42b-a6.6b": 16, "internvl2-76b": 24}
 
 
 def card_config(arch: str) -> ModelConfig:

@@ -1,6 +1,8 @@
 """Model path of the port: dense attention families (GQA with RoPE,
-optional ``qk_norm``), MLA attention, SwiGLU and MoE MLPs, the Mamba-2 SSM
-family, prefill, slot decode and chunked prefill."""
+optional ``qk_norm``; causal, windowed or bidirectional), MLA attention,
+SwiGLU, GeLU and MoE MLPs, the Mamba-2 SSM family, the RG-LRU hybrid
+family, token or embedding inputs, prefill (per-position logits for an
+encoder), slot decode and chunked prefill."""
 
 from .common import DtypePolicy
 from .model import (LMParams, chunk_step, decode_step, init_decode_caches,

@@ -1,11 +1,14 @@
 """Model facade for serving: parameters, prefill, decode step, decode caches.
 
-Ported from the JAX package's ``models/model.py`` for the dense attention
-families (sliding-window and local/global layers included), MLA and MoE
-(deepseek-v2-lite, phi3.5-moe), the SSM family and the RG-LRU hybrid
-family (recurrentgemma); ``moe_impl`` picks the MoE path (``dropping``, the
-JAX engine's default, or ``dense``).  ``train_loss`` comes with a later
-step of the port.
+Ported from the JAX package's ``models/model.py`` for every family it
+serves: the dense attention families (sliding-window and local/global
+layers included), MLA and MoE (deepseek-v2-lite, phi3.5-moe), the SSM
+family, the RG-LRU hybrid family (recurrentgemma), models fed embeddings
+(internvl2: ``{"embeddings": (B, S, d)}`` in prefill, tokens in decode)
+and encoder-only models (hubert: no embedding table, bidirectional
+attention, per-position logits and no cache from :func:`prefill`).
+``moe_impl`` picks the MoE path (``dropping``, the JAX engine's default,
+or ``dense``).  ``train_loss`` comes with a later step of the port.
 """
 
 from __future__ import annotations
@@ -25,18 +28,31 @@ from .transformer import (SEQ_CACHE_ENTRIES, check_supported, init_stack,
 
 class LMParams(nn.Module):
     """All weights of one language model: ``blocks`` (an ``nn.ModuleList``
-    of per-layer blocks), ``final_norm``, ``embed`` and, when embeddings are
-    not tied, ``head``.  Inference only: the parameters do not require
-    grad."""
+    of per-layer blocks), ``final_norm``, ``embed`` (None for an
+    encoder-only model fed embeddings, which has no table) and, when
+    embeddings are not tied or there is no table, ``head``.  Inference
+    only: the parameters do not require grad."""
 
     def __init__(self, blocks: nn.ModuleList, final_norm: torch.Tensor,
-                 embed: torch.Tensor, head: torch.Tensor | None = None):
+                 embed: torch.Tensor | None,
+                 head: torch.Tensor | None = None):
         super().__init__()
+        if embed is None and head is None:
+            raise ValueError("a model without an embedding table needs a "
+                             "head")
         self.blocks = blocks
         self.final_norm = nn.Parameter(final_norm, requires_grad=False)
-        self.embed = nn.Parameter(embed, requires_grad=False)
+        self.embed = (nn.Parameter(embed, requires_grad=False)
+                      if embed is not None else None)
         self.head = (nn.Parameter(head, requires_grad=False)
                      if head is not None else None)
+
+
+def needs_embed(cfg: ModelConfig) -> bool:
+    """Whether ``cfg`` has an embedding table: every model fed tokens, and
+    every decoder (its decode steps take tokens), as in JAX; an encoder fed
+    embeddings (hubert) has none."""
+    return cfg.input_mode == "tokens" or not cfg.is_encoder_only
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, *,
@@ -47,8 +63,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
     dev = resolve_device(device)
     blocks = init_stack(generator, cfg, dtype, dev)
     final_norm = torch.zeros((cfg.d_model,), dtype=dtype, device=dev)
-    embed = embed_init(generator, cfg.vocab_size, cfg.d_model, dtype, dev)
-    head = (None if cfg.tie_embeddings else
+    has_embed = needs_embed(cfg)
+    embed = (embed_init(generator, cfg.vocab_size, cfg.d_model, dtype, dev)
+             if has_embed else None)
+    head = (None if cfg.tie_embeddings and has_embed else
             dense_init(generator, cfg.d_model, cfg.vocab_size, dtype, dev))
     return LMParams(blocks, final_norm, embed, head)
 
@@ -61,10 +79,21 @@ def _unembed(params: LMParams, cfg: ModelConfig) -> torch.Tensor:
 
 def _embed_inputs(params: LMParams, batch: dict, cfg: ModelConfig,
                   compute_dtype) -> torch.Tensor:
+    if cfg.input_mode == "embeddings":   # cast only: no √d scaling, as JAX
+        return batch["embeddings"].to(compute_dtype)
     x = params.embed[batch["tokens"].long()]
     if cfg.tie_embeddings:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32)
     return x.to(compute_dtype)
+
+
+def _check_decodes(params: LMParams, cfg: ModelConfig) -> None:
+    """Raise ``ValueError`` for a model that cannot take tokens: an encoder
+    fed embeddings has no table to embed them (and no decode cache)."""
+    if params.embed is None:
+        raise ValueError(f"{cfg.name} has no embedding table (an encoder-"
+                         f"only model fed embeddings): it runs prefill "
+                         f"only, not decode or chunk steps")
 
 
 def _softcap(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -82,19 +111,27 @@ def prefill(params: LMParams, batch: dict, cfg: ModelConfig, *,
             policy: DtypePolicy = DtypePolicy.serve(),
             true_lens=None, impl: str | None = None,
             moe_impl: str = "dropping"):
-    """Full-prompt forward.  batch {"tokens": (B,S) int}; ``true_lens``
-    (B,) the real lengths of right-padded rows, or None for all S.  Returns
-    (logits at each row's last real position (B,1,V) f32, per-layer caches:
-    ``{"k", "v"}`` (B,S,K,hd) for GQA — for a sliding-window layer its ring
-    of min(window, S) slots, built from each row's true length —
-    ``{"ckv"}`` (B,S,1,r+rd) for MLA, ``{"ssm", "conv"}`` or ``{"h",
-    "conv"}`` after the last real position for SSM or RG-LRU layers)."""
+    """Full-prompt forward.  batch {"tokens": (B,S) int}, or for a model
+    fed embeddings {"embeddings": (B,S,d)} (cast to the compute dtype);
+    ``true_lens`` (B,) the real lengths of right-padded rows, or None for
+    all S.  Returns (logits at each row's last real position (B,1,V) f32,
+    per-layer caches: ``{"k", "v"}`` (B,S,K,hd) for GQA — for a
+    sliding-window layer its ring of min(window, S) slots, built from each
+    row's true length — ``{"ckv"}`` (B,S,1,r+rd) for MLA, ``{"ssm",
+    "conv"}`` or ``{"h", "conv"}`` after the last real position for SSM or
+    RG-LRU layers).  An encoder-only model returns (per-position logits
+    (B,S,V) f32 without softcap, None): its attention is bidirectional
+    over all S positions, with no key-padding mask, as in JAX."""
     x = _embed_inputs(params, batch, cfg, policy.compute)
     B, S = x.shape[:2]
+    encoder = cfg.is_encoder_only
     h, caches = stack_forward(params.blocks, x, cfg, _positions(B, S, x.device),
-                              want_cache=True, true_lens=true_lens, impl=impl,
-                              moe_impl=moe_impl)
+                              want_cache=not encoder, true_lens=true_lens,
+                              impl=impl, moe_impl=moe_impl)
     h = rms_norm(h, params.final_norm, cfg.norm_eps)
+    if encoder:
+        w_head = _unembed(params, cfg)
+        return (h.to(w_head.dtype) @ w_head).float(), None
     if true_lens is None:
         h_last = h[:, -1:]
     else:
@@ -115,6 +152,7 @@ def decode_step(params: LMParams, tokens, caches: list, cache_pos,
     full caches; a ring cache takes any position, and SSM and RG-LRU
     layers do not read them).  The caches are updated **in place**.  Returns (logits
     (B,1,V) f32, caches)."""
+    _check_decodes(params, cfg)
     s_max = next((t.shape[1] for c, kind in zip(caches, layer_kinds(cfg))
                   if not uses_ring(cfg, kind)
                   for name, t in c.items() if name in SEQ_CACHE_ENTRIES),
@@ -150,6 +188,7 @@ def chunk_step(params: LMParams, tokens, caches: list, pos0,
     f32, caches).  With pos0=0 and C=prompt_len this is a whole prefill;
     with C=1 a decode step.  Requires
     ``transformer.supports_chunked_decode(cfg)``."""
+    _check_decodes(params, cfg)
     x = params.embed[tokens.long()].to(policy.compute)
     if cfg.tie_embeddings:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=policy.compute)

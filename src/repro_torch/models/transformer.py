@@ -14,14 +14,17 @@ rows), ``{"ckv"}`` for an MLA layer, ``{"ssm", "conv"}`` for an SSM layer,
 carries an MoE MLP (``models/moe.py``), run by ``moe_impl`` (``dense`` or
 ``dropping``, the default).
 
-The attention kinds (GQA and MLA; sliding-window layers — ``attn_kind``
-``swa``, the ``local`` layers of ``local_global`` and of recurrentgemma's
-hybrid pattern — over ring caches), MoE MLPs, the SSM kind and the RG-LRU
-kind are ported: encoder-only stacks and embedding inputs raise
-``NotImplementedError``.  Chunked decode
+Every layer kind of the JAX package is ported: the attention kinds (GQA
+and MLA; sliding-window layers — ``attn_kind`` ``swa``, the ``local``
+layers of ``local_global`` and of recurrentgemma's hybrid pattern — over
+ring caches), MoE MLPs, the SSM kind and the RG-LRU kind.  Encoder-only
+stacks (hubert: bidirectional attention, ``cfg.causal`` off, and GeLU MLPs
+without a gate) run :func:`stack_forward` without a cache; stacks fed
+embeddings (internvl2) are ordinary decoder stacks.  Chunked decode
 (:func:`stack_chunk`) runs on stacks of attention layers without a ring,
-GQA or MLA (:func:`supports_chunked_decode`), each chunk's MoE MLP by
-``moe_impl`` as in a prefill.
+GQA or MLA, fed tokens, and not encoder-only
+(:func:`supports_chunked_decode`), each chunk's MoE MLP by ``moe_impl`` as
+in a prefill.
 """
 
 from __future__ import annotations
@@ -45,8 +48,6 @@ PORTED_KINDS = ATTN_KINDS + ("ssm", "rglru")
 # up to its bucket's length
 SEQ_CACHE_ENTRIES = ("k", "v", MLA_CACHE)
 
-_FAMILIES_LATER = ("not ported yet; encoder-only and embedding-input models "
-                   "come with a later step of the port")
 
 
 def uses_ring(cfg: ModelConfig, kind: str) -> bool:
@@ -70,13 +71,12 @@ def stack_layout(cfg: ModelConfig) -> tuple[int, int, int]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a config this port cannot run yet."""
-    if cfg.is_encoder_only or cfg.input_mode != "tokens":
-        raise NotImplementedError(f"encoder-only and embedding-input models "
-                                  f"are {_FAMILIES_LATER}")
+    """Raise ``NotImplementedError`` for a config with a layer kind the JAX
+    package does not have either."""
     for kind in set(layer_kinds(cfg)):
         if kind not in PORTED_KINDS:
-            raise NotImplementedError(f"layer kind {kind!r} is {_FAMILIES_LATER}")
+            raise NotImplementedError(f"unknown layer kind {kind!r} (have "
+                                      f"{PORTED_KINDS})")
 
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
@@ -92,7 +92,8 @@ def _frozen_dict(d: dict | None) -> nn.ParameterDict | None:
 class Block(nn.Module):
     """Weights of one layer: ``ln1`` and ``mixer`` (the attention
     projections, the SSM mixer or the RG-LRU block), then for attention and
-    RG-LRU kinds ``ln2`` and the ``mlp``: a SwiGLU MLP, or an MoE layer
+    RG-LRU kinds ``ln2`` and the ``mlp``: a SwiGLU MLP (a GeLU one without
+    ``w_gate`` in an encoder-only stack), or an MoE layer
     (``use_moe``: its ``mlp`` has a router) whose shared experts (the
     ``"shared"`` entry of the JAX tree) sit in ``shared``.  An SSM block has
     no ``ln2`` and no MLP (``None``).
@@ -120,7 +121,7 @@ class Block(nn.Module):
 def init_block(generator: torch.Generator, cfg: ModelConfig, kind: str,
                dtype, device, use_moe: bool = False) -> Block:
     """A freshly initialized layer of kind ``kind`` (with an MoE MLP when
-    ``use_moe``)."""
+    ``use_moe``; an encoder-only stack's MLPs have no gate, as in JAX)."""
     d = cfg.d_model
     zeros = torch.zeros((d,), dtype=dtype, device=device)
     if kind == "ssm":
@@ -128,7 +129,8 @@ def init_block(generator: torch.Generator, cfg: ModelConfig, kind: str,
     mixer = (init_rglru(generator, cfg, dtype, device) if kind == "rglru"
              else init_attention(generator, cfg, dtype, device))
     mlp = (init_moe(generator, cfg, dtype, device) if use_moe
-           else init_mlp(generator, d, cfg.d_ff, dtype, device))
+           else init_mlp(generator, d, cfg.d_ff, dtype, device,
+                         gated=not cfg.is_encoder_only))
     return Block(kind, zeros, mixer, zeros.clone(), mlp)
 
 
@@ -200,7 +202,8 @@ def supports_chunked_decode(cfg: ModelConfig) -> bool:
     Excludes ring-buffer (sliding-window/local) attention (a later chunk
     token overwrites the ring slot an earlier in-chunk query still needs),
     recurrent state (SSM and RG-LRU layers need strictly sequential scans),
-    encoder-only stacks and non-token inputs, as the JAX package does."""
+    encoder-only stacks (no decode cache) and embedding inputs (a chunk is
+    tokens), as the JAX package does."""
     if cfg.is_encoder_only or cfg.input_mode != "tokens":
         return False
     kinds = set(layer_kinds(cfg))

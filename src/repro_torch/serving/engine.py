@@ -48,9 +48,15 @@ Two opt-in features follow the JAX engine (``docs/ENGINE.md``):
   engine's tree-map takes whatever its cache holds.
 
 Both raise ``ValueError`` for a family ``supports_chunked_decode`` rejects
-(the SSM family, and stacks with sliding-window layers: h2o-danube,
-gemma3, recurrentgemma), as the JAX engine does; GQA and MLA stacks without a ring run
-both.  Both off ⇒ the bucketed path.
+(the SSM family, stacks with sliding-window layers: h2o-danube, gemma3,
+recurrentgemma, and models fed embeddings: internvl2), as the JAX engine
+does; GQA and MLA stacks without a ring run both.  Both off ⇒ the bucketed
+path.  A model fed embeddings (internvl2) is served as the JAX engine
+serves it: the prompt tokens go through the embedding table and into the
+prefill as ``{"embeddings"}``, and decode takes tokens.  An encoder-only
+model (hubert) has no decode and no embedding table, so the engine refuses
+it at construction with a ``ValueError`` (the JAX engine cannot serve one
+either: its prefill reads the table).
 An MoE config runs its experts by ``EngineConfig.moe_impl`` (``dropping``,
 as in the JAX engine, or ``dense``) in every prefill and decode step.
 
@@ -170,6 +176,10 @@ class ServingEngine:
         self.params = params
         self.sched = scheduler
         self.e = ecfg or EngineConfig()
+        if cfg.is_encoder_only:
+            raise ValueError(f"{cfg.name} is encoder-only: it has no decode "
+                             f"step to serve (run models.prefill for its "
+                             f"per-position logits)")
         # Chunked-prefill / prefix-reuse mode: every admission goes through
         # the per-slot chunk path (suffix prefill at an offset needs it).
         self._chunked = (bool(self.e.chunk_prefill_tokens)
@@ -273,9 +283,13 @@ class ServingEngine:
         """Bucketed prefill returning per-row logits at true_lens-1 (n,1,V)
         f32 and the per-layer caches (attention: (n, bucket, K, hd) K/V or
         MLA's (n, bucket, 1, r+rd) latent rows; SSM: the state and conv
-        tail after each row's last real token)."""
-        x = _embed_inputs(self.params, {"tokens": tokens}, self.cfg,
-                          self.policy.compute)
+        tail after each row's last real token).  A model fed embeddings
+        gets the prompt tokens' rows of its table, as the JAX engine's
+        prefill does."""
+        batch = ({"tokens": tokens} if self.cfg.input_mode == "tokens" else
+                 {"embeddings": self.params.embed[tokens.long()]
+                  .to(self.policy.compute)})
+        x = _embed_inputs(self.params, batch, self.cfg, self.policy.compute)
         B, S = x.shape[:2]
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device)[None].expand(B, S)

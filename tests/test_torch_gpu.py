@@ -336,6 +336,41 @@ def test_paged_routes_by_type_and_group(cuda, dtype, G, merged, kernel):
                                      else {kernel})
 
 
+def _internvl2_inputs(cuda, dtype):
+    """internvl2-76b's heads, H 64 on K 8 at hd 128 (G = 8): flash inputs
+    at S = 300, and paged inputs over 4 slots of 2048 tokens (one long
+    among short ones, a shuffled table)."""
+    g = torch.Generator(device=cuda).manual_seed(64)
+    q, k, v = (torch.randn((1, 300, n, 128), generator=g, device=cuda)
+               .to(dtype) for n in (64, 8, 8))
+    paged = _paged_inputs(np.random.default_rng(64), g, cuda, dtype,
+                          [2000, 17, 300, 1], 64, 8, 128, 16, 128,
+                          shuffle=True)
+    return (q, k, v), paged
+
+
+@pytest.mark.parametrize("dtype,flash_kernel,paged_kernel", [
+    (torch.bfloat16, "flash_fwd_mma_kernel", "paged_gqa_mma_kernel"),
+    (torch.float32, "flash_fwd_tf32x3_kernel", "paged_split_kernel"),
+])
+def test_internvl2_heads_route_by_type(cuda, dtype, flash_kernel,
+                                       paged_kernel):
+    """At internvl2-76b's heads each kernel, called warm, runs alone (with
+    the merge for paged) in the profiler's names: bf16 the tensor-core
+    kernels, f32 the 3xTF32 flash and the split paged kernel."""
+    (q, k, v), (pq, kp, vp, bt, sl) = _internvl2_inputs(cuda, dtype)
+
+    def flash():
+        return flash_ops.flash_attention(q, k, v)
+
+    def paged():
+        return paged_ops.paged_attention(pq, kp, vp, bt, sl)
+    flash()
+    paged()
+    assert _device_kernels(flash) == {flash_kernel}
+    assert _device_kernels(paged) == {paged_kernel, "paged_merge_kernel"}
+
+
 def _ssd_inputs(g, dev, b, s, H, P, G, N, dtype):
     x = (torch.randn((b, s, H, P), generator=g, device=dev) * 0.5).to(dtype)
     dt = torch.nn.functional.softplus(torch.randn((b, s, H), generator=g,
@@ -1487,6 +1522,104 @@ def test_rglru_engine_kernel_path_matches_cpu_run(cuda):
         eng = ServingEngine(cfg, params.to(dev), FCFSScheduler(),
                             EngineConfig(max_slots=4, s_max=160,
                                          kv_pool_tokens=2048),
+                            policy=pol, device=dev)
+        flash0, paged0 = flash_ops.KERNEL.launches, paged_ops.KERNEL.launches
+        assert len(eng.run(reqs)) == len(reqs)
+        if dev == cuda:
+            assert flash_ops.KERNEL.launches > flash0
+            assert paged_ops.KERNEL.launches > paged0
+        outs[str(dev)] = eng.output_tokens
+    assert outs["cpu"] == outs["cuda"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1024, 1000, 1])
+def test_flash_bidirectional_hd80_matches_plain(cuda, dtype, S):
+    """hubert-xlarge's attention: bidirectional flash at (80, 80), H = K =
+    16, B = 2.  Every query tile walks every key tile, and only the
+    visible-key test masks the keys past S in the last tile (S = 1000) or
+    all but one (S = 1).  Against the dense plain version and, per element,
+    the tiled one that rounds as the kernel does; one counted launch."""
+    g = torch.Generator(device=cuda).manual_seed(S)
+    q, k, v = (torch.randn((2, S, 16, 80), generator=g, device=cuda)
+               .to(dtype) for _ in range(3))
+    before = flash_ops.KERNEL.launches
+    out = flash_ops.flash_attention(q, k, v, causal=False)
+    assert flash_ops.KERNEL.launches == before + 1
+    ref = flash_ops.flash_attention(q, k, v, causal=False, impl="plain")
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOLS[dtype],
+                               rtol=TOLS[dtype])
+    if dtype == torch.bfloat16:
+        _assert_matches_tiled(out, q, k, v, False, 0)
+    else:
+        _assert_matches_tf32x3(out, q, k, v, causal=False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_internvl2_heads_match_plain(cuda, dtype):
+    """Causal flash and paged decode at internvl2-76b's heads against their
+    plain versions (bf16 paged also per element against the tiled one),
+    one counted launch each."""
+    (q, k, v), (pq, kp, vp, bt, sl) = _internvl2_inputs(cuda, dtype)
+    before = flash_ops.KERNEL.launches
+    out = flash_ops.flash_attention(q, k, v)
+    assert flash_ops.KERNEL.launches == before + 1
+    ref = flash_ops.flash_attention(q, k, v, impl="plain")
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOLS[dtype],
+                               rtol=TOLS[dtype])
+    before = paged_ops.KERNEL.launches
+    out = paged_ops.paged_attention(pq, kp, vp, bt, sl)
+    assert paged_ops.KERNEL.launches == before + 1
+    ref = paged_ops.paged_attention(pq, kp, vp, bt, sl, impl="plain")
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOLS[dtype],
+                               rtol=TOLS[dtype])
+    if dtype == torch.bfloat16:
+        _assert_matches_gqa_tiled(out, pq, kp, vp, bt, sl)
+
+
+def test_hubert_smoke_encoder_on_card_matches_cpu(cuda):
+    """hubert-xlarge's smoke config at its head width of 80 (bidirectional,
+    GeLU MLPs, no embedding table) run on the card through flash gives the
+    per-position logits of the same weights and frames on the CPU, in
+    f32."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import prefill
+    cfg = get_smoke_config("hubert-xlarge").scaled(head_dim=80)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    pol = DtypePolicy(torch.float32, torch.float32, torch.float32)
+    frames = torch.tensor(np.random.default_rng(8).standard_normal(
+        (3, 77, cfg.d_model)).astype(np.float32))
+    want, _ = prefill(params, {"embeddings": frames}, cfg, policy=pol)
+    before = flash_ops.KERNEL.launches
+    got, cache = prefill(params.to(cuda), {"embeddings": frames.to(cuda)},
+                         cfg, policy=pol)
+    assert cache is None
+    assert flash_ops.KERNEL.launches == before + cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+def test_internvl2_smoke_engine_on_card_matches_cpu_run(cuda):
+    """internvl2-76b's smoke config at its head width and group (hd 128, 8
+    query heads on 1 KV head; prompts embedded through the table and
+    prefilled as embeddings, decode on tokens) served on the card through
+    flash and paged gives the f32 greedy tokens of the same weights served
+    on the CPU."""
+    from repro_torch.configs import get_smoke_config
+    cfg = get_smoke_config("internvl2-76b").scaled(n_heads=8, n_kv_heads=1,
+                                                   head_dim=128)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    pol = DtypePolicy(torch.float32, torch.float32, torch.float32)
+    outs = {}
+    for dev in ("cpu", cuda):
+        rng = np.random.default_rng(9)
+        reqs = [Request(prompt_len=int(rng.integers(5, 90)), arrival_time=0.0,
+                        max_new_tokens=int(rng.integers(2, 12)),
+                        request_id=95_000 + i) for i in range(8)]
+        eng = ServingEngine(cfg, params.to(dev), FCFSScheduler(),
+                            EngineConfig(max_slots=4, s_max=128,
+                                         kv_pool_tokens=2048,
+                                         buckets=(32, 64, 128)),
                             policy=pol, device=dev)
         flash0, paged0 = flash_ops.KERNEL.launches, paged_ops.KERNEL.launches
         assert len(eng.run(reqs)) == len(reqs)
