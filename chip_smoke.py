@@ -122,7 +122,24 @@ Phases, in order; any failure raises and exits non-zero:
    at 24 of 80 layers (the whole model is ~141 GB in bf16), its own peak
    under 60 GiB.  Each serve prints its peak device memory and, beside it,
    its own peak above what was allocated before it;
-5. summary: one call of each kernel's bf16 main case (and of the f32
+5. train, with every serve's weights freed (no kernel of the repository
+   runs on this path): (a) each kernel wrapper refuses, on the card, an
+   input that requires grad under autograd; (b) llama2-13b at full width
+   and 2 layers in f32, one ``train_loss`` backward and 3 AdamW steps on
+   the card against the CPU from the same weights (loss within 1e-5
+   relative, every gradient leaf within 1e-4 of its scale, the steps'
+   losses within 1e-4); (c) ``blockwise_gqa_attend`` against the dense
+   ``reference_attend`` at B 1, S 4096, H = K = 40, hd 128, f32, causal
+   (output within 2e-5, gradients within 1e-4 of scale); (d)
+   ``launch/train.py::main`` for llama2-13b at full width cut to 8 of 40
+   layers (``TRAIN_DEPTH_CUTS``), bf16 compute, remat, batch 2 x 4096
+   (every layer blockwise), 30 steps: finite losses and gradient norms, the
+   loss falling, the run's own peak under 60 GiB; ms a step, tokens/s and
+   the model-FLOPs share of the bf16 peak printed; (e) checkpoint/restart
+   of the smoke config on the card (4 straight steps against 2, a
+   checkpoint, a restore and 2), bitwise under deterministic algorithms
+   or within 1e-6 of scale, whichever held printed;
+6. summary: one call of each kernel's bf16 main case (and of the f32
    flash main, offset and MLA cases, the f32 MLA paged case, the f32
    SSD main case and every minicpm3-4b case) under
    ``torch.profiler`` names the device kernels that ran,
@@ -2673,6 +2690,320 @@ def phase_fleet(cfg, params, ops: dict) -> dict:
     return launches
 
 
+# Training (phase 5 of the docstring): f32 card-against-CPU parity at full
+# width, blockwise attention at llama2's heads, the launcher's full-width
+# run and checkpoint/restart.  No kernel of the repository runs here.
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-5, 1e-4     # f32, card vs CPU
+TRAIN_STEP_TOL = 1e-4                           # 3 AdamW steps' losses
+BLOCKWISE_OUT_TOL, BLOCKWISE_GRAD_TOL = 2e-5, 1e-4
+TRAIN_MAX_OWN_GIB = 60        # the limit of internvl2's serve (PERF.md)
+TRAIN_ARGS = ["--arch", "llama2-13b", "--full-config", "--steps", "30",
+              "--batch", "2", "--seq", "4096", "--lr", "3e-4",
+              "--log-every", "5", "--device", "cuda"]
+
+
+def phase_train_wrappers() -> None:
+    """(a) Every kernel wrapper refuses, on the card, an input that
+    requires grad under grad mode: its output would have no ``grad_fn``."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.paged_attention import ops as pa
+    from repro_torch.kernels.ssd_scan import ops as so
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+
+    def r(*shape, grad=False):
+        return torch.randn(shape, generator=g, device="cuda",
+                           requires_grad=grad)
+
+    table = torch.arange(2, dtype=torch.int32, device="cuda")[None]
+    lens = torch.tensor([20], dtype=torch.int32, device="cuda")
+    calls = {
+        "flash_attention": lambda: fa.flash_attention(
+            r(1, 64, 2, 64, grad=True), r(1, 64, 2, 64), r(1, 64, 2, 64)),
+        "paged_attention": lambda: pa.paged_attention(
+            r(1, 2, 64, grad=True), r(2, 16, 2, 64), r(2, 16, 2, 64), table,
+            lens),
+        "ssd_chunk": lambda: so.ssd_chunk(
+            r(1, 1, 64, 2, 64, grad=True), r(1, 1, 64, 2).abs(), r(2),
+            r(1, 1, 64, 1, 64), r(1, 1, 64, 1, 64))}
+    for name, call in calls.items():
+        try:
+            with torch.enable_grad():
+                call()
+        except RuntimeError as e:
+            check("training attention" in str(e), f"{name} names the "
+                                                   f"training attention")
+        else:
+            raise RuntimeError(f"check failed: {name} took an input that "
+                               f"requires grad under autograd")
+    print(f"[train] (a) {', '.join(calls)} refuse inputs that require grad "
+          f"under autograd on the card")
+
+
+def _loss_grads(params, batch, cfg, pol):
+    import torch
+    from repro_torch.models import train_loss
+    named = dict(params.named_parameters())
+    loss = train_loss(params, batch, cfg, policy=pol, remat=False)
+    grads = torch.autograd.grad(loss, list(named.values()))
+    return float(loss.detach()), dict(zip(named, grads))
+
+
+def phase_train_parity() -> dict:
+    """(b) llama2-13b at full width and 2 layers in f32: one ``train_loss``
+    backward and 3 AdamW steps on the card (cuBLAS and CUDA autograd, no
+    kernel of the repository) against the CPU, from the same weights."""
+    import copy
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import DtypePolicy
+    from repro_torch.training import (AdamWConfig, DataConfig, TokenDataset,
+                                      adamw_init, batch_to, init_train_state,
+                                      make_train_step)
+    cfg = get_config("llama2-13b").scaled(n_layers=2)
+    pol = DtypePolicy(torch.float32, torch.float32, torch.float32)
+    t0 = time.monotonic()
+    cpu_p, cpu_st = init_train_state(cfg, torch.Generator().manual_seed(0),
+                                     device="cpu")
+    card_p = copy.deepcopy(cpu_p).to("cuda")
+    card_st = adamw_init(card_p)
+    n = sum(p.numel() for p in cpu_p.parameters())
+    it = TokenDataset(cfg, DataConfig(global_batch=2, seq_len=128)).batches()
+    batches = [next(it) for _ in range(3)]
+    lc, g_cpu = _loss_grads(cpu_p, batch_to(batches[0], "cpu"), cfg, pol)
+    lg, g_card = _loss_grads(card_p, batch_to(batches[0], "cuda"), cfg, pol)
+    loss_rel = abs(lg - lc) / abs(lc)
+    worst, worst_name = 0.0, ""
+    errs = {k: max_err(g_card[k].cpu(), a) / max(float(a.abs().max()), 1e-30)
+            for k, a in g_cpu.items()}
+    worst_name = max(errs, key=errs.get)
+    worst = errs[worst_name]
+    qkv = max(e for k, e in errs.items()
+              if k.split(".")[-1] in ("wq", "wk", "wv"))
+    del g_cpu, g_card
+    opt = AdamWConfig(lr_peak=3e-4, warmup_steps=1, total_steps=3)
+    losses = {}
+    for dev, p, st in (("cpu", cpu_p, cpu_st), ("cuda", card_p, card_st)):
+        step = make_train_step(cfg, opt, remat=False, policy=pol)
+        losses[dev] = []
+        for b in batches:
+            p, st, m = step(p, st, batch_to(b, dev))
+            losses[dev].append(float(m["loss"]))
+    step_rel = max(abs(a - b) / abs(b)
+                   for a, b in zip(losses["cuda"], losses["cpu"]))
+    print(f"[train] (b) llama2-13b full width, 2 layers, {n:,} parameters, "
+          f"f32, batch 2x128: loss card {lg:.7f} CPU {lc:.7f} (relative "
+          f"{loss_rel:.2e}); worst gradient leaf {worst_name} at "
+          f"{worst:.2e} of its scale, wq/wk/wv at {qkv:.2e}; 3 AdamW steps' "
+          f"losses card {losses['cuda']} CPU {losses['cpu']} (relative "
+          f"{step_rel:.2e}); {time.monotonic() - t0:.1f} s")
+    check(loss_rel <= TRAIN_LOSS_TOL, f"card loss within {TRAIN_LOSS_TOL} "
+                                      f"of the CPU's (got {loss_rel:.2e})")
+    check(worst <= TRAIN_GRAD_TOL, f"every gradient leaf within "
+                                   f"{TRAIN_GRAD_TOL} of its scale (got "
+                                   f"{worst:.2e} at {worst_name})")
+    check(step_rel <= TRAIN_STEP_TOL, f"AdamW steps' losses within "
+                                      f"{TRAIN_STEP_TOL} (got {step_rel:.2e})")
+    return {"params": n, "loss_rel": loss_rel, "grad_worst": worst,
+            "grad_worst_leaf": worst_name, "qkv_grad_worst": qkv,
+            "step_losses_card": losses["cuda"],
+            "step_losses_cpu": losses["cpu"], "step_loss_rel": step_rel}
+
+
+def phase_train_blockwise() -> dict:
+    """(c) ``blockwise_gqa_attend`` at llama2's heads (B 1, S 4096, H = K =
+    40, hd 128, f32, causal) against the dense ``reference_attend`` on the
+    card, forward and backward, each timed once after a warm call."""
+    import torch
+    from repro_torch.models.blockwise import (blockwise_gqa_attend,
+                                              reference_attend)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(3)
+    S, H, hd = 4096, 40, 128
+    q, k, v = (torch.randn((1, S, H, hd), generator=g, device="cuda",
+                           requires_grad=True) for _ in range(3))
+    ct = torch.randn((1, S, H * hd), generator=g, device="cuda")
+    res, ms = {}, {}
+    for name, fn in (("blockwise", blockwise_gqa_attend),
+                     ("reference", reference_attend)):
+        for _ in range(2):        # the second call is timed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(q, k, v, causal=True)
+            grads = torch.autograd.grad(out, (q, k, v), ct)
+            torch.cuda.synchronize()
+            ms[name] = (time.perf_counter() - t0) * 1e3
+        res[name] = (out.detach(), *grads)
+        del out, grads
+    (bo, *bg), (ro, *rg) = res["blockwise"], res["reference"]
+    out_err = max_err(bo, ro) / float(ro.abs().max())
+    grad_err = max(max_err(a, b) / float(b.abs().max())
+                   for a, b in zip(bg, rg))
+    print(f"[train] (c) blockwise vs dense reference, B 1 S {S} H = K = {H} "
+          f"hd {hd} f32 causal: output within {out_err:.2e} of scale, "
+          f"gradients of q, k, v within {grad_err:.2e}; forward + backward "
+          f"{ms['blockwise']:.1f} ms blockwise, {ms['reference']:.1f} ms "
+          f"dense (one call each, host clock)")
+    check(out_err <= BLOCKWISE_OUT_TOL, f"blockwise output within "
+                                        f"{BLOCKWISE_OUT_TOL} of scale")
+    check(grad_err <= BLOCKWISE_GRAD_TOL, f"blockwise gradients within "
+                                          f"{BLOCKWISE_GRAD_TOL} of scale")
+    return {"out_err": out_err, "grad_err": grad_err,
+            "ms_blockwise": ms["blockwise"], "ms_reference": ms["reference"]}
+
+
+def train_flops(cfg, batch: int, seq: int) -> tuple:
+    """(model FLOPs of one training step, FLOPs the step executes, matmul
+    weights N).  Model:
+    6·N·tokens over the matmul weights (every block weight of two or more
+    dims and the head; the embedding is a lookup) plus the attention
+    products 12·L·H·hd·S a token (PaLM's count, the whole span).  Executed:
+    8·N·tokens (the forward, its recompute under remat and the backward)
+    plus the attention products of blockwise's whole causal span, run in
+    the forward, the layer's recompute, the query block's recompute and
+    twice in the backward."""
+    d, L = cfg.d_model, cfg.n_layers
+    H, K, hd, ff = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
+    per_layer = d * H * hd * 2 + d * K * hd * 2 + 3 * d * ff
+    n = L * per_layer + d * cfg.vocab_size
+    tokens = batch * seq
+    attn_fwd = 4 * batch * seq * seq * H * hd * L
+    return (6 * n * tokens + 3 * attn_fwd,
+            8 * n * tokens + 5 * attn_fwd, n)
+
+
+def phase_train_run() -> dict:
+    """(d) ``launch/train.py`` in-process: llama2-13b at full width, cut to
+    ``TRAIN_DEPTH_CUTS`` layers, ``DtypePolicy.train()``, remat, batch 2 x
+    4096 (every layer blockwise), 30 steps."""
+    from repro_torch.launch.train import main as train_main
+    t0 = time.monotonic()
+    out = train_main(TRAIN_ARGS)
+    cfg, losses, norms = out["cfg"], out["losses"], out["grad_norms"]
+    model, executed, n_mat = train_flops(cfg, 2, 4096)
+    s = out["median_ms"] / 1e3
+    mfu = model / s / BF16_PEAK_FLOPS
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    summary = {"layers": cfg.n_layers, "params": sum(
+        p.numel() for p in out["params"].parameters()),
+        "matmul_params": n_mat, "median_ms": out["median_ms"],
+        "tokens_per_s": out["tokens_per_s"], "model_flops": model,
+        "executed_flops": executed, "mfu": mfu,
+        "executed_share": executed / s / BF16_PEAK_FLOPS,
+        "own_peak_gib": out["own_peak_gib"], "losses": losses,
+        "grad_norms": norms, "first5": first, "last5": last,
+        "wall_s": time.monotonic() - t0}
+    del out
+    print(f"[train] (d) llama2-13b {cfg.n_layers} of 40 layers, "
+          f"{summary['params']:,} parameters, bf16 compute, remat, batch "
+          f"2x4096: median {summary['median_ms']:.1f} ms a step after step 3 "
+          f"({summary['tokens_per_s']:.0f} tokens/s); model FLOPs a step "
+          f"{model:.3e} (6·N·tokens, N = {n_mat:,}, plus attention), "
+          f"{100 * mfu:.1f}% of {BF16_PEAK_FLOPS / 1e12:.0f} TFLOP/s; "
+          f"executed FLOPs "
+          f"{executed:.3e} ({100 * summary['executed_share']:.1f}%); own "
+          f"peak {summary['own_peak_gib']:.2f} GiB; loss first 5 {first:.4f} "
+          f"last 5 {last:.4f}; {summary['wall_s']:.1f} s with init")
+    print(f"[train] (d) losses {[round(x, 4) for x in losses]}")
+    print(f"[train] (d) gradient norms {[round(x, 4) for x in norms]}")
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          "finite losses and gradient norms")
+    check(last < first, f"loss falls on the planted bigram stream (first 5 "
+                        f"{first:.4f}, last 5 {last:.4f})")
+    check(summary["own_peak_gib"] < TRAIN_MAX_OWN_GIB,
+          f"the run's own peak {summary['own_peak_gib']:.2f} GiB < "
+          f"{TRAIN_MAX_OWN_GIB}")
+    return summary
+
+
+def phase_train_resume() -> dict:
+    """(e) llama2-13b's smoke config on the card: 4 straight steps against
+    2 steps, a checkpoint, a restore into a fresh state and 2 more, under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``; bitwise
+    where they agree bit for bit, else within 1e-6 of scale."""
+    import tempfile
+    import warnings
+
+    import torch
+    from repro_torch import bridge
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.training import (AdamWConfig, DataConfig, TokenDataset,
+                                      batch_to, init_train_state,
+                                      make_train_step)
+    cfg = get_smoke_config("llama2-13b")
+    step_fn = make_train_step(cfg, AdamWConfig(lr_peak=1e-3, warmup_steps=2,
+                                               total_steps=4))
+
+    def fresh(seed):
+        g = torch.Generator(device="cuda")
+        g.manual_seed(seed)
+        return init_train_state(cfg, g, device="cuda")
+
+    def stream():
+        return TokenDataset(cfg, DataConfig(global_batch=2,
+                                            seq_len=32)).batches()
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            p1, o1 = fresh(0)
+            it = stream()
+            for _ in range(4):
+                p1, o1, _ = step_fn(p1, o1, batch_to(next(it), "cuda"))
+            p2, o2 = fresh(0)
+            it = stream()
+            for _ in range(2):
+                p2, o2, _ = step_fn(p2, o2, batch_to(next(it), "cuda"))
+            build = ROOT / "build"
+            build.mkdir(exist_ok=True)
+            with tempfile.TemporaryDirectory(dir=build) as d:
+                save_checkpoint(d, 2, bridge.train_state_tree(p2, o2, cfg))
+                p2, o2 = fresh(1)
+                _, step, _ = restore_checkpoint(
+                    d, bridge.train_state_tree(p2, o2, cfg))
+            check(step == 2 and int(o2.step) == 2, "restored step 2")
+            for _ in range(2):
+                p2, o2, _ = step_fn(p2, o2, batch_to(next(it), "cuda"))
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    pairs = [(a.detach(), b.detach())
+             for a, b in zip(p1.parameters(), p2.parameters())]
+    bitwise = all(torch.equal(a, b) for a, b in pairs)
+    worst = max(max_err(a, b) / max(float(a.abs().max()), 1e-30)
+                for a, b in pairs)
+    nondet = sorted({str(w.message).split(" does not have a deterministic")[0]
+                     for w in caught if "deterministic" in str(w.message)})
+    print(f"[train] (e) checkpoint/restart on the card, llama2-13b smoke: 4 "
+          f"straight steps against 2 + save + restore + 2: "
+          f"{'bitwise equal' if bitwise else f'within {worst:.2e} of scale'}"
+          f"; ops without a deterministic implementation: "
+          f"{nondet or 'none'}")
+    check(bitwise or worst <= 1e-6, f"resumed state within 1e-6 of scale "
+                                    f"(got {worst:.2e})")
+    return {"bitwise": bitwise, "worst": worst, "nondeterministic": nondet}
+
+
+def phase_train() -> dict:
+    """Phases (a)-(e) of training, every earlier model's weights freed."""
+    import torch
+    out = {}
+    phase_train_wrappers()
+    for name, fn in (("parity", phase_train_parity),
+                     ("blockwise", phase_train_blockwise),
+                     ("run", phase_train_run),
+                     ("resume", phase_train_resume)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[name] = fn()
+    print("[train] " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     """Run every phase; return the exit code."""
     import torch
@@ -2863,6 +3194,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     mamba, _ = phase_serve("mamba2-370m", ssm_card_engine_config(), ops,
                            ("ssd_chunk",))
+    gc.collect()
+    torch.cuda.empty_cache()
+    # training, with every serve's weights freed: no kernel of the
+    # repository runs on its path (phase (a) shows the wrappers refuse it)
+    phase_train()
     # after every timed phase: the profiler runs in this process only here
     variants = phase_variants(calls)
     # each kernel's launches come from the run of its own path

@@ -23,6 +23,14 @@ layers, which the ``tail`` list holds.  An encoder-only model fed
 embeddings (hubert) has no ``"embed"`` in its tree, only ``"head"``, and
 its GeLU MLPs no ``w_gate``.
 
+The AdamW state crosses too (:func:`opt_state_to_numpy`,
+:func:`opt_state_from_jax`): its moments are trees like the parameters, on
+the port's side dicts keyed as ``named_parameters()``.
+:func:`train_state_tree` lays a port training state out as the JAX
+package's ``(params, AdamWState)`` tree with the port's own tensors as
+leaves (the stacked period layers as ``checkpoint.Stacked`` leaves), which
+is what a checkpoint saves.
+
 Both sides of the bridge are numpy: it imports no JAX, and callers hand in
 ``np.asarray`` of the JAX arrays.  The conversion is exact.
 """
@@ -33,11 +41,13 @@ import numpy as np
 import torch
 from torch import nn
 
+from .checkpoint import Stacked
 from .configs.base import ModelConfig
 from .models.common import resolve_device
 from .models.model import LMParams
 from .models.attention import MLA_CACHE
 from .models.transformer import Block, check_supported, layer_kinds, stack_layout
+from .training.optimizer import AdamWState
 
 
 def _map(fn, tree):
@@ -48,12 +58,16 @@ def _map(fn, tree):
     return fn(tree)
 
 
-def _stack(trees: list):
-    """Leafwise ``np.stack`` of structurally identical trees."""
+def _np_stack(leaves: list) -> np.ndarray:
+    return np.stack([np.asarray(t) for t in leaves])
+
+
+def _stack(trees: list, stack=_np_stack):
+    """Leafwise ``stack`` of structurally identical trees."""
     first = trees[0]
     if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
-    return np.stack([np.asarray(t) for t in trees])
+        return {k: _stack([t[k] for t in trees], stack) for k in first}
+    return stack(trees)
 
 
 def layers_from_tree(tree: dict, cfg: ModelConfig) -> list:
@@ -69,8 +83,9 @@ def layers_from_tree(tree: dict, cfg: ModelConfig) -> list:
     return layers
 
 
-def tree_from_layers(layers: list, cfg: ModelConfig) -> dict:
-    """Inverse of :func:`layers_from_tree`."""
+def tree_from_layers(layers: list, cfg: ModelConfig, stack=_np_stack) -> dict:
+    """Inverse of :func:`layers_from_tree`; ``stack`` makes a period-stacked
+    leaf of the layers' leaves (``np.stack`` by default)."""
     head, n_periods, tail = stack_layout(cfg)
     period = len(cfg.pattern)
     out = {"head": layers[:head],
@@ -78,7 +93,7 @@ def tree_from_layers(layers: list, cfg: ModelConfig) -> dict:
     if n_periods > 0:
         out["stack"] = {
             f"slot_{j}": _stack([layers[head + p * period + j]
-                                 for p in range(n_periods)])
+                                 for p in range(n_periods)], stack)
             for j in range(period)}
     return out
 
@@ -116,24 +131,84 @@ def params_from_jax(tree: dict, cfg: ModelConfig, *,
 
 def params_to_numpy(params: LMParams, cfg: ModelConfig) -> dict:
     """Port parameters as the JAX package's parameter tree (numpy leaves)."""
-    layers = []
-    for bp in params.blocks:
-        layer = {"ln1": _to_numpy(bp.ln1),
-                 "mixer": {k: _to_numpy(v) for k, v in bp.mixer.items()}}
-        if bp.mlp is not None:
-            layer["ln2"] = _to_numpy(bp.ln2)
-            layer["mlp"] = {k: _to_numpy(v) for k, v in bp.mlp.items()}
-            if bp.shared is not None:
-                layer["mlp"]["shared"] = {k: _to_numpy(v)
-                                          for k, v in bp.shared.items()}
-        layers.append(layer)
-    out = {"blocks": tree_from_layers(layers, cfg),
-           "final_norm": _to_numpy(params.final_norm)}
-    if params.embed is not None:
-        out["embed"] = _to_numpy(params.embed)
-    if params.head is not None:
-        out["head"] = _to_numpy(params.head)
+    return named_to_numpy(dict(params.named_parameters()), cfg)
+
+
+def named_to_numpy(named: dict, cfg: ModelConfig) -> dict:
+    """Tensors keyed as ``LMParams.named_parameters()`` (weights, their
+    gradients or AdamW moments) as the JAX parameter tree, numpy."""
+    return _jax_layout(named, cfg, _to_numpy)
+
+
+def _jax_layout(named: dict, cfg: ModelConfig, leaf, stack=_np_stack) -> dict:
+    """A dict keyed as ``LMParams.named_parameters()`` (``blocks.3.mixer.wq``,
+    ``blocks.3.shared.w_up``, ``embed``, ...) as the JAX parameter tree,
+    each value through ``leaf``."""
+    layers = [{} for _ in range(cfg.n_layers)]
+    out = {}
+    for name, t in named.items():
+        parts = name.split(".")
+        if parts[0] != "blocks":
+            out[name] = leaf(t)
+            continue
+        layer = layers[int(parts[1])]
+        if len(parts) == 3:                                 # ln1, ln2
+            layer[parts[2]] = leaf(t)
+        elif parts[2] == "shared":             # under mlp, as in JAX
+            layer.setdefault("mlp", {}).setdefault("shared", {})[
+                parts[3]] = leaf(t)
+        else:
+            layer.setdefault(parts[2], {})[parts[3]] = leaf(t)
+    out["blocks"] = tree_from_layers(layers, cfg, stack)
     return out
+
+
+def _named_from_tree(tree: dict, cfg: ModelConfig, leaf) -> dict:
+    """Inverse of :func:`_jax_layout`."""
+    out = {}
+    for i, layer in enumerate(layers_from_tree(tree["blocks"], cfg)):
+        for k, v in layer.items():
+            if not isinstance(v, dict):
+                out[f"blocks.{i}.{k}"] = leaf(v)
+                continue
+            for k2, v2 in v.items():
+                if isinstance(v2, dict):                  # mlp.shared
+                    out.update({f"blocks.{i}.{k2}.{k3}": leaf(v3)
+                                for k3, v3 in v2.items()})
+                else:
+                    out[f"blocks.{i}.{k}.{k2}"] = leaf(v2)
+    out.update({k: leaf(v) for k, v in tree.items() if k != "blocks"})
+    return out
+
+
+def opt_state_to_numpy(state: AdamWState, cfg: ModelConfig) -> AdamWState:
+    """The port's AdamW state as the JAX package's (numpy leaves)."""
+    return AdamWState(np.asarray(state.step.cpu().numpy(), dtype=np.int32),
+                      named_to_numpy(state.m, cfg),
+                      named_to_numpy(state.v, cfg))
+
+
+def opt_state_from_jax(state, cfg: ModelConfig, *,
+                       device="cuda") -> AdamWState:
+    """The JAX package's AdamW state ``(step, m, v)`` (numpy leaves) as the
+    port's, its moments on ``device`` keyed as ``named_parameters()``."""
+    dev = resolve_device(device)
+    step, m, v = state
+    return AdamWState(torch.tensor(int(np.asarray(step)), dtype=torch.int32),
+                      _named_from_tree(m, cfg, lambda a: _to_torch(a, dev)),
+                      _named_from_tree(v, cfg, lambda a: _to_torch(a, dev)))
+
+
+def train_state_tree(params: LMParams, state: AdamWState,
+                     cfg: ModelConfig) -> tuple:
+    """``(params, AdamWState)`` laid out as the JAX package's tree, its
+    leaves the port's own tensors (no copy) and its period-stacked leaves
+    ``checkpoint.Stacked``: what ``save_checkpoint`` and
+    ``restore_checkpoint`` take for a training state."""
+    def lay(named):
+        return _jax_layout(named, cfg, lambda t: t, Stacked)
+    return (lay(dict(params.named_parameters())),
+            AdamWState(state.step, lay(state.m), lay(state.v)))
 
 
 def caches_from_jax(tree: dict, cfg: ModelConfig, *, device="cuda") -> list:

@@ -80,6 +80,22 @@ def build(names=KERNEL_SOURCES) -> dict[str, str]:
     return logs
 
 
+def refuse_autograd(op: str, *tensors) -> None:
+    """Raise ``RuntimeError`` when grad mode is on and a tensor input of
+    ``op`` requires grad.  A kernel's output is written through ``ctypes``
+    and has no ``grad_fn``, so a gradient through it would be lost without
+    a word; the plain version on the CPU would keep it, and a CPU test would
+    not see the fault.  The rule holds on both devices."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{op} has no backward: training attention runs "
+            f"models/attention.py::gqa_attend or models/blockwise.py::"
+            f"blockwise_gqa_attend (attn_forward(..., train=True)); call "
+            f"the kernel wrappers under torch.no_grad() or with inputs that "
+            f"do not require grad")
+
+
 class CudaKernel:
     """One kernel library (``csrc/<name>.cu``): built and loaded at its first
     launch, with a count of the launches made through :meth:`launch`."""

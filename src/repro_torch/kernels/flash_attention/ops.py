@@ -23,7 +23,7 @@ import ctypes
 
 import torch
 
-from .._build import DTYPE_CODES, CudaKernel
+from .._build import DTYPE_CODES, CudaKernel, refuse_autograd
 from .ref import flash_attention_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -68,9 +68,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     is never read.  Causal and sliding-window masks use these absolute
     positions; a query row with no visible key gives 0.  ``impl=None``
     picks by device (CPU: plain version, CUDA: kernel); ``impl="plain"``
-    forces the plain version."""
+    forces the plain version.  Raises ``RuntimeError`` under autograd
+    (``_build.refuse_autograd``): training attention does not come here."""
     if impl not in (None, "plain"):
         raise ValueError(f"impl must be None or 'plain', got {impl!r}")
+    refuse_autograd("flash_attention", q, k, v)
     T = k.shape[1]
     kv_len = T if kv_len is None else int(kv_len)
     q_offset = int(q_offset)

@@ -26,7 +26,7 @@ import ctypes
 
 import torch
 
-from .._build import DTYPE_CODES, CudaKernel
+from .._build import DTYPE_CODES, CudaKernel, refuse_autograd
 from .ref import paged_attention_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -89,9 +89,11 @@ def paged_attention(q, k_pages, v_pages, block_table, seq_lens, *,
     row ``t % page`` of page ``block_table[b, t // page]``.  The kernel
     needs ``seq_lens >= 1`` and in-range table entries (it does not read
     them back to check).  ``impl=None`` picks by device (CPU: plain
-    version, CUDA: kernel); ``impl="plain"`` forces the plain version."""
+    version, CUDA: kernel); ``impl="plain"`` forces the plain version.
+    Raises ``RuntimeError`` under autograd (``_build.refuse_autograd``)."""
     if impl not in (None, "plain"):
         raise ValueError(f"impl must be None or 'plain', got {impl!r}")
+    refuse_autograd("paged_attention", q, k_pages, v_pages)
     if impl == "plain" or q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, block_table, seq_lens,
                                    scale=scale)

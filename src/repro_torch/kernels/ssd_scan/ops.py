@@ -16,7 +16,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from .._build import DTYPE_CODES, CudaKernel
+from .._build import DTYPE_CODES, CudaKernel, refuse_autograd
 from .ref import ssd_chunk_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -37,9 +37,11 @@ def ssd_chunk(x, dt, A_log, B, C, *, impl: str | None = None):
     ``h // (H/G)``).  Returns, all f32: y_diag (b,nc,Q,H,P), chunk-end
     states (b,nc,H,N,P), in-chunk decays (b,nc,Q,H), chunk decays
     (b,nc,H).  ``impl=None`` picks by device (CPU: plain version, CUDA:
-    kernel); ``impl="plain"`` forces the plain version."""
+    kernel); ``impl="plain"`` forces the plain version.  Raises
+    ``RuntimeError`` under autograd (``_build.refuse_autograd``)."""
     if impl not in (None, "plain"):
         raise ValueError(f"impl must be None or 'plain', got {impl!r}")
+    refuse_autograd("ssd_chunk", x, dt, A_log, B, C)
     if impl == "plain" or x.device.type == "cpu":
         return ssd_chunk_ref(x, dt, A_log, B, C)
     _check(x, dt, A_log, B, C)
@@ -99,7 +101,9 @@ def ssd(x, dt, A_log, B, C, *, chunk: int = 256, h_init=None,
     Chunks are ``min(chunk, s)`` positions; the sequence is padded at its
     end to whole chunks with ``dt = 0``.  Returns (y (b,s,H,P) in x's dtype,
     final state (b,H,P,N) f32), the state after position s-1 — the JAX
-    ``ops.ssd`` returns y only."""
+    ``ops.ssd`` returns y only.  Raises ``RuntimeError`` under autograd,
+    as :func:`ssd_chunk` does."""
+    refuse_autograd("ssd", x, dt, A_log, B, C, h_init)
     b, s, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
     Q = min(chunk, s)

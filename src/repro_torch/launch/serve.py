@@ -157,14 +157,27 @@ CARD_ENGINE_CONFIGS = {"llama2-13b": card_engine_config,
 # embedding table and head are ~22.6 B, ~45.3 GB, beside a KV pool of
 # ~1.6 GB at ``card_engine_config``.
 CARD_DEPTH_CUTS = {"phi3.5-moe-42b-a6.6b": 16, "internvl2-76b": 24}
+# Layers trained on one 80 GB card (``launch/train.py --full-config``):
+# training keeps f32 weights, gradients and two AdamW moments (16 B a
+# parameter) and bf16 casts of the block weights (2 B), so a cut holds
+# about 52 GB of state, leaving room for activations under 60 GiB.
+# llama2-13b at 8 of 40 layers is 2.87 B parameters, 51.6 GB (its peak on
+# the card is in PERF.md); the others are sized by the same rule, not
+# measured: qwen3-4b 20 of 36 (2.80 B), gemma3-4b 18 of 34 (three periods,
+# 2.37 B), phi3.5-moe 2 of 32 (2.86 B), internvl2-76b 1 of 80 (2.96 B, its
+# embedding table and head are 2.1 B).  h2o-danube-1.8b (1.83 B) and
+# hubert-xlarge (0.94 B) train whole.
+TRAIN_DEPTH_CUTS = {"llama2-13b": 8, "qwen3-4b": 20, "gemma3-4b": 18,
+                    "phi3.5-moe-42b-a6.6b": 2, "internvl2-76b": 1}
 
 
-def card_config(arch: str) -> ModelConfig:
-    """The config ``arch`` serves at on one card: its published config,
-    cut to ``CARD_DEPTH_CUTS[arch]`` layers where it has a cut."""
+def card_config(arch: str, cuts: dict = CARD_DEPTH_CUTS) -> ModelConfig:
+    """The config ``arch`` runs at on one card: its published config, cut
+    to ``cuts[arch]`` layers where it has a cut (``CARD_DEPTH_CUTS`` to
+    serve, ``TRAIN_DEPTH_CUTS`` to train)."""
     cfg = get_config(arch)
-    if arch in CARD_DEPTH_CUTS:
-        cfg = cfg.scaled(n_layers=CARD_DEPTH_CUTS[arch])
+    if arch in cuts:
+        cfg = cfg.scaled(n_layers=cuts[arch])
     return cfg
 
 

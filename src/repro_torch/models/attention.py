@@ -4,7 +4,11 @@ deepseek-v2-lite).
 
 Prefill and chunked prefill go through the flash-attention kernel wrapper
 for every sequence length, decode through the paged-attention kernel
-wrapper; on CPU tensors both run their plain PyTorch versions.  Shapes: x
+wrapper; on CPU tensors both run their plain PyTorch versions.  The training
+forward (``attn_forward(..., train=True)``) never reaches a kernel wrapper:
+it runs :func:`gqa_attend` (dense, the JAX package's XLA path) up to
+``BLOCKWISE_THRESHOLD`` tokens and ``blockwise.blockwise_gqa_attend`` above,
+both in torch ops that autograd differentiates.  Shapes: x
 (B, S, d).  A GQA layer's decode cache is ``{"k", "v"}`` of (B, S_max, K,
 hd); an MLA layer's is ``{"ckv"}`` of (B, S_max, 1, r + rd), each row the
 compressed latent followed by the rotated rope key.  :func:`gqa_decode`,
@@ -41,9 +45,11 @@ import torch
 from ..configs.base import ModelConfig
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.paged_attention.ops import paged_attention
-from .common import apply_rope, dense_init, rms_norm
+from .blockwise import blockwise_gqa_attend
+from .common import apply_rope, attention_mask, dense_init, rms_norm
 
 DECODE_PAGE = 16   # tokens per page when a slot cache is viewed as a page pool
+BLOCKWISE_THRESHOLD = 2048   # training attention is blockwise above this S
 
 MLA_CACHE = "ckv"   # an MLA layer's decode cache entry: latent ‖ k_rope
 
@@ -112,16 +118,40 @@ def _qkv(params, x, cfg: ModelConfig, positions):
     return q, k, v.contiguous()
 
 
+def gqa_attend(q, k, v, mask):
+    """Dense GQA attention (the JAX package's ``gqa_attend``): q (B,S,H,hd),
+    k/v (B,T,K,hd), mask (S,T) bool.  Scores in the operands' dtype, softmax
+    in f32, probabilities cast to v's dtype.  Returns (B, S, H·hd)."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    qg = q.reshape(B, S, K, H // K, hd)
+    scores = torch.einsum("bskgh,btkh->bkgst", qg, k) * hd ** -0.5
+    scores = torch.where(mask, scores.float(),
+                         torch.finfo(torch.float32).min)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgst,btkh->bskgh", probs, v)
+    return out.reshape(B, S, H * hd)
+
+
 def gqa_forward(params, x, cfg: ModelConfig, *, window: int, positions,
                 causal: bool = True, return_kv: bool = False,
-                impl: str | None = None):
-    """Full-sequence attention (prefill).  x (B,S,d) → (B,S,d), plus the
-    layer's ``{"k", "v"}`` (B,S,K,hd) when ``return_kv``.  The flash kernel
-    serves every S, so the JAX package's blockwise branch above 2048 tokens
-    has no counterpart."""
+                impl: str | None = None, train: bool = False):
+    """Full-sequence attention.  x (B,S,d) → (B,S,d), plus the layer's
+    ``{"k", "v"}`` (B,S,K,hd) when ``return_kv``.  Prefill runs the flash
+    kernel for every S; the training forward (``train``) runs the JAX
+    package's training attention instead: :func:`gqa_attend` up to
+    ``BLOCKWISE_THRESHOLD`` tokens, ``blockwise_gqa_attend`` above."""
     B, S, _ = x.shape
     q, k, v = _qkv(params, x, cfg, positions)
-    out = flash_attention(q, k, v, causal=causal, window=window, impl=impl)
+    if not train:
+        out = flash_attention(q, k, v, causal=causal, window=window,
+                              impl=impl)
+    elif S > BLOCKWISE_THRESHOLD:
+        out = blockwise_gqa_attend(q, k, v, causal=causal, window=window)
+    else:
+        out = gqa_attend(q, k, v, attention_mask(S, S, causal=causal,
+                                                 window=window,
+                                                 device=x.device))
     y = out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ params["wo"]
     if return_kv:
         return y, {"k": k, "v": v}
@@ -419,15 +449,17 @@ def window_for(cfg: ModelConfig, kind: str) -> int:
 
 
 def attn_forward(params, x, cfg: ModelConfig, kind: str, positions,
-                 return_kv: bool = False, impl: str | None = None):
-    """Prefill attention of a layer of kind ``kind``."""
+                 return_kv: bool = False, impl: str | None = None,
+                 train: bool = False):
+    """Prefill attention of a layer of kind ``kind``, or with ``train`` its
+    training attention (GQA; ``transformer.check_trainable`` refuses MLA)."""
     if cfg.use_mla:
         return mla_forward(params, x, cfg, positions=positions,
                            causal=cfg.causal, window=window_for(cfg, kind),
                            return_kv=return_kv, impl=impl)
     return gqa_forward(params, x, cfg, window=window_for(cfg, kind),
                        positions=positions, causal=cfg.causal,
-                       return_kv=return_kv, impl=impl)
+                       return_kv=return_kv, impl=impl, train=train)
 
 
 def attn_decode(params, x, cache, cache_pos, cfg: ModelConfig, kind: str,

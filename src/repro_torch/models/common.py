@@ -2,9 +2,10 @@
 initializers, the causal depthwise conv of the recurrent mixers (SSM and
 RG-LRU) and its decode state after a prefill.
 
-Plain functions on tensors, ported from the JAX package's ``models/common.py``
-(forward only).  Initializers draw from an explicit ``torch.Generator`` that
-lives on the device the weights are made on; there is no global RNG state.
+Plain functions on tensors, ported from the JAX package's ``models/common.py``;
+:func:`rms_norm` carries the JAX package's custom VJP.  Initializers draw
+from an explicit ``torch.Generator`` that lives on the device the weights
+are made on; there is no global RNG state.
 """
 
 from __future__ import annotations
@@ -22,6 +23,11 @@ class DtypePolicy:
     params: torch.dtype = torch.float32
     compute: torch.dtype = torch.bfloat16
     accum: torch.dtype = torch.float32
+
+    @staticmethod
+    def train() -> "DtypePolicy":
+        """f32 weights and accumulation, bf16 compute."""
+        return DtypePolicy(torch.float32, torch.bfloat16, torch.float32)
 
     @staticmethod
     def serve() -> "DtypePolicy":
@@ -57,12 +63,43 @@ def embed_init(generator: torch.Generator, vocab: int, d: int, dtype,
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm with the ``1 + scale`` weight, computed in f32 and returned in
-    ``x``'s dtype."""
-    xf = x.float()
+    """RMSNorm with the ``1 + scale`` weight, computed in f32 (f64 for f64
+    inputs) and returned in ``x``'s dtype.  Differentiable through
+    :class:`RMSNorm`, the JAX package's custom VJP."""
+    return RMSNorm.apply(x, scale, eps)
+
+
+def _rms_parts(x: torch.Tensor, eps: float):
+    """(x at least in f32, 1 / rms over the last axis)."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
     var = (xf * xf).mean(dim=-1, keepdim=True)
-    inv = torch.rsqrt(var + eps)
-    return (xf * inv * (1.0 + scale.float())).to(x.dtype)
+    return xf, torch.rsqrt(var + eps)
+
+
+class RMSNorm(torch.autograd.Function):
+    """RMSNorm whose backward keeps only ``x`` in its input dtype (bf16 in
+    training) and ``scale``, and recomputes ``1 / rms`` in f32, as the JAX
+    package's ``custom_vjp`` does: the saved residual of a rematerialised
+    layer stays in bf16."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        xf, inv = _rms_parts(x, eps)
+        return (xf * inv * (1.0 + scale.to(xf.dtype))).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        xf, inv = _rms_parts(x, ctx.eps)
+        gf = g.to(xf.dtype)
+        xhat = xf * inv
+        g_scaled = gf * (1.0 + scale.to(xf.dtype))
+        dx = inv * (g_scaled - xhat * (g_scaled * xhat).mean(dim=-1,
+                                                              keepdim=True))
+        dscale = (gf * xhat).sum(dim=tuple(range(x.dim() - 1)))
+        return dx.to(x.dtype), dscale.to(scale.dtype), None
 
 
 def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
@@ -84,6 +121,20 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def attention_mask(q_len: int, kv_len: int, *, causal: bool, window: int = 0,
+                   q_offset: int = 0, device=None) -> torch.Tensor:
+    """(q_len, kv_len) bool mask of the keys each query sees; query i stands
+    at absolute position ``q_offset + i``.  window=0 is unbounded."""
+    q_pos = q_offset + torch.arange(q_len, device=device)[:, None]
+    k_pos = torch.arange(kv_len, device=device)[None]
+    m = torch.ones((q_len, kv_len), dtype=torch.bool, device=device)
+    if causal:
+        m &= k_pos <= q_pos
+    if window and window > 0:
+        m &= k_pos > q_pos - window
+    return m
 
 
 def causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

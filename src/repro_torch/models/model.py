@@ -1,4 +1,5 @@
-"""Model facade for serving: parameters, prefill, decode step, decode caches.
+"""Model facade: parameters, training loss, prefill, decode step, decode
+caches.
 
 Ported from the JAX package's ``models/model.py`` for every family it
 serves: the dense attention families (sliding-window and local/global
@@ -8,7 +9,11 @@ family, the RG-LRU hybrid family (recurrentgemma), models fed embeddings
 and encoder-only models (hubert: no embedding table, bidirectional
 attention, per-position logits and no cache from :func:`prefill`).
 ``moe_impl`` picks the MoE path (``dropping``, the JAX engine's default,
-or ``dense``).  ``train_loss`` comes with a later step of the port.
+or ``dense``).  :func:`train_loss` trains the attention families (full,
+local, global and sliding-window layers; causal or bidirectional; dense,
+GeLU or MoE MLPs; token or embedding inputs) through the training attention
+of ``models/attention.py``; SSM, RG-LRU and MLA configs raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -21,17 +26,21 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from .common import DtypePolicy, dense_init, embed_init, resolve_device, rms_norm
-from .transformer import (SEQ_CACHE_ENTRIES, check_supported, init_stack,
-                          init_stack_cache, layer_kinds, stack_chunk,
-                          stack_decode, stack_forward, uses_ring)
+from .transformer import (SEQ_CACHE_ENTRIES, check_supported,
+                          check_trainable, init_stack, init_stack_cache,
+                          layer_kinds, stack_chunk, stack_decode,
+                          stack_forward, stack_train_forward, uses_ring)
+
+AUX_LOSS_WEIGHT = 0.01
 
 
 class LMParams(nn.Module):
     """All weights of one language model: ``blocks`` (an ``nn.ModuleList``
     of per-layer blocks), ``final_norm``, ``embed`` (None for an
     encoder-only model fed embeddings, which has no table) and, when
-    embeddings are not tied or there is no table, ``head``.  Inference
-    only: the parameters do not require grad."""
+    embeddings are not tied or there is no table, ``head``.  Built frozen
+    for serving; ``requires_grad_(True)`` makes every weight trainable
+    (``training.init_train_state`` does)."""
 
     def __init__(self, blocks: nn.ModuleList, final_norm: torch.Tensor,
                  embed: torch.Tensor | None,
@@ -104,6 +113,59 @@ def _softcap(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def _positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
+
+
+def chunked_cross_entropy(hidden, w_head, labels, *, chunk: int = 512,
+                          softcap: float = 0.0) -> torch.Tensor:
+    """Mean cross-entropy over all positions, in sequence chunks of
+    ``chunk`` (halved until it divides S) so that the (B, S, V) logits never
+    exist at once.  hidden (B,S,d), w_head (d,V), labels (B,S).  Logits in
+    f32 (after the optional softcap); the label's logit by a gather, the
+    same sum as JAX's one-hot einsum."""
+    B, S, _ = hidden.shape
+    chunk = min(chunk, S)
+    while S % chunk:
+        chunk //= 2
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(0, S, chunk):
+        logits = (hidden[:, c:c + chunk].to(w_head.dtype) @ w_head).float()
+        if softcap:
+            logits = softcap * torch.tanh(logits / softcap)
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, labels[:, c:c + chunk, None].long())[..., 0]
+        total = total + (lse - ll).sum()
+    return total / (B * S)
+
+
+def train_loss(params: LMParams, batch: dict, cfg: ModelConfig, *,
+               policy: DtypePolicy = DtypePolicy.train(),
+               remat: bool = True, moe_impl: str = "dropping") -> torch.Tensor:
+    """Mean next-token cross-entropy plus ``AUX_LOSS_WEIGHT`` times the MoE
+    load-balancing loss, differentiable in every weight.  batch
+    {"tokens" or "embeddings", "labels": (B,S)}.
+
+    The casts are JAX's, inside the autograd graph: every f32 block weight
+    of two or more dims (the MoE router too) to ``policy.compute``, norm
+    scales kept f32; embedding rows taken from the f32 table (scaled by √d
+    when tied) then cast; the head cast.  ``remat`` checkpoints each period
+    of the stack (``transformer.stack_train_forward``).  Raises
+    ``NotImplementedError`` for SSM, RG-LRU and MLA configs."""
+    check_trainable(cfg)
+    x = _embed_inputs(params, batch, cfg, policy.compute)
+    B, S = x.shape[:2]
+
+    def cast(t):
+        return (t.to(policy.compute)
+                if t.dtype == torch.float32 and t.dim() >= 2 else t)
+
+    h, aux = stack_train_forward([bp.cast(cast) for bp in params.blocks], x,
+                                 cfg, _positions(B, S, x.device),
+                                 moe_impl=moe_impl, remat=remat)
+    h = rms_norm(h, params.final_norm, cfg.norm_eps)
+    w_head = _unembed(params, cfg).to(policy.compute)
+    loss = chunked_cross_entropy(h, w_head, batch["labels"],
+                                 softcap=cfg.logit_softcap)
+    return loss + AUX_LOSS_WEIGHT * aux
 
 
 @torch.no_grad()

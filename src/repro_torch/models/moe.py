@@ -69,6 +69,17 @@ def _route(x2d: torch.Tensor, router: torch.Tensor, top_k: int):
     return gates, idx, probs
 
 
+def aux_load_balance_loss(probs: torch.Tensor, idx: torch.Tensor,
+                          E: int) -> torch.Tensor:
+    """Switch-style load-balancing loss of the training step: E times the
+    sum over experts of the mean router probability and the share of
+    tokens whose top-1 choice is that expert.  probs (N, E) and idx (N, k)
+    as :func:`moe_forward` returns them, flattened over tokens."""
+    me = probs.mean(0)
+    ce = (idx[:, :1] == torch.arange(E, device=idx.device)).float().mean(0)
+    return E * (me * ce).sum()
+
+
 def _capacity(n_tokens: int, cfg: ModelConfig) -> int:
     """Slots per expert: ``n·k/E·capacity_factor`` rounded up to 8, at
     least 8."""

@@ -25,12 +25,22 @@ embeddings (internvl2) are ordinary decoder stacks.  Chunked decode
 GQA or MLA, fed tokens, and not encoder-only
 (:func:`supports_chunked_decode`), each chunk's MoE MLP by ``moe_impl`` as
 in a prefill.
+
+Training (:func:`stack_train_forward`, what ``model.train_loss`` runs) takes
+the attention kinds only: every block through the training attention, the
+MoE load-balancing losses summed, and with ``remat`` each period of
+``cfg.pattern`` under ``torch.utils.checkpoint``.  It reads
+:class:`BlockView`\\ s, the compute-dtype casts of the blocks' weights.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from functools import partial
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from .attention import (MLA_CACHE, attn_chunk_decode, attn_decode,
@@ -38,7 +48,7 @@ from .attention import (MLA_CACHE, attn_chunk_decode, attn_decode,
                         init_cache, ring_cache_from_prefill, window_for)
 from .common import rms_norm
 from .mlp import init_mlp, mlp_forward
-from .moe import init_moe, moe_forward
+from .moe import aux_load_balance_loss, init_moe, moe_forward
 from .rglru import init_rglru, init_rglru_cache, rglru_decode, rglru_forward
 from .ssm import init_ssm, init_ssm_cache, ssm_decode, ssm_forward
 
@@ -47,6 +57,9 @@ PORTED_KINDS = ATTN_KINDS + ("ssm", "rglru")
 # Decode-cache entries with a sequence axis (axis 1), which a prefill fills
 # up to its bucket's length
 SEQ_CACHE_ENTRIES = ("k", "v", MLA_CACHE)
+TRAIN_LATER = ("training of the SSM, RG-LRU and MLA families is not ported "
+               "yet (ROADMAP.md section 1): they need differentiable "
+               "ssd_chunked, rglru_forward and MLA through blockwise")
 
 
 
@@ -79,6 +92,13 @@ def check_supported(cfg: ModelConfig) -> None:
                                       f"{PORTED_KINDS})")
 
 
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a config the training forward does
+    not take yet: SSM or RG-LRU layers, or MLA attention."""
+    if cfg.use_mla or not set(layer_kinds(cfg)) <= set(ATTN_KINDS):
+        raise NotImplementedError(f"{cfg.name}: {TRAIN_LATER}")
+
+
 def _frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
@@ -97,7 +117,8 @@ class Block(nn.Module):
     (``use_moe``: its ``mlp`` has a router) whose shared experts (the
     ``"shared"`` entry of the JAX tree) sit in ``shared``.  An SSM block has
     no ``ln2`` and no MLP (``None``).
-    Inference only: the parameters do not require grad."""
+    Built frozen (serving); ``requires_grad_(True)`` on the model makes the
+    weights trainable (``training.init_train_state``)."""
 
     def __init__(self, kind: str, ln1: torch.Tensor, mixer: dict,
                  ln2: torch.Tensor | None = None, mlp: dict | None = None):
@@ -112,10 +133,36 @@ class Block(nn.Module):
         self.mlp = _frozen_dict(mlp)
         self.shared = _frozen_dict(shared)
 
-    def moe_params(self) -> dict:
-        """The MoE weights as ``models/moe.py`` takes them (the JAX
-        layout: router, experts and ``"shared"``)."""
-        return {**self.mlp, "shared": self.shared}
+    def cast(self, fn) -> "BlockView":
+        """The block's weights through ``fn`` (one tensor in, one out), as
+        plain tensors: what the training forward reads."""
+        def each(pd):
+            return None if pd is None else {k: fn(v) for k, v in pd.items()}
+        return BlockView(self.kind, self.use_moe, fn(self.ln1),
+                         each(self.mixer),
+                         None if self.ln2 is None else fn(self.ln2),
+                         each(self.mlp), each(self.shared))
+
+
+@dataclass
+class BlockView:
+    """A layer's weights as plain tensors with :class:`Block`'s fields:
+    ``train_loss``'s compute-dtype casts, made inside the autograd graph."""
+
+    kind: str
+    use_moe: bool
+    ln1: torch.Tensor
+    mixer: dict
+    ln2: torch.Tensor | None
+    mlp: dict | None
+    shared: dict | None
+
+
+def _moe_params(bp) -> dict:
+    """The MoE weights of a :class:`Block` or :class:`BlockView` as
+    ``models/moe.py`` takes them (the JAX layout: router, experts and
+    ``"shared"``)."""
+    return {**bp.mlp, "shared": bp.shared}
 
 
 def init_block(generator: torch.Generator, cfg: ModelConfig, kind: str,
@@ -134,15 +181,18 @@ def init_block(generator: torch.Generator, cfg: ModelConfig, kind: str,
     return Block(kind, zeros, mixer, zeros.clone(), mlp)
 
 
-def _mlp_residual(bp: Block, x, cfg: ModelConfig, moe_impl: str):
+def _mlp_residual(bp, x, cfg: ModelConfig, moe_impl: str):
+    """(x after the MLP's residual, the MoE router's (probs, idx) or
+    None)."""
     if bp.mlp is None:
-        return x
+        return x, None
     h2 = rms_norm(x, bp.ln2, cfg.norm_eps)
+    routed = None
     if bp.use_moe:
-        y, _ = moe_forward(bp.moe_params(), h2, cfg, impl=moe_impl)
+        y, routed = moe_forward(_moe_params(bp), h2, cfg, impl=moe_impl)
     else:
         y = mlp_forward(bp.mlp, h2)
-    return x + y.to(x.dtype)
+    return x + y.to(x.dtype), routed
 
 
 def block_forward(bp: Block, x, cfg: ModelConfig, positions, *,
@@ -173,7 +223,26 @@ def block_forward(bp: Block, x, cfg: ModelConfig, positions, *,
     else:
         mix = attn_forward(bp.mixer, h, cfg, bp.kind, positions, impl=impl)
     x = x + mix.to(x.dtype)
-    return _mlp_residual(bp, x, cfg, moe_impl), cache
+    return _mlp_residual(bp, x, cfg, moe_impl)[0], cache
+
+
+def block_train_forward(bp, x, cfg: ModelConfig, positions, *,
+                        moe_impl: str = "dropping"):
+    """Training forward of an attention block (a :class:`BlockView`): the
+    training attention (``attn_forward(..., train=True)``), no cache.
+    Returns (x, the MoE load-balancing loss, 0 for a dense MLP)."""
+    if bp.kind not in ATTN_KINDS:
+        raise NotImplementedError(f"layer kind {bp.kind}: {TRAIN_LATER}")
+    h = rms_norm(x, bp.ln1, cfg.norm_eps)
+    x = x + attn_forward(bp.mixer, h, cfg, bp.kind, positions,
+                         train=True).to(x.dtype)
+    x, routed = _mlp_residual(bp, x, cfg, moe_impl)
+    if routed is None:
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    probs, idx = routed
+    return x, aux_load_balance_loss(probs.reshape(-1, cfg.n_experts),
+                                    idx.reshape(-1, cfg.moe_top_k),
+                                    cfg.n_experts)
 
 
 def block_decode(bp: Block, x, cache: dict, cache_pos, cfg: ModelConfig, *,
@@ -193,7 +262,7 @@ def block_decode(bp: Block, x, cache: dict, cache_pos, cfg: ModelConfig, *,
         mix, cache = attn_decode(bp.mixer, h, cache, cache_pos, cfg, bp.kind,
                                  impl=impl)
     x = x + mix.to(x.dtype)
-    return _mlp_residual(bp, x, cfg, moe_impl), cache
+    return _mlp_residual(bp, x, cfg, moe_impl)[0], cache
 
 
 def supports_chunked_decode(cfg: ModelConfig) -> bool:
@@ -223,7 +292,7 @@ def block_chunk(bp: Block, x, cache: dict, pos0, cfg: ModelConfig, *,
     mix, cache = attn_chunk_decode(bp.mixer, h, cache, pos0, cfg, bp.kind,
                                    impl=impl)
     x = x + mix.to(x.dtype)
-    return _mlp_residual(bp, x, cfg, moe_impl), cache
+    return _mlp_residual(bp, x, cfg, moe_impl)[0], cache
 
 
 def init_stack(generator: torch.Generator, cfg: ModelConfig, dtype,
@@ -295,3 +364,40 @@ def stack_chunk(blocks: nn.ModuleList, x, caches: list, pos0,
         x, _ = block_chunk(bp, x, cache, pos0, cfg, impl=impl,
                            moe_impl=moe_impl)
     return x, caches
+
+
+def _train_period(blocks: list, x, cfg: ModelConfig, positions,
+                  moe_impl: str):
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for bp in blocks:
+        x, a = block_train_forward(bp, x, cfg, positions, moe_impl=moe_impl)
+        aux = aux + a
+    return x, aux
+
+
+def stack_train_forward(blocks: list, x, cfg: ModelConfig, positions, *,
+                        moe_impl: str = "dropping", remat: bool = False):
+    """Training forward through :class:`BlockView`\\ s in layer order.
+    Returns (x, the summed MoE load-balancing loss).  With ``remat`` each
+    period (``len(cfg.pattern)`` consecutive blocks after the head blocks)
+    runs under ``torch.utils.checkpoint`` (non-reentrant): the backward
+    keeps one carry a period and recomputes the period's activations, as
+    the JAX stack checkpoints its period function; head and tail blocks
+    run as they are, as in JAX."""
+    head, n_periods, _ = stack_layout(cfg)
+    period = len(cfg.pattern)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for bp in blocks[:head]:
+        x, aux = block_train_forward(bp, x, cfg, positions, moe_impl=moe_impl)
+        aux_total = aux_total + aux
+    for p in range(n_periods):
+        fn = partial(_train_period,
+                     blocks[head + p * period:head + (p + 1) * period],
+                     cfg=cfg, positions=positions, moe_impl=moe_impl)
+        x, aux = (checkpoint(fn, x, use_reentrant=False) if remat
+                  else fn(x))
+        aux_total = aux_total + aux
+    for bp in blocks[head + n_periods * period:]:
+        x, aux = block_train_forward(bp, x, cfg, positions, moe_impl=moe_impl)
+        aux_total = aux_total + aux
+    return x, aux_total

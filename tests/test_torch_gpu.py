@@ -1628,3 +1628,61 @@ def test_internvl2_smoke_engine_on_card_matches_cpu_run(cuda):
             assert paged_ops.KERNEL.launches > paged0
         outs[str(dev)] = eng.output_tokens
     assert outs["cpu"] == outs["cuda"]
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "paged_attention",
+                                  "ssd_chunk"])
+def test_wrappers_refuse_autograd_on_card(cuda, name):
+    """A kernel's output has no grad_fn: each wrapper refuses an input that
+    requires grad under grad mode instead of losing its gradient."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+
+    def r(*shape, grad=False):
+        return torch.randn(shape, generator=g, device=cuda,
+                           requires_grad=grad)
+
+    table = torch.arange(2, dtype=torch.int32, device=cuda)[None]
+    lens = torch.tensor([20], dtype=torch.int32, device=cuda)
+    call = {"flash_attention": lambda: flash_ops.flash_attention(
+                r(1, 64, 2, 64, grad=True), r(1, 64, 2, 64), r(1, 64, 2, 64)),
+            "paged_attention": lambda: paged_ops.paged_attention(
+                r(1, 2, 64, grad=True), r(2, 16, 2, 64), r(2, 16, 2, 64),
+                table, lens),
+            "ssd_chunk": lambda: ssd_ops.ssd_chunk(
+                r(1, 1, 64, 2, 64, grad=True), r(1, 1, 64, 2).abs(), r(2),
+                r(1, 1, 64, 1, 64), r(1, 1, 64, 1, 64))}[name]
+    with pytest.raises(RuntimeError, match="training attention"):
+        call()
+
+
+def test_train_steps_on_card_match_cpu(cuda):
+    """Two AdamW steps of llama2-13b's smoke config in f32 on the card
+    (cuBLAS and CUDA autograd; no kernel of the repository) give the CPU's
+    losses and gradient norms from the same weights and batches."""
+    import copy
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.training import (AdamWConfig, DataConfig, TokenDataset,
+                                      adamw_init, batch_to, init_train_state,
+                                      make_train_step)
+    cfg = get_smoke_config("llama2-13b")
+    pol = DtypePolicy(torch.float32, torch.float32, torch.float32)
+    cpu_p, cpu_st = init_train_state(cfg, torch.Generator().manual_seed(0),
+                                     device="cpu")
+    card_p = copy.deepcopy(cpu_p).to(cuda)
+    card_st = adamw_init(card_p)
+    it = TokenDataset(cfg, DataConfig(global_batch=2, seq_len=64)).batches()
+    batches = [next(it) for _ in range(2)]
+    launches = (flash_ops.KERNEL.launches, paged_ops.KERNEL.launches)
+    metrics = {}
+    for dev, p, st in (("cpu", cpu_p, cpu_st), ("cuda", card_p, card_st)):
+        step = make_train_step(cfg, AdamWConfig(lr_peak=1e-3, warmup_steps=1,
+                                                total_steps=2), policy=pol)
+        metrics[dev] = []
+        for b in batches:
+            p, st, m = step(p, st, batch_to(b, dev))
+            metrics[dev].append((float(m["loss"]), float(m["grad_norm"])))
+    assert (flash_ops.KERNEL.launches, paged_ops.KERNEL.launches) == launches
+    for (lc, nc), (lg, ng) in zip(metrics["cpu"], metrics["cuda"]):
+        assert abs(lg - lc) <= 1e-5 * abs(lc)
+        assert abs(ng - nc) <= 1e-5 * nc

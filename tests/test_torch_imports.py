@@ -37,7 +37,8 @@ def test_port_files_found():
 
 
 def test_serving_import_loads_no_jax():
-    code = ("import sys, repro_torch.serving.api, repro_torch.bridge; "
+    code = ("import sys, repro_torch.serving.api, repro_torch.bridge, "
+            "repro_torch.launch.train; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; "
             "print(bad); sys.exit(1 if bad else 0)")

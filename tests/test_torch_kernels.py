@@ -758,3 +758,52 @@ def test_profiler_classes_count_every_kernel_of_a_source(name, cls):
     """The serve breakdown puts every kernel of the port's sources, the
     merge pass included, under its class and never under "other"."""
     assert _kernel_class(name) == cls
+
+
+def _wrapper_calls(device="cpu"):
+    """Each kernel wrapper called on small inputs, the first tensor of each
+    built by ``make`` (so a test can make it require grad)."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+    g = torch.Generator(device=device).manual_seed(0)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device=device)
+
+    def flash(make):
+        return flash_ops.flash_attention(make(r(1, 8, 2, 64)), r(1, 8, 2, 64),
+                                         r(1, 8, 2, 64))
+
+    def paged(make):
+        table = torch.arange(2, dtype=torch.int32, device=device)[None]
+        lens = torch.tensor([20], dtype=torch.int32, device=device)
+        return paged_ops.paged_attention(make(r(1, 2, 64)), r(2, 16, 2, 64),
+                                         r(2, 16, 2, 64), table, lens)
+
+    def ssd_chunk(make):
+        return ssd_ops.ssd_chunk(make(r(1, 1, 8, 2, 16)),
+                                 r(1, 1, 8, 2).abs(), r(2),
+                                 r(1, 1, 8, 1, 8), r(1, 1, 8, 1, 8))
+
+    def ssd(make):
+        return ssd_ops.ssd(make(r(1, 8, 2, 16)), r(1, 8, 2).abs(), r(2),
+                           r(1, 8, 1, 8), r(1, 8, 1, 8), chunk=4)
+
+    return {"flash_attention": flash, "paged_attention": paged,
+            "ssd_chunk": ssd_chunk, "ssd": ssd}
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "paged_attention",
+                                  "ssd_chunk", "ssd"])
+def test_wrappers_refuse_autograd_on_cpu(name):
+    """A kernel's output on the card has no grad_fn, so every wrapper
+    refuses an input that requires grad under grad mode, on the CPU too
+    (where its plain version would have kept the gradient): a training
+    path that reached a wrapper fails here and not silently on the card.
+    Under no_grad, or with inputs that need no grad, it runs."""
+    call = _wrapper_calls()[name]
+    with pytest.raises(RuntimeError, match="training attention"):
+        call(lambda t: t.requires_grad_(True))
+    with torch.no_grad():
+        call(lambda t: t.requires_grad_(True))
+    call(lambda t: t)
