@@ -19,7 +19,7 @@ Phases, in order; any failure raises and exits non-zero:
    element against ``flash_attention_tiled_ref`` rounding as each kernel
    does (bf16: P in bf16; f32: three TF32 products of split operands, with
    the 3xTF32 bound printed beside the CUDA-core f32 one), MLA paged
-   attention and bf16 grouped paged attention (G >= 2) against
+   attention and grouped paged attention (G >= 2) against
    ``paged_attention_tiled_ref`` (bf16: P in bf16; f32: three TF32 products
    of split operands, its bytes, 3xTF32 and CUDA-core bounds printed) and
    the SSD main case against
@@ -44,9 +44,9 @@ Phases, in order; any failure raises and exits non-zero:
    and global; paged hd 256, G = 2, over 8 slots of 2048 and over 8
    wrapped rings of 1024, a local layer's ring as pages), at
    recurrentgemma-9b's (flash (256, 256), B=2, S=2048, H=16, K=1, window
-   2048; paged hd 256 at G = 16, bf16 in one M tile, f32 as the G = 8
-   kernel on two head tiles, over 8 slots of 2048 and over 8 full rings of
-   2048; a NaN in one query head stays in that head), at phi3.5-moe's
+   2048; paged hd 256 at G = 16 in one M tile, over 8 slots of 2048 and
+   over 8 full rings of 2048; a NaN in one query head stays in that
+   head), at phi3.5-moe's
    (flash at H=32, K=8, hd 128 in f32 beside the bf16 GQA case; paged hd
    128, G = 4, bf16 and f32, over 8 slots of 2048 at random lengths and
    with one long slot among short ones), at hubert-xlarge's (flash (80,
@@ -54,9 +54,10 @@ Phases, in order; any failure raises and exits non-zero:
    SDPA without a mask; S=1000 and S=1 for error only) and at
    internvl2-76b's (flash (128, 128) causal at B=2, S=1024, H=64, K=8;
    paged hd 128, G = 8, over 8 slots of 2048 at random lengths and with
-   one long slot among short ones; bf16 and f32); the bf16 grouped paged
-   cases (``GQA_CASES``, on ``paged_gqa_mma_kernel``) also at each
-   partition size of ``GQA_PARTITIONS_TRIED``; and, for an MLA
+   one long slot among short ones; bf16 and f32); the grouped paged
+   cases (``GQA_CASES``, bf16 on ``paged_gqa_mma_kernel``, f32 on
+   ``paged_gqa_tf32x3_kernel``) also at each partition size of
+   ``GQA_PARTITIONS_TRIED``; and, for an MLA
    chunk in MHA form, the time of the decompression of the latent rows
    beside the flash call it feeds;
 3. parity: llama2-13b and mamba2-370m at full width and 2 layers, in f32 —
@@ -207,7 +208,8 @@ LONG_AMONG_SHORT = [2000, 17, 99, 1, 64, 33, 80, 5]
 # (PERF.md section 6).
 MLA_PARTITIONS_TRIED = (64, 128)
 # The grouped paged decode cases of the kernel phase, each run in bf16
-# (``paged_gqa_mma_kernel``) and f32 (``paged_split_kernel``), by row name:
+# (``paged_gqa_mma_kernel``) and f32 (``paged_gqa_tf32x3_kernel``; see
+# ``grouped_kernel``), by row name:
 # query heads, KV heads, head dim, rows of a slot (or of a ring, whose
 # seq_lens are all full), lengths (None: random) and seed; B = 8, pages of
 # 16.  h2o-danube-1.8b, gemma3-4b (global slots and local rings),
@@ -225,9 +227,9 @@ GQA_CASES = {
     "paged_attention_internvl2_long": (64, 8, 128, 2048, LONG_AMONG_SHORT,
                                        171),
 }
-# Tokens a partition of ``paged_gqa_mma_kernel``: the bf16 cases below are
-# timed at each size, and ops.py's GQA_PARTITION is the fastest summed over
-# them (PERF.md section 6).
+# Tokens a partition of the grouped kernels: the bf16 cases below and every
+# f32 case of ``GQA_CASES`` are timed at each size, and ops.py's
+# GQA_PARTITION is the fastest summed over each type's (PERF.md section 6).
 GQA_PARTITIONS_TRIED = (64, 128, 256)
 GQA_PARTITION_CASES = ("paged_attention_rg", "paged_attention_rg_ring",
                        "paged_attention_danube", "paged_attention_gemma3",
@@ -250,10 +252,12 @@ PROFILER_SESSIONS = 6
 # the query offset, which read 0.769-0.780); the CUDA-core f32 SSD kernel's
 # by the graph timer (the tree that redesigned f32 flash); bf16 flash at
 # gemma3's (256, 256) with 64-key tiles (one block an SM) by both timers of
-# the first timed call of the tree that added it; the bf16 grouped paged
-# cases on the CUDA-core split kernel (G = 16 as two head tiles of 8) by the
-# graph timer of the tree that added each (h2o-danube-1.8b and gemma3-4b;
-# recurrentgemma-9b and phi3.5-moe).  Printed on a line of their own,
+# the first timed call of the tree that added it; the grouped paged cases
+# on the CUDA-core split kernel (G = 16 as two head tiles of 8) by the graph
+# timer, bf16 of the tree that added each (h2o-danube-1.8b and gemma3-4b;
+# recurrentgemma-9b and phi3.5-moe), f32 the lowest PERF.md records (the
+# trees that added each; internvl2-76b's and qwen3-4b's).  Printed on a
+# line of their own,
 # labelled as recorded, each beside this run's time by the same timer, never
 # in the kernels line.
 RECORDED_EARLIER_MS = {"flash_attention": {"eager": 1.0194},
@@ -276,7 +280,17 @@ RECORDED_EARLIER_MS = {"flash_attention": {"eager": 1.0194},
                        "paged_attention_gemma3": {"graph": 0.0285},
                        "paged_attention_gemma3_ring": {"graph": 0.0239},
                        "paged_attention_phi35": {"graph": 0.0232},
-                       "paged_attention_phi35_long": {"graph": 0.0253}}
+                       "paged_attention_phi35_long": {"graph": 0.0253},
+                       "paged_attention_danube_f32": {"graph": 0.0368},
+                       "paged_attention_gemma3_f32": {"graph": 0.0288},
+                       "paged_attention_gemma3_ring_f32": {"graph": 0.0363},
+                       "paged_attention_rg_f32": {"graph": 0.0474},
+                       "paged_attention_rg_ring_f32": {"graph": 0.0507},
+                       "paged_attention_phi35_f32": {"graph": 0.0385},
+                       "paged_attention_phi35_long_f32": {"graph": 0.0365},
+                       "paged_attention_internvl2_f32": {"graph": 0.0905},
+                       "paged_attention_internvl2_long_f32": {
+                           "graph": 0.0490}}
 
 
 def check(cond: bool, what: str) -> None:
@@ -569,11 +583,11 @@ def paged_case(pa, B, H, K, hd, page, s_max, dtype, seed, shuffle,
     """One paged-attention comparison over a slot cache viewed as pages,
     at ``lens`` or at random lengths; with ``hd_v`` (MLA) the values are
     the view of the key rows' first hd_v columns.  The tensor-core kernels
-    (MLA; bf16 with G >= 2) are also held per element against
+    (MLA; G >= 2) are also held per element against
     ``paged_attention_tiled_ref`` rounding as each does (bf16: P in bf16;
     f32: three TF32 products), over their own partitions.  Returns (err,
     worst |d| / (atol + rtol·|ref|) against the tiled plain version (MLA
-    and grouped bf16; else None), kernel_ms, eager kernel_ms, plain_ms,
+    and grouped; else None), kernel_ms, eager kernel_ms, plain_ms,
     library_ms, seq_lens, the kernel call)."""
     import torch
     import torch.nn.functional as F
@@ -612,7 +626,7 @@ def paged_case(pa, B, H, K, hd, page, s_max, dtype, seed, shuffle,
                       f"err {err:.3g} <= {tol}")
     tiled = None
     bf16 = dtype == torch.bfloat16
-    if hd_v is not None or (bf16 and H > K):
+    if hd_v is not None or H > K:
         atol, rtol = (TILED_ATOL, TILED_RTOL) if bf16 else (TF32X3_ATOL,
                                                              TF32X3_RTOL)
         ref_t = paged_attention_tiled_ref(
@@ -671,11 +685,24 @@ def paged_terms(B, H, K, hd, elem, lens, hd_v=None) -> tuple:
     return nbytes / HBM_BYTES_PER_S * 1e3, flops
 
 
+def grouped_kernel(hd: int, group: int, dtype) -> str:
+    """The split kernel ``paged_attention`` runs at head dim ``hd`` with
+    ``group`` query heads a KV head, as ``launch_group`` in
+    csrc/paged_attention.cu routes it."""
+    import torch
+    if group == 1:
+        return "paged_split_kernel"
+    if dtype == torch.bfloat16:
+        return "paged_gqa_mma_kernel"
+    return "paged_gqa_tf32x3_kernel"
+
+
 def gqa_case(pa, name: str, dtype) -> tuple:
     """One grouped paged case of ``GQA_CASES`` in ``dtype``, against its
-    plain versions (``paged_case``), printed with its bound, SDPA and, for
-    bf16, the worst ratio against the tiled plain version.  Returns its
-    row and the kernel call."""
+    plain versions (``paged_case``), printed with its bound (f32: the
+    bytes, 3xTF32 and CUDA-core terms beside it and the split kernel's
+    recorded time), SDPA and the worst ratio against the tiled plain
+    version.  Returns its row and the kernel call."""
     import torch
     H, K, hd, s_max, lens, seed = GQA_CASES[name]
     B, page = 8, 16
@@ -686,52 +713,72 @@ def gqa_case(pa, name: str, dtype) -> tuple:
     partition = pa.partition_for(hd, hd, H // K, dtype)
     n_split = -(-s_max // partition)
     bms, by = paged_bound(B, H, K, hd, 2 if bf16 else 4, lens_,
-                          peak=BF16_PEAK_FLOPS if bf16 else F32_PEAK_FLOPS)
-    kernel = ("paged_gqa_mma_kernel, one M tile of 16 rows" if bf16 else
-              "paged_split_kernel" + (", two head tiles of 8"
-                                      if H // K == 16 else ""))
-    vs_tiled = (f" worst |d| / ({TILED_ATOL} + {TILED_RTOL}·|tiled|) "
-                f"{tiled:.3g}" if tiled is not None else "")
+                          peak=BF16_PEAK_FLOPS if bf16 else TF32X3_PEAK_FLOPS)
+    kernel = grouped_kernel(hd, H // K, dtype)
+    atol, rtol = (TILED_ATOL, TILED_RTOL) if bf16 else (TF32X3_ATOL,
+                                                        TF32X3_RTOL)
+    bound = f"bound {bms:.4f} ms ({by})"
+    row = dict(max_abs_err=err, worst_vs_tiled=tiled, partition=partition,
+               kernel=kernel, ms=kms, eager_ms=ems, plain_ms=pms,
+               library_ms=lms, bound_ms=bms, bound_by=by)
+    if not bf16:
+        t_bytes, flops = paged_terms(B, H, K, hd, 4, lens_)
+        row.update(bound_bytes_ms=t_bytes,
+                   bound_tf32x3_ms=flops / TF32X3_PEAK_FLOPS * 1e3,
+                   bound_cuda_core_ms=flops / F32_PEAK_FLOPS * 1e3)
+        earlier = RECORDED_EARLIER_MS[name + "_f32"]["graph"]
+        bound = (f"bound {bms:.4f} ms ({by}; bytes {t_bytes:.4f}, 3xTF32 "
+                 f"{row['bound_tf32x3_ms']:.4f}, CUDA-core "
+                 f"{row['bound_cuda_core_ms']:.4f}); paged_split_kernel "
+                 f"recorded {earlier:.4f} ms (PERF.md, graph timer)")
     ring = s_max == lens_.min() == lens_.max()
     print(f"[kernels] paged {name[16:]} B{B} H{H} K{K} hd{hd} (G = "
-          f"{H // K}: {kernel}) page{page} {'rings' if ring else 'slots'} of "
-          f"{s_max} {str(dtype)[6:]} lens={lens_.tolist()} tokens="
-          f"{int(lens_.sum())} ({n_split} partitions of {partition} tokens): "
-          f"max_abs_err {err:.3g}{vs_tiled} kernel {kms:.4f} ms (eager timer "
-          f"{ems:.4f} ms) plain {pms:.4f} ms sdpa {lms:.4f} ms bound "
-          f"{bms:.4f} ms ({by}); kernel / sdpa {kms / lms:.2f} (graph timer "
-          f"both)")
-    row = dict(max_abs_err=err, ms=kms, eager_ms=ems, plain_ms=pms,
-               library_ms=lms, bound_ms=bms, bound_by=by,
-               case=f"B={B} {'rings' if ring else 'slots'} of {s_max}, "
-                    f"lens={lens_.tolist()}, H={H}, K={K}, hd={hd}, page "
-                    f"{page}, {str(dtype)[6:]}")
-    if tiled is not None:
-        row.update(worst_vs_tiled=tiled, partition=partition)
+          f"{H // K}: {kernel}, one M tile of 16 rows) page{page} "
+          f"{'rings' if ring else 'slots'} of {s_max} {str(dtype)[6:]} "
+          f"lens={lens_.tolist()} tokens={int(lens_.sum())} ({n_split} "
+          f"partitions of {partition} tokens): max_abs_err {err:.3g} worst "
+          f"|d| / ({atol} + {rtol}·|tiled|) {tiled:.3g} kernel {kms:.4f} ms "
+          f"(eager timer {ems:.4f} ms) plain {pms:.4f} ms sdpa {lms:.4f} ms "
+          f"{bound}; kernel / sdpa {kms / lms:.2f} (graph timer both)")
+    row["case"] = (f"B={B} {'rings' if ring else 'slots'} of {s_max}, "
+                   f"lens={lens_.tolist()}, H={H}, K={K}, hd={hd}, page "
+                   f"{page}, {str(dtype)[6:]}")
     return row, call
 
 
 def phase_gqa_partitions(pa, rows: dict) -> None:
-    """The bf16 grouped cases of ``GQA_PARTITION_CASES``, checked and timed
-    again at each other partition size of ``GQA_PARTITIONS_TRIED`` (then
-    the size restored); each row gains its ms by partition."""
+    """The bf16 grouped cases of ``GQA_PARTITION_CASES`` and every f32 case
+    of ``GQA_CASES``, checked and timed again at each other partition size
+    of ``GQA_PARTITIONS_TRIED`` (then the size restored); each row gains
+    its ms by partition, and each type's sums over its cases are
+    printed."""
     import torch
     chosen = pa.GQA_PARTITION
-    for name in GQA_PARTITION_CASES:
-        by_partition = {}
-        for partition in GQA_PARTITIONS_TRIED:
-            if partition == chosen:
-                by_partition[partition] = rows[name]["ms"]
-                continue
-            pa.GQA_PARTITION = partition
-            try:
-                row, _ = gqa_case(pa, name, torch.bfloat16)
-            finally:
-                pa.GQA_PARTITION = chosen
-            by_partition[partition] = row["ms"]
-        print(f"[kernels] paged GQA bf16 {name[16:]} ms by partition (graph "
-              f"timer) {by_partition}; GQA_PARTITION is {chosen}")
-        rows[name]["ms_by_partition"] = by_partition
+    for dtype, names, sfx in ((torch.bfloat16, GQA_PARTITION_CASES, ""),
+                              (torch.float32, tuple(GQA_CASES), "_f32")):
+        sums = dict.fromkeys(GQA_PARTITIONS_TRIED, 0.0)
+        for name in names:
+            by_partition = {}
+            for partition in GQA_PARTITIONS_TRIED:
+                if partition == chosen:
+                    by_partition[partition] = rows[name + sfx]["ms"]
+                    continue
+                pa.GQA_PARTITION = partition
+                try:
+                    row, _ = gqa_case(pa, name, dtype)
+                finally:
+                    pa.GQA_PARTITION = chosen
+                by_partition[partition] = row["ms"]
+            for partition, ms in by_partition.items():
+                sums[partition] += ms
+            print(f"[kernels] paged GQA {str(dtype)[6:]} {name[16:]} ms by "
+                  f"partition (graph timer) {by_partition}; GQA_PARTITION "
+                  f"is {chosen}")
+            rows[name + sfx]["ms_by_partition"] = by_partition
+        print(f"[kernels] paged GQA {str(dtype)[6:]} ms summed over its "
+              f"{len(names)} cases by partition (graph timer) "
+              + json.dumps({p: round(ms, 4) for p, ms in sums.items()})
+              + f"; GQA_PARTITION is {chosen}")
 
 
 def ssd_inputs(b, S, H, P, G, N, dtype, seed):
@@ -1202,12 +1249,12 @@ def phase_kernels_recurrentgemma(fa, pa, rows: dict, calls: dict) -> None:
     """Both attention kernels at recurrentgemma-9b's widths (MQA: 16 query
     heads on 1 KV head, hd 256), against their plain versions, each in bf16
     and f32: flash (256, 256) at B=2, S=2048, window 2048 (its local layers'
-    prefill), and paged decode at G = 16 (bf16: one M tile of 16 rows; f32:
-    the G = 8 kernel on two head tiles) over 8 slots of 2048 tokens with one
-    2000-token slot among short ones, and over 8 full rings of 2048
-    (``seq_lens`` 2048: a local layer's ring as pages); then a NaN in one
-    query head (of either f32 head tile) must stay in that head.  Adds the
-    rows and calls under ``*_rg`` and ``paged_attention_rg_ring``."""
+    prefill), and paged decode at G = 16 (one M tile of 16 rows in either
+    type) over 8 slots of 2048 tokens with one 2000-token slot among short
+    ones, and over 8 full rings of 2048 (``seq_lens`` 2048: a local layer's
+    ring as pages); then a NaN in one query head (of either half of the M
+    tile) must stay in that head.  Adds the rows and calls under ``*_rg``
+    and ``paged_attention_rg_ring``."""
     import torch
     hd = 256
     for dt, sfx in ((torch.bfloat16, ""), (torch.float32, "_f32")):
@@ -1226,7 +1273,7 @@ def phase_kernels_recurrentgemma(fa, pa, rows: dict, calls: dict) -> None:
     for dt in (torch.bfloat16, torch.float32):
         kp, vp = (torch.randn((3 * 128, page, 1, hd), generator=g,
                               device="cuda").to(dt) for _ in range(2))
-        for head in (3, 12):                  # one of each f32 head tile
+        for head in (3, 12):                  # rows grp and grp + 8 of the M tile
             q = torch.randn((3, 16, hd), generator=g, device="cuda").to(dt)
             q[1, head, 7] = float("nan")
             out = pa.paged_attention(q, kp, vp, table, lens)
@@ -1236,8 +1283,8 @@ def phase_kernels_recurrentgemma(fa, pa, rows: dict, calls: dict) -> None:
                   and not bool(out[~want].isnan().any()),
                   f"paged G = 16 {dt}: a NaN in query head {head} stays in "
                   f"that head")
-    print("[kernels] paged G = 16 bf16 (one M tile) and f32 (two head "
-          "tiles): a NaN in query head 3 or 12 reaches that head alone")
+    print("[kernels] paged G = 16 bf16 and f32 (one M tile each): a NaN in "
+          "query head 3 or 12 reaches that head alone")
 
 
 def phase_kernels_encoder(fa, rows: dict, calls: dict) -> None:
@@ -1267,8 +1314,8 @@ def phase_kernels_internvl2(fa, pa, rows: dict, calls: dict) -> None:
     bf16 and f32: flash causal at B=2, S=1024 (its prefill), and paged
     decode over 8 slots of 2048 tokens at random lengths (llama2's 9,198
     tokens) and with one long slot among short ones (bf16 on
-    ``paged_gqa_mma_kernel``, held per element against the tiled plain
-    version; f32 on ``paged_split_kernel``).  Adds the rows and calls
+    ``paged_gqa_mma_kernel``, f32 on ``paged_gqa_tf32x3_kernel``, each held
+    per element against the tiled plain version).  Adds the rows and calls
     under ``*_internvl2`` and ``paged_attention_internvl2_long``."""
     import torch
     for dt, sfx in ((torch.bfloat16, ""), (torch.float32, "_f32")):
@@ -1371,11 +1418,13 @@ def phase_variants(calls: dict) -> dict:
     """Which device kernels each kernel's main case ran, read from the
     profiler: bf16 flash must run the bf16 tensor-core kernel alone and f32
     flash the 3xTF32 one alone (main, offset and MLA cases), paged
-    attention its split and merge kernels (for bf16 groups of 2 or more the
-    grouped tensor-core split kernel, for bf16 MLA the MLA tensor-core one,
-    for f32 MLA the 3xTF32 one; llama2's bf16 G = 1 and every other f32
-    case the CUDA-core split kernel), bf16 SSD its two tensor-core kernels
-    and f32 SSD its two 3xTF32 ones, and nothing else."""
+    attention its split and merge kernels (for groups of 2 or more the
+    grouped tensor-core split kernel, bf16 or 3xTF32, ``grouped_kernel``;
+    for bf16 MLA the MLA tensor-core one, for f32 MLA the 3xTF32 one;
+    llama2's bf16 G = 1 the CUDA-core split kernel), bf16 SSD its two
+    tensor-core kernels and f32 SSD its two 3xTF32 ones, and nothing
+    else."""
+    import torch
     want = {"flash_attention": ("flash_fwd_mma_kernel",),
             "flash_attention_offset": ("flash_fwd_mma_kernel",),
             "flash_attention_mla": ("flash_fwd_mma_kernel",),
@@ -1399,12 +1448,10 @@ def phase_variants(calls: dict) -> dict:
                for case in ("danube", "gemma3_local", "gemma3_global")
                for sfx, kern in (("", "flash_fwd_mma_kernel"),
                                  ("_f32", "flash_fwd_tf32x3_kernel"))},
-            **{f"paged_attention_{case}{sfx}": (kern, "paged_merge_kernel")
-               for case in ("danube", "gemma3", "gemma3_ring", "rg",
-                            "rg_ring", "phi35", "phi35_long", "internvl2",
-                            "internvl2_long")
-               for sfx, kern in (("", "paged_gqa_mma_kernel"),
-                                 ("_f32", "paged_split_kernel"))},
+            **{f"{case}{sfx}": (grouped_kernel(hd, H // K, dt),
+                                "paged_merge_kernel")
+               for case, (H, K, hd, *_) in GQA_CASES.items()
+               for sfx, dt in (("", torch.bfloat16), ("_f32", torch.float32))},
             "flash_attention_rg": ("flash_fwd_mma_kernel",),
             "flash_attention_rg_f32": ("flash_fwd_tf32x3_kernel",),
             **{f"flash_attention_{case}{sfx}": (kern,)
@@ -1955,7 +2002,7 @@ def phase_parity_danube(ops: dict) -> dict:
           f"{s_max} (rings of {ring}), 4090-token prompt, {steps} greedy "
           f"steps across the window: tokens kernels {ktok.tolist()} plain "
           f"{ptok.tolist()}; max logit diff {err:.3g} ({rel:.3g} of scale); "
-          f"launches {launches}")
+          f"launches {launches} (paged: {paged_kernel_of(cfg)})")
     check(torch.equal(ktok, ptok), "h2o-danube kernel and plain greedy "
                                    "tokens equal")
     check(rel <= 1e-3, f"h2o-danube logits within 1e-3 of scale "
@@ -2013,7 +2060,8 @@ def phase_parity_gemma3(ops: dict) -> dict:
           f"{ptok.tolist()} each alone at its exact length "
           f"{[a.tolist() for a in alone]}; max logit diff {err:.3g} "
           f"({rel:.3g} of scale), batch row against the prompt alone "
-          f"{rel_alone:.3g} of scale; launches {launches}")
+          f"{rel_alone:.3g} of scale; launches {launches} (paged: "
+          f"{paged_kernel_of(cfg)})")
     check(torch.equal(ktok, ptok), "gemma3 kernel and plain greedy tokens "
                                    "equal")
     check(rel <= 1e-3, f"gemma3 logits within 1e-3 of scale (got {rel:.3g})")
@@ -2075,7 +2123,8 @@ def phase_parity_recurrentgemma(ops: dict) -> dict:
           f"across the window: tokens kernels {ktok.tolist()} plain "
           f"{ptok.tolist()} each alone {[a.tolist() for a in alone]}; max "
           f"logit diff {err:.3g} ({rel:.3g} of scale), batch row against the "
-          f"prompt alone {rel_alone:.3g} of scale; launches {launches}")
+          f"prompt alone {rel_alone:.3g} of scale; launches {launches} "
+          f"(paged: {paged_kernel_of(cfg)})")
     check(torch.equal(ktok, ptok), "recurrentgemma kernel and plain greedy "
                                    "tokens equal")
     check(rel <= 1e-4, f"recurrentgemma logits within 1e-4 of scale (got "
@@ -2123,7 +2172,8 @@ def phase_parity_decoder(arch: str, ops: dict, seed: int, steps: int,
           f"layers, f32{note}, prompts of 900 and 61 tokens in one batch of "
           f"{bucket or 900}, {steps} greedy steps: tokens kernels "
           f"{ktok.tolist()} plain {ptok.tolist()}; max logit diff {err:.3g} "
-          f"({rel:.3g} of scale); launches {launches}")
+          f"({rel:.3g} of scale); launches {launches} (paged: "
+          f"{paged_kernel_of(cfg)})")
     check(torch.equal(ktok, ptok), f"{arch} kernel and plain greedy tokens "
                                    f"equal")
     check(rel <= 1e-4, f"{arch} logits within 1e-4 of scale (got "
@@ -2225,6 +2275,14 @@ def ring_launches(ops: dict) -> dict:
     fa = ops["flash_attention"].KERNEL
     return {"flash": fa.launches, "flash_window": fa.window_launches,
             "paged": ops["paged_attention"].KERNEL.launches}
+
+
+def paged_kernel_of(cfg) -> str:
+    """The paged split kernel an f32 decode of ``cfg`` runs, by its head
+    dim and group (``grouped_kernel``), for the parities' launch lines."""
+    import torch
+    return grouped_kernel(cfg.head_dim, cfg.n_heads // cfg.n_kv_heads,
+                          torch.float32)
 
 
 def reset_counts(ops: dict) -> None:

@@ -26,10 +26,11 @@
 // used for 2 * G * hd FLOPs per 4 * hd bytes (bf16), far below the H100's
 // ~295 FLOP/byte ridge, so the floor is the KV bytes over 3.35 TB/s.  To
 // reach it the card needs thousands of loads in flight at once, whatever
-// the batch's lengths.  Two kernels, chosen by type and group: bf16 with G
-// >= 2 runs `paged_gqa_mma_kernel` on the tensor cores (below); G = 1 and
-// every f32 group run `paged_split_kernel` on the CUDA cores.  What the
-// split kernel's design does about the bytes:
+// the batch's lengths.  Three kernels, chosen by type and group: G = 1
+// (llama2's MHA) runs `paged_split_kernel` on the CUDA cores in both types;
+// G >= 2 runs the tensor cores, bf16 `paged_gqa_mma_kernel` and f32 its
+// 3xTF32 twin `paged_gqa_tf32x3_kernel` (below).  What the split kernel's
+// design does about the bytes:
 //   * split the sequence: `paged_split_kernel` runs one block per (KV head,
 //     sequence, partition of `partition` tokens; the wrapper passes 256), so
 //     a long sequence is walked by many blocks at once and the call no
@@ -38,10 +39,7 @@
 //     block table's width (no read of seq_lens, so no host sync); a block
 //     whose partition starts at or past seq_len writes an empty partial and
 //     exits;
-//   * each block serves all G = H / K query heads of its KV head, so every
-//     page is read once (the TPU grid re-reads it for each query head), and
-//     reads its own block-table entries.  f32 G = 16 is two head tiles of 8
-//     on the grid's first axis, so each page is read twice;
+//   * each block reads its own block-table entries;
 //   * every load is 16 bytes a lane: a token's K (or V) row is read by
 //     hd * sizeof(T) / 16 neighbouring lanes, and each lane keeps 8 (f32 at
 //     hd 128) or 4 loads of K and as many of V in flight before using them;
@@ -109,6 +107,66 @@
 //   the full rings, and the merge folded into the split pass, are the way
 //   to the bound.  245 registers at hd 256 (G only pads the M tile), 156
 //   at 128, 124 at 80, 98 at 64; no spill.
+//
+// Grouped f32 -> `paged_gqa_tf32x3_kernel<HD, G>`, the bf16 kernel's twin
+// (the same TPU kernel at G >= 2, f32).  The bytes double and the products
+// triple: a K and V row (8 * HD bytes) serve 2 * G * 2 * HD FLOPs, each
+// multiply taken as three TF32 products (big * big + big * small + small *
+// big of operands split by warp_mma.cuh::split_tf32, as
+// `paged_mla_tf32x3_kernel` takes them), so bytes still bound it; on the
+// CUDA-core split kernel it replaces, the in-block work did (every score
+// summed over a row's lanes by shuffles, at G = 16 two head tiles each
+// reading every row, 255 registers and a spill).
+// `paged_attention_tiled_ref` with `tf32_products=3` rounds exactly what it
+// rounds.  The bf16 kernel's grid (KV head, sequence, partition of
+// `GQA_PARTITION` tokens, ops.py), M tile of the G heads (rows >= G
+// zero, never written back: G = 16 reads each row once), 2-stage ring of
+// K and V tiles (f32 rows of HD / 4 chunks; 80 takes the swizzle's 4-chunk
+// tail), page lookup, sum of the outputs and merge; what differs:
+//   * 8 warps a block, NS = 8 / NG of them for each of the NG 8-token
+//     groups of a tile: warp (group, slice) takes a slice of S's k-steps
+//     for the group's tokens and the same slice of P V's output columns.
+//     Tiles are 32 tokens (NS = 2), and 16 at hd 256 (NS = 4), where the
+//     32-token ring leaves room for one block an SM;
+//   * Q is loaded before seq_len is read, split once into TF32 big and
+//     small planes in shared memory (2 x 16 x HD f32; 32 KB at hd 256), and
+//     its A fragments come by ldmatrix (b16) from the planes at each k-step,
+//     or at hd 64 once into registers;
+//   * S: K's B fragments of two k-steps come by one ldmatrix (b16) from the
+//     row-major f32 tile (an 8x8 b16 matrix is 8 rows of 4 words), of an odd
+//     last one (hd 80: 5 k-steps a warp) by a half one, split as loaded;
+//     big * big and the cross terms go to accumulators of their own.  Each
+//     warp writes its partial scores to shared memory, and after the tile's
+//     second barrier every warp sums the slices of every group in the same
+//     order: each then takes the tile's max itself (no exchange), and P of
+//     its own group.  Two barriers a tile, as in the bf16 kernel;
+//   * scale * log2(e) multiplies the scores after the product, exp2 is
+//     ex2.approx.ftz; the sum takes P unsplit;
+//   * O += P V, one m16n8k8 k-step: P's A fragment takes the lane's tokens
+//     2 quad and 2 quad + 1 as its columns quad and quad + 4, so it comes
+//     from the scores' accumulator layout with no shuffle (as in the MLA
+//     kernel), and V's B fragments are scalar loads of rows 2 quad and
+//     2 quad + 1 against the swizzle (conflict-free but for the 4-chunk tail
+//     at hd 80, two-way), split as loaded; HD / (2 NS) accumulator
+//     registers a thread;
+//   * shared memory (Q's planes, 2 stages of K and V, the partial scores):
+//     45,312 B at hd 64, 55,552 at 80, 86,272 at 128 and 102,528 at 256,
+//     so two blocks an SM fit at every width, each thread at most 128
+//     registers (121, 120, 125 and 127 as built; no spill);
+//   * zero-filled rows past seq_len score 0, are masked to -inf and give p
+//     = 0 against V = 0.  A NaN in Q stays in its head: the split keeps it
+//     in the small part, every max is max.NaN, and the M tile's other rows
+//     never read that row of Q.
+//   What bounds it as built (NVIDIA H100 80GB HBM3 at 700 W, graph timer;
+//   PERF.md section 6): not the bytes; the in-block work of each tile, as
+//   for the bf16 kernel.  A block of 4 warps, each all of a group's work,
+//   ran one warp a scheduler at hd 256 (one block an SM): ~4.6 us a 32-token
+//   tile, as fast with 3 stages in flight as with 2, and 4 slower where it
+//   cost a block an SM; 8 warps took it to ~3.1 us, 16-token tiles at hd
+//   256 to two blocks an SM.  At 128-token partitions (faster than 64 and
+//   256 summed over chip_smoke.py's nine f32 cases) it runs 1.2-2.5x faster
+//   than the split kernel everywhere but gemma3-4b's global G = 2 slots,
+//   8% slower there.
 //
 // MLA (dk 576 = latent 512 ‖ rope 64, dv 512, one KV head, G = H / K of 16
 // or 4).  A token's 1,152-byte bf16 row serves as key and, in its first 512
@@ -240,12 +298,9 @@ __device__ __forceinline__ float fmax_nan(float a, float b) {
 }
 
 // G query heads a block: block x of the grid's first axis takes query heads
-// x * G .. x * G + G - 1 of its sequence, of KV head x * G / (H / KH).  The
-// first axis is KH long when a KV head's group is G heads, or KH * tiles
-// when it is `tiles` head tiles of G (an f32 group of 16, such as
-// recurrentgemma-9b's MQA at hd 256: two tiles of 8, so that a lane's Q and
-// accumulator rows stay 2 x 8 x 8 floats, as at G = 8); each tile re-reads
-// its partition's K/V rows, mostly from L2.
+// x * G .. x * G + G - 1 of its sequence, of KV head x * G / (H / KH).
+// Launched at G = 1 alone (`launch_split`): groups of 2 or more take the
+// tensor-core kernels below.
 template <typename T, int HD, int G>
 __global__ void __launch_bounds__(kWarps * 32)
     paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
@@ -543,32 +598,34 @@ constexpr size_t smem_bytes() {  // Q, the ring (then the sums), the tile max an
 }
 
 // Start the copy of tile `it` of the partition [t_begin, t_end) into its
-// stage: the K rows and the V rows of its kTile tokens, from their pages,
+// stage: the K rows and the V rows of its TILE tokens, from their pages,
 // one 16-byte chunk of each a copy; a row's page is looked up once for both.
-// Rows at or past t_end are zero-filled and never read.
-template <int HD>
-__device__ __forceinline__ void stage_kv(bf16* __restrict__ ring, const bf16* __restrict__ kbase,
-                                         const bf16* __restrict__ vbase,
+// Rows at or past t_end are zero-filled and never read.  T is bf16 or f32;
+// NT threads share the copies.
+template <int HD, int NT = kMmaThreads, int TILE = kTile, typename T>
+__device__ __forceinline__ void stage_kv(T* __restrict__ ring, const T* __restrict__ kbase,
+                                         const T* __restrict__ vbase,
                                          const int* __restrict__ table, int page,
                                          size_t page_stride, size_t tok_stride, int t_begin,
                                          int t_end, int it) {
-  constexpr int kChunks = HD / 8;
-  constexpr int kCopies = kTile * kChunks;
-  bf16* kdst = ring + (it % kStages) * 2 * kTile * HD;
-  bf16* vdst = kdst + kTile * HD;
-  const int t0 = t_begin + it * kTile;
+  constexpr int kEl = 16 / sizeof(T);  // elements of a chunk
+  constexpr int kChunks = HD / kEl;
+  constexpr int kCopies = TILE * kChunks;
+  T* kdst = ring + (it % kStages) * 2 * TILE * HD;
+  T* vdst = kdst + TILE * HD;
+  const int t0 = t_begin + it * TILE;
 #pragma unroll
-  for (int i = 0; i < (kCopies + kMmaThreads - 1) / kMmaThreads; ++i) {
-    const int idx = i * kMmaThreads + threadIdx.x;
-    if (kCopies % kMmaThreads != 0 && idx >= kCopies) break;
+  for (int i = 0; i < (kCopies + NT - 1) / NT; ++i) {
+    const int idx = i * NT + threadIdx.x;
+    if (kCopies % NT != 0 && idx >= kCopies) break;
     const int r = idx / kChunks;
     const int c = idx % kChunks;
     const int t = t0 + r;
     const bool ok = t < t_end;
     const size_t off =
         ok ? size_t(__ldg(table + t / page)) * page_stride + size_t(t % page) * tok_stride : 0;
-    repro::cp_async_16(kdst + swz<HD>(r, c), kbase + off + c * 8, ok);
-    repro::cp_async_16(vdst + swz<HD>(r, c), vbase + off + c * 8, ok);
+    repro::cp_async_16(kdst + swz<HD, T>(r, c), kbase + off + c * kEl, ok);
+    repro::cp_async_16(vdst + swz<HD, T>(r, c), vbase + off + c * kEl, ok);
   }
 }
 
@@ -860,17 +917,423 @@ cudaError_t launch(const void* q, const void* kp, const void* vp, const void* bt
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The f32 twin: three TF32 products a multiply, 8 warps a block.
+constexpr int kF32Warps = 8;
+constexpr int kF32Threads = kF32Warps * 32;
+
+// Tokens a tile: 32, as in the bf16 kernel, but 16 at hd 256, where a
+// 32-token ring (128 KB) leaves room for one block an SM.  On an NVIDIA
+// H100 80GB HBM3 at 700 W (graph timer, PERF.md section 6), gemma3-4b's 8
+// rings of 1024 at 4 KV heads (256 blocks) took 0.0382 ms at 32 and 0.0310
+// at 16, one long slot among short ones 0.0235 and 0.0298: each wins a
+// case, and 16 wins gemma3's serve, 29 ring layers of 34.
+template <int HD>
+constexpr int kF32Tile = HD > 128 ? 16 : kTile;
+
+template <int HD>
+constexpr size_t tf32x3_smem_bytes() {  // Q's big and small planes, the ring (then the sums),
+                                        // each warp's partial scores, each group's sums
+  return sizeof(float) * (2 * size_t(kM) * HD + size_t(kStages) * 2 * kF32Tile<HD> * HD +
+                          4 * kF32Warps * 32 + kF32Tile<HD> / 8 * kM);
+}
+
+template <int HD, int G>
+__global__ void __launch_bounds__(kF32Threads, 2)  // two blocks an SM: 128 registers a thread
+    paged_gqa_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ kp,
+                            const float* __restrict__ vp, const int* __restrict__ block_table,
+                            const int* __restrict__ seq_lens, float* __restrict__ o,
+                            float* __restrict__ part, int H, int KH, int page, int max_pages,
+                            int partition, int n_split, float scale_log2) {
+  constexpr int TILE = kF32Tile<HD>;
+  constexpr int NG = TILE / 8;           // 8-token groups of a tile: one n8 tile of S each
+  constexpr int NS = kF32Warps / NG;     // warps a group, each a slice of S's k-steps and of O
+  constexpr int kChunks = HD / 4;        // 16-byte chunks of a row
+  constexpr int KSW = HD / 8 / NS;       // k-steps of Q K^T a warp takes (5 at hd 80)
+  constexpr int DTW = HD / 8 / NS;       // 8-column tiles of the output a warp takes
+  constexpr int kQChunks = kM * kChunks;
+  constexpr int kQPerThread = (kQChunks + kF32Threads - 1) / kF32Threads;
+  // Q's split A fragments (8 registers a k-step) held in registers over the
+  // walk at hd 64 (32 of them); wider rows read them from the planes.
+  constexpr bool kHoldQ = HD <= 64;
+  constexpr int kDG = DTW % 4 == 0 ? 4 : DTW;  // output tiles a group of V loads: 5 at hd 80
+  static_assert(G >= 2 && G <= kM && HD % 16 == 0 && NG * NS == kF32Warps &&
+                    HD / 8 % NS == 0 && DTW % kDG == 0 && 16 * TILE * HD >= 8 * TILE * (HD + 8),
+                "shape the grouped 3xTF32 kernel does not tile");
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Qb = reinterpret_cast<float*>(smem_raw);  // [kM][HD] TF32 big parts, swizzled
+  float* Qsm = Qb + kM * HD;                       // [kM][HD] small parts
+  float* ring = Qsm + kM * HD;                     // [kStages][K, V][TILE][HD], swizzled
+  float* sums = ring;                              // [NG][kM][kLDO], once the walk is done
+  float4* Sp = reinterpret_cast<float4*>(ring + kStages * 2 * TILE * HD);  // [kF32Warps][32]
+  float* red_l = reinterpret_cast<float*>(Sp + kF32Warps * 32);            // [NG][kM]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int tg = warp % NG;     // this warp's tokens: 8 tg .. 8 tg + 7 of each tile
+  const int slice = warp / NG;  // and its slice of S's k-steps and of the output columns
+  const int grp = lane >> 2;  // fragment row: heads grp and grp + 8
+  const int quad = lane & 3;  // fragment column
+  const int kh = blockIdx.x;
+  const int b = blockIdx.y;
+  const int split = blockIdx.z;
+  const int B = gridDim.y;
+  const int t_begin = split * partition;
+  const size_t bh0 = size_t(b) * H + size_t(kh) * G;
+
+  // Q's loads need no seq_len, so they go out before it is read: this
+  // thread's chunks of the 16 x HD tile, rows >= G zero.
+  float4 qv[kQPerThread];
+#pragma unroll
+  for (int i = 0; i < kQPerThread; ++i) {
+    const int idx = i * kF32Threads + tid;
+    const int r = idx / kChunks;
+    qv[i] = idx < kQChunks && r < G
+                ? __ldg(reinterpret_cast<const float4*>(q + (bh0 + r) * HD) + idx % kChunks)
+                : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  const int t_end = min(seq_lens[b], t_begin + partition);
+  float* part_m = part;
+  float* part_l = part + size_t(B) * H * n_split;
+  float* part_o = part + 2 * size_t(B) * H * n_split;
+  if (t_begin >= t_end) {  // nothing of this sequence in the partition
+    if (n_split == 1) {
+      for (int idx = tid; idx < G * HD; idx += kF32Threads) o[bh0 * HD + idx] = 0.f;
+    } else if (tid < G) {
+      part_m[(bh0 + tid) * n_split + split] = -INFINITY;
+      part_l[(bh0 + tid) * n_split + split] = 0.f;
+    }
+    return;
+  }
+
+  const int* table = block_table + size_t(b) * max_pages;
+  const size_t tok_stride = size_t(KH) * HD;
+  const size_t page_stride = size_t(page) * tok_stride;
+  const float* kbase = kp + size_t(kh) * HD;
+  const float* vbase = vp + size_t(kh) * HD;
+  const int n_tiles = (t_end - t_begin + TILE - 1) / TILE;
+
+  // Every stage is in flight before the first product, each tile a group
+  // of its own, committed even when empty (as in the bf16 kernel).
+#pragma unroll
+  for (int i = 0; i < kStages; ++i) {
+    if (i < n_tiles)
+      stage_kv<HD, kF32Threads, TILE>(ring, kbase, vbase, table, page, page_stride, tok_stride,
+                                      t_begin, t_end, i);
+    repro::cp_async_commit();
+  }
+  // Q split once into its big and small planes while the copies fly; the
+  // first tile's barrier makes them visible.
+#pragma unroll
+  for (int i = 0; i < kQPerThread; ++i) {
+    const int idx = i * kF32Threads + tid;
+    if (kQChunks % kF32Threads != 0 && idx >= kQChunks) break;
+    const int at = swz<HD, float>(idx / kChunks, idx % kChunks);
+    uint32_t big[4], sml[4];
+    const uint32_t x[4] = {__float_as_uint(qv[i].x), __float_as_uint(qv[i].y),
+                           __float_as_uint(qv[i].z), __float_as_uint(qv[i].w)};
+    repro::split_x4(x, big, sml);
+    *reinterpret_cast<uint4*>(Qb + at) = make_uint4(big[0], big[1], big[2], big[3]);
+    *reinterpret_cast<uint4*>(Qsm + at) = make_uint4(sml[0], sml[1], sml[2], sml[3]);
+  }
+
+  float acc[DTW][4];  // this warp's tokens' share of O: 16 heads x its 8 * DTW columns
+#pragma unroll
+  for (int d = 0; d < DTW; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[d][e] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};  // heads grp, grp + 8; the same in every warp
+  float l_run[2] = {0.f, 0.f};              // this lane's share of this group's tokens
+  uint32_t qbig[kHoldQ ? KSW : 1][4], qsml[kHoldQ ? KSW : 1][4];
+  const int ks0 = slice * KSW;  // this warp's first k-step of Q K^T
+  const int dt0 = slice * DTW;  // and first 8-column tile of O
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int t0 = t_begin + it * TILE;
+    const float* Kt = ring + (it % kStages) * 2 * TILE * HD;
+    const float* Vt = Kt + TILE * HD;
+    if (it == 0)
+      repro::cp_async_wait<kStages - 1>();
+    else
+      repro::cp_async_wait<kStages - 2>();
+    // (A) Tile it (and at it = 0, Q's planes) is visible to every thread,
+    // and every warp is done with tile it - 1, whose stage tile
+    // it - 1 + kStages now fills, and with its partial scores.
+    __syncthreads();
+    if (it >= 1) {
+      if (it - 1 + kStages < n_tiles)
+        stage_kv<HD, kF32Threads, TILE>(ring, kbase, vbase, table, page, page_stride,
+                                        tok_stride, t_begin, t_end, it - 1 + kStages);
+      repro::cp_async_commit();
+    }
+    if constexpr (kHoldQ) {
+      if (it == 0) {
+#pragma unroll
+        for (int kk = 0; kk < KSW; ++kk) {
+          const int at = swz<HD, float>(lane & 15, 2 * (ks0 + kk) + (lane >> 4));
+          repro::ldmatrix_x4(qbig[kk], Qb + at);
+          repro::ldmatrix_x4(qsml[kk], Qsm + at);
+        }
+      }
+    }
+
+    // This warp's slice of S = Q K^T for its group's 8 tokens: 16 heads x 8
+    // tokens over k-steps ks0 .. ks0 + KSW - 1.  K's B fragments of two
+    // k-steps come by one ldmatrix (b16) from the row-major f32 tile (an
+    // 8x8 b16 matrix is 8 rows of 4 words), of an odd last one (hd 80) by a
+    // half one, and are split as loaded; Q's split A fragments come from
+    // the planes (or registers).  Big * big and the cross terms go to
+    // accumulators of their own, two of each taken in turn.
+    float s_hi[2][4], s_lo[2][4];
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s_hi[a][e] = s_lo[a][e] = 0.f;
+    const auto qfrag = [&](int kk, uint32_t (&qb)[4], uint32_t (&qs)[4]) {
+      if constexpr (kHoldQ) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          qb[i] = qbig[kk][i];
+          qs[i] = qsml[kk][i];
+        }
+      } else {
+        const int at = swz<HD, float>(lane & 15, 2 * (ks0 + kk) + (lane >> 4));
+        repro::ldmatrix_x4(qb, Qb + at);
+        repro::ldmatrix_x4(qs, Qsm + at);
+      }
+    };
+#pragma unroll
+    for (int j = 0; j < KSW / 2; ++j) {  // this warp's k-steps 2j and 2j + 1
+      uint32_t kf[4], kb[4], ks[4];
+      repro::ldmatrix_x4(kf, Kt + swz<HD, float>(8 * tg + (lane & 7),
+                                                 2 * (ks0 + 2 * j) + (lane >> 3)));
+      repro::split_x4(kf, kb, ks);
+      uint32_t qb0[4], qs0[4], qb1[4], qs1[4];
+      qfrag(2 * j, qb0, qs0);
+      qfrag(2 * j + 1, qb1, qs1);
+      repro::mma_tf32_1688(s_lo[0], qs0, kb[0], kb[1]);
+      repro::mma_tf32_1688(s_lo[1], qs1, kb[2], kb[3]);
+      repro::mma_tf32_1688(s_hi[0], qb0, kb[0], kb[1]);
+      repro::mma_tf32_1688(s_hi[1], qb1, kb[2], kb[3]);
+      repro::mma_tf32_1688(s_lo[0], qb0, ks[0], ks[1]);
+      repro::mma_tf32_1688(s_lo[1], qb1, ks[2], ks[3]);
+    }
+    if constexpr (KSW % 2 == 1) {
+      uint32_t kf[2], kb[2], ks[2];
+      repro::ldmatrix_x2(kf, Kt + swz<HD, float>(8 * tg + (lane & 7),
+                                                 2 * (ks0 + KSW - 1) + ((lane >> 3) & 1)));
+#pragma unroll
+      for (int i = 0; i < 2; ++i) repro::split_tf32(__uint_as_float(kf[i]), kb[i], ks[i]);
+      uint32_t qb0[4], qs0[4];
+      qfrag(KSW - 1, qb0, qs0);
+      repro::mma_tf32_1688(s_lo[0], qs0, kb[0], kb[1]);
+      repro::mma_tf32_1688(s_hi[0], qb0, kb[0], kb[1]);
+      repro::mma_tf32_1688(s_lo[0], qb0, ks[0], ks[1]);
+    }
+    Sp[warp * 32 + lane] =
+        make_float4((s_hi[0][0] + s_hi[1][0]) + (s_lo[0][0] + s_lo[1][0]),
+                    (s_hi[0][1] + s_hi[1][1]) + (s_lo[0][1] + s_lo[1][1]),
+                    (s_hi[0][2] + s_hi[1][2]) + (s_lo[0][2] + s_lo[1][2]),
+                    (s_hi[0][3] + s_hi[1][3]) + (s_lo[0][3] + s_lo[1][3]));
+    // (B) Every warp's partial scores are written; no warp writes them again
+    // before the next tile's barrier (A), by which every warp has read them.
+    __syncthreads();
+
+    // Every warp sums the slices of every group's scores, in the same
+    // order, so each takes the tile's max of each head itself.
+    float sc[NG][4];  // log2-domain scores: heads grp (e = 0, 1), grp + 8 (e = 2, 3)
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < NG; ++n) {
+      float4 x = Sp[n * 32 + lane];
+#pragma unroll
+      for (int sl = 1; sl < NS; ++sl) {
+        const float4 y = Sp[(sl * NG + n) * 32 + lane];
+        x = make_float4(x.x + y.x, x.y + y.y, x.z + y.z, x.w + y.w);
+      }
+      const float v[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int t = t0 + 8 * n + 2 * quad + (e & 1);
+        sc[n][e] = t < t_end ? v[e] * scale_log2 : -INFINITY;
+      }
+      mx[0] = fmax_nan(mx[0], fmax_nan(sc[n][0], sc[n][1]));
+      mx[1] = fmax_nan(mx[1], fmax_nan(sc[n][2], sc[n][3]));
+    }
+    float mu[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmax_nan(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmax_nan(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      mu[r] = fmax_nan(m_run[r], mx[r]);  // finite inputs: finite, the tile's first token is seen
+      const float corr = repro::ex2_approx(m_run[r] - mu[r]);
+      m_run[r] = mu[r];
+      l_run[r] *= corr;
+#pragma unroll
+      for (int d = 0; d < DTW; ++d) {
+        acc[d][2 * r] *= corr;
+        acc[d][2 * r + 1] *= corr;
+      }
+    }
+    float p[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      // select this warp's group by a loop, so sc stays in registers
+      float s = sc[0][e];
+#pragma unroll
+      for (int n = 1; n < NG; ++n) s = tg == n ? sc[n][e] : s;
+      p[e] = repro::ex2_approx(s - mu[e >> 1]);
+    }
+    l_run[0] += p[0] + p[1];
+    l_run[1] += p[2] + p[3];
+
+    // O += P V over this group's 8 tokens and this warp's slice of the
+    // columns, one m16n8k8 k-step.  P's A fragment takes this lane's tokens
+    // 2 quad and 2 quad + 1 as its columns quad and quad + 4 (the sum over
+    // tokens takes any order), so it comes from the scores' accumulator
+    // layout with no shuffle, and V's B fragment b0 = V[8 tg + 2 quad][col],
+    // b1 = V[8 tg + 2 quad + 1][col] (col = 8 d + grp): scalar loads of the
+    // staged rows (ldmatrix.trans would cut each word in two), split as
+    // loaded, kDG output tiles at a time.
+    const uint32_t pf[4] = {__float_as_uint(p[0]), __float_as_uint(p[2]), __float_as_uint(p[1]),
+                            __float_as_uint(p[3])};
+    uint32_t pbig[4], psml[4];
+    repro::split_x4(pf, pbig, psml);
+    const int vr = 8 * tg + 2 * quad;
+#pragma unroll
+    for (int d0 = 0; d0 < DTW; d0 += kDG) {
+      uint32_t vbig[kDG][2], vsml[kDG][2];
+#pragma unroll
+      for (int g = 0; g < kDG; ++g) {
+        const int col = 8 * (dt0 + d0 + g) + grp;
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          repro::split_tf32(Vt[swz<HD, float>(vr + r, col >> 2) + (col & 3)], vbig[g][r],
+                            vsml[g][r]);
+      }
+#pragma unroll
+      for (int g = 0; g < kDG; ++g) repro::mma_tf32_1688(acc[d0 + g], psml, vbig[g][0], vbig[g][1]);
+#pragma unroll
+      for (int g = 0; g < kDG; ++g) repro::mma_tf32_1688(acc[d0 + g], pbig, vsml[g][0], vsml[g][1]);
+#pragma unroll
+      for (int g = 0; g < kDG; ++g) repro::mma_tf32_1688(acc[d0 + g], pbig, vbig[g][0], vbig[g][1]);
+    }
+  }
+
+  // Sum the groups' outputs and sums (every warp took the same max): the
+  // ring's copies have all landed and every warp is done with the last
+  // tile, so its space takes each group's rows, each warp its slice.
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+  }
+  repro::cp_async_wait<0>();
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float* row = sums + (tg * kM + grp + 8 * r) * kLDO<HD> + 8 * dt0 + 2 * quad;
+#pragma unroll
+    for (int d = 0; d < DTW; ++d)
+      *reinterpret_cast<float2*>(row + 8 * d) = make_float2(acc[d][2 * r], acc[d][2 * r + 1]);
+  }
+  if (slice == 0 && quad == 0) {  // every slice of a group holds the same sums
+    red_l[tg * kM + grp] = l_run[0];
+    red_l[tg * kM + grp + 8] = l_run[1];
+  }
+  if (n_split > 1 && warp == 0 && quad == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (grp + 8 * r < G) part_m[(bh0 + grp + 8 * r) * n_split + split] = m_run[r];
+  }
+  __syncthreads();
+  // Rows >= G are zero rows of the M tile and never written back.
+  for (int idx = tid; idx < G * (HD / 4); idx += kF32Threads) {
+    const int g = idx / (HD / 4);
+    const int c = idx % (HD / 4) * 4;
+    float4 O = *reinterpret_cast<const float4*>(sums + g * kLDO<HD> + c);
+    float L = red_l[g];
+#pragma unroll
+    for (int n = 1; n < NG; ++n) {
+      const float4 x = *reinterpret_cast<const float4*>(sums + (n * kM + g) * kLDO<HD> + c);
+      O = make_float4(O.x + x.x, O.y + x.y, O.z + x.z, O.w + x.w);
+      L += red_l[n * kM + g];
+    }
+    const size_t bh = bh0 + g;
+    if (n_split == 1) {
+      const float inv = L == 0.f ? 0.f : 1.f / L;  // a NaN L passes
+      *reinterpret_cast<float4*>(o + bh * HD + c) =
+          make_float4(O.x * inv, O.y * inv, O.z * inv, O.w * inv);
+    } else {
+      *reinterpret_cast<float4*>(part_o + (bh * n_split + split) * HD + c) = O;
+      if (c == 0) part_l[bh * n_split + split] = L;
+    }
+  }
+}
+
+template <int HD, int G>
+cudaError_t launch_tf32x3(const void* q, const void* kp, const void* vp, const void* bt,
+                          const void* sl, void* o, void* part, int B, int H, int KH, int page,
+                          int max_pages, int partition, int n_split, float scale,
+                          cudaStream_t stream) {
+  constexpr size_t smem = tf32x3_smem_bytes<HD>();
+  static_assert(2 * smem <= 227 * 1024, "two blocks an SM, as the launch bounds assume");
+  auto kern = paged_gqa_tf32x3_kernel<HD, G>;
+  // Set once per instance, as for the bf16 kernel: the shared memory above
+  // 48 KB (from hd 80), and the largest carveout.
+  static const cudaError_t attr_err = [kern] {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                int(cudaSharedmemCarveoutMaxShared));
+  }();
+  cudaError_t err = attr_err;
+  if (err != cudaSuccess) return err;
+  const dim3 grid(KH, B, n_split);  // one block a KV head's group
+  kern<<<grid, kF32Threads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(kp), static_cast<const float*>(vp),
+      static_cast<const int*>(bt), static_cast<const int*>(sl), static_cast<float*>(o),
+      static_cast<float*>(part), H, KH, page, max_pages, partition, n_split,
+      scale * 1.4426950408889634f);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return err;
+  paged_merge_kernel<float, HD><<<B * H, HD, 0, stream>>>(static_cast<const float*>(part),
+                                                         static_cast<float*>(o), B * H, n_split);
+  return cudaGetLastError();
+}
+
+// bf16 runs the bf16 tensor-core kernel, f32 the 3xTF32 one.
+template <typename T, int HD, int G>
+cudaError_t launch_typed(const void* q, const void* kp, const void* vp, const void* bt,
+                         const void* sl, void* o, void* part, int B, int H, int KH, int page,
+                         int max_pages, int partition, int n_split, float scale,
+                         cudaStream_t st) {
+  if constexpr (std::is_same<T, bf16>::value)
+    return launch<HD, G>(q, kp, vp, bt, sl, o, part, B, H, KH, page, max_pages, partition,
+                         n_split, scale, st);
+  else
+    return launch_tf32x3<HD, G>(q, kp, vp, bt, sl, o, part, B, H, KH, page, max_pages,
+                                partition, n_split, scale, st);
+}
+
 }  // namespace gqa
 
-template <typename T, int HD, int G>
-cudaError_t launch(const void* q, const void* kp, const void* vp, const void* bt, const void* sl,
-                   void* o, void* part, int B, int H, int KH, int page, int max_pages,
-                   int partition, int n_split, float scale, cudaStream_t stream) {
-  const dim3 grid(H / G, B, n_split);  // one block a head tile of G
-  paged_split_kernel<T, HD, G><<<grid, kWarps * 32, 0, stream>>>(
+// One query head a KV head (G = 1, so H = KH): the split kernel, then the
+// merge where there is more than one partition.
+template <typename T, int HD>
+cudaError_t launch_split(const void* q, const void* kp, const void* vp, const void* bt,
+                         const void* sl, void* o, void* part, int B, int H, int page,
+                         int max_pages, int partition, int n_split, float scale,
+                         cudaStream_t stream) {
+  const dim3 grid(H, B, n_split);  // one block a head
+  paged_split_kernel<T, HD, 1><<<grid, kWarps * 32, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp),
       static_cast<const int*>(bt), static_cast<const int*>(sl), static_cast<T*>(o),
-      static_cast<float*>(part), H, KH, page, max_pages, partition, n_split,
+      static_cast<float*>(part), H, H, page, max_pages, partition, n_split,
       scale * 1.4426950408889634f);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return err;
@@ -879,55 +1342,31 @@ cudaError_t launch(const void* q, const void* kp, const void* vp, const void* bt
   return cudaGetLastError();
 }
 
-// bf16 groups of 2 or more run the tensor-core kernel; one query head a KV
-// head (llama2's MHA) and every f32 group run `paged_split_kernel`.
+// One query head a KV head (llama2's MHA) runs `paged_split_kernel` in both
+// types; groups of 2 to 16 run the tensor-core kernels: bf16
+// `paged_gqa_mma_kernel`, f32 `paged_gqa_tf32x3_kernel` (G = 16, e.g.
+// recurrentgemma-9b's MQA, one M tile in both).
 template <typename T, int HD>
 cudaError_t launch_group(int G, const void* q, const void* kp, const void* vp, const void* bt,
                          const void* sl, void* o, void* part, int B, int H, int KH, int page,
                          int max_pages, int partition, int n_split, float scale,
                          cudaStream_t st) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    switch (G) {
-      case 1:
-        return launch<T, HD, 1>(q, kp, vp, bt, sl, o, part, B, H, KH, page, max_pages,
-                                partition, n_split, scale, st);
-      case 2:
-        return gqa::launch<HD, 2>(q, kp, vp, bt, sl, o, part, B, H, KH, page, max_pages,
-                                  partition, n_split, scale, st);
-      case 4:
-        return gqa::launch<HD, 4>(q, kp, vp, bt, sl, o, part, B, H, KH, page, max_pages,
-                                  partition, n_split, scale, st);
-      case 8:
-        return gqa::launch<HD, 8>(q, kp, vp, bt, sl, o, part, B, H, KH, page, max_pages,
-                                  partition, n_split, scale, st);
-      case 16:  // e.g. recurrentgemma-9b's MQA (16 query heads on 1 KV head)
-        return gqa::launch<HD, 16>(q, kp, vp, bt, sl, o, part, B, H, KH, page, max_pages,
-                                   partition, n_split, scale, st);
-      default:
-        return cudaErrorInvalidValue;
-    }
-  } else {
-    switch (G) {
-      case 1:
-        return launch<T, HD, 1>(q, kp, vp, bt, sl, o, part, B, H, KH, page, max_pages,
-                                partition, n_split, scale, st);
-      case 2:
-        return launch<T, HD, 2>(q, kp, vp, bt, sl, o, part, B, H, KH, page, max_pages,
-                                partition, n_split, scale, st);
-      case 4:
-        return launch<T, HD, 4>(q, kp, vp, bt, sl, o, part, B, H, KH, page, max_pages,
-                                partition, n_split, scale, st);
-      case 8:
-        return launch<T, HD, 8>(q, kp, vp, bt, sl, o, part, B, H, KH, page, max_pages,
-                                partition, n_split, scale, st);
-      case 16:  // recurrentgemma-9b's MQA in f32: the G = 8 kernel on two head
-                // tiles a KV head
-        return launch<T, HD, 8>(q, kp, vp, bt, sl, o, part, B, H, KH, page, max_pages,
-                                partition, n_split, scale, st);
-      default:
-        return cudaErrorInvalidValue;
-    }
+#define REPRO_GQA_CASE(GG)                                                                 \
+  case GG:                                                                                 \
+    return gqa::launch_typed<T, HD, GG>(q, kp, vp, bt, sl, o, part, B, H, KH, page,        \
+                                        max_pages, partition, n_split, scale, st);
+  switch (G) {
+    case 1:
+      return launch_split<T, HD>(q, kp, vp, bt, sl, o, part, B, H, page, max_pages, partition,
+                                 n_split, scale, st);
+    REPRO_GQA_CASE(2)
+    REPRO_GQA_CASE(4)
+    REPRO_GQA_CASE(8)
+    REPRO_GQA_CASE(16)
+    default:
+      return cudaErrorInvalidValue;
   }
+#undef REPRO_GQA_CASE
 }
 
 

@@ -5,10 +5,11 @@ GPU launch ``csrc/paged_attention.cu`` or raise.  The kernel splits every
 sequence into partitions of ``PARTITION`` tokens and merges their partial
 softmax states (``ref.py::paged_attention_split_ref`` / ``merge_partials_ref``
 spell out the arithmetic); one wrapper call is one counted launch, the merge
-pass included.  bf16 with G >= 2 query heads a KV head runs on the tensor
-cores over ``GQA_PARTITION``-token partitions, P rounded to bf16 before P·V
-as ``ref.py::paged_attention_tiled_ref`` rounds it; G = 1 and f32 run on the
-CUDA cores.
+pass included.  G >= 2 query heads a KV head run on the tensor cores over
+``GQA_PARTITION``-token partitions: bf16 rounds P to bf16 before P·V, f32
+takes each product as three TF32 products of split operands, as
+``ref.py::paged_attention_tiled_ref`` rounds either; G = 1 runs on the CUDA
+cores.
 
 Absorbed MLA decode passes keys of the latent ‖ rope row and, as values,
 the view ``k_pages[..., :r]`` of the same rows, at one of the widths of
@@ -36,8 +37,8 @@ KERNEL = CudaKernel("paged_attention", "paged_attention_fwd",
 # keys and values of one width, pages of their own: 80 is h2o-danube-1.8b's,
 # 256 gemma3-4b's
 HEAD_DIMS = (64, 128, 80, 256)
-# query heads a KV head; in f32, 16 (recurrentgemma-9b's MQA at hd 256) runs
-# the CUDA-core kernel of 8 on two head tiles (bf16 takes all 16 in one M tile)
+# query heads a KV head; 2 to 16 (16: recurrentgemma-9b's MQA at hd 256) are
+# the rows of one tensor-core M tile in either type, 1 runs the CUDA cores
 GROUPS = (1, 2, 4, 8, 16)
 # (key, value) widths of absorbed MLA decode and the query heads a KV head
 # each takes: deepseek-v2-lite (latent 512 ‖ rope 64, 16 heads; 4 in the
@@ -46,8 +47,9 @@ MLA_SHAPES = {(576, 512): (4, 16), (288, 256): (40,)}
 MLA_DIMS = (576, 512)     # deepseek-v2-lite's
 PARTITION = 256   # tokens per split; the kernel takes it as an argument
 MLA_PARTITION = 128   # faster on the card than 64 (chip_smoke.py times both)
-# bf16 with G >= 2 (``paged_gqa_mma_kernel``): faster on the card, summed
-# over chip_smoke.py's grouped cases, than 64 and 256 (it times all three)
+# G >= 2 (``paged_gqa_mma_kernel``, ``paged_gqa_tf32x3_kernel``): faster on
+# the card, summed over chip_smoke.py's grouped cases of either type, than
+# 64 and 256 (it times all three)
 GQA_PARTITION = 128
 
 
@@ -66,10 +68,10 @@ def mla_split_count(table_width: int, page: int) -> int:
 
 def partition_for(hd: int, hd_v: int, group: int, dtype) -> int:
     """Tokens a partition of the kernel that runs this instance: MLA's
-    widths, bf16 with ``group`` >= 2 query heads a KV head, or the rest."""
+    widths, ``group`` >= 2 query heads a KV head, or G = 1."""
     if (hd, hd_v) in MLA_SHAPES:
         return MLA_PARTITION
-    if dtype == torch.bfloat16 and group > 1:
+    if group > 1:
         return GQA_PARTITION
     return PARTITION
 

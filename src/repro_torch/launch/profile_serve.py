@@ -48,7 +48,8 @@ from .serve import (CARD_ENGINE_CONFIGS, card_config,
                     card_requests)
 
 # The port's own kernels match by the prefix every kernel of their source
-# shares (flash_fwd_kernel / flash_fwd_mma_kernel; paged_split_kernel and
+# shares (flash_fwd_mma_kernel / flash_fwd_tf32x3_kernel; paged_split_kernel,
+# paged_gqa_mma_kernel, paged_gqa_tf32x3_kernel, the MLA kernels and
 # paged_merge_kernel), so a new variant is counted under its class.
 _CLASSES = (("flash_attention", ("flash_fwd_",)),
             ("paged_attention", ("paged_",)),

@@ -74,8 +74,37 @@ def _assert_matches_tf32x3(out, q, k, v, **kw):
                                rtol=TF32X3_RTOL)
 
 
+@pytest.fixture(scope="session")
+def warm_libraries():
+    """Every kernel library built, loaded and launched once (each paged
+    kernel in both types) before the first test on the card, so that no
+    profiler session sees a library's first load or a kernel's first
+    launch: sessions inside pytest have stopped recording device events
+    from such a test on (ROADMAP.md section 3)."""
+    if not torch.cuda.is_available():
+        return
+    from repro_torch.kernels import _build
+    _build.build()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    table = torch.arange(2, dtype=torch.int32, device=dev)[None]
+    lens = torch.tensor([20], dtype=torch.int32, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((1, 64, 2, 64), generator=g, device=dev).to(dtype)
+        flash_ops.flash_attention(x, x, x)
+        kp = torch.randn((2, 16, 2, 64), generator=g, device=dev).to(dtype)
+        for H in (2, 4):               # G = 1 and a group of 2
+            q = torch.randn((1, H, 64), generator=g, device=dev).to(dtype)
+            paged_ops.paged_attention(q, kp, kp, table, lens)
+        x, dt, A_log, B, C = _ssd_inputs(g, dev, 1, 20, 4, 16, 4, 16, dtype)
+        ssd_ops.ssd_chunk(x.view(1, 1, 20, 4, 16), dt.view(1, 1, 20, 4),
+                          A_log, B.view(1, 1, 20, 4, 16),
+                          C.view(1, 1, 20, 4, 16))
+    torch.cuda.synchronize()
+
+
 @pytest.fixture
-def cuda():
+def cuda(warm_libraries):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -207,8 +236,8 @@ def _paged_inputs(rng, g, dev, dtype, lens, H, K, hd, page, npg, shuffle):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_paged_split_boundaries(cuda, dtype, G):
     """Sequence lengths on either side of every 256-token partition edge of
-    a 1024-token table (4 partitions of the split kernel; bf16 with G >= 2
-    walks ``GQA_PARTITION``-token ones), through split and merge."""
+    a 1024-token table (4 partitions of the split kernel; G >= 2 walks
+    ``GQA_PARTITION``-token ones), through split and merge."""
     p = paged_ops.PARTITION
     lens = [1] + [e * p + d for e in (1, 2, 3) for d in (-1, 0, 1)] + [4 * p]
     q, kp, vp, bt, sl = _paged_inputs(np.random.default_rng(2),
@@ -268,18 +297,26 @@ def test_paged_kernel_matches_plain(cuda, dtype, B, H, K, hd, page, npg, P):
     assert paged_ops.KERNEL.launches == before + 1
     torch.testing.assert_close(out.float(), ref.float(), atol=TOLS[dtype],
                                rtol=TOLS[dtype])
-    if dtype == torch.bfloat16 and H > K:
+    if H > K:
         _assert_matches_gqa_tiled(out, q, kp, vp, bt, sl)
 
 
 def _assert_matches_gqa_tiled(out, q, kp, vp, bt, sl):
-    """bf16 grouped decode per element against the plain version that
-    walks each ``GQA_PARTITION``-token partition in 32-token tiles and
-    rounds P to bf16 against the tile's max, as the kernel does."""
-    tiled = paged_attention_tiled_ref(q, kp, vp, bt, sl,
-                                      partition=paged_ops.GQA_PARTITION)
-    torch.testing.assert_close(out.float(), tiled.float(), atol=TILED_ATOL,
-                               rtol=TILED_RTOL)
+    """Grouped decode per element against the plain version that walks
+    each ``GQA_PARTITION``-token partition in 32-token tiles against the
+    tile's max, rounding as the kernel does: bf16 rounds P to bf16, f32
+    takes both products as three TF32 products of split operands."""
+    if q.dtype == torch.bfloat16:
+        tiled = paged_attention_tiled_ref(q, kp, vp, bt, sl,
+                                          partition=paged_ops.GQA_PARTITION)
+        torch.testing.assert_close(out.float(), tiled.float(),
+                                   atol=TILED_ATOL, rtol=TILED_RTOL)
+    else:
+        tiled = paged_attention_tiled_ref(
+            q, kp, vp, bt, sl, partition=paged_ops.GQA_PARTITION,
+            round_p=False, tf32_products=3)
+        torch.testing.assert_close(out, tiled, atol=TF32X3_ATOL,
+                                   rtol=TF32X3_RTOL)
 
 
 @pytest.mark.parametrize("partition", [64, 128, 256])
@@ -311,17 +348,49 @@ def test_paged_gqa_mma_kernel_matches_plain(cuda, monkeypatch, hd, G,
     _assert_matches_gqa_tiled(out, q, kp, vp, bt, sl)
 
 
+@pytest.mark.parametrize("partition", [64, 128, 256])
+@pytest.mark.parametrize("G", [2, 4, 8, 16])
+@pytest.mark.parametrize("hd", [64, 80, 128, 256])
+def test_paged_gqa_tf32x3_kernel_matches_plain(cuda, monkeypatch, hd, G,
+                                               partition):
+    """f32 with G >= 2 query heads a KV head (``paged_gqa_tf32x3_kernel``)
+    at every width and group and each partition size timed on the card:
+    one token, lengths on both sides of the 32-token tile edges and of the
+    partition edges, a full table; two KV heads, a shuffled table.  Within
+    the f32 limit (1e-4) of the dense plain version and, per element,
+    within TF32X3_ATOL + TF32X3_RTOL·|ref| of the 3xTF32 tiled one; one
+    counted launch."""
+    monkeypatch.setattr(paged_ops, "GQA_PARTITION", partition)
+    P = partition
+    lens = [1, 31, 32, 33, P - 1, P, P + 1, 2 * P + 17, 3 * P]
+    q, kp, vp, bt, sl = _paged_inputs(
+        np.random.default_rng(hd + G + 1), torch.Generator(
+            device=cuda).manual_seed(hd + G + 1), cuda, torch.float32, lens,
+        2 * G, 2, hd, 16, 3 * P // 16, shuffle=True)
+    assert bt.shape[1] * 16 == 3 * P           # three partitions
+    before = paged_ops.KERNEL.launches
+    out = paged_ops.paged_attention(q, kp, vp, bt, sl)
+    assert paged_ops.KERNEL.launches == before + 1
+    assert out.shape == q.shape and out.dtype == torch.float32
+    ref = paged_ops.paged_attention(q, kp, vp, bt, sl, impl="plain")
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+    _assert_matches_gqa_tiled(out, q, kp, vp, bt, sl)
+
+
 @pytest.mark.parametrize("dtype,G,merged,kernel", [
     (torch.bfloat16, 2, False, "paged_gqa_mma_kernel"),
     (torch.bfloat16, 16, True, "paged_gqa_mma_kernel"),
     (torch.bfloat16, 1, True, "paged_split_kernel"),
-    (torch.float32, 4, True, "paged_split_kernel"),
-    (torch.float32, 16, True, "paged_split_kernel"),
+    (torch.float32, 1, True, "paged_split_kernel"),
+    (torch.float32, 2, False, "paged_gqa_tf32x3_kernel"),
+    (torch.float32, 4, True, "paged_gqa_tf32x3_kernel"),
+    (torch.float32, 16, True, "paged_gqa_tf32x3_kernel"),
 ])
 def test_paged_routes_by_type_and_group(cuda, dtype, G, merged, kernel):
-    """bf16 with G >= 2 runs ``paged_gqa_mma_kernel``, bf16 G = 1 and every
-    f32 group ``paged_split_kernel``, then the merge where the table spans
-    more than one partition, and nothing else."""
+    """G >= 2 runs ``paged_gqa_mma_kernel`` in bf16 and
+    ``paged_gqa_tf32x3_kernel`` in f32, G = 1 ``paged_split_kernel`` in
+    both, then the merge where the table spans more than one partition,
+    and nothing else."""
     lens, npg = ([5, 300, 2000], 128) if merged else ([5, 17, 32], 2)
     q, kp, vp, bt, sl = _paged_inputs(
         np.random.default_rng(G), torch.Generator(device=cuda).manual_seed(G),
@@ -351,13 +420,13 @@ def _internvl2_inputs(cuda, dtype):
 
 @pytest.mark.parametrize("dtype,flash_kernel,paged_kernel", [
     (torch.bfloat16, "flash_fwd_mma_kernel", "paged_gqa_mma_kernel"),
-    (torch.float32, "flash_fwd_tf32x3_kernel", "paged_split_kernel"),
+    (torch.float32, "flash_fwd_tf32x3_kernel", "paged_gqa_tf32x3_kernel"),
 ])
 def test_internvl2_heads_route_by_type(cuda, dtype, flash_kernel,
                                        paged_kernel):
     """At internvl2-76b's heads each kernel, called warm, runs alone (with
     the merge for paged) in the profiler's names: bf16 the tensor-core
-    kernels, f32 the 3xTF32 flash and the split paged kernel."""
+    kernels, f32 the 3xTF32 ones."""
     (q, k, v), (pq, kp, vp, bt, sl) = _internvl2_inputs(cuda, dtype)
 
     def flash():
@@ -1386,8 +1455,9 @@ def _spill_bytes(lib: str, kernel: str, type_tag: str, ints: tuple) -> int:
     ("flash_attention", "flash_fwd_mma_kernel", "", (256, 256)),
     ("flash_attention", "flash_fwd_tf32x3_kernel", "", (80, 80)),
     ("flash_attention", "flash_fwd_tf32x3_kernel", "", (256, 256)),
-    ("paged_attention", "paged_split_kernel", "f", (80, 4)),
-    ("paged_attention", "paged_split_kernel", "f", (256, 2)),
+    ("paged_attention", "paged_gqa_tf32x3_kernel", "", (80, 4)),
+    ("paged_attention", "paged_gqa_tf32x3_kernel", "", (256, 2)),
+    ("paged_attention", "paged_gqa_tf32x3_kernel", "", (256, 16)),
     ("paged_attention", "paged_gqa_mma_kernel", "", (80, 4)),
     ("paged_attention", "paged_gqa_mma_kernel", "", (256, 2)),
     ("paged_attention", "paged_gqa_mma_kernel", "", (256, 16)),
@@ -1396,12 +1466,12 @@ def test_ring_dims_instances_do_not_spill(cuda, lib, kernel, type_tag, ints):
     """The sliding-window families' kernel instances keep every register
     (ptxas reports no spill store): bf16 flash at (256, 256) only since
     its 32-key tiles (64-key ones spilled 64 bytes beside the
-    128-register accumulator); bf16 paged decode runs the grouped
-    tensor-core kernel, recurrentgemma's G = 16 at hd 256 too."""
+    128-register accumulator); grouped paged decode runs the tensor-core
+    kernels in both types, recurrentgemma's G = 16 at hd 256 too."""
     assert _spill_bytes(lib, kernel, type_tag, ints) == 0
 
 
-# ---- recurrentgemma-9b: paged hd 256 at G = 16 (two head tiles of 8),
+# ---- recurrentgemma-9b: paged hd 256 at G = 16 (one M tile),
 # flash (256, 256) at H 16 / K 1 with window 2048, the RG-LRU engine -------
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1415,9 +1485,9 @@ def test_ring_dims_instances_do_not_spill(cuda, lib, kernel, type_tag, ints):
 ])
 def test_paged_g16_kernel_matches_plain(cuda, dtype, K, hd, lens, npg):
     """recurrentgemma's decode instance: 16 query heads a KV head at hd
-    256, shuffled table, against the plain version; one counted launch.
-    f32 G = 16 runs the G = 8 kernel on two head tiles and bf16 the
-    grouped tensor-core kernel at every width, so hd 64, 80 and 128 are
+    256, shuffled table, against the plain version and, per element, the
+    tiled one; one counted launch.  Both types run a grouped tensor-core
+    kernel (one M tile of 16 rows) at every width, so hd 64, 80 and 128 are
     held too."""
     q, kp, vp, bt, sl = _paged_inputs(
         np.random.default_rng(16), torch.Generator(device=cuda).manual_seed(16),
@@ -1428,17 +1498,16 @@ def test_paged_g16_kernel_matches_plain(cuda, dtype, K, hd, lens, npg):
     ref = paged_ops.paged_attention(q, kp, vp, bt, sl, impl="plain")
     torch.testing.assert_close(out.float(), ref.float(), atol=TOLS[dtype],
                                rtol=TOLS[dtype])
-    if dtype == torch.bfloat16:
-        _assert_matches_gqa_tiled(out, q, kp, vp, bt, sl)
+    _assert_matches_gqa_tiled(out, q, kp, vp, bt, sl)
 
 
 @pytest.mark.parametrize("many", [False, True])
 @pytest.mark.parametrize("head", [3, 8, 15])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_paged_g16_nan_stays_in_its_head(cuda, dtype, head, many):
-    """A NaN in one query head of either head tile of f32 G = 16 (hd 256),
-    or of bf16's one M tile, gives that head NaN and no other, with one
-    partition and with several."""
+    """A NaN in one query head of G = 16 (hd 256; one M tile in either
+    type) gives that head NaN and no other, with one partition and with
+    several."""
     lens, npg = ([5, 300, 2000], 128) if many else ([5, 100, 128], 8)
     q, kp, vp, bt, sl = _paged_inputs(
         np.random.default_rng(head), torch.Generator(device=cuda).manual_seed(
@@ -1458,17 +1527,18 @@ def test_paged_g16_nan_stays_in_its_head(cuda, dtype, head, many):
     (4, 2, 4 + 3),                      # rows 4..15 of the M tile are zero
     (4, 1, 0),
 ])
-def test_paged_gqa_nan_stays_in_its_head(cuda, G, K, head, many):
-    """bf16 grouped decode (``paged_gqa_mma_kernel``, hd 256): a NaN in one
-    query head reaches that head's output and no other, with one partition
-    and with several (the merge); at G = 4 the zero rows of the M tile leak
-    nothing."""
-    P = paged_ops.GQA_PARTITION
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_gqa_nan_stays_in_its_head(cuda, dtype, G, K, head, many):
+    """Grouped decode at hd 256 (``paged_gqa_mma_kernel`` in bf16,
+    ``paged_gqa_tf32x3_kernel`` in f32): a NaN in one query head reaches
+    that head's output and no other, with one partition and with several
+    (the merge); at G = 4 the zero rows of the M tile leak nothing."""
+    P = paged_ops.partition_for(256, 256, G, dtype)
     lens, npg = ([5, P - 3, P], P // 16) if not many else ([5, 300, 2000],
                                                             128)
     q, kp, vp, bt, sl = _paged_inputs(
         np.random.default_rng(head), torch.Generator(device=cuda).manual_seed(
-            head), cuda, torch.bfloat16, lens, G * K, K, 256, 16, npg,
+            head), cuda, dtype, lens, G * K, K, 256, 16, npg,
         shuffle=True)
     assert (npg * 16 > P) == many
     q[1, head, 11] = float("nan")

@@ -687,6 +687,83 @@ class TestPagedMLATF32x3:
                                 tf32_products=2)
 
 
+class TestPagedGQATF32x3:
+    """The f32 grouped decode kernel's arithmetic
+    (``paged_attention_tiled_ref`` with ``tf32_products=3``, ``round_p=False``
+    over ``GQA_PARTITION``-token partitions: 32-token tiles, the tile's
+    max, Q·Kᵀ and P·V as three TF32 products of operands split by
+    ``split_tf32``, the sum on P unsplit) with keys and values in pages of
+    their own, at every width and group ``paged_gqa_tf32x3_kernel`` takes,
+    against the Pallas kernel in interpret mode: within F32_TOL, where one
+    TF32 product a multiply is not (at hd 128 and 256).  The inputs are f32
+    normals not rounded to bf16 (on bf16 values one TF32 product is exact);
+    lengths of one token, on both sides of a tile edge and of the partition
+    edge; a shuffled table."""
+
+    _want = {}
+
+    @classmethod
+    def _case(cls, hd, G):
+        """The f32 inputs and the Pallas kernel's output, once for each
+        (hd, G)."""
+        if (hd, G) not in cls._want:
+            rng = np.random.default_rng(hd * 100 + G + 50)
+            P, page = paged_ops.GQA_PARTITION, 16
+            K = 2 if G <= 4 else 1
+            lens = np.array([1, 31, 33, P - 1, P + 1], dtype=np.int32)
+            B, npg = len(lens), (P + 32) // page
+            n_pool = B * npg + 3
+            q = _normal(rng, (B, G * K, hd))
+            kp, vp = (_normal(rng, (n_pool, page, K, hd)) for _ in range(2))
+            bt = rng.permutation(n_pool)[:B * npg].astype(np.int32).reshape(
+                B, npg)
+            args = (q, kp, vp, bt, lens)
+            want = np.asarray(paged_attention_kernel(
+                *(jnp.asarray(a) for a in args), interpret=True))
+            cls._want[hd, G] = args, want
+        return cls._want[hd, G]
+
+    def _tiled(self, hd, G, tf32_products):
+        args, want = self._case(hd, G)
+        got = paged_attention_tiled_ref(
+            *(torch.from_numpy(a) for a in args),
+            partition=paged_ops.GQA_PARTITION, round_p=False,
+            tf32_products=tf32_products).numpy()
+        assert got.shape == want.shape and got.dtype == np.float32
+        P = paged_ops.GQA_PARTITION
+        assert P < args[3].shape[1] * 16 <= 2 * P      # two partitions
+        worst = float(np.max(np.abs(got - want)
+                             / (F32_TOL + F32_TOL * np.abs(want))))
+        print(f"{tf32_products} TF32 product(s) a multiply, grouped decode "
+              f"hd {hd} G {G}: max abs err "
+              f"{float(np.max(np.abs(got - want))):.3g}, worst |d| / "
+              f"(F32_TOL + F32_TOL·|ref|) {worst:.3g}")
+        return got, want, worst
+
+    @pytest.mark.parametrize("G", [2, 4, 8, 16])
+    @pytest.mark.parametrize("hd", [64, 80, 128, 256])
+    def test_three_tf32_products_hold_f32(self, hd, G):
+        got, want, _ = self._tiled(hd, G, 3)
+        np.testing.assert_allclose(got, want, atol=F32_TOL, rtol=F32_TOL)
+        assert paged_ops.KERNEL.launches == 0
+
+    @pytest.mark.parametrize("G", [2, 4, 8, 16])
+    @pytest.mark.parametrize("hd", [128, 256])
+    def test_one_tf32_product_does_not(self, hd, G):
+        _, _, worst = self._tiled(hd, G, 1)
+        assert worst > 1.0, f"one TF32 product held F32_TOL (worst {worst:.3g})"
+
+    @pytest.mark.parametrize("G", [1, 2, 4, 8, 16])
+    @pytest.mark.parametrize("hd", paged_ops.HEAD_DIMS)
+    def test_partition_by_type_and_group(self, hd, G):
+        """Groups of 2 or more walk the grouped tensor-core kernels'
+        partitions in both types (f32 on ``paged_gqa_tf32x3_kernel`` since
+        it replaced the split kernel there), G = 1 the split kernel's."""
+        want = paged_ops.GQA_PARTITION if G > 1 else paged_ops.PARTITION
+        assert paged_ops.partition_for(hd, hd, G, torch.float32) == want
+        assert paged_ops.partition_for(hd, hd, G, torch.bfloat16) == want
+
+
 class TestWrappers:
     def test_cpu_never_launches_a_kernel(self):
         flash_ops.KERNEL.launches = 0
@@ -747,6 +824,10 @@ class TestWrappers:
      "(__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, "
      "int const*, int const*, __nv_bfloat16*, float*, int, int, int, int, "
      "int, int, float)", "paged_attention"),
+    ("void (anonymous namespace)::gqa::paged_gqa_tf32x3_kernel<256, 16>"
+     "(float const*, float const*, float const*, int const*, int const*, "
+     "float*, float*, int, int, int, int, int, int, float)",
+     "paged_attention"),
     ("void at::native::index_add_cuda_impl<float>", "moe_dispatch"),
     ("void (anonymous namespace)::tf32x3::ssd_chunk_y_tf32x3_kernel<64, 16, "
      "4>(float const*, float const*, float const*, float const*, "
