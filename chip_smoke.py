@@ -125,21 +125,32 @@ Phases, in order; any failure raises and exits non-zero:
    its own peak above what was allocated before it;
 5. train, with every serve's weights freed (no kernel of the repository
    runs on this path): (a) each kernel wrapper refuses, on the card, an
-   input that requires grad under autograd; (b) llama2-13b at full width
-   and 2 layers in f32, one ``train_loss`` backward and 3 AdamW steps on
-   the card against the CPU from the same weights (loss within 1e-5
-   relative, every gradient leaf within 1e-4 of its scale, the steps'
-   losses within 1e-4); (c) ``blockwise_gqa_attend`` against the dense
-   ``reference_attend`` at B 1, S 4096, H = K = 40, hd 128, f32, causal
-   (output within 2e-5, gradients within 1e-4 of scale); (d)
-   ``launch/train.py::main`` for llama2-13b at full width cut to 8 of 40
-   layers (``TRAIN_DEPTH_CUTS``), bf16 compute, remat, batch 2 x 4096
-   (every layer blockwise), 30 steps: finite losses and gradient norms, the
-   loss falling, the run's own peak under 60 GiB; ms a step, tokens/s and
-   the model-FLOPs share of the bf16 peak printed; (e) checkpoint/restart
-   of the smoke config on the card (4 straight steps against 2, a
-   checkpoint, a restore and 2), bitwise under deterministic algorithms
-   or within 1e-6 of scale, whichever held printed;
+   input that requires grad under autograd, and so do the prefill mixers
+   ``ssm_forward`` and ``mla_forward`` (their ``train=True`` forms run);
+   (b) at full width in f32, one ``train_loss`` backward and 3 AdamW
+   steps on the card against the CPU from the same weights (loss within
+   1e-5 relative, every gradient leaf within 1e-4 of its scale, the
+   steps' losses within 1e-4; an MoE model's router choices recorded on
+   both sides): llama2-13b at 1 layer, mamba2-370m at 2 (S 384: a whole
+   chunk and a padded one), recurrentgemma-9b at 3 (one period: two
+   RG-LRU layers and a local one), deepseek-v2-lite-16b at 2 (the dense
+   head layer and one MoE layer) and minicpm3-4b at 2 (``TRAIN_PARITY``);
+   (c) ``blockwise_gqa_attend`` against the dense ``reference_attend`` at
+   B 1, S 4096, H = K = 40, hd 128, f32, causal (output within 2e-5,
+   gradients within 1e-4 of scale); (d) ``launch/train.py::main`` at full
+   width, bf16 compute, remat (``TRAIN_RUNS``): llama2-13b cut to 8 of 40
+   layers (``TRAIN_DEPTH_CUTS``), batch 2 x 4096 (every layer blockwise),
+   20 steps; mamba2-370m whole, batch 8 x 4096, 20 steps;
+   recurrentgemma-9b cut to 8 of 38 (two periods and the 2-layer RG-LRU
+   tail), batch 2 x 4096 (local layers blockwise over their window), 20
+   steps; deepseek-v2-lite-16b cut to 5 of 27, batch 2 x 4096 (MLA folded
+   into MHA form through blockwise), 20 steps: finite losses and gradient
+   norms, the loss falling, each run's own peak under 60 GiB; ms a step,
+   tokens/s and the model-FLOPs share of the bf16 peak printed
+   (``train_flops``, llama2's figure held to its closed form); (e)
+   checkpoint/restart of the smoke config on the card (4 straight steps
+   against 2, a checkpoint, a restore and 2), bitwise under deterministic
+   algorithms or within 1e-6 of scale, whichever held printed;
 6. summary: one call of each kernel's bf16 main case (and of the f32
    flash main, offset and MLA cases, the f32 MLA paged case, the f32
    SSD main case and every minicpm3-4b case) under
@@ -164,6 +175,7 @@ import json
 import subprocess
 import sys
 import time
+from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -2755,20 +2767,63 @@ TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-5, 1e-4     # f32, card vs CPU
 TRAIN_STEP_TOL = 1e-4                           # 3 AdamW steps' losses
 BLOCKWISE_OUT_TOL, BLOCKWISE_GRAD_TOL = 2e-5, 1e-4
 TRAIN_MAX_OWN_GIB = 60        # the limit of internvl2's serve (PERF.md)
-TRAIN_ARGS = ["--arch", "llama2-13b", "--full-config", "--steps", "30",
-              "--batch", "2", "--seq", "4096", "--lr", "3e-4",
-              "--log-every", "5", "--device", "cuda"]
+# (b): (arch, layers at full width, batch, sequence) held card against CPU
+# in f32: llama2's GQA, mamba2's SSD (S 384: a whole chunk of 256 and a
+# padded one), recurrentgemma's period (rglru, rglru, local), deepseek's
+# dense head layer and one MoE layer, minicpm3's MLA with dense MLPs.
+# llama2 runs 1 layer (2 until the whole run passed 800 s).  The CPU side
+# of recurrentgemma's (117-121 s beside an H100) goes to its 1.7 B
+# weights' init, AdamW and the tied table's gradient, not to the tokens:
+# 1 x 128 took as long.
+TRAIN_PARITY = (("llama2-13b", 1, 2, 128), ("mamba2-370m", 2, 2, 384),
+                ("recurrentgemma-9b", 3, 2, 128),
+                ("deepseek-v2-lite-16b", 2, 2, 128),
+                ("minicpm3-4b", 2, 2, 128))
+# (d): ``launch/train.py`` at full width (cut to ``TRAIN_DEPTH_CUTS``
+# layers where the model does not fit), bf16 compute, remat; llama2 20
+# steps (30 until the whole run passed 800 s)
+TRAIN_RUNS = {
+    "llama2-13b": ["--steps", "20", "--batch", "2", "--seq", "4096",
+                   "--lr", "3e-4"],
+    "mamba2-370m": ["--steps", "20", "--batch", "8", "--seq", "4096",
+                    "--lr", "1e-3"],
+    "recurrentgemma-9b": ["--steps", "20", "--batch", "2", "--seq", "4096",
+                          "--lr", "3e-4"],
+    "deepseek-v2-lite-16b": ["--steps", "20", "--batch", "2", "--seq",
+                             "4096", "--lr", "3e-4"]}
 
 
 def phase_train_wrappers() -> None:
     """(a) Every kernel wrapper refuses, on the card, an input that
-    requires grad under grad mode: its output would have no ``grad_fn``."""
+    requires grad under grad mode: its output would have no ``grad_fn``.
+    So do the prefill mixers that reach them, ``ssm_forward`` (mamba2's
+    smoke weights) and ``mla_forward`` (deepseek's), with weights that
+    require grad; their ``train=True`` forms run."""
     import torch
+    from repro_torch.configs import get_smoke_config
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.paged_attention import ops as pa
     from repro_torch.kernels.ssd_scan import ops as so
+    from repro_torch.models import init_params
+    from repro_torch.models.attention import mla_forward
+    from repro_torch.models.ssm import ssm_forward
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
+    mixers = {}
+    for arch in ("mamba2-370m", "deepseek-v2-lite-16b"):
+        cfg = get_smoke_config(arch)
+        params = init_params(cfg, g, device="cuda").requires_grad_(True)
+        mixers[arch] = (cfg, dict(params.blocks[0].mixer))
+    x = torch.randn((1, 64, 64), generator=g, device="cuda")
+    pos = torch.arange(64, device="cuda")[None]
+
+    def ssm(train):
+        cfg, mixer = mixers["mamba2-370m"]
+        return ssm_forward(mixer, x, cfg, train=train)
+
+    def mla(train):
+        cfg, mixer = mixers["deepseek-v2-lite-16b"]
+        return mla_forward(mixer, x, cfg, positions=pos, train=train)
 
     def r(*shape, grad=False):
         return torch.randn(shape, generator=g, device="cuda",
@@ -2784,7 +2839,9 @@ def phase_train_wrappers() -> None:
             lens),
         "ssd_chunk": lambda: so.ssd_chunk(
             r(1, 1, 64, 2, 64, grad=True), r(1, 1, 64, 2).abs(), r(2),
-            r(1, 1, 64, 1, 64), r(1, 1, 64, 1, 64))}
+            r(1, 1, 64, 1, 64), r(1, 1, 64, 1, 64)),
+        "ssm_forward (prefill)": lambda: ssm(False),
+        "mla_forward (prefill)": lambda: mla(False)}
     for name, call in calls.items():
         try:
             with torch.enable_grad():
@@ -2795,8 +2852,12 @@ def phase_train_wrappers() -> None:
         else:
             raise RuntimeError(f"check failed: {name} took an input that "
                                f"requires grad under autograd")
+    with torch.enable_grad():
+        check(ssm(True).requires_grad and mla(True).requires_grad,
+              "the training forms of the mixers run under autograd")
     print(f"[train] (a) {', '.join(calls)} refuse inputs that require grad "
-          f"under autograd on the card")
+          f"under autograd on the card; ssm_forward and mla_forward with "
+          f"train=True run")
 
 
 def _loss_grads(params, batch, cfg, pol):
@@ -2808,19 +2869,22 @@ def _loss_grads(params, batch, cfg, pol):
     return float(loss.detach()), dict(zip(named, grads))
 
 
-def phase_train_parity() -> dict:
-    """(b) llama2-13b at full width and 2 layers in f32: one ``train_loss``
-    backward and 3 AdamW steps on the card (cuBLAS and CUDA autograd, no
-    kernel of the repository) against the CPU, from the same weights."""
+def phase_train_parity(arch: str, layers: int, batch: int, seq: int) -> dict:
+    """(b) ``arch`` at full width and ``layers`` layers in f32: one
+    ``train_loss`` backward and 3 AdamW steps on the card (cuBLAS and CUDA
+    autograd, no kernel of the repository) against the CPU, from the same
+    weights.  An MoE model's router choices are recorded on both sides
+    and printed beside the result."""
     import copy
 
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import DtypePolicy
+    from repro_torch.models import moe as moe_mod
     from repro_torch.training import (AdamWConfig, DataConfig, TokenDataset,
                                       adamw_init, batch_to, init_train_state,
                                       make_train_step)
-    cfg = get_config("llama2-13b").scaled(n_layers=2)
+    cfg = get_config(arch).scaled(n_layers=layers)
     pol = DtypePolicy(torch.float32, torch.float32, torch.float32)
     t0 = time.monotonic()
     cpu_p, cpu_st = init_train_state(cfg, torch.Generator().manual_seed(0),
@@ -2828,18 +2892,33 @@ def phase_train_parity() -> dict:
     card_p = copy.deepcopy(cpu_p).to("cuda")
     card_st = adamw_init(card_p)
     n = sum(p.numel() for p in cpu_p.parameters())
-    it = TokenDataset(cfg, DataConfig(global_batch=2, seq_len=128)).batches()
+    it = TokenDataset(cfg, DataConfig(global_batch=batch,
+                                      seq_len=seq)).batches()
     batches = [next(it) for _ in range(3)]
-    lc, g_cpu = _loss_grads(cpu_p, batch_to(batches[0], "cpu"), cfg, pol)
-    lg, g_card = _loss_grads(card_p, batch_to(batches[0], "cuda"), cfg, pol)
+    orig_route = moe_mod._route
+    routes = {"cpu": [], "cuda": []}
+    try:
+        for dev in routes:
+            def recording(x2d, router, top_k, _r=routes[dev]):
+                gates, idx, probs = orig_route(x2d, router, top_k)
+                _r.append(idx.cpu())
+                return gates, idx, probs
+            moe_mod._route = recording
+            if dev == "cpu":
+                lc, g_cpu = _loss_grads(cpu_p, batch_to(batches[0], "cpu"),
+                                        cfg, pol)
+            else:
+                lg, g_card = _loss_grads(card_p, batch_to(batches[0], dev),
+                                         cfg, pol)
+    finally:
+        moe_mod._route = orig_route
+    same_routes = all(torch.equal(a, b) for a, b in zip(routes["cpu"],
+                                                         routes["cuda"]))
     loss_rel = abs(lg - lc) / abs(lc)
-    worst, worst_name = 0.0, ""
     errs = {k: max_err(g_card[k].cpu(), a) / max(float(a.abs().max()), 1e-30)
             for k, a in g_cpu.items()}
     worst_name = max(errs, key=errs.get)
     worst = errs[worst_name]
-    qkv = max(e for k, e in errs.items()
-              if k.split(".")[-1] in ("wq", "wk", "wv"))
     del g_cpu, g_card
     opt = AdamWConfig(lr_peak=3e-4, warmup_steps=1, total_steps=3)
     losses = {}
@@ -2851,23 +2930,29 @@ def phase_train_parity() -> dict:
             losses[dev].append(float(m["loss"]))
     step_rel = max(abs(a - b) / abs(b)
                    for a, b in zip(losses["cuda"], losses["cpu"]))
-    print(f"[train] (b) llama2-13b full width, 2 layers, {n:,} parameters, "
-          f"f32, batch 2x128: loss card {lg:.7f} CPU {lc:.7f} (relative "
-          f"{loss_rel:.2e}); worst gradient leaf {worst_name} at "
-          f"{worst:.2e} of its scale, wq/wk/wv at {qkv:.2e}; 3 AdamW steps' "
-          f"losses card {losses['cuda']} CPU {losses['cpu']} (relative "
-          f"{step_rel:.2e}); {time.monotonic() - t0:.1f} s")
-    check(loss_rel <= TRAIN_LOSS_TOL, f"card loss within {TRAIN_LOSS_TOL} "
-                                      f"of the CPU's (got {loss_rel:.2e})")
-    check(worst <= TRAIN_GRAD_TOL, f"every gradient leaf within "
+    route_note = (f"; router top-{cfg.moe_top_k} of {cfg.n_experts} "
+                  f"{'equal' if same_routes else 'PARTED'} on both sides "
+                  f"({len(routes['cpu'])} calls)" if cfg.n_experts else "")
+    print(f"[train] (b) {arch} full width, {layers} layers, {n:,} "
+          f"parameters, f32, batch {batch}x{seq}: loss card {lg:.7f} CPU "
+          f"{lc:.7f} (relative {loss_rel:.2e}); worst gradient leaf "
+          f"{worst_name} at {worst:.2e} of its scale; 3 AdamW steps' losses "
+          f"card {losses['cuda']} CPU {losses['cpu']} (relative "
+          f"{step_rel:.2e}){route_note}; {time.monotonic() - t0:.1f} s")
+    check(loss_rel <= TRAIN_LOSS_TOL, f"{arch}: card loss within "
+                                      f"{TRAIN_LOSS_TOL} of the CPU's (got "
+                                      f"{loss_rel:.2e})")
+    check(worst <= TRAIN_GRAD_TOL, f"{arch}: every gradient leaf within "
                                    f"{TRAIN_GRAD_TOL} of its scale (got "
                                    f"{worst:.2e} at {worst_name})")
-    check(step_rel <= TRAIN_STEP_TOL, f"AdamW steps' losses within "
+    check(step_rel <= TRAIN_STEP_TOL, f"{arch}: AdamW steps' losses within "
                                       f"{TRAIN_STEP_TOL} (got {step_rel:.2e})")
-    return {"params": n, "loss_rel": loss_rel, "grad_worst": worst,
-            "grad_worst_leaf": worst_name, "qkv_grad_worst": qkv,
+    return {"layers": layers, "params": n, "loss_rel": loss_rel,
+            "grad_worst": worst, "grad_worst_leaf": worst_name,
             "step_losses_card": losses["cuda"],
-            "step_losses_cpu": losses["cpu"], "step_loss_rel": step_rel}
+            "step_losses_cpu": losses["cpu"], "step_loss_rel": step_rel,
+            "routes_equal": same_routes if cfg.n_experts else None,
+            "wall_s": time.monotonic() - t0}
 
 
 def phase_train_blockwise() -> dict:
@@ -2912,66 +2997,129 @@ def phase_train_blockwise() -> dict:
             "ms_blockwise": ms["blockwise"], "ms_reference": ms["reference"]}
 
 
-def train_flops(cfg, batch: int, seq: int) -> tuple:
+def train_flops(params, cfg, batch: int, seq: int) -> tuple:
     """(model FLOPs of one training step, FLOPs the step executes, matmul
-    weights N).  Model:
-    6·N·tokens over the matmul weights (every block weight of two or more
-    dims and the head; the embedding is a lookup) plus the attention
-    products 12·L·H·hd·S a token (PaLM's count, the whole span).  Executed:
-    8·N·tokens (the forward, its recompute under remat and the backward)
-    plus the attention products of blockwise's whole causal span, run in
-    the forward, the layer's recompute, the query block's recompute and
-    twice in the backward."""
+    weights N a token reads).
+
+    N is counted from the parameters: every block weight of two or more
+    dims (projections, MLPs, routers, the depthwise convs: one
+    multiply-add a weight a token each) and the head (the embedding is a
+    lookup; a tied table counts once, as the head); an MoE block's routed
+    experts (its three-dim weights) at ``top_k / n_experts``, its router and
+    shared experts whole.  Model FLOPs: 6·N·tokens plus three times the
+    forward products no weight counts (PaLM's count):
+
+    * attention, a layer and a token: QKᵀ 2·T·H·dk and PV 2·T·H·dv over
+      the whole span T = S, or a local layer's window min(W, S); MLA's dk
+      = hd + rd, dv = vd, else dk = dv = hd;
+    * the SSD, a layer and a token: the intra-chunk scores C·Bᵀ 2·Q·N a
+      group, their product with x 2·Q·H·P, the chunk states and y_off
+      2·H·P·N each (Q the chunk, whole chunks);
+    * none for the RG-LRU scan (element-wise).
+
+    Executed: 8·N·tokens (the forward, its recompute under remat and the
+    backward) plus the products as the step runs them, four times (the
+    forward, its recompute, the backward twice): attention over the whole
+    S x S below ``BLOCKWISE_THRESHOLD``, above it over each query block's
+    KV span (S, or W + 512 for a window) and a fifth time for blockwise's
+    query-block recompute; the SSD's products as counted above, since
+    ``models/ssm.py::ssd_chunk_train`` also takes the scores once a
+    group."""
+    from repro_torch.models.attention import BLOCKWISE_THRESHOLD, window_for
+    tokens = batch * seq
+    n = params.head.numel() if params.head is not None else \
+        params.embed.numel()
+    attn_model = attn_exec = ssd_model = ssd_exec = 0
+    dk = cfg.head_dim + (cfg.rope_head_dim if cfg.use_mla else 0)
+    dv = cfg.v_head_dim
+    for bp in params.blocks:
+        for group in (bp.mixer, bp.mlp or {}, bp.shared or {}):
+            for w in group.values():
+                if w.dim() >= 2:
+                    routed = bp.use_moe and group is bp.mlp and w.dim() == 3
+                    n += (w.numel() * cfg.moe_top_k // cfg.n_experts
+                          if routed else w.numel())
+        if bp.kind == "ssm":
+            Q, N, P = min(cfg.ssm_chunk, seq), cfg.ssm_state, cfg.ssm_head_dim
+            H, G = cfg.n_ssm_heads, cfg.ssm_groups
+            ssd_fwd = 2 * tokens * (Q * N * G + Q * H * P + 2 * H * P * N)
+            ssd_model += ssd_fwd
+            ssd_exec += 4 * ssd_fwd
+        elif bp.kind != "rglru":
+            win = window_for(cfg, bp.kind)
+            span = min(win, seq) if win else seq
+            a_tok = 2 * cfg.n_heads * (dk + dv)       # a key, a token
+            attn_model += tokens * span * a_tok
+            if seq > BLOCKWISE_THRESHOLD:
+                kv = min(win + min(512, seq), seq) if win else seq
+                attn_exec += 5 * tokens * kv * a_tok
+            else:
+                attn_exec += 4 * tokens * seq * a_tok
+    return (6 * n * tokens + 3 * (attn_model + ssd_model),
+            8 * n * tokens + attn_exec + ssd_exec, n)
+
+
+def llama2_train_flops(cfg, batch: int, seq: int) -> tuple:
+    """The closed form for llama2 (dense d_ff, GQA projections, the
+    whole causal span through blockwise), which :func:`train_flops` must
+    reproduce from the parameters."""
     d, L = cfg.d_model, cfg.n_layers
     H, K, hd, ff = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
-    per_layer = d * H * hd * 2 + d * K * hd * 2 + 3 * d * ff
-    n = L * per_layer + d * cfg.vocab_size
-    tokens = batch * seq
+    n = L * (d * H * hd * 2 + d * K * hd * 2 + 3 * d * ff) + d * cfg.vocab_size
     attn_fwd = 4 * batch * seq * seq * H * hd * L
-    return (6 * n * tokens + 3 * attn_fwd,
-            8 * n * tokens + 5 * attn_fwd, n)
+    return (6 * n * batch * seq + 3 * attn_fwd,
+            8 * n * batch * seq + 5 * attn_fwd, n)
 
 
-def phase_train_run() -> dict:
-    """(d) ``launch/train.py`` in-process: llama2-13b at full width, cut to
-    ``TRAIN_DEPTH_CUTS`` layers, ``DtypePolicy.train()``, remat, batch 2 x
-    4096 (every layer blockwise), 30 steps."""
+def phase_train_run(arch: str) -> dict:
+    """(d) ``launch/train.py`` in-process: ``arch`` at full width, cut to
+    ``TRAIN_DEPTH_CUTS`` layers where it has a cut, ``DtypePolicy.train()``,
+    remat, ``TRAIN_RUNS[arch]``'s batch, steps and lr."""
+    from repro_torch.configs import get_config
     from repro_torch.launch.train import main as train_main
     t0 = time.monotonic()
-    out = train_main(TRAIN_ARGS)
+    args = TRAIN_RUNS[arch]
+    batch, seq = (int(args[args.index(k) + 1]) for k in ("--batch", "--seq"))
+    out = train_main(["--arch", arch, "--full-config", "--log-every", "5",
+                      "--device", "cuda"] + args)
     cfg, losses, norms = out["cfg"], out["losses"], out["grad_norms"]
-    model, executed, n_mat = train_flops(cfg, 2, 4096)
+    model, executed, n_mat = train_flops(out["params"], cfg, batch, seq)
+    if arch == "llama2-13b":
+        check((model, executed, n_mat) == llama2_train_flops(cfg, batch, seq),
+              "train_flops gives llama2's closed-form figures")
     s = out["median_ms"] / 1e3
     mfu = model / s / BF16_PEAK_FLOPS
     first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
-    summary = {"layers": cfg.n_layers, "params": sum(
-        p.numel() for p in out["params"].parameters()),
-        "matmul_params": n_mat, "median_ms": out["median_ms"],
-        "tokens_per_s": out["tokens_per_s"], "model_flops": model,
-        "executed_flops": executed, "mfu": mfu,
-        "executed_share": executed / s / BF16_PEAK_FLOPS,
-        "own_peak_gib": out["own_peak_gib"], "losses": losses,
-        "grad_norms": norms, "first5": first, "last5": last,
-        "wall_s": time.monotonic() - t0}
+    full = get_config(arch).n_layers
+    summary = {"layers": cfg.n_layers, "of_layers": full,
+               "batch": batch, "seq": seq, "params": sum(
+                   p.numel() for p in out["params"].parameters()),
+               "matmul_params": n_mat, "median_ms": out["median_ms"],
+               "tokens_per_s": out["tokens_per_s"], "model_flops": model,
+               "executed_flops": executed, "mfu": mfu,
+               "executed_share": executed / s / BF16_PEAK_FLOPS,
+               "own_peak_gib": out["own_peak_gib"], "losses": losses,
+               "grad_norms": norms, "first5": first, "last5": last,
+               "wall_s": time.monotonic() - t0}
     del out
-    print(f"[train] (d) llama2-13b {cfg.n_layers} of 40 layers, "
+    print(f"[train] (d) {arch} {cfg.n_layers} of {full} layers, "
           f"{summary['params']:,} parameters, bf16 compute, remat, batch "
-          f"2x4096: median {summary['median_ms']:.1f} ms a step after step 3 "
-          f"({summary['tokens_per_s']:.0f} tokens/s); model FLOPs a step "
-          f"{model:.3e} (6·N·tokens, N = {n_mat:,}, plus attention), "
-          f"{100 * mfu:.1f}% of {BF16_PEAK_FLOPS / 1e12:.0f} TFLOP/s; "
-          f"executed FLOPs "
-          f"{executed:.3e} ({100 * summary['executed_share']:.1f}%); own "
+          f"{batch}x{seq}: median {summary['median_ms']:.1f} ms a step after "
+          f"step 3 ({summary['tokens_per_s']:.0f} tokens/s); model FLOPs a "
+          f"step {model:.3e} (6·N·tokens, N = {n_mat:,}, plus attention "
+          f"and SSD products), {100 * mfu:.2f}% of "
+          f"{BF16_PEAK_FLOPS / 1e12:.0f} TFLOP/s; executed FLOPs "
+          f"{executed:.3e} ({100 * summary['executed_share']:.2f}%); own "
           f"peak {summary['own_peak_gib']:.2f} GiB; loss first 5 {first:.4f} "
           f"last 5 {last:.4f}; {summary['wall_s']:.1f} s with init")
-    print(f"[train] (d) losses {[round(x, 4) for x in losses]}")
-    print(f"[train] (d) gradient norms {[round(x, 4) for x in norms]}")
+    print(f"[train] (d) {arch} losses {[round(x, 4) for x in losses]}")
+    print(f"[train] (d) {arch} gradient norms {[round(x, 4) for x in norms]}")
     check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
-          "finite losses and gradient norms")
-    check(last < first, f"loss falls on the planted bigram stream (first 5 "
-                        f"{first:.4f}, last 5 {last:.4f})")
+          f"{arch}: finite losses and gradient norms")
+    check(last < first, f"{arch}: loss falls on the planted bigram stream "
+                        f"(first 5 {first:.4f}, last 5 {last:.4f})")
     check(summary["own_peak_gib"] < TRAIN_MAX_OWN_GIB,
-          f"the run's own peak {summary['own_peak_gib']:.2f} GiB < "
+          f"{arch}: the run's own peak {summary['own_peak_gib']:.2f} GiB < "
           f"{TRAIN_MAX_OWN_GIB}")
     return summary
 
@@ -3049,15 +3197,21 @@ def phase_train_resume() -> dict:
 def phase_train() -> dict:
     """Phases (a)-(e) of training, every earlier model's weights freed."""
     import torch
-    out = {}
+    out = {"parity": {}, "run": {}}
     phase_train_wrappers()
-    for name, fn in (("parity", phase_train_parity),
-                     ("blockwise", phase_train_blockwise),
-                     ("run", phase_train_run),
-                     ("resume", phase_train_resume)):
+    steps = [(("parity", arch), partial(phase_train_parity, arch, *rest))
+             for arch, *rest in TRAIN_PARITY]
+    steps.append((("blockwise",), phase_train_blockwise))
+    steps += [(("run", arch), partial(phase_train_run, arch))
+              for arch in TRAIN_RUNS]
+    steps.append((("resume",), phase_train_resume))
+    for key, fn in steps:
         gc.collect()
         torch.cuda.empty_cache()
-        out[name] = fn()
+        if len(key) == 2:
+            out[key[0]][key[1]] = fn()
+        else:
+            out[key[0]] = fn()
     print("[train] " + json.dumps(out))
     return out
 

@@ -91,9 +91,10 @@ def refuse_autograd(op: str, *tensors) -> None:
         raise RuntimeError(
             f"{op} has no backward: training attention runs "
             f"models/attention.py::gqa_attend or models/blockwise.py::"
-            f"blockwise_gqa_attend (attn_forward(..., train=True)); call "
-            f"the kernel wrappers under torch.no_grad() or with inputs that "
-            f"do not require grad")
+            f"blockwise_gqa_attend (attn_forward(..., train=True)), the "
+            f"training SSM models/ssm.py::ssd_chunked (ssm_forward(..., "
+            f"train=True)); call the kernel wrappers under torch.no_grad() "
+            f"or with inputs that do not require grad")
 
 
 class CudaKernel:

@@ -2,22 +2,23 @@
 
 ``ssd_chunk`` is the intra-chunk part (the JAX ``ssd_chunk_call``): tensors
 on the CPU go through the plain version (``ref.py``); tensors on a GPU launch
-``csrc/ssd_scan.cu`` or raise.  ``ssd`` is the whole scan: it pads the
-sequence to whole chunks with ``dt = 0`` (exact: the state passes through a
-position with ``dt = 0`` unchanged), runs ``ssd_chunk``, then the
-inter-chunk recurrence and the ``y_off`` term in PyTorch, as the JAX
-wrapper leaves them to XLA (``repro/kernels/ssd_scan/ops.py:37-50``).
+``csrc/ssd_scan.cu`` or raise.  ``ssd`` is the whole scan (``ref.py::ssd_scan``
+over ``ssd_chunk``): it pads the sequence to whole chunks with ``dt = 0``
+(exact: the state passes through a position with ``dt = 0`` unchanged),
+runs ``ssd_chunk``, then the inter-chunk recurrence and the ``y_off`` term
+in PyTorch, as the JAX wrapper leaves them to XLA
+(``repro/kernels/ssd_scan/ops.py:37-50``).
 """
 
 from __future__ import annotations
 
 import ctypes
+from functools import partial
 
 import torch
-import torch.nn.functional as F
 
 from .._build import DTYPE_CODES, CudaKernel, refuse_autograd
-from .ref import ssd_chunk_ref
+from .ref import ssd_chunk_ref, ssd_scan
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("ssd_scan", "ssd_chunk_fwd",
@@ -102,35 +103,8 @@ def ssd(x, dt, A_log, B, C, *, chunk: int = 256, h_init=None,
     end to whole chunks with ``dt = 0``.  Returns (y (b,s,H,P) in x's dtype,
     final state (b,H,P,N) f32), the state after position s-1 — the JAX
     ``ops.ssd`` returns y only.  Raises ``RuntimeError`` under autograd,
-    as :func:`ssd_chunk` does."""
+    as :func:`ssd_chunk` does (the training forward runs
+    ``models/ssm.py::ssd_chunked``, the same scan over ``ssd_chunk_ref``)."""
     refuse_autograd("ssd", x, dt, A_log, B, C, h_init)
-    b, s, H, P = x.shape
-    G, N = B.shape[2], B.shape[3]
-    Q = min(chunk, s)
-    pad = -s % Q
-    nc = (s + pad) // Q
-
-    def chunks(t, width):
-        t = F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) if pad else t
-        return t.contiguous().view(b, nc, Q, *width)
-
-    Cc = chunks(C, (G, N))
-    y_diag, states, in_decay, chunk_decay = ssd_chunk(
-        chunks(x, (H, P)), chunks(dt.float(), (H,)), A_log.float().contiguous(),
-        chunks(B, (G, N)), Cc, impl=impl)
-
-    # inter-chunk recurrence: the state entering each chunk, (P, N) order
-    h = (torch.zeros((b, H, P, N), dtype=torch.float32, device=x.device)
-         if h_init is None else h_init.float())
-    st = states.transpose(-1, -2)                        # (b,nc,H,P,N)
-    h_prev = []
-    for c in range(nc):
-        h_prev.append(h)
-        h = h * chunk_decay[:, c, :, None, None] + st[:, c]
-    h_prev = torch.stack(h_prev, dim=1).view(b, nc, G, H // G, P, N)
-
-    # y_off = C · h_prev · exp(cum), per head of each group
-    y_off = torch.einsum("bcqgn,bcgrpn->bcqgrp", Cc.float(), h_prev).reshape(
-        b, nc, Q, H, P) * in_decay[..., None]
-    y = (y_diag + y_off).view(b, nc * Q, H, P)[:, :s]
-    return y.to(x.dtype), h
+    return ssd_scan(x, dt, A_log, B, C, chunk=chunk, h_init=h_init,
+                    chunk_fn=partial(ssd_chunk, impl=impl))

@@ -7,9 +7,11 @@ out the tensor-core kernels' arithmetic (key tiles; in bf16 the decayed
 scores and the decayed inputs rounded to bf16 before their products, in
 f32 every product taken as three TF32 products of split operands);
 ``ssd_ref`` is the sequential state-space recurrence, the oracle of
-``repro/kernels/ssd_scan/ref.py``.  All take B and C by group (G groups,
-H a multiple of G; head h reads group ``h // (H / G)``), which is the JAX
-functions' head-broadcast layout when G = H.
+``repro/kernels/ssd_scan/ref.py``; ``ssd_scan`` is the whole chunked scan
+around an intra-chunk function (the kernel wrapper, or a plain version in
+torch ops, which autograd differentiates).  All take B and C by group (G
+groups, H a multiple of G; head h reads group ``h // (H / G)``), which is
+the JAX functions' head-broadcast layout when G = H.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from ..flash_attention.ref import einsum_tf32
 
@@ -133,3 +136,44 @@ def ssd_ref(x, dt, A_log, B, C, h_init=None):
         h = h * a[:, t, :, None, None] + xd[:, t, :, :, None] * Bh[:, t, :, None, :]
         ys.append(torch.einsum("bhn,bhpn->bhp", Ch[:, t], h))
     return torch.stack(ys, dim=1), h
+
+
+def ssd_scan(x, dt, A_log, B, C, *, chunk: int, h_init=None,
+             chunk_fn=ssd_chunk_ref):
+    """Full chunked SSD scan.  x (b,s,H,P); dt (b,s,H); A_log (H,); B, C
+    (b,s,G,N); h_init (b,H,P,N) or None (zeros).  Chunks are ``min(chunk,
+    s)`` positions, the sequence padded at its end to whole chunks with
+    ``dt = 0``; ``chunk_fn`` computes the intra-chunk part (the layout and
+    outputs of :func:`ssd_chunk_ref`), then the inter-chunk recurrence and
+    ``y_off`` run here in torch ops.  Returns (y (b,s,H,P) in x's dtype,
+    final state (b,H,P,N) f32)."""
+    b, s, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    Q = min(chunk, s)
+    pad = -s % Q
+    nc = (s + pad) // Q
+
+    def chunks(t, width):
+        t = F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) if pad else t
+        return t.contiguous().view(b, nc, Q, *width)
+
+    Cc = chunks(C, (G, N))
+    y_diag, states, in_decay, chunk_decay = chunk_fn(
+        chunks(x, (H, P)), chunks(dt.float(), (H,)), A_log.float().contiguous(),
+        chunks(B, (G, N)), Cc)
+
+    # inter-chunk recurrence: the state entering each chunk, (P, N) order
+    h = (torch.zeros((b, H, P, N), dtype=torch.float32, device=x.device)
+         if h_init is None else h_init.float())
+    st = states.transpose(-1, -2)                        # (b,nc,H,P,N)
+    h_prev = []
+    for c in range(nc):
+        h_prev.append(h)
+        h = h * chunk_decay[:, c, :, None, None] + st[:, c]
+    h_prev = torch.stack(h_prev, dim=1).view(b, nc, G, H // G, P, N)
+
+    # y_off = C · h_prev · exp(cum), per head of each group
+    y_off = torch.einsum("bcqgn,bcgrpn->bcqgrp", Cc.float(), h_prev).reshape(
+        b, nc, Q, H, P) * in_decay[..., None]
+    y = (y_diag + y_off).view(b, nc * Q, H, P)[:, :s]
+    return y.to(x.dtype), h

@@ -15,12 +15,10 @@ first-call allocations), once timed without the profiler, once under
 + radix-reuse run instead (``card_prefix_requests`` under
 ``card_prefix_engine_config``; any architecture whose stack runs chunked
 decode: llama2-13b, qwen3-4b, deepseek-v2-lite-16b, minicpm3-4b).  Prints both runs' engine wall times, the
-device time per kernel class (flash attention, paged attention, SSD chunk,
-matrix products, MoE dispatch — the router's top-k, the position cumsum,
-the scatter into and gather from the expert buffers —, the RG-LRU scan and
+device time per kernel class (:func:`kernel_class`; the RG-LRU scan and
 gates — every kernel launched inside ``models/rglru.py::linear_scan`` and
 ``_gates``, whatever its name, taken out of the class its name gives and
-also listed by range under ``rglru_s`` —, host-device copies, the rest),
+also listed by range under ``rglru_s`` —),
 each of the port's own
 kernels by name under its class, the device busy share against the
 unprofiled wall time, and the host time spent in admission and prefill
@@ -50,20 +48,31 @@ from .serve import (CARD_ENGINE_CONFIGS, card_config,
 # The port's own kernels match by the prefix every kernel of their source
 # shares (flash_fwd_mma_kernel / flash_fwd_tf32x3_kernel; paged_split_kernel,
 # paged_gqa_mma_kernel, paged_gqa_tf32x3_kernel, the MLA kernels and
-# paged_merge_kernel), so a new variant is counted under its class.
+# paged_merge_kernel), so a new variant is counted under its class.  The
+# first class whose key a kernel's name holds takes it.
 _CLASSES = (("flash_attention", ("flash_fwd_",)),
             ("paged_attention", ("paged_",)),
             ("ssd_chunk", ("ssd_chunk_",)),
-            ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "matmul")),
-            ("moe_dispatch", ("index_add", "topk", "gather", "sort", "scan",
-                              "cumsum")),
-            ("copy_host_device", ("memcpy htod", "memcpy dtoh")))
+            ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "matmul",
+                        "splitkreduce")),
+            ("moe_dispatch", ("index_add", "topk", "gather", "sort")),
+            ("cumsum", ("scan", "cumsum", "flip")),
+            ("copy_host_device", ("memcpy htod", "memcpy dtoh")),
+            ("copy", ("memcpy", "memset", "copy")),
+            ("reduce", ("reduce",)))
 _OWN = ("flash_attention", "paged_attention", "ssd_chunk")
 # Profiler ranges around the RG-LRU scan and gates (``_trace_rglru``)
 _RGLRU_RANGES = (("linear_scan", "rglru.scan"), ("_gates", "rglru.gates"))
 
 
-def _kernel_class(name: str) -> str:
+def kernel_class(name: str) -> str:
+    """The class of a device kernel, by its name: the port's own kernels
+    (flash attention, paged attention, SSD chunk), matrix products, MoE
+    dispatch (the router's top-k, the scatter into and gather from the
+    expert buffers), cumulative sums (MoE dispatch's positions, the SSD
+    training path's segment sums, and the flips of their backward), host-
+    device copies, device copies and casts, reductions, and the rest
+    ("other": the element-wise passes)."""
     low = name.lower()
     for cls, keys in _CLASSES:
         if any(k in low for k in keys):
@@ -102,7 +111,7 @@ def _rglru_device_us(prof) -> dict:
         if (evt.name in labels
                 and evt.device_type == torch.autograd.DeviceType.CPU):
             for name, us in _range_kernels(evt):
-                cls = _kernel_class(name)
+                cls = kernel_class(name)
                 out[evt.name][cls] = out[evt.name].get(cls, 0.0) + us
     return out
 
@@ -186,7 +195,7 @@ def main() -> None:
         elif ev.key.startswith("rglru."):
             pass     # a range's mirror on the GPU timeline, not a kernel
         elif dt > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-            cls = _kernel_class(ev.key)
+            cls = kernel_class(ev.key)
             device_us[cls] = device_us.get(cls, 0.0) + dt
             kernels.append((dt, ev.count, ev.key[:90]))
             if cls in own:

@@ -162,13 +162,21 @@ CARD_DEPTH_CUTS = {"phi3.5-moe-42b-a6.6b": 16, "internvl2-76b": 24}
 # parameter) and bf16 casts of the block weights (2 B), so a cut holds
 # about 52 GB of state, leaving room for activations under 60 GiB.
 # llama2-13b at 8 of 40 layers is 2.87 B parameters, 51.6 GB (its peak on
-# the card is in PERF.md); the others are sized by the same rule, not
-# measured: qwen3-4b 20 of 36 (2.80 B), gemma3-4b 18 of 34 (three periods,
-# 2.37 B), phi3.5-moe 2 of 32 (2.86 B), internvl2-76b 1 of 80 (2.96 B, its
-# embedding table and head are 2.1 B).  h2o-danube-1.8b (1.83 B) and
-# hubert-xlarge (0.94 B) train whole.
+# the card is in PERF.md); recurrentgemma-9b at 8 of 38 (two periods and
+# the 2-layer RG-LRU tail, so the tail trains) is 2,831,396,864, 1.05 B of
+# them the tied 256,000 x 4096 table; deepseek-v2-lite-16b at 5 of 27 (the
+# dense head layer and 4 MoE layers) is 2,839,831,040; their peaks are in
+# PERF.md.  The others are sized by the same rule, not measured: qwen3-4b
+# 20 of 36 (2.80 B), gemma3-4b 18 of 34 (three periods, 2.37 B),
+# phi3.5-moe 2 of 32 (2.86 B), internvl2-76b 1 of 80 (2.96 B, its
+# embedding table and head are 2.1 B), minicpm3-4b 37 of 62
+# (2,876,863,232: 67.6 M a layer and 375 M of untied table and head).
+# h2o-danube-1.8b (1.83 B), hubert-xlarge (0.94 B) and mamba2-370m
+# (368,227,840) train whole.
 TRAIN_DEPTH_CUTS = {"llama2-13b": 8, "qwen3-4b": 20, "gemma3-4b": 18,
-                    "phi3.5-moe-42b-a6.6b": 2, "internvl2-76b": 1}
+                    "phi3.5-moe-42b-a6.6b": 2, "internvl2-76b": 1,
+                    "recurrentgemma-9b": 8, "deepseek-v2-lite-16b": 5,
+                    "minicpm3-4b": 37}
 
 
 def card_config(arch: str, cuts: dict = CARD_DEPTH_CUTS) -> ModelConfig:

@@ -7,7 +7,10 @@ on the CPU) with checkpoint/restart, ported from the JAX package's
 
 Without ``--full-config`` it trains the smoke config; with it the published
 config, cut for one card to ``launch/serve.py::TRAIN_DEPTH_CUTS`` layers
-where the whole model does not fit (llama2-13b at 8 of 40).  Weights come
+where the whole model does not fit (llama2-13b at 8 of 40,
+recurrentgemma-9b at 8 of 38, deepseek-v2-lite-16b at 5 of 27; mamba2-370m
+trains whole).  Every family the JAX package trains runs: attention (GQA
+or MLA), MoE (under ``dropping``), SSM and RG-LRU.  Weights come
 from seed 0 and the data from ``training.TokenDataset`` (seed 0, a planted
 bigram stream); the policy is ``DtypePolicy.train()`` (f32 weights, bf16
 compute) with remat on, AdamW warming up over 10 steps then a cosine to
@@ -33,7 +36,6 @@ from ..bridge import train_state_tree
 from ..checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from ..configs import get_smoke_config
 from ..models.common import resolve_device
-from ..models.transformer import check_trainable
 from ..training import (AdamWConfig, DataConfig, TokenDataset, batch_to,
                         init_train_state, make_train_step)
 from .serve import TRAIN_DEPTH_CUTS, card_config, depth_label
@@ -65,7 +67,6 @@ def main(argv=None) -> dict:
     dev = resolve_device(args.device)
     cfg = (card_config(args.arch, TRAIN_DEPTH_CUTS) if args.full_config
            else get_smoke_config(args.arch))
-    check_trainable(cfg)
     opt_cfg = AdamWConfig(lr_peak=args.lr, warmup_steps=10,
                           total_steps=args.steps)
     step_fn = make_train_step(cfg, opt_cfg,

@@ -8,7 +8,9 @@ wrapper; on CPU tensors both run their plain PyTorch versions.  The training
 forward (``attn_forward(..., train=True)``) never reaches a kernel wrapper:
 it runs :func:`gqa_attend` (dense, the JAX package's XLA path) up to
 ``BLOCKWISE_THRESHOLD`` tokens and ``blockwise.blockwise_gqa_attend`` above,
-both in torch ops that autograd differentiates.  Shapes: x
+and for MLA :func:`mla_forward`'s two-term dense scores, or above the
+threshold its MHA fold through ``blockwise_gqa_attend``, all in torch ops
+that autograd differentiates.  Shapes: x
 (B, S, d).  A GQA layer's decode cache is ``{"k", "v"}`` of (B, S_max, K,
 hd); an MLA layer's is ``{"ckv"}`` of (B, S_max, 1, r + rd), each row the
 compressed latent followed by the rotated rope key.  :func:`gqa_decode`,
@@ -315,11 +317,17 @@ def _mla_scale(cfg: ModelConfig) -> float:
 
 def mla_forward(params, x, cfg: ModelConfig, *, positions,
                 causal: bool = True, window: int = 0,
-                return_kv: bool = False, impl: str | None = None):
-    """Full-sequence MLA (prefill), folded into MHA form: queries and keys
+                return_kv: bool = False, impl: str | None = None,
+                train: bool = False):
+    """Full-sequence MLA.  Prefill folds into MHA form: queries and keys
     ``[nope ‖ rope]`` of hd + rd (the rope key shared by every head),
-    values of vd, scale ``(hd + rd)^-0.5``, through the flash kernel.  x
-    (B,S,d) → (B,S,d), plus the layer's ``{"ckv"}`` (B,S,1,r+rd) when
+    values of vd, scale ``(hd + rd)^-0.5``, through the flash kernel.  The
+    training forward (``train``) runs the JAX package's training MLA
+    instead, in torch ops: up to ``BLOCKWISE_THRESHOLD`` tokens the
+    two-term scores (nope against the decompressed keys plus the rope
+    query against the shared rope key), masked and softmaxed in f32; above
+    it the same MHA fold through ``blockwise_gqa_attend``.  x (B,S,d) →
+    (B,S,d), plus the layer's ``{"ckv"}`` (B,S,1,r+rd) when
     ``return_kv``."""
     B, S, _ = x.shape
     H, hd = cfg.n_heads, cfg.head_dim
@@ -331,10 +339,26 @@ def mla_forward(params, x, cfg: ModelConfig, *, positions,
                         positions, cfg.rope_theta)
     k_nope = (c @ params["w_uk"]).reshape(B, S, H, hd)
     v = (c @ params["w_uv"]).reshape(B, S, H, vd)
-    q_full = torch.cat([q[..., :hd], q_rope], dim=-1)
-    k_full = torch.cat([k_nope, k_rope.expand(B, S, H, rd)], dim=-1)
-    out = flash_attention(q_full, k_full, v.contiguous(), causal=causal,
-                          window=window, scale=_mla_scale(cfg), impl=impl)
+    if train and S <= BLOCKWISE_THRESHOLD:
+        scores = (torch.einsum("bshd,bthd->bhst", q[..., :hd], k_nope)
+                  + torch.einsum("bshd,btzd->bhst", q_rope, k_rope)
+                  ) * _mla_scale(cfg)
+        mask = attention_mask(S, S, causal=causal, window=window,
+                              device=x.device)
+        scores = torch.where(mask, scores.float(),
+                             torch.finfo(torch.float32).min)
+        probs = torch.softmax(scores, dim=-1).to(v.dtype)
+        out = torch.einsum("bhst,bthd->bshd", probs, v)
+    else:
+        q_full = torch.cat([q[..., :hd], q_rope], dim=-1)
+        k_full = torch.cat([k_nope, k_rope.expand(B, S, H, rd)], dim=-1)
+        if train:
+            out = blockwise_gqa_attend(q_full, k_full, v, causal=causal,
+                                       window=window, scale=_mla_scale(cfg))
+        else:
+            out = flash_attention(q_full, k_full, v.contiguous(),
+                                  causal=causal, window=window,
+                                  scale=_mla_scale(cfg), impl=impl)
     y = out.reshape(B, S, H * vd) @ params["wo"]
     if return_kv:
         return y, {MLA_CACHE: torch.cat([c, k_rope[:, :, 0]], dim=-1)[:, :, None]}
@@ -452,11 +476,11 @@ def attn_forward(params, x, cfg: ModelConfig, kind: str, positions,
                  return_kv: bool = False, impl: str | None = None,
                  train: bool = False):
     """Prefill attention of a layer of kind ``kind``, or with ``train`` its
-    training attention (GQA; ``transformer.check_trainable`` refuses MLA)."""
+    training attention (GQA or MLA), which reaches no kernel wrapper."""
     if cfg.use_mla:
         return mla_forward(params, x, cfg, positions=positions,
                            causal=cfg.causal, window=window_for(cfg, kind),
-                           return_kv=return_kv, impl=impl)
+                           return_kv=return_kv, impl=impl, train=train)
     return gqa_forward(params, x, cfg, window=window_for(cfg, kind),
                        positions=positions, causal=cfg.causal,
                        return_kv=return_kv, impl=impl, train=train)

@@ -9,11 +9,13 @@ family, the RG-LRU hybrid family (recurrentgemma), models fed embeddings
 and encoder-only models (hubert: no embedding table, bidirectional
 attention, per-position logits and no cache from :func:`prefill`).
 ``moe_impl`` picks the MoE path (``dropping``, the JAX engine's default,
-or ``dense``).  :func:`train_loss` trains the attention families (full,
-local, global and sliding-window layers; causal or bidirectional; dense,
-GeLU or MoE MLPs; token or embedding inputs) through the training attention
-of ``models/attention.py``; SSM, RG-LRU and MLA configs raise
-``NotImplementedError``.
+or ``dense``).  :func:`train_loss` trains every family the JAX package
+trains: the attention families (full, local, global and sliding-window
+layers; GQA or MLA; causal or bidirectional; dense, GeLU or MoE MLPs; token
+or embedding inputs) through the training attention of
+``models/attention.py``, the SSM family through ``ssm.ssd_chunked`` and the
+RG-LRU hybrid family through ``rglru_forward``'s scan, all in torch ops
+that autograd differentiates; no kernel wrapper is reached.
 """
 
 from __future__ import annotations
@@ -26,10 +28,10 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from .common import DtypePolicy, dense_init, embed_init, resolve_device, rms_norm
-from .transformer import (SEQ_CACHE_ENTRIES, check_supported,
-                          check_trainable, init_stack, init_stack_cache,
-                          layer_kinds, stack_chunk, stack_decode,
-                          stack_forward, stack_train_forward, uses_ring)
+from .transformer import (SEQ_CACHE_ENTRIES, check_supported, init_stack,
+                          init_stack_cache, layer_kinds, stack_chunk,
+                          stack_decode, stack_forward, stack_train_forward,
+                          uses_ring)
 
 AUX_LOSS_WEIGHT = 0.01
 
@@ -148,9 +150,9 @@ def train_loss(params: LMParams, batch: dict, cfg: ModelConfig, *,
     of two or more dims (the MoE router too) to ``policy.compute``, norm
     scales kept f32; embedding rows taken from the f32 table (scaled by √d
     when tied) then cast; the head cast.  ``remat`` checkpoints each period
-    of the stack (``transformer.stack_train_forward``).  Raises
-    ``NotImplementedError`` for SSM, RG-LRU and MLA configs."""
-    check_trainable(cfg)
+    of the stack, and its head and tail blocks
+    (``transformer.stack_train_forward``).  Every layer kind
+    trains: attention (GQA or MLA), SSM and RG-LRU."""
     x = _embed_inputs(params, batch, cfg, policy.compute)
     B, S = x.shape[:2]
 

@@ -1,6 +1,6 @@
 """RG-LRU recurrent block (RecurrentGemma / Griffin) [arXiv:2402.19427].
 
-Ported from the JAX package's ``models/rglru.py`` (forward only):
+Ported from the JAX package's ``models/rglru.py``:
 
     r_t = σ(W_a u_t + b_a)            recurrence gate
     i_t = σ(W_x u_t + b_x)            input gate
@@ -12,8 +12,13 @@ default) gate branch and a conv → RG-LRU branch, multiplied, then the output
 projection.  Prefill runs the linear recurrence as a log-depth
 (Hillis–Steele) scan of the pairs (a, b) in f32 tensor ops, ⌈log₂ S⌉ steps,
 where the JAX package runs ``jax.lax.associative_scan``; it is no Pallas
-kernel there, and no CUDA kernel here.  Decode carries ``{"h": (B, w) f32,
-"conv": (B, W-1, w)}`` and updates it in place.
+kernel there, and no CUDA kernel here.  The training forward
+(``rglru_forward(..., train=True)``, no state read) is the same block;
+autograd differentiates the scan, which runs under
+``torch.utils.checkpoint``: its ⌈log₂ S⌉ steps would each keep a (B, S, w)
+f32 pair for the backward (134 MB a tensor at 2 × 4096 × 4096), and
+recomputed they cost a few elementwise passes.  Decode carries ``{"h": (B,
+w) f32, "conv": (B, W-1, w)}`` and updates it in place.
 
 Unlike the JAX prefill, ``rglru_forward`` takes per-row ``true_lens``: a
 right-padded row's state is ``h`` at ``true_len - 1`` and its conv tail
@@ -27,6 +32,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from .common import causal_depthwise_conv, conv_decode_step, conv_tail, dense_init
@@ -84,16 +90,18 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def rglru_forward(params, x, cfg: ModelConfig, *, true_lens=None,
-                  return_state: bool = False):
-    """Full-sequence Griffin recurrent block (prefill).  x (B, S, d);
-    ``true_lens`` (B,) the real length of each right-padded row, or None
-    for all S.  Returns y (B, S, d), and with ``return_state`` also the
-    decode cache after each row's last real position."""
+                  return_state: bool = False, train: bool = False):
+    """Full-sequence Griffin recurrent block.  x (B, S, d); ``true_lens``
+    (B,) the real length of each right-padded row, or None for all S.
+    Returns y (B, S, d), and with ``return_state`` (prefill) also the
+    decode cache after each row's last real position.  ``train`` runs the
+    scan under ``torch.utils.checkpoint`` (the training forward)."""
     gate = F.gelu(x @ params["w_gate_in"], approximate="tanh")
     u = x @ params["w_x_in"]
     u_conv = F.silu(causal_depthwise_conv(u, params["conv_w"]))
     a, b = _gates(params, u_conv)                                # (B,S,w) f32
-    h = linear_scan(a, b).to(x.dtype)
+    h = (checkpoint(linear_scan, a, b, use_reentrant=False) if train
+         else linear_scan(a, b)).to(x.dtype)
     y = (h * gate) @ params["w_out"]
     if not return_state:
         return y

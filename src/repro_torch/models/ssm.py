@@ -1,8 +1,11 @@
 """Mamba-2 (SSD — state-space duality) mixer block [arXiv:2405.21060].
 
-Ported from the JAX package's ``models/ssm.py`` (forward only).  Prefill
-runs the chunked SSD through ``kernels.ssd_scan.ops.ssd`` (the CUDA kernel
-for the intra-chunk part on a GPU); decode is the one-step recurrence.
+Ported from the JAX package's ``models/ssm.py``.  Prefill runs the chunked
+SSD through ``kernels.ssd_scan.ops.ssd`` (the CUDA kernel for the
+intra-chunk part on a GPU); the training forward (``ssm_forward(...,
+train=True)``) runs :func:`ssd_chunked`, the same scan in f32 torch ops
+that autograd differentiates (the kernel wrappers refuse autograd); decode
+is the one-step recurrence.
 
 Layout as in the JAX package:
     x  (B, S, H, P)   — P = ssm_head_dim, H = d_inner / P heads
@@ -14,8 +17,9 @@ Layout as in the JAX package:
 Unlike the JAX prefill, ``ssm_forward`` takes per-row ``true_lens``: a
 right-padded row gets ``dt = 0`` at its padding (the state passes through
 unchanged, exactly) and its conv tail ends at ``true_len - 1``, so each
-row's cache is that of the row alone.  Any prompt length works: the scan
-pads to whole chunks the same way.
+row's cache is that of the row alone.  Any prompt length works, in prefill
+and in training: the scan pads to whole chunks the same way (the JAX
+``ssd_chunked`` asserts that chunks divide S).
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels.ssd_scan.ops import ssd
+from ..kernels.ssd_scan.ref import ssd_scan
 from .common import (causal_depthwise_conv, conv_decode_step, conv_tail,
                      dense_init, rms_norm)
 
@@ -52,6 +57,62 @@ def init_ssm(generator: torch.Generator, cfg: ModelConfig, dtype,
     }
 
 
+def ssd_chunk_train(x, dt, A_log, B, C):
+    """Intra-chunk SSD in f32 torch ops, the layout and outputs of
+    ``kernels.ssd_scan.ref.ssd_chunk_ref``: x (b,nc,Q,H,P); dt
+    (b,nc,Q,H); A_log (H,); B, C (b,nc,Q,G,N).  Returns y_diag
+    (b,nc,Q,H,P), chunk-end states (b,nc,H,N,P), in-chunk decays
+    ``exp(cum)`` (b,nc,Q,H) and chunk decays (b,nc,H).
+
+    The JAX package's segment sums ``cum_i − cum_j`` subtract cumulative
+    decays of order 10³ within a 256-position chunk (mamba2-370m's fastest
+    head decays by ~16·dt a position), and their backward cancels the same
+    large terms: in f32 that leaves ``A_log``'s gradient 7.9e-5 of its
+    scale from the exact one (the recurrence in f64) at mamba2's decay
+    rates, and an H100 and the CPU 1.6e-4 apart on mamba2-370m at 2 layers.
+    Here each ``seg[i, j] = Σ_{j<t≤i} a_t`` is a cumulative sum of its own
+    terms (a (Q, Q) cumsum), and the decay to the chunk's end is its last
+    row: the same gradient is within 1.9e-7 of the exact one
+    (``tests/test_torch_ssm.py::TestSSDChunked``).  The scores ``C·Bᵀ``
+    are taken once a group, not once a head."""
+    b, nc, Q, H, P = x.shape
+    G, N = B.shape[3], B.shape[4]
+    R = H // G
+    dtf = dt.float().permute(0, 1, 3, 2)                         # (b,nc,H,Q)
+    a = -torch.exp(A_log.float())[:, None] * dtf
+    causal = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    seg = torch.cumsum(a[..., :, None].expand(b, nc, H, Q, Q).masked_fill(
+        ~causal.tril(-1), 0.0), dim=-2)                          # (..,i,j)
+    Bg = B.float().permute(0, 1, 3, 2, 4)                        # (b,nc,G,Q,N)
+    Cg = C.float().permute(0, 1, 3, 2, 4)
+    decay = torch.exp(seg.masked_fill(~causal, float("-inf")))
+    scores = ((Cg @ Bg.transpose(-1, -2))[:, :, :, None]
+              * decay.view(b, nc, G, R, Q, Q)).view(b, nc, H, Q, Q)
+    xd = x.float().permute(0, 1, 3, 2, 4) * dtf[..., None]       # (b,nc,H,Q,P)
+    y = (scores @ xd).permute(0, 1, 3, 2, 4)                     # (b,nc,Q,H,P)
+    Bh = Bg[:, :, :, None].expand(b, nc, G, R, Q, N).reshape(b, nc, H, Q, N)
+    decay_end = torch.exp(seg[..., -1, :])                       # (b,nc,H,Q)
+    states = (Bh * decay_end[..., None]).transpose(-1, -2) @ xd  # (..,N,P)
+    cum = torch.cumsum(a, dim=-1)
+    return (y.contiguous(), states,
+            torch.exp(cum).permute(0, 1, 3, 2).contiguous(),
+            torch.exp(cum[..., -1]))
+
+
+def ssd_chunked(x, dt, A_log, B, C, chunk: int, h_init=None):
+    """Chunked SSD scan in f32 torch ops, differentiable: the counterpart
+    of the JAX package's ``ssd_chunked`` (``x·dt``, B and C in f32, the
+    masked ``exp(segsum)``, ``y_diag``, chunk states, the inter-chunk
+    recurrence and ``y_off``), the segment sums taken as
+    :func:`ssd_chunk_train` takes them, with ``kernels.ssd_scan.ops.ssd``'s
+    padding to whole chunks with ``dt = 0``, so any S works.  x (b,s,H,P);
+    dt (b,s,H); A_log (H,) (the decay is ``−exp(A_log)``); B, C (b,s,G,N);
+    h_init (b,H,P,N) or None.  Returns (y (b,s,H,P) in x's dtype, final
+    state (b,H,P,N) f32).  Calls no kernel wrapper."""
+    return ssd_scan(x, dt, A_log, B, C, chunk=chunk, h_init=h_init,
+                    chunk_fn=ssd_chunk_train)
+
+
 def _split(xz, cfg: ModelConfig):
     """(z, xBC before the conv, dt_raw) of the input projection."""
     di, G, N = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state
@@ -60,11 +121,14 @@ def _split(xz, cfg: ModelConfig):
 
 
 def ssm_forward(params, x, cfg: ModelConfig, *, true_lens=None,
-                return_state: bool = False, impl: str | None = None):
-    """Full-sequence mixer (prefill).  x (B, S, d); ``true_lens`` (B,) the
-    real length of each right-padded row, or None for all S.  Returns y
-    (B, S, d), and with ``return_state`` also the decode cache after each
-    row's last real position."""
+                return_state: bool = False, impl: str | None = None,
+                train: bool = False):
+    """Full-sequence mixer.  x (B, S, d); ``true_lens`` (B,) the real
+    length of each right-padded row, or None for all S.  Returns y (B, S,
+    d), and with ``return_state`` also the decode cache after each row's
+    last real position.  Prefill scans through ``ops.ssd`` (the kernel on
+    a GPU); with ``train`` the scan is :func:`ssd_chunked`, which autograd
+    differentiates."""
     B_, S, _ = x.shape
     di, H, P = cfg.d_inner, cfg.n_ssm_heads, cfg.ssm_head_dim
     G, N = cfg.ssm_groups, cfg.ssm_state
@@ -79,8 +143,12 @@ def ssm_forward(params, x, cfg: ModelConfig, *, true_lens=None,
         real = (torch.arange(S, device=x.device)[None]
                 < true_lens.to(x.device).long()[:, None])
         dt = dt * real[..., None]
-    y, h_final = ssd(xs, dt, params["A_log"], Bm, Cm, chunk=cfg.ssm_chunk,
-                     impl=impl)
+    if train:
+        y, h_final = ssd_chunked(xs, dt, params["A_log"], Bm, Cm,
+                                 cfg.ssm_chunk)
+    else:
+        y, h_final = ssd(xs, dt, params["A_log"], Bm, Cm,
+                         chunk=cfg.ssm_chunk, impl=impl)
     y = y + xs * params["D"][None, None, :, None].to(y.dtype)
     y = y.reshape(B_, S, di) * F.silu(z)
     y = rms_norm(y, params["norm"], cfg.norm_eps)

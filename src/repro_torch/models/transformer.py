@@ -27,10 +27,13 @@ GQA or MLA, fed tokens, and not encoder-only
 in a prefill.
 
 Training (:func:`stack_train_forward`, what ``model.train_loss`` runs) takes
-the attention kinds only: every block through the training attention, the
-MoE load-balancing losses summed, and with ``remat`` each period of
-``cfg.pattern`` under ``torch.utils.checkpoint``.  It reads
-:class:`BlockView`\\ s, the compute-dtype casts of the blocks' weights.
+every layer kind: attention blocks (GQA or MLA) through the training
+attention, SSM blocks through ``ssd_chunked`` and RG-LRU blocks through
+their checkpointed scan, none of them through a kernel wrapper; the MoE
+load-balancing losses summed; with ``remat`` each period of ``cfg.pattern``
+under ``torch.utils.checkpoint``, and the head and tail blocks as one
+segment each.  It reads :class:`BlockView`\\ s, the compute-dtype casts of
+the blocks' weights.
 """
 
 from __future__ import annotations
@@ -57,10 +60,6 @@ PORTED_KINDS = ATTN_KINDS + ("ssm", "rglru")
 # Decode-cache entries with a sequence axis (axis 1), which a prefill fills
 # up to its bucket's length
 SEQ_CACHE_ENTRIES = ("k", "v", MLA_CACHE)
-TRAIN_LATER = ("training of the SSM, RG-LRU and MLA families is not ported "
-               "yet (ROADMAP.md section 1): they need differentiable "
-               "ssd_chunked, rglru_forward and MLA through blockwise")
-
 
 
 def uses_ring(cfg: ModelConfig, kind: str) -> bool:
@@ -90,13 +89,6 @@ def check_supported(cfg: ModelConfig) -> None:
         if kind not in PORTED_KINDS:
             raise NotImplementedError(f"unknown layer kind {kind!r} (have "
                                       f"{PORTED_KINDS})")
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a config the training forward does
-    not take yet: SSM or RG-LRU layers, or MLA attention."""
-    if cfg.use_mla or not set(layer_kinds(cfg)) <= set(ATTN_KINDS):
-        raise NotImplementedError(f"{cfg.name}: {TRAIN_LATER}")
 
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
@@ -228,15 +220,19 @@ def block_forward(bp: Block, x, cfg: ModelConfig, positions, *,
 
 def block_train_forward(bp, x, cfg: ModelConfig, positions, *,
                         moe_impl: str = "dropping"):
-    """Training forward of an attention block (a :class:`BlockView`): the
-    training attention (``attn_forward(..., train=True)``), no cache.
-    Returns (x, the MoE load-balancing loss, 0 for a dense MLP)."""
-    if bp.kind not in ATTN_KINDS:
-        raise NotImplementedError(f"layer kind {bp.kind}: {TRAIN_LATER}")
+    """Training forward of a block (a :class:`BlockView`), no cache: the
+    training attention (``attn_forward(..., train=True)``), the SSM mixer
+    through ``ssd_chunked`` (no MLP, as in JAX) or the RG-LRU block, then
+    the MLP.  Returns (x, the MoE load-balancing loss, 0 for a dense MLP
+    or none)."""
     h = rms_norm(x, bp.ln1, cfg.norm_eps)
-    x = x + attn_forward(bp.mixer, h, cfg, bp.kind, positions,
-                         train=True).to(x.dtype)
-    x, routed = _mlp_residual(bp, x, cfg, moe_impl)
+    if bp.kind == "ssm":
+        mix = ssm_forward(bp.mixer, h, cfg, train=True)
+    elif bp.kind == "rglru":
+        mix = rglru_forward(bp.mixer, h, cfg, train=True)
+    else:
+        mix = attn_forward(bp.mixer, h, cfg, bp.kind, positions, train=True)
+    x, routed = _mlp_residual(bp, x + mix.to(x.dtype), cfg, moe_impl)
     if routed is None:
         return x, torch.zeros((), dtype=torch.float32, device=x.device)
     probs, idx = routed
@@ -366,8 +362,8 @@ def stack_chunk(blocks: nn.ModuleList, x, caches: list, pos0,
     return x, caches
 
 
-def _train_period(blocks: list, x, cfg: ModelConfig, positions,
-                  moe_impl: str):
+def _train_segment(blocks: list, x, cfg: ModelConfig, positions,
+                   moe_impl: str):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for bp in blocks:
         x, a = block_train_forward(bp, x, cfg, positions, moe_impl=moe_impl)
@@ -382,22 +378,23 @@ def stack_train_forward(blocks: list, x, cfg: ModelConfig, positions, *,
     period (``len(cfg.pattern)`` consecutive blocks after the head blocks)
     runs under ``torch.utils.checkpoint`` (non-reentrant): the backward
     keeps one carry a period and recomputes the period's activations, as
-    the JAX stack checkpoints its period function; head and tail blocks
-    run as they are, as in JAX."""
+    the JAX stack checkpoints its period function.  The head blocks
+    (deepseek's dense first layer) and the tail blocks (recurrentgemma's
+    two RG-LRU layers past its last whole period) are one checkpointed
+    segment each, where JAX keeps their activations: the numbers are the
+    same, and a cut model's tail no longer holds its activations through
+    the whole backward."""
     head, n_periods, _ = stack_layout(cfg)
     period = len(cfg.pattern)
+    bounds = ([0, head] + [head + (p + 1) * period for p in range(n_periods)]
+              + [len(blocks)])
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for bp in blocks[:head]:
-        x, aux = block_train_forward(bp, x, cfg, positions, moe_impl=moe_impl)
-        aux_total = aux_total + aux
-    for p in range(n_periods):
-        fn = partial(_train_period,
-                     blocks[head + p * period:head + (p + 1) * period],
-                     cfg=cfg, positions=positions, moe_impl=moe_impl)
+    for lo, hi in zip(bounds, bounds[1:]):
+        if lo == hi:
+            continue
+        fn = partial(_train_segment, blocks[lo:hi], cfg=cfg,
+                     positions=positions, moe_impl=moe_impl)
         x, aux = (checkpoint(fn, x, use_reentrant=False) if remat
                   else fn(x))
-        aux_total = aux_total + aux
-    for bp in blocks[head + n_periods * period:]:
-        x, aux = block_train_forward(bp, x, cfg, positions, moe_impl=moe_impl)
         aux_total = aux_total + aux
     return x, aux_total

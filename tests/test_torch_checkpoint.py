@@ -133,9 +133,11 @@ def test_scheduler_state_in_checkpoint(tmp_path):
 
 # layouts: one period (llama2), a 6-slot period (gemma3), MoE (phi3.5), a
 # dense head block and shared experts (deepseek), a tail (recurrentgemma),
-# no embedding table (hubert)
+# no embedding table (hubert), SSM blocks without an MLP (mamba2), MLA
+# with dense MLPs (minicpm3)
 LAYOUT_ARCHS = ["llama2-13b", "gemma3-4b", "phi3.5-moe-42b-a6.6b",
-                "deepseek-v2-lite-16b", "recurrentgemma-9b", "hubert-xlarge"]
+                "deepseek-v2-lite-16b", "recurrentgemma-9b", "hubert-xlarge",
+                "mamba2-370m", "minicpm3-4b"]
 
 
 def _bridged_state(arch):
@@ -181,12 +183,12 @@ def test_manifest_lists_the_leaves_of_a_jax_checkpoint(tmp_path, arch):
         np.testing.assert_array_equal(a, np.asarray(b))
 
 
-def test_launcher_crash_and_restart_equals_straight_run(tmp_path):
+def _crash_and_restart(tmp_path, arch):
     """``launch/train.py`` on the CPU: 6 steps straight (checkpoints at 3
     and 6) against a run stopped at step 3 and resumed to 6 from its
     checkpoint, the data stream fast-forwarded.  Warmup is 10 steps, so the
     two runs' schedules agree; the final states are bitwise equal."""
-    common = ["--arch", "llama2-13b", "--batch", "2", "--seq", "32",
+    common = ["--arch", arch, "--batch", "2", "--seq", "32",
               "--ckpt-every", "3", "--device", "cpu"]
     straight = train_main(common + ["--steps", "6", "--ckpt-dir",
                                     str(tmp_path / "a")])
@@ -203,9 +205,17 @@ def test_launcher_crash_and_restart_equals_straight_run(tmp_path):
     for k in so.m:
         assert torch.equal(so.m[k], ro.m[k]) and torch.equal(so.v[k], ro.v[k])
     assert latest_step(tmp_path / "a") == latest_step(tmp_path / "b") == 6
+    return straight
 
 
-def test_launcher_refuses_untrainable_families():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train_main(["--arch", "mamba2-370m", "--steps", "1", "--device",
-                    "cpu"])
+def test_launcher_crash_and_restart_equals_straight_run(tmp_path):
+    _crash_and_restart(tmp_path, "llama2-13b")
+
+
+def test_launcher_crash_and_restart_trains_the_ssm_family(tmp_path):
+    """The launcher trains mamba2's smoke config (SSM blocks through
+    ``ssd_chunked``, which the launcher refused before training reached
+    the SSM family); crash-and-restart as above."""
+    straight = _crash_and_restart(tmp_path, "mamba2-370m")
+    assert straight["cfg"].name == "mamba2-370m-smoke"
+    assert all(np.isfinite(straight["losses"]))

@@ -1756,3 +1756,98 @@ def test_train_steps_on_card_match_cpu(cuda):
     for (lc, nc), (lg, ng) in zip(metrics["cpu"], metrics["cuda"]):
         assert abs(lg - lc) <= 1e-5 * abs(lc)
         assert abs(ng - nc) <= 1e-5 * nc
+
+
+@pytest.mark.parametrize("eps", [1e-8, 1.0])
+@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b",
+                                  "deepseek-v2-lite-16b", "minicpm3-4b"])
+def test_family_train_step_on_card_matches_cpu(cuda, arch, eps):
+    """Three AdamW steps of each SSM, RG-LRU and MLA family's smoke config
+    in f32 on the card give the CPU's losses and gradient norms from the
+    same weights and batches (S 48: mamba2's chunks of 32 padded); no
+    kernel of the repository launches.  Each case prints its relative
+    differences as one JSON line (``pytest -s``).
+
+    At Adam's default eps (1e-8) a step moves each weight by about ±lr
+    whatever its gradient's size, so an entry near zero whose sign the
+    rounding decides moves by 2·lr more on one side, and the next
+    gradients follow: on the H100 mamba2's second and third gradient norms
+    were 2.5e-4 and 5.4e-4 apart, with every loss within 1e-5.  With eps
+    1.0 a step is lr times the gradient's moment, which rounding moves by
+    no more than its own size; there every norm and every weight, within
+    1e-5 of its leaf's scale, agree.  So the weights are compared at eps
+    1.0, and at 1e-8 mamba2 alone has only its first norm held."""
+    import copy
+    import json
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.training import (AdamWConfig, DataConfig, TokenDataset,
+                                      adamw_init, batch_to, init_train_state,
+                                      make_train_step)
+    cfg = get_smoke_config(arch)
+    pol = DtypePolicy(torch.float32, torch.float32, torch.float32)
+    cpu_p, cpu_st = init_train_state(cfg, torch.Generator().manual_seed(0),
+                                     device="cpu")
+    card_p = copy.deepcopy(cpu_p).to(cuda)
+    card_st = adamw_init(card_p)
+    it = TokenDataset(cfg, DataConfig(global_batch=2, seq_len=48)).batches()
+    batches = [next(it) for _ in range(3)]
+    kernels = (flash_ops.KERNEL, paged_ops.KERNEL, ssd_ops.KERNEL)
+    launches = [k.launches for k in kernels]
+    metrics, weights = {}, {}
+    for dev, p, st in (("cpu", cpu_p, cpu_st), ("cuda", card_p, card_st)):
+        step = make_train_step(cfg, AdamWConfig(lr_peak=1e-3, warmup_steps=1,
+                                                total_steps=2, eps=eps),
+                               policy=pol)
+        metrics[dev] = []
+        for b in batches:
+            p, st, m = step(p, st, batch_to(b, dev))
+            metrics[dev].append((float(m["loss"]), float(m["grad_norm"])))
+        weights[dev] = {k: v.detach().cpu() for k, v in p.named_parameters()}
+    assert [k.launches for k in kernels] == launches
+    loss_rel = [abs(g[0] - c[0]) / abs(c[0])
+                for c, g in zip(metrics["cpu"], metrics["cuda"])]
+    norm_rel = [abs(g[1] - c[1]) / c[1]
+                for c, g in zip(metrics["cpu"], metrics["cuda"])]
+    weight_rel = {k: float((weights["cuda"][k] - w).abs().max()
+                           / w.abs().max().clamp_min(1e-30))
+                  for k, w in weights["cpu"].items()}
+    worst = max(weight_rel, key=weight_rel.get)
+    print(json.dumps({"arch": arch, "eps": eps, "loss_rel": loss_rel,
+                      "norm_rel": norm_rel, "weights_worst": worst,
+                      "weights_rel": weight_rel[worst]}))
+    held = 1 if eps < 1.0 and arch == "mamba2-370m" else len(batches)
+    assert max(loss_rel) <= 1e-5, loss_rel
+    assert max(norm_rel[:held]) <= 1e-5, norm_rel
+    if eps == 1.0:
+        assert weight_rel[worst] <= 1e-5, (worst, weight_rel[worst])
+
+
+@pytest.mark.parametrize("mixer", ["ssm", "mla"])
+def test_prefill_mixers_refuse_autograd_on_card(cuda, mixer):
+    """``ssm_forward`` and ``mla_forward`` in prefill mode reach the SSD
+    and flash wrappers, which raise for weights that require grad; with
+    ``train=True`` the same call runs and carries a gradient."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.attention import mla_forward
+    from repro_torch.models.ssm import ssm_forward
+    arch = "mamba2-370m" if mixer == "ssm" else "deepseek-v2-lite-16b"
+    cfg = get_smoke_config(arch)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    params = init_params(cfg, g, device=cuda).requires_grad_(True)
+    weights = dict(params.blocks[0].mixer)
+    x = torch.randn((1, 64, cfg.d_model), generator=g, device=cuda)
+    pos = torch.arange(64, device=cuda)[None]
+
+    def run(train):
+        if mixer == "ssm":
+            return ssm_forward(weights, x, cfg, train=train)
+        return mla_forward(weights, x, cfg, positions=pos, train=train)
+
+    with pytest.raises(RuntimeError, match="training attention"):
+        run(False)
+    y = run(True)
+    (gw,) = torch.autograd.grad(y.sum(), [next(iter(weights.values()))])
+    assert torch.isfinite(gw).all()
+
+

@@ -25,7 +25,7 @@ from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.paged_attention.ref import (merge_partials_ref,
                                                      paged_attention_split_ref,
                                                      paged_attention_tiled_ref)
-from repro_torch.launch.profile_serve import _kernel_class
+from repro_torch.launch.profile_serve import kernel_class
 
 F32_TOL, BF16_TOL = 2e-5, 3e-2     # tests/test_kernels.py:36-39
 
@@ -834,11 +834,22 @@ class TestWrappers:
      "float const*, float*, int, int, int, int, int, int)", "ssd_chunk"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32", "matmul"),
     ("void at::native::vectorized_elementwise_kernel<4>", "other"),
+    # kernels of a training step (``launch/profile_train.py``)
+    ("nvjet_tst_256x128_64x4_1x2_h_bz_coopA_NNT", "matmul"),
+    ("void at::native::tensor_kernel_scan_outer_dim<float>", "cumsum"),
+    ("void at::native::index_elementwise_kernel<flip_kernel_impl>",
+     "cumsum"),
+    ("void at::native::CatArrayBatchedCopy<OpaqueType<4u>>", "copy"),
+    ("Memcpy DtoD (Device -> Device)", "copy"),
+    ("Memcpy HtoD (Pageable -> Device)", "copy_host_device"),
+    ("void at::native::reduce_kernel<512, 1>", "reduce"),
 ])
 def test_profiler_classes_count_every_kernel_of_a_source(name, cls):
-    """The serve breakdown puts every kernel of the port's sources, the
-    merge pass included, under its class and never under "other"."""
-    assert _kernel_class(name) == cls
+    """The serve and train breakdowns put every kernel of the port's
+    sources, the merge pass included, under its class and never under
+    "other", and a training step's scans, copies and reductions under
+    theirs."""
+    assert kernel_class(name) == cls
 
 
 def _wrapper_calls(device="cpu"):

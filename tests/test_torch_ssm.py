@@ -8,10 +8,16 @@ seed.  Tolerances follow ``tests/test_kernels.py:97-113``: 1e-4 relative to
 the output's scale for the SSD (the chunked and sequential forms sum in
 different orders), 1e-4 absolute and relative for the model in f32.
 
+The training scan ``models/ssm.py::ssd_chunked`` (torch ops, no kernel
+wrapper) is held against the JAX ``ssd_chunked``, forward and every input's
+gradient, and at a ragged S against autograd through the sequential
+recurrence.
+
 Two faults of the JAX reference are shown fixed in the port here: a prompt
 longer than the chunk and not a multiple of it (the JAX ``ssd_chunked``
-asserts), and right-padded rows of a mixed-length batch (the JAX prefill
-folds the padding into the state and the conv tail).
+asserts, in prefill and in training), and right-padded rows of a
+mixed-length batch (the JAX prefill folds the padding into the state and
+the conv tail).
 """
 
 import jax
@@ -27,6 +33,7 @@ from repro.models import DtypePolicy as JaxPolicy
 from repro.models import decode_step as jax_decode
 from repro.models import init_params as jax_init
 from repro.models import prefill as jax_prefill
+from repro.models.ssm import ssd_chunked as jax_ssd_chunked
 from repro.models.ssm import ssm_forward as jax_ssm_forward
 from repro_torch import bridge
 from repro_torch.configs import get_config, get_smoke_config
@@ -34,7 +41,7 @@ from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import (ssd_chunk_ref,
                                               ssd_chunk_tiled_ref, ssd_ref)
 from repro_torch.models import DtypePolicy, decode_step, init_params, prefill
-from repro_torch.models.ssm import ssm_forward
+from repro_torch.models.ssm import ssd_chunked, ssm_forward
 
 ARCH = "mamba2-370m"
 SSD_TOL = 1e-4          # relative to the output's scale
@@ -248,6 +255,143 @@ class TestSSDKernelPlain:
         assert ms == pytest.approx(2.0 * macs, rel=1e-12)
         if G == 1:      # the main f32 case's 8.9 GFLOP
             assert 2.0 * macs == pytest.approx(8.876e9, rel=1e-3)
+
+
+# (b, s, h, p, g, n, chunk, with h_init): G < H with an h_init, and G = 2
+# over 8 heads at hd 64 without one
+CHUNKED_SHAPES = [(2, 64, 8, 16, 4, 16, 32, True),
+                  (1, 128, 8, 64, 2, 32, 32, False)]
+SSD_INPUTS = ("x", "dt", "A_log", "B", "C", "h_init")
+
+
+def _chunked_case(seed, b, s, h, p, g, n):
+    """SSD inputs, an h_init and cotangents of y and the final state."""
+    rng = np.random.default_rng(seed + 100)
+    h0 = (rng.standard_normal((b, h, p, n)) * 0.5).astype(np.float32)
+    gy = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    gh = rng.standard_normal((b, h, p, n)).astype(np.float32)
+    return _ssd_inputs(seed, b, s, h, p, g, n) + (h0,), gy, gh
+
+
+def _port_vjp(fn, inputs, gy, gh):
+    """(y, final state, gradients of every input) of ``fn`` by autograd."""
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in inputs]
+    y, h = fn(*leaves)
+    grads = torch.autograd.grad((y, h), leaves, _t(gy, gh))
+    return (y.detach().numpy(), h.detach().numpy(),
+            [g.numpy() for g in grads])
+
+
+class TestSSDChunked:
+    """``models/ssm.py::ssd_chunked``, the training scan."""
+
+    @pytest.mark.parametrize("b,s,h,p,g,n,chunk,with_h0", CHUNKED_SHAPES)
+    def test_forward_and_gradients_match_jax(self, b, s, h, p, g, n, chunk,
+                                             with_h0):
+        """y, the final state and the gradient of every input (x, dt,
+        A_log, B, C and h_init) against ``jax.vjp`` of the JAX
+        ``ssd_chunked`` on the same cotangents, f32, within SSD_TOL of each
+        one's scale."""
+        inputs, gy, gh = _chunked_case(4, b, s, h, p, g, n)
+        if not with_h0:
+            inputs = inputs[:5]
+        (jy, jh), vjp = jax.vjp(
+            lambda *a: jax_ssd_chunked(*a[:5], chunk, *a[5:]),
+            *(jnp.asarray(a) for a in inputs))
+        jgrads = vjp((jnp.asarray(gy), jnp.asarray(gh)))
+        y, hf, grads = _port_vjp(
+            lambda *a: ssd_chunked(*a[:5], chunk, *a[5:]), inputs, gy, gh)
+        assert _rel_err(y, jy) <= SSD_TOL
+        assert _rel_err(hf, jh) <= SSD_TOL
+        for name, got, want in zip(SSD_INPUTS, grads, jgrads):
+            assert got.shape == want.shape
+            assert _rel_err(got, want) <= SSD_TOL, name
+
+    def test_ragged_length_matches_sequential_recurrence(self):
+        """S 48 with chunks of 32, where the JAX ``ssd_chunked`` asserts:
+        the scan pads with dt = 0, and its output, final state and every
+        input's gradient agree with autograd through ``ssd_ref``."""
+        b, s, h, p, g, n, chunk = 2, 48, 4, 16, 2, 16, 32
+        inputs, gy, gh = _chunked_case(5, b, s, h, p, g, n)
+        with pytest.raises(AssertionError, match="48 % chunk 32"):
+            jax_ssd_chunked(*(jnp.asarray(a) for a in inputs[:5]), chunk)
+        y, hf, grads = _port_vjp(
+            lambda *a: ssd_chunked(*a[:5], chunk, *a[5:]), inputs, gy, gh)
+        ry, rh, rgrads = _port_vjp(ssd_ref, inputs, gy, gh)
+        assert _rel_err(y, ry) <= SSD_TOL
+        assert _rel_err(hf, rh) <= SSD_TOL
+        for name, got, want in zip(SSD_INPUTS, grads, rgrads):
+            assert _rel_err(got, want) <= SSD_TOL, name
+
+    @pytest.mark.parametrize("s", [64, 48])
+    def test_no_grad_equals_the_plain_wrapper(self, s):
+        """Without autograd the training scan computes what the prefill
+        wrapper's plain version does (within SSD_TOL), within 1e-6 of the
+        exact recurrence in f64 and no farther from it than the plain
+        version, whose ``cum_i − cum_j`` segment sums round more (1.03e-6
+        of scale here, all of the two scans' difference); with an input
+        that requires grad the wrapper refuses and the scan does not."""
+        inputs, _, _ = _chunked_case(6, 2, s, 8, 16, 4, 16)
+        args = _t(*inputs[:5])
+        h0 = _t(inputs[5])[0]
+        with torch.no_grad():
+            y, hf = ssd_chunked(*args, 32, h0)
+        wy, wh = ssd_ops.ssd(*args, chunk=32, h_init=h0, impl="plain")
+        ry, rh = ssd_ref(*(a.double() for a in args), h_init=h0.double())
+        for got, plain, exact in ((y, wy, ry), (hf, wh, rh)):
+            got, plain, exact = got.numpy(), plain.numpy(), exact.numpy()
+            assert _rel_err(got, plain) <= SSD_TOL
+            assert _rel_err(got, exact) <= 1e-6
+            assert _rel_err(got, exact) <= _rel_err(plain, exact)
+        x = args[0].clone().requires_grad_(True)
+        with pytest.raises(RuntimeError, match="no backward"):
+            ssd_ops.ssd(x, *args[1:], chunk=32, impl="plain")
+        assert ssd_chunked(x, *args[1:], 32)[0].requires_grad
+
+    def test_segment_sums_keep_f32_gradients_near_f64(self):
+        """At mamba2-370m's decay rates (A up to 16, dt ~ 0.7, chunks of
+        256, where cumulative decays reach ~10³ within a chunk) the
+        gradient of ``A_log`` through the training scan in f32 stays within
+        1e-5 of the exact one's scale (the sequential recurrence in f64);
+        JAX's ``cum_i − cum_j`` segment sums, run through the plain chunk
+        function, err 10x more."""
+        from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref, ssd_scan
+        b, s, h, p, g, n = 1, 512, 4, 16, 1, 16
+        rng = np.random.default_rng(8)
+        x = rng.standard_normal((b, s, h, p))
+        dt = np.logaddexp(rng.standard_normal((b, s, h)), 0)
+        A = np.log(np.linspace(1.0, 16.0, h))
+        B = rng.standard_normal((b, s, g, n))
+        C = rng.standard_normal((b, s, g, n))
+        gy = torch.from_numpy(rng.standard_normal((b, s, h, p)))
+
+        def exact(x, dt, A_log, B, C):
+            """The recurrence in f64 throughout (``ssd_ref`` casts to
+            f32)."""
+            a = torch.exp(-torch.exp(A_log) * dt)
+            hs = torch.zeros((b, h, p, n), dtype=torch.float64)
+            ys = []
+            for t in range(s):
+                xa = (x[:, t] * dt[:, t, :, None])[..., None]
+                hs = (hs * a[:, t, :, None, None]
+                      + xa * B[:, t, :, None].expand(b, h, 1, n))
+                ys.append(torch.einsum("bhn,bhpn->bhp",
+                                       C[:, t].expand(b, h, n), hs))
+            return torch.stack(ys, dim=1)
+
+        def grad_A(fn, dtype):
+            xs = [torch.from_numpy(a).to(dtype) for a in (x, dt, A, B, C)]
+            xs[2].requires_grad_(True)
+            (gA,) = torch.autograd.grad(fn(*xs), xs[2], gy.to(dtype))
+            return gA.double().numpy()
+
+        want = grad_A(exact, torch.float64)
+        err_train = _rel_err(grad_A(lambda *a: ssd_chunked(*a, 256)[0],
+                                    torch.float32), want)
+        err_jax_form = _rel_err(grad_A(lambda *a: ssd_scan(
+            *a, chunk=256, chunk_fn=ssd_chunk_ref)[0], torch.float32), want)
+        assert err_train <= 1e-5
+        assert err_jax_form >= 10 * err_train
 
 
 @pytest.fixture(scope="module")
