@@ -84,6 +84,10 @@ Phases, in order; any failure raises and exits non-zero:
      ``cluster.EngineFleet`` serve shared-prefix traffic; the router must
      plan a remote prefix fetch that ships real host KV bytes, which the
      fetched request attaches;
+   - mesh (a): on a one-rank NCCL (1, 1) mesh, the weights distributed
+     under the serve policy, one prefill and 8 greedy decode steps over
+     caches whose sequence is placed over "model" (each rank's paged
+     partials, merged) must give the plain call's greedy tokens;
    then, with llama2-13b's weights freed, deepseek-v2-lite-16b: a
    full-width 2-layer f32 parity (the dense head block and one MoE block)
    of the card's kernels against the CPU's plain versions, whose greedy
@@ -95,7 +99,9 @@ Phases, in order; any failure raises and exits non-zero:
    dispatch), with peak device memory under 75 GiB; then with the same
    weights the chunked+radix serve of the shared-prefix traffic (MLA
    chunks through flash at a query offset, the latent rows as the host KV
-   blocks), held as llama2's; then minicpm3-4b: the same 2-layer f32
+   blocks), held as llama2's; mesh (b): its MoE layers through ``ep_a2a``
+   on the one-rank mesh must give ``dropping``'s tokens and logits there;
+   then minicpm3-4b: the same 2-layer f32
    parities (no MoE), its full-width, full-depth (62 layers) bf16 serve
    of the 24 requests and, with the same weights, its chunked+radix
    serve; then the sliding-window families in f32 on the card, kernels
@@ -147,10 +153,14 @@ Phases, in order; any failure raises and exits non-zero:
    into MHA form through blockwise), 20 steps: finite losses and gradient
    norms, the loss falling, each run's own peak under 60 GiB; ms a step,
    tokens/s and the model-FLOPs share of the bf16 peak printed
-   (``train_flops``, llama2's figure held to its closed form); (e)
+   (``launch/op_count.py::train_flops``, llama2's figure held to its
+   closed form); (e)
    checkpoint/restart of the smoke config on the card (4 straight steps
    against 2, a checkpoint, a restore and 2), bitwise under deterministic
-   algorithms or within 1e-6 of scale, whichever held printed;
+   algorithms or within 1e-6 of scale, whichever held printed; then mesh
+   (c): llama2's training cut counted on meta (``launch/op_count.py``)
+   within 1% of ``llama2_train_flops``, its roofline terms and (d)'s
+   measured step over the larger;
 6. summary: one call of each kernel's bf16 main case (and of the f32
    flash main, offset and MLA cases, the f32 MLA paged case, the f32
    SSD main case and every minicpm3-4b case) under
@@ -175,6 +185,7 @@ import json
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from functools import partial
 from pathlib import Path
 
@@ -509,20 +520,13 @@ def flash_case(fa, B, S, H, K, hd, dtype, causal, window, seed, q_offset=0,
 
 def flash_bound(B, S, H, K, hd, elem, causal, window, peak, q_offset=0,
                 kv_len=None, hd_v=None):
-    """Least time (ms) for the work, and what bounds it: matmul FLOPs over
-    the visible (query, key) pairs (query s at position ``q_offset + s``,
-    the first ``kv_len`` keys, default S) vs q and out, and the visible k
-    and v, moved once (values of ``hd_v``, default hd)."""
-    kv_len = S if kv_len is None else kv_len
-    hd_v = hd if hd_v is None else hd_v
-    pairs = 0
-    for s in range(S):
-        a = q_offset + s
-        lo = max(0, a - window + 1) if window else 0
-        hi = min(a + 1, kv_len) if causal else kv_len
-        pairs += hi - lo
-    flops = 2.0 * B * H * (hd + hd_v) * pairs
-    nbytes = elem * (B * S * H * (hd + hd_v) + B * kv_len * K * (hd + hd_v))
+    """Least time (ms) for the work, and what bounds it: the FLOPs and
+    bytes of ``kernels/flash_attention/ops.py::flash_counts`` (the matmul
+    FLOPs over the visible pairs, q and out and the visible k and v moved
+    once) over ``peak`` and the HBM rate."""
+    from repro_torch.kernels.flash_attention.ops import flash_counts
+    flops, nbytes = flash_counts(B, S, H, K, hd, elem, causal, window,
+                                 q_offset, kv_len, hd_v)
     t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -681,19 +685,10 @@ def paged_bound(B, H, K, hd, elem, lens, hd_v=None, peak=BF16_PEAK_FLOPS):
 
 
 def paged_terms(B, H, K, hd, elem, lens, hd_v=None) -> tuple:
-    """The K/V bytes of the tokens each sequence holds (with ``hd_v``, MLA,
-    each row once: the values are its first hd_v columns), q and out, and
-    the 16-token pages' table entries, over HBM bandwidth (ms); and the
-    FLOPs of both products."""
-    tokens = int(np.sum(lens))
-    pages = int(np.sum(-(-np.asarray(lens) // 16)))
-    if hd_v is None:
-        nbytes = elem * (2 * tokens * K * hd + 2 * B * H * hd)
-        flops = 4.0 * tokens * H * hd
-    else:
-        nbytes = elem * (tokens * K * hd + B * H * (hd + hd_v))
-        flops = 2.0 * tokens * H * (hd + hd_v)
-    nbytes += 4 * (pages + B)
+    """``kernels/paged_attention/ops.py::paged_counts``' bytes over HBM
+    bandwidth (ms), and its FLOPs."""
+    from repro_torch.kernels.paged_attention.ops import paged_counts
+    flops, nbytes = paged_counts(B, H, K, hd, elem, lens, hd_v)
     return nbytes / HBM_BYTES_PER_S * 1e3, flops
 
 
@@ -873,18 +868,11 @@ def ssd_scan_case(so, b, S, H, P, G, N, chunk, dtype, seed):
 
 
 def ssd_bound(b, S, H, P, G, N, Q, elem, peak):
-    """Least time (ms) of one ssd_chunk call, and what bounds it: x, B and C
-    (read by group) in the input type, dt f32 and A_log read once; y,
-    states and decays written once in f32; FLOPs of the causal half of
-    C·Bᵀ once a group, and of (C·Bᵀ∘L)·(x·dt) plus the chunk-end state
-    once a head, per chunk."""
-    nc = S // Q
-    nbytes = (elem * (b * S * H * P + 2 * b * S * G * N) + 4 * (b * S * H + H)
-              + 4 * (b * S * H * P + b * nc * H * N * P + b * S * H
-                     + b * nc * H))
-    pairs = Q * (Q + 1) // 2
-    flops = b * nc * (G * 2.0 * pairs * N
-                      + H * (2.0 * pairs * P + 2.0 * Q * N * P))
+    """Least time (ms) of one ssd_chunk call, and what bounds it:
+    ``kernels/ssd_scan/ops.py::ssd_counts``' FLOPs over ``peak`` and bytes
+    over the HBM rate."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_counts
+    flops, nbytes = ssd_counts(b, S, H, P, G, N, Q, elem)
     t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -2997,85 +2985,12 @@ def phase_train_blockwise() -> dict:
             "ms_blockwise": ms["blockwise"], "ms_reference": ms["reference"]}
 
 
-def train_flops(params, cfg, batch: int, seq: int) -> tuple:
-    """(model FLOPs of one training step, FLOPs the step executes, matmul
-    weights N a token reads).
-
-    N is counted from the parameters: every block weight of two or more
-    dims (projections, MLPs, routers, the depthwise convs: one
-    multiply-add a weight a token each) and the head (the embedding is a
-    lookup; a tied table counts once, as the head); an MoE block's routed
-    experts (its three-dim weights) at ``top_k / n_experts``, its router and
-    shared experts whole.  Model FLOPs: 6·N·tokens plus three times the
-    forward products no weight counts (PaLM's count):
-
-    * attention, a layer and a token: QKᵀ 2·T·H·dk and PV 2·T·H·dv over
-      the whole span T = S, or a local layer's window min(W, S); MLA's dk
-      = hd + rd, dv = vd, else dk = dv = hd;
-    * the SSD, a layer and a token: the intra-chunk scores C·Bᵀ 2·Q·N a
-      group, their product with x 2·Q·H·P, the chunk states and y_off
-      2·H·P·N each (Q the chunk, whole chunks);
-    * none for the RG-LRU scan (element-wise).
-
-    Executed: 8·N·tokens (the forward, its recompute under remat and the
-    backward) plus the products as the step runs them, four times (the
-    forward, its recompute, the backward twice): attention over the whole
-    S x S below ``BLOCKWISE_THRESHOLD``, above it over each query block's
-    KV span (S, or W + 512 for a window) and a fifth time for blockwise's
-    query-block recompute; the SSD's products as counted above, since
-    ``models/ssm.py::ssd_chunk_train`` also takes the scores once a
-    group."""
-    from repro_torch.models.attention import BLOCKWISE_THRESHOLD, window_for
-    tokens = batch * seq
-    n = params.head.numel() if params.head is not None else \
-        params.embed.numel()
-    attn_model = attn_exec = ssd_model = ssd_exec = 0
-    dk = cfg.head_dim + (cfg.rope_head_dim if cfg.use_mla else 0)
-    dv = cfg.v_head_dim
-    for bp in params.blocks:
-        for group in (bp.mixer, bp.mlp or {}, bp.shared or {}):
-            for w in group.values():
-                if w.dim() >= 2:
-                    routed = bp.use_moe and group is bp.mlp and w.dim() == 3
-                    n += (w.numel() * cfg.moe_top_k // cfg.n_experts
-                          if routed else w.numel())
-        if bp.kind == "ssm":
-            Q, N, P = min(cfg.ssm_chunk, seq), cfg.ssm_state, cfg.ssm_head_dim
-            H, G = cfg.n_ssm_heads, cfg.ssm_groups
-            ssd_fwd = 2 * tokens * (Q * N * G + Q * H * P + 2 * H * P * N)
-            ssd_model += ssd_fwd
-            ssd_exec += 4 * ssd_fwd
-        elif bp.kind != "rglru":
-            win = window_for(cfg, bp.kind)
-            span = min(win, seq) if win else seq
-            a_tok = 2 * cfg.n_heads * (dk + dv)       # a key, a token
-            attn_model += tokens * span * a_tok
-            if seq > BLOCKWISE_THRESHOLD:
-                kv = min(win + min(512, seq), seq) if win else seq
-                attn_exec += 5 * tokens * kv * a_tok
-            else:
-                attn_exec += 4 * tokens * seq * a_tok
-    return (6 * n * tokens + 3 * (attn_model + ssd_model),
-            8 * n * tokens + attn_exec + ssd_exec, n)
-
-
-def llama2_train_flops(cfg, batch: int, seq: int) -> tuple:
-    """The closed form for llama2 (dense d_ff, GQA projections, the
-    whole causal span through blockwise), which :func:`train_flops` must
-    reproduce from the parameters."""
-    d, L = cfg.d_model, cfg.n_layers
-    H, K, hd, ff = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
-    n = L * (d * H * hd * 2 + d * K * hd * 2 + 3 * d * ff) + d * cfg.vocab_size
-    attn_fwd = 4 * batch * seq * seq * H * hd * L
-    return (6 * n * batch * seq + 3 * attn_fwd,
-            8 * n * batch * seq + 5 * attn_fwd, n)
-
-
 def phase_train_run(arch: str) -> dict:
     """(d) ``launch/train.py`` in-process: ``arch`` at full width, cut to
     ``TRAIN_DEPTH_CUTS`` layers where it has a cut, ``DtypePolicy.train()``,
     remat, ``TRAIN_RUNS[arch]``'s batch, steps and lr."""
     from repro_torch.configs import get_config
+    from repro_torch.launch.op_count import llama2_train_flops, train_flops
     from repro_torch.launch.train import main as train_main
     t0 = time.monotonic()
     args = TRAIN_RUNS[arch]
@@ -3216,6 +3131,335 @@ def phase_train() -> dict:
     return out
 
 
+# The mesh phase's sharded serve steps: prompts, their length, the slot
+# caches' length and the greedy decode steps
+MESH_BATCH, MESH_PROMPT, MESH_S_MAX, MESH_STEPS = 4, 512, 1024, 8
+
+
+@contextmanager
+def one_rank_world():
+    """A one-rank NCCL world on the card (its address a free localhost
+    port) and a (1, 1) ("data", "model") mesh over it from
+    ``launch/mesh.py::make_host_mesh``; the group is destroyed on the way
+    out."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        check(dist.get_backend() == "nccl", "the mesh phase runs on NCCL")
+        yield make_host_mesh(1, device_type="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_greedy(cfg, params, tokens, pol=None, moe_impl="dropping",
+                forced=None, policy=None):
+    """One prefill of ``tokens`` (B, S), its caches copied into slot caches
+    of ``MESH_S_MAX`` positions, and ``MESH_STEPS`` greedy decode steps,
+    through ``models.model.prefill`` and ``decode_step`` (the cells' serve
+    steps).  With ``pol`` the weights are DTensors, and the batches and
+    caches are placed by ``pol`` (the caches' sequence over "model") and
+    run under ``distributed.spmd.spmd``.  With ``forced`` (B, steps) each
+    step is fed those tokens instead of its own greedy ones (teacher
+    forcing).  ``policy`` is the dtype policy (default the serve's, bf16).
+    Returns (the prefill's and each step's logits (steps + 1, B, V) f32,
+    the tokens fed (B, steps))."""
+    import contextlib
+
+    import torch
+    from repro_torch.distributed.sharding import (distribute_batch,
+                                                  distribute_caches)
+    from repro_torch.distributed.spmd import is_dtensor, spmd
+    from repro_torch.models.common import DtypePolicy
+    from repro_torch.models.model import (decode_step, init_decode_caches,
+                                          prefill)
+    policy = policy or DtypePolicy.serve()
+
+    def whole(t):
+        return t.full_tensor() if is_dtensor(t) else t
+
+    def placed(tok):
+        return distribute_batch({"t": tok}, pol)["t"] if pol else tok
+    B, S = tokens.shape
+    ctx = spmd if pol is not None else contextlib.nullcontext
+    with ctx():
+        batch = {"tokens": tokens}
+        logits, caches = prefill(params, distribute_batch(batch, pol)
+                                 if pol else batch, cfg, moe_impl=moe_impl,
+                                 policy=policy)
+        slot = init_decode_caches(cfg, B, MESH_S_MAX, dtype=policy.compute,
+                                  device="cuda")
+        for c, p in zip(slot, caches):
+            for k in c:
+                c[k][:, :S] = whole(p[k])
+        del caches
+        if pol is not None:
+            slot = distribute_caches(slot, pol)
+        out = [whole(logits)[:, 0].float()]
+        toks = []
+        for i in range(MESH_STEPS):
+            toks.append(out[-1].argmax(-1, keepdim=True).int()
+                        if forced is None else forced[:, i:i + 1])
+            logits, slot = decode_step(params, placed(toks[-1]), slot, S + i,
+                                       cfg, moe_impl=moe_impl, policy=policy)
+            out.append(whole(logits)[:, 0].float())
+    return torch.stack(out), torch.cat(toks, 1)
+
+
+def phase_mesh_serve(cfg, params, ops: dict) -> dict:
+    """(a) llama2-13b at full width and depth in bf16 (the serve's
+    weights): one prefill and ``MESH_STEPS`` greedy decode steps on
+    weights distributed under the serve policy on the one-rank (1, 1) mesh
+    (no copy: every shard is the whole weight), decode over caches placed
+    by ``cache_spec`` (sequence over "model") through the sharded decode
+    (each rank's paged partials, then their merge), against the same call
+    on the plain weights: equal greedy tokens, and the logits' gap over
+    their scale printed.  The flash and paged launches of the sharded run
+    are counted by the wrappers (no profiler here: a session in the middle
+    of the run left every later session of ``phase_variants`` empty)."""
+    import torch
+    from repro_torch.distributed.sharding import (ShardingPolicy,
+                                                  batch_axes_for,
+                                                  distribute_params)
+    t0 = time.monotonic()
+    rng = np.random.default_rng(31)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (MESH_BATCH, MESH_PROMPT))).int().cuda()
+    ref_logits, ref_toks = mesh_greedy(cfg, params, tokens)
+    with one_rank_world() as mesh:
+        pol = ShardingPolicy(mesh, "serve", cfg,
+                             batch_axes=batch_axes_for(mesh))
+        before = torch.cuda.memory_allocated()
+        dparams = distribute_params(params, pol)
+        copied = torch.cuda.memory_allocated() - before
+        reset_counts(ops)
+        logits, toks = mesh_greedy(cfg, dparams, tokens, pol)
+        torch.cuda.synchronize()
+        launches = {name: ops[name].KERNEL.launches
+                    for name in ("flash_attention", "paged_attention")}
+        del dparams
+    gap = float((logits - ref_logits).abs().max()
+                / ref_logits.abs().max())
+    same = bool(torch.equal(toks, ref_toks))
+    print(f"[mesh] (a) llama2-13b {cfg.n_layers} layers d {cfg.d_model} "
+          f"bf16 on a one-rank NCCL (1, 1) mesh: {MESH_BATCH} prompts of "
+          f"{MESH_PROMPT}, {MESH_STEPS} greedy steps over caches of "
+          f"{MESH_S_MAX} placed by cache_spec; greedy tokens equal to the "
+          f"plain call's: {same}; logits max |d| / scale {gap:.3e}; "
+          f"weights copied by distribution {copied} B; launches in the "
+          f"sharded run {launches}; {time.monotonic() - t0:.1f} s")
+    check(same, "llama2's sharded greedy tokens equal the plain call's")
+    check(gap <= BF16_TOL, f"llama2's sharded logits within {BF16_TOL} of "
+                           f"scale (got {gap:.3e})")
+    check(launches["flash_attention"] == cfg.n_layers
+          and launches["paged_attention"] == MESH_STEPS * cfg.n_layers,
+          f"the sharded run launched flash once a layer and paged once a "
+          f"layer a step (got {launches})")
+    check(copied == 0, "distribution on a one-rank mesh copies no weight")
+    return {"tokens_equal": same, "logits_gap": gap, "launches": launches,
+            "wall_s": time.monotonic() - t0}
+
+
+def phase_mesh_ep(cfg, params) -> dict:
+    """(b) deepseek-v2-lite-16b at full width and depth in bf16 (the
+    serve's weights), on DTensor weights over the one-rank mesh: the same
+    prefill and greedy steps with its MoE layers through ``ep_a2a``
+    (tokens over "data", experts over "model", buckets shipped by
+    ``all_to_all_single`` on NCCL) against ``dropping`` on the same mesh
+    (``moe_dropping_sharded``).  At one rank the capacity and the pairs'
+    order are the same, so the greedy tokens must be equal and the logits
+    within the bf16 tolerance of scale; the gap is printed (equality is
+    expected).
+
+    Beside it, printed and not held: the sharded run (MLA decode through
+    ``sharded_decode``, sharded ``dropping``) against ``dropping`` on the
+    plain weights, whose decode merges its partitions in the kernel: the
+    first decode step, fed the same token by both, and a run on the
+    DTensor weights fed the plain run's tokens, step by step.  In bf16
+    the merge order parts the first layer's output by a rounding step
+    (2.6e-3 of scale), and the routing among 64 experts, whose 6th and
+    7th choices lie 1e-4 to 1e-3 apart, carries it to about 0.15 of
+    scale over 27 layers (``PERF.md`` §6, PR 31).  What holds the
+    sharded path against the plain one is :func:`phase_mesh_parity`."""
+    import torch
+    from repro_torch.distributed.sharding import (ShardingPolicy,
+                                                  batch_axes_for,
+                                                  distribute_params)
+    from repro_torch.models.moe import MoECtx
+    t0 = time.monotonic()
+    rng = np.random.default_rng(32)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (MESH_BATCH, MESH_PROMPT))).int().cuda()
+    plain_logits, plain_toks = mesh_greedy(cfg, params, tokens,
+                                           moe_impl="dropping")
+    with one_rank_world() as mesh:
+        pol = ShardingPolicy(mesh, "serve", cfg,
+                             batch_axes=batch_axes_for(mesh))
+        dparams = distribute_params(params, pol)
+        ref_logits, ref_toks = mesh_greedy(cfg, dparams, tokens, pol,
+                                           moe_impl="dropping")
+        tf_logits, _ = mesh_greedy(cfg, dparams, tokens, pol,
+                                   moe_impl="dropping", forced=plain_toks)
+        logits, toks = mesh_greedy(
+            cfg, dparams, tokens, pol,
+            moe_impl=MoECtx("ep_a2a", mesh, batch_axes_for(mesh)))
+        torch.cuda.synchronize()
+        del dparams
+
+    same = bool(torch.equal(toks, ref_toks))
+    step1 = rel_gap(ref_logits[1], plain_logits[1])
+    forced = [rel_gap(tf_logits[i], plain_logits[i])
+              for i in range(MESH_STEPS + 1)]
+    parted = (ref_toks != plain_toks).any(0).nonzero()
+    first = int(parted[0]) if len(parted) else None
+    print(f"[mesh] (b) deepseek-v2-lite-16b {cfg.n_layers} layers bf16 on the "
+          f"one-rank mesh: ep_a2a against dropping, greedy tokens equal "
+          f"{same}, logits max |d| / scale "
+          f"{rel_gap(logits, ref_logits):.3e} (<= {BF16_TOL}); sharded "
+          f"dropping against plain dropping (not held): prefill logits "
+          f"{rel_gap(ref_logits[0], plain_logits[0]):.3e} of scale, first "
+          f"step fed the same token "
+          f"{bool(torch.equal(ref_toks[:, 0], plain_toks[:, 0]))}, its "
+          f"logits {step1:.3e} of scale; greedy tokens equal {first is None}"
+          f"{'' if first is None else f' (first parting at step {first})'}"
+          f"; fed the plain run's tokens, each step's logits "
+          f"{', '.join(f'{g:.3e}' for g in forced)} of scale"
+          f"; {time.monotonic() - t0:.1f} s")
+    check(same, "deepseek's ep_a2a greedy tokens equal dropping's")
+    check(rel_gap(logits, ref_logits) <= BF16_TOL,
+          f"deepseek's ep_a2a logits within {BF16_TOL} of scale")
+    return {"tokens_equal": same, "logits_gap": rel_gap(logits, ref_logits),
+            "plain_step1_gap": step1, "plain_forced_gaps": forced,
+            "plain_first_parting": first, "wall_s": time.monotonic() - t0}
+
+
+# (layers, precision, tolerance of scale, whether the argmax is held)
+MESH_PARITY_CUTS = ((4, "f32", F32_TOL, True), (1, "bf16", BF16_TOL, False))
+
+
+def phase_mesh_parity() -> dict:
+    """(b) continued: the sharded serve steps held against the plain ones
+    at deepseek-v2-lite-16b's full width, cut in depth, with random
+    weights from a seed: 4 layers in f32 (the dense first layer and 3 MoE
+    layers; the paged MLA kernel's f32 partials, sharded ``dropping``) and
+    1 layer in bf16 (the dense first layer: the bf16 MLA partials with no
+    routing after them).  On the one-rank mesh, a prefill and
+    ``MESH_STEPS`` decode steps over a latent cache placed by
+    ``cache_spec``, fed the plain run's greedy tokens: every step's logits
+    within the precision's tolerance of scale, and in f32 of the same
+    argmax.  The bf16 argmax is printed, not held: a rounding step of the
+    merge order moves the logits by up to 6.7e-3 of scale (``PERF.md``
+    §6, PR 31), and with random weights the largest of 102,400 logits can
+    lie closer than that to the next (the least such margin, over scale,
+    is printed)."""
+    import torch
+    from repro_torch.distributed.sharding import (ShardingPolicy,
+                                                  batch_axes_for,
+                                                  distribute_params)
+    from repro_torch.launch.serve import card_config
+    from repro_torch.models.common import DtypePolicy
+    from repro_torch.models.model import init_params
+    arch = "deepseek-v2-lite-16b"
+    out = {}
+    for depth, name, tol, hold_argmax in MESH_PARITY_CUTS:
+        t0 = time.monotonic()
+        dtype = torch.float32 if name == "f32" else torch.bfloat16
+        policy = DtypePolicy(dtype, dtype, torch.float32)
+        cfg = card_config(arch, {arch: depth})
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+            33), device="cuda", dtype=dtype)
+        tokens = torch.from_numpy(np.random.default_rng(33).integers(
+            0, cfg.vocab_size, (MESH_BATCH, MESH_PROMPT))).int().cuda()
+        want, toks = mesh_greedy(cfg, params, tokens, policy=policy)
+        with one_rank_world() as mesh:
+            pol = ShardingPolicy(mesh, "serve", cfg,
+                                 batch_axes=batch_axes_for(mesh))
+            got, _ = mesh_greedy(cfg, distribute_params(params, pol), tokens,
+                                 pol, forced=toks, policy=policy)
+            torch.cuda.synchronize()
+        del params
+        gaps = [rel_gap(got[i], want[i]) for i in range(MESH_STEPS + 1)]
+        same = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
+        rows = int((got.argmax(-1) != want.argmax(-1)).sum())
+        top2 = want.topk(2, dim=-1).values
+        margin = float((top2[..., 0] - top2[..., 1]).min()
+                       / want.abs().max())
+        print(f"[mesh] (b) {arch} d {cfg.d_model}, {depth} of 27 layers, "
+              f"{name}, one-rank mesh, fed the plain run's tokens: sharded "
+              f"against plain, prefill and each step's logits "
+              f"{', '.join(f'{g:.3e}' for g in gaps)} of scale (<= {tol}); "
+              f"argmax equal {same} ({rows} of {got.shape[0] * got.shape[1]} "
+              f"rows differ{'' if hold_argmax else ', not held'}; the plain "
+              f"top-2 margin at least {margin:.3e} of scale); "
+              f"{time.monotonic() - t0:.1f} s")
+        check(max(gaps) <= tol,
+              f"{arch} {name} at {depth} layers: sharded serve steps within "
+              f"{tol} of the plain ones (got {max(gaps):.3e})")
+        check(same or not hold_argmax,
+              f"{arch} {name} at {depth} layers: sharded logits' argmax "
+              f"equal to the plain ones'")
+        out[f"{name}_{depth}"] = {"gaps": gaps, "argmax_equal": same}
+    return out
+
+
+def rel_gap(a, b) -> float:
+    """max |a - b| over max |b|."""
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def phase_mesh_roofline(train: dict) -> dict:
+    """(c) llama2-13b's training cut (``TRAIN_DEPTH_CUTS``: 8 of 40 layers,
+    2 x 4096) counted on meta by ``launch/op_count.py`` (no mesh): its
+    executed FLOPs beside ``llama2_train_flops``' closed form, the
+    roofline's compute and memory terms (``launch/roofline.py::
+    step_terms``, H100 data-sheet peaks), and the step phase 5 (d)
+    measured over the larger term."""
+    import torch
+    from repro_torch.launch.op_count import OpCounter, llama2_train_flops
+    from repro_torch.launch.roofline import step_terms
+    from repro_torch.launch.serve import TRAIN_DEPTH_CUTS, card_config
+    from repro_torch.models.model import init_params
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    from repro_torch.training.train_loop import make_train_step
+    t0 = time.monotonic()
+    run = train["run"]["llama2-13b"]
+    B, S = run["batch"], run["seq"]
+    cfg = card_config("llama2-13b", TRAIN_DEPTH_CUTS)
+    params = init_params(cfg, None, device="meta")
+    params.requires_grad_(True)
+    batch = {k: torch.empty((B, S), dtype=torch.int32, device="meta")
+             for k in ("tokens", "labels")}
+    with OpCounter() as counter:
+        make_train_step(cfg, AdamWConfig(), remat=True)(
+            params, adamw_init(params), batch)
+    counts = counter.summary()
+    _, closed, _ = llama2_train_flops(cfg, B, S)
+    terms = step_terms(counts)
+    bound = max(terms.values())
+    measured = run["median_ms"] / 1e3
+    print(f"[mesh] (c) llama2-13b {cfg.n_layers} of 40 layers, {B}x{S}, "
+          f"counted on meta: executed FLOPs {counts['flops']:.6e} against "
+          f"the closed form {closed:.6e} (ratio "
+          f"{counts['flops'] / closed:.6f}); bytes {counts['traffic_bytes']:.6e}"
+          f"; roofline terms compute {terms['compute']:.4f} s, memory "
+          f"{terms['memory']:.4f} s (H100 SXM data sheet); measured step "
+          f"{measured:.4f} s = {measured / bound:.3f} x the bound "
+          f"({max(terms, key=terms.get)}); {time.monotonic() - t0:.1f} s")
+    check(abs(counts["flops"] - closed) <= 0.01 * closed,
+          "the counted training step within 1% of llama2_train_flops")
+    return {"flops": counts["flops"], "closed_form": closed,
+            "traffic_bytes": counts["traffic_bytes"], "terms": terms,
+            "measured_s": measured, "measured_over_bound": measured / bound}
+
+
 def main() -> int:
     """Run every phase; return the exit code."""
     import torch
@@ -3271,6 +3515,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     fleet = phase_fleet(cfg, params, ops)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = {"serve": phase_mesh_serve(cfg, params, ops)}
     del params                         # the weights, engines and stores go
     gc.collect()
     torch.cuda.empty_cache()
@@ -3289,14 +3536,20 @@ def main() -> int:
                                 ops,
                                 ("flash_attention", "paged_attention"),
                                 max_peak_gib=75)
-    # the chunked+radix run reuses these weights
-    params = out["engine"].params
+    # the chunked+radix run and the mesh phase's (b) reuse these weights
+    params, ds_cfg = out["engine"].params, out["engine"].cfg
     del out
     gc.collect()
     torch.cuda.empty_cache()
     deepseek_prefix = phase_prefix_serve("deepseek-v2-lite-16b", params, ops,
                                          max_peak_gib=75)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh["ep_a2a"] = phase_mesh_ep(ds_cfg, params)
     del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh["parity"] = phase_mesh_parity()
     gc.collect()
     torch.cuda.empty_cache()
     cpm_f32 = phase_parity_minicpm3(ops)
@@ -3410,7 +3663,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     # training, with every serve's weights freed: no kernel of the
     # repository runs on its path (phase (a) shows the wrappers refuse it)
-    phase_train()
+    train = phase_train()
+    mesh["roofline"] = phase_mesh_roofline(train)
+    print("[mesh] " + json.dumps(mesh, default=str))
     # after every timed phase: the profiler runs in this process only here
     variants = phase_variants(calls)
     # each kernel's launches come from the run of its own path

@@ -97,6 +97,19 @@ def refuse_autograd(op: str, *tensors) -> None:
             f"or with inputs that do not require grad")
 
 
+# Callables ``sink(kernel, flops, nbytes)`` that a wrapper called on meta
+# tensors reports its kernel's work to (``launch/op_count.py::OpCounter``
+# adds itself while it counts).
+COUNT_SINKS: list = []
+
+
+def report_meta(kernel: str, flops: float, nbytes: float) -> None:
+    """Tell every active counter that a wrapper ran ``kernel`` on meta
+    tensors, which would have done ``flops`` and moved ``nbytes``."""
+    for sink in COUNT_SINKS:
+        sink(kernel, flops, nbytes)
+
+
 class CudaKernel:
     """One kernel library (``csrc/<name>.cu``): built and loaded at its first
     launch, with a count of the launches made through :meth:`launch`."""

@@ -23,7 +23,9 @@ import ctypes
 
 import torch
 
-from .._build import DTYPE_CODES, CudaKernel, refuse_autograd
+import numpy as np
+
+from .._build import DTYPE_CODES, CudaKernel, refuse_autograd, report_meta
 from .ref import flash_attention_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -57,6 +59,32 @@ class FlashKernel(CudaKernel):
 KERNEL = FlashKernel()
 
 
+def visible_pairs(S: int, causal: bool, window: int, q_offset: int = 0,
+                  kv_len: int | None = None) -> int:
+    """(query, key) pairs a call attends over: query s at position
+    ``q_offset + s`` sees the first ``kv_len`` keys (default S), up to its
+    own position when causal, and the last ``window`` of them when
+    windowed."""
+    kv_len = S if kv_len is None else kv_len
+    a = q_offset + np.arange(S, dtype=np.int64)
+    lo = np.maximum(0, a - window + 1) if window else np.zeros_like(a)
+    hi = np.minimum(a + 1, kv_len) if causal else np.full_like(a, kv_len)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def flash_counts(B, S, H, K, hd, elem, causal, window, q_offset=0,
+                 kv_len=None, hd_v=None) -> tuple:
+    """(FLOPs, bytes) of one call: the matmul FLOPs over the visible pairs
+    (:func:`visible_pairs`), and q and out, and the visible k and v, moved
+    once (values of ``hd_v``, default hd)."""
+    kv_len = S if kv_len is None else kv_len
+    hd_v = hd if hd_v is None else hd_v
+    pairs = visible_pairs(S, causal, window, q_offset, kv_len)
+    flops = 2.0 * B * H * (hd + hd_v) * pairs
+    nbytes = elem * (B * S * H * (hd + hd_v) + B * kv_len * K * (hd + hd_v))
+    return flops, nbytes
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     scale: float | None = None, q_offset: int = 0,
                     kv_len: int | None = None, impl: str | None = None):
@@ -85,6 +113,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                                   window=window, scale=scale,
                                   q_offset=q_offset, kv_len=kv_len)
         return out.transpose(1, 2)
+    if q.device.type == "meta":
+        return _meta(q, k, v, causal, window, q_offset, kv_len)
     _check(q, k, v, window)
     B, S, H, hd = q.shape
     K, hd_v = k.shape[2], v.shape[3]
@@ -99,6 +129,16 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if window > 0:
         KERNEL.window_launches += 1
     return out
+
+
+def _meta(q, k, v, causal, window, q_offset, kv_len):
+    """The output's shape and type on meta tensors, the kernel's work
+    reported to the active counters."""
+    B, S, H, hd = q.shape
+    flops, nbytes = flash_counts(B, S, H, k.shape[2], hd, q.element_size(),
+                                 causal, window, q_offset, kv_len, v.shape[3])
+    report_meta("flash_attention", flops, nbytes)
+    return q.new_empty((B, S, H, v.shape[3]))
 
 
 def _check(q, k, v, window: int) -> None:

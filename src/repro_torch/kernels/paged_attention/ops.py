@@ -25,10 +25,11 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
-from .._build import DTYPE_CODES, CudaKernel, refuse_autograd
-from .ref import paged_attention_ref
+from .._build import DTYPE_CODES, CudaKernel, refuse_autograd, report_meta
+from .ref import paged_attention_ref, paged_attention_split_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("paged_attention", "paged_attention_fwd",
@@ -80,6 +81,35 @@ def _splits(table_width: int, page: int, partition: int) -> int:
     return max(1, -(-table_width * page // partition))
 
 
+def paged_counts(B, H, K, hd, elem, lens, hd_v=None, page: int = 16) -> tuple:
+    """(FLOPs, bytes) of one call over sequences of ``lens`` tokens: the
+    K/V bytes of the tokens each holds (with ``hd_v``, MLA, each row once:
+    the values are its first hd_v columns), q and out, and the
+    ``page``-token pages' table entries; the FLOPs of both products."""
+    tokens = int(np.sum(lens))
+    pages = int(np.sum(-(-np.asarray(lens) // page)))
+    if hd_v is None:
+        nbytes = elem * (2 * tokens * K * hd + 2 * B * H * hd)
+        flops = 4.0 * tokens * H * hd
+    else:
+        nbytes = elem * (tokens * K * hd + B * H * (hd + hd_v))
+        flops = 2.0 * tokens * H * (hd + hd_v)
+    return flops, nbytes + 4 * (pages + B)
+
+
+def _meta(q, k_pages, v_pages, block_table):
+    """Report the call on meta tensors to the active counters: seq_lens
+    has no values there, so every sequence counts at the table's capacity
+    (a decode cell's full cache)."""
+    B, H, hd = q.shape
+    _, page, K, _ = k_pages.shape
+    hd_v = v_pages.shape[3]
+    lens = [block_table.shape[1] * page] * B
+    flops, nbytes = paged_counts(B, H, K, hd, q.element_size(), lens,
+                                 None if hd_v == hd else hd_v, page)
+    report_meta("paged_attention", flops, nbytes)
+
+
 def paged_attention(q, k_pages, v_pages, block_table, seq_lens, *,
                     scale: float | None = None, impl: str | None = None):
     """q (B,H,hd); k_pages (P,page,K,hd), v_pages (P,page,K,hd_v);
@@ -99,6 +129,9 @@ def paged_attention(q, k_pages, v_pages, block_table, seq_lens, *,
     if impl == "plain" or q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, block_table, seq_lens,
                                    scale=scale)
+    if q.device.type == "meta":
+        _meta(q, k_pages, v_pages, block_table)
+        return q.new_empty((q.shape[0], q.shape[1], v_pages.shape[3]))
     _check(q, k_pages, v_pages, block_table, seq_lens)
     B, H, hd = q.shape
     _, page, K, _ = k_pages.shape
@@ -118,6 +151,59 @@ def paged_attention(q, k_pages, v_pages, block_table, seq_lens, *,
                   DTYPE_CODES[q.dtype], B, H, K, hd, hd_v, v_pages.stride(1),
                   page, max_pages, partition, n_split, float(scale))
     return out
+
+
+def paged_attention_partials(q, k_pages, v_pages, block_table, seq_lens, *,
+                             scale: float | None = None,
+                             impl: str | None = None):
+    """:func:`paged_attention`'s per-partition softmax states instead of
+    its output, for a merge with other shards of the same sequences
+    (decode over a cache whose sequence is sharded): ``m`` (B,H,n), the
+    max of each partition's scores in the log2 domain (``score · scale ·
+    log2(e)``), ``l`` (B,H,n), the sum of ``2^(score - m)``, and ``o``
+    (B,H,n,hd_v), the unnormalised output, all f32; an empty partition
+    has m = -inf, l = 0, o = 0.  ``ref.py::merge_partials_ref`` merges
+    them.
+
+    On a GPU it is one counted launch of the kernel with n >= 2
+    partitions, whose split pass writes these states (the launcher's
+    merge pass also writes an output, which is not read); on the CPU it
+    is ``paged_attention_split_ref`` over one partition of the table's
+    width (n = 1)."""
+    if impl not in (None, "plain"):
+        raise ValueError(f"impl must be None or 'plain', got {impl!r}")
+    refuse_autograd("paged_attention", q, k_pages, v_pages)
+    B, H, hd = q.shape
+    _, page, K, _ = k_pages.shape
+    hd_v = v_pages.shape[3]
+    if impl == "plain" or q.device.type == "cpu":
+        width = max(1, block_table.shape[1] * page)
+        return paged_attention_split_ref(q, k_pages, v_pages, block_table,
+                                         seq_lens, partition=width,
+                                         scale=scale)
+    max_pages = block_table.shape[1]
+    partition = partition_for(hd, hd_v, H // K, q.dtype)
+    n = max(2, _splits(max_pages, page, partition))
+    f32 = dict(dtype=torch.float32, device=q.device)
+    if q.device.type == "meta":
+        _meta(q, k_pages, v_pages, block_table)
+        return (torch.empty((B, H, n), **f32), torch.empty((B, H, n), **f32),
+                torch.empty((B, H, n, hd_v), **f32))
+    _check(q, k_pages, v_pages, block_table, seq_lens)
+    scale = hd ** -0.5 if scale is None else scale
+    out = torch.empty((B, H, hd_v), dtype=q.dtype, device=q.device)
+    partials = torch.empty(B * H * n * (hd_v + 2), **f32)
+    KERNEL.launch(q.device, q.data_ptr(), k_pages.data_ptr(),
+                  v_pages.data_ptr(), block_table.data_ptr(),
+                  seq_lens.data_ptr(), out.data_ptr(), partials.data_ptr(),
+                  DTYPE_CODES[q.dtype], B, H, K, hd, hd_v, v_pages.stride(1),
+                  page, max_pages, partition, n, float(scale))
+    m = partials[:B * H * n].view(B, H, n)
+    l = partials[B * H * n:2 * B * H * n].view(B, H, n)
+    o = partials[2 * B * H * n:].view(B, H, n, hd_v)
+    # an empty partition writes m = -inf and l = 0 but no o: its o is
+    # whatever the buffer held (NaN, say), so it is zeroed here
+    return m, l, torch.where((m == -np.inf)[..., None], 0.0, o)
 
 
 def _check(q, k_pages, v_pages, block_table, seq_lens) -> None:

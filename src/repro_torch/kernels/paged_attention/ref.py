@@ -151,14 +151,24 @@ def paged_attention_tiled_ref(q, k_pages, v_pages, block_table, seq_lens, *,
                               o.reshape(B, H, n, hd_v), dtype=q.dtype)
 
 
+def combine_partials_ref(m, l, o):
+    """The merge pass's sums before its division: the n partials' states
+    m, l (B,H,n), o (B,H,n,hd_v) as the state of one partition, M = max mᵢ,
+    L = Σ 2^(mᵢ-M)·lᵢ and O = Σ 2^(mᵢ-M)·oᵢ over the non-empty partials,
+    shaped (B,H,1) and (B,H,1,hd_v); m = -inf, l = 0, o = 0 where no
+    partition held a token."""
+    M = m.amax(-1, keepdim=True)
+    wt = torch.where(m == -math.inf, 0.0,
+                     torch.exp2(m - torch.where(M == -math.inf, 0.0, M)))
+    return (M, (l * wt).sum(-1, keepdim=True),
+            (o * wt[..., None]).sum(-2, keepdim=True))
+
+
 def merge_partials_ref(m, l, o, dtype=torch.float32):
     """The merge pass: Σ 2^(mᵢ-M)·oᵢ / Σ 2^(mᵢ-M)·lᵢ over the non-empty
     partials (M = max mᵢ); 0 where no partition held a token.  m, l (B,H,n),
     o (B,H,n,hd_v) → (B,H,hd_v) in ``dtype``."""
-    M = m.amax(-1, keepdim=True)
-    wt = torch.where(m == -math.inf, 0.0,
-                     torch.exp2(m - torch.where(M == -math.inf, 0.0, M)))
-    L = (l * wt).sum(-1)
-    O = (o * wt[..., None]).sum(-2)
+    _, L, O = combine_partials_ref(m, l, o)
+    L, O = L[..., 0], O[..., 0, :]
     out = torch.where(L[..., None] > 0, O / L.clamp_min(1e-30)[..., None], 0.0)
     return out.to(dtype)

@@ -17,7 +17,7 @@ from functools import partial
 
 import torch
 
-from .._build import DTYPE_CODES, CudaKernel, refuse_autograd
+from .._build import DTYPE_CODES, CudaKernel, refuse_autograd, report_meta
 from .ref import ssd_chunk_ref, ssd_scan
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -28,6 +28,22 @@ MAX_STATE = 256
 # Longest chunk the kernels take: a block keeps dt and the decays over the
 # whole chunk in shared memory (csrc/ssd_scan.cu states the sizes).
 MAX_CHUNK = 8192
+
+
+def ssd_counts(b, S, H, P, G, N, Q, elem) -> tuple:
+    """(FLOPs, bytes) of one ``ssd_chunk`` call over S positions in chunks
+    of Q: x, B and C (read by group) in the input type, dt f32 and A_log
+    read once; y, states and decays written once in f32; FLOPs of the
+    causal half of C·Bᵀ once a group, and of (C·Bᵀ∘L)·(x·dt) plus the
+    chunk-end state once a head, per chunk."""
+    nc = S // Q
+    nbytes = (elem * (b * S * H * P + 2 * b * S * G * N) + 4 * (b * S * H + H)
+              + 4 * (b * S * H * P + b * nc * H * N * P + b * S * H
+                     + b * nc * H))
+    pairs = Q * (Q + 1) // 2
+    flops = b * nc * (G * 2.0 * pairs * N
+                      + H * (2.0 * pairs * P + 2.0 * Q * N * P))
+    return flops, nbytes
 
 
 def ssd_chunk(x, dt, A_log, B, C, *, impl: str | None = None):
@@ -45,19 +61,37 @@ def ssd_chunk(x, dt, A_log, B, C, *, impl: str | None = None):
     refuse_autograd("ssd_chunk", x, dt, A_log, B, C)
     if impl == "plain" or x.device.type == "cpu":
         return ssd_chunk_ref(x, dt, A_log, B, C)
+    if x.device.type == "meta":
+        return _meta(x, B)
     _check(x, dt, A_log, B, C)
     b, nc, Q, H, P = x.shape
     G, N = B.shape[3], B.shape[4]
-    f32 = dict(dtype=torch.float32, device=x.device)
-    y = torch.empty((b, nc, Q, H, P), **f32)
-    states = torch.empty((b, nc, H, N, P), **f32)
-    decay = torch.empty((b, nc, Q, H), **f32)
-    chunk_decay = torch.empty((b, nc, H), **f32)
+    y, states, decay, chunk_decay = _outputs(x, B)
     KERNEL.launch(x.device, x.data_ptr(), dt.data_ptr(), A_log.data_ptr(),
                   B.data_ptr(), C.data_ptr(), y.data_ptr(), states.data_ptr(),
                   decay.data_ptr(), chunk_decay.data_ptr(),
                   DTYPE_CODES[x.dtype], b, nc, Q, H, G, P, N)
     return y, states, decay, chunk_decay
+
+
+def _outputs(x, B) -> tuple:
+    """Empty f32 y_diag, chunk-end states, in-chunk and chunk decays."""
+    b, nc, Q, H, P = x.shape
+    N = B.shape[4]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    return (torch.empty((b, nc, Q, H, P), **f32),
+            torch.empty((b, nc, H, N, P), **f32),
+            torch.empty((b, nc, Q, H), **f32), torch.empty((b, nc, H), **f32))
+
+
+def _meta(x, B) -> tuple:
+    """The outputs' shapes on meta tensors, the kernel's work reported to
+    the active counters."""
+    b, nc, Q, H, P = x.shape
+    G, N = B.shape[3], B.shape[4]
+    report_meta("ssd_chunk", *ssd_counts(b, nc * Q, H, P, G, N, Q,
+                                         x.element_size()))
+    return _outputs(x, B)
 
 
 def _check(x, dt, A_log, B, C) -> None:

@@ -45,8 +45,13 @@ from functools import lru_cache
 import torch
 
 from ..configs.base import ModelConfig
+from ..distributed.spmd import (head_reshape, is_dtensor, local_heads,
+                                replicated)
 from ..kernels.flash_attention.ops import flash_attention
-from ..kernels.paged_attention.ops import paged_attention
+from ..kernels.paged_attention.ops import (paged_attention,
+                                           paged_attention_partials)
+from ..kernels.paged_attention.ref import (combine_partials_ref,
+                                           merge_partials_ref)
 from .blockwise import blockwise_gqa_attend
 from .common import apply_rope, attention_mask, dense_init, rms_norm
 
@@ -109,9 +114,9 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype,
 def _qkv(params, x, cfg: ModelConfig, positions):
     B, S, _ = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ params["wq"]).reshape(B, S, H, hd)
-    k = (x @ params["wk"]).reshape(B, S, K, hd)
-    v = (x @ params["wv"]).reshape(B, S, K, hd)
+    q = head_reshape(x @ params["wq"], B, S, H, hd, heads=H)
+    k = head_reshape(x @ params["wk"], B, S, K, hd, heads=K)
+    v = head_reshape(x @ params["wv"], B, S, K, hd, heads=K)
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm"], cfg.norm_eps)
@@ -146,18 +151,32 @@ def gqa_forward(params, x, cfg: ModelConfig, *, window: int, positions,
     B, S, _ = x.shape
     q, k, v = _qkv(params, x, cfg, positions)
     if not train:
-        out = flash_attention(q, k, v, causal=causal, window=window,
-                              impl=impl)
+        out = _flash(q, k, v, causal=causal, window=window, impl=impl)
     elif S > BLOCKWISE_THRESHOLD:
-        out = blockwise_gqa_attend(q, k, v, causal=causal, window=window)
+        out = _local(lambda q, k, v: blockwise_gqa_attend(
+            q, k, v, causal=causal, window=window), q, k, v)
     else:
-        out = gqa_attend(q, k, v, attention_mask(S, S, causal=causal,
-                                                 window=window,
-                                                 device=x.device))
+        out = _local(lambda q, k, v: gqa_attend(q, k, v, attention_mask(
+            S, S, causal=causal, window=window, device=q.device)), q, k, v)
     y = out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ params["wo"]
     if return_kv:
         return y, {"k": k, "v": v}
     return y
+
+
+def _local(fn, q, *kv, shared: tuple = ()):
+    """``fn(q, *kv)``; on DTensors each rank's over its own batch rows and
+    heads (``distributed.spmd.local_heads``), the attention of a GSPMD
+    program sharded by heads."""
+    if not is_dtensor(q):
+        return fn(q, *kv)
+    return local_heads(fn, q, *kv, shared=shared)
+
+
+def _flash(q, k, v, **kw):
+    """The flash kernel wrapper, through :func:`_local`."""
+    return _local(lambda a, b, c: flash_attention(
+        a.contiguous(), b.contiguous(), c.contiguous(), **kw), q, k, v)
 
 
 def _pos_vec(cache_pos, B: int, device) -> torch.Tensor:
@@ -223,16 +242,20 @@ def _decode_into(params, x, cache: dict, posv, slots, lens,
     ``lens`` rows of each row's cache."""
     B = x.shape[0]
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ params["wq"]).reshape(B, 1, H, hd)
-    k_new = (x @ params["wk"]).reshape(B, 1, K, hd)
-    v_new = (x @ params["wv"]).reshape(B, 1, K, hd)
+    q = head_reshape(x @ params["wq"], B, 1, H, hd, heads=H)
+    k_new = head_reshape(x @ params["wk"], B, 1, K, hd, heads=K)
+    v_new = head_reshape(x @ params["wv"], B, 1, K, hd, heads=K)
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
         k_new = rms_norm(k_new, params["k_norm"], cfg.norm_eps)
     q = apply_rope(q, posv[:, None], cfg.rope_theta)
     k_new = apply_rope(k_new, posv[:, None], cfg.rope_theta)
-    rows = torch.arange(B, device=x.device)
     kc, vc = cache["k"], cache["v"]
+    if is_dtensor(kc):
+        out = sharded_decode(q[:, 0], [k_new[:, 0], v_new[:, 0]], [kc, vc],
+                             slots, lens, scale=None, impl=impl)
+        return out.to(x.dtype).reshape(B, 1, H * hd) @ params["wo"], cache
+    rows = torch.arange(B, device=x.device)
     kc[rows, slots] = k_new[:, 0].to(kc.dtype)
     vc[rows, slots] = v_new[:, 0].to(vc.dtype)
     n_slots, length = kc.shape[:2]
@@ -245,6 +268,77 @@ def _decode_into(params, x, cache: dict, posv, slots, lens,
                           lens.to(torch.int32), impl=impl)
     y = out.to(x.dtype).reshape(B, 1, H * hd) @ params["wo"]
     return y, cache
+
+
+def sharded_decode(q, rows: list, caches: list, slots, lens, *, scale,
+                   impl: str | None = None, hd_v: int | None = None):
+    """Decode attention over DTensor caches whose sequence (dim 1) is
+    sharded, the JAX package's flash-decode sharding
+    (``distributed/sharding.py::cache_spec``): no rank gathers a cache.
+
+    q (B,H,dk); ``rows`` the new token's rows (B, *row), one a cache in
+    ``caches`` ((B,S,K,dk) keys then (B,S,K,dv) values; or MLA's one
+    (B,S,1,r+rd) cache, whose first ``hd_v`` columns are the values);
+    ``slots`` (B,) where each row's token goes, ``lens`` (B,) the positions
+    each row attends to.  Through ``local_map``, each rank writes the new
+    rows that fall in its own positions, in place, then runs the paged
+    kernel (``paged_attention_partials``) over its local positions, its
+    slot cache viewed as pages, and combines its partitions' states into
+    one (max, sum, unnormalised output) (``combine_partials_ref``); the
+    ranks of the sequence's mesh dim all-gather those, B·H·(dv + 2) floats
+    a rank, and merge them (``merge_partials_ref``).  The batch keeps the
+    caches' batch sharding.  Returns (B,H,dv) in the caches' dtype,
+    replicated over the sequence's mesh dim."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    from ..distributed.spmd import all_gather
+    mesh = caches[0].device_mesh
+    cp = list(caches[0].placements)
+    if any(isinstance(p, Shard) and p.dim > 1 for p in cp):
+        # cache_spec's fallback when the sequence does not divide
+        raise NotImplementedError(f"decode over a cache sharded along its "
+                                  f"features ({cp}): give it a sequence "
+                                  f"that divides over the mesh")
+    bp = [p if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in cp]
+    seq_dim = next((i for i, p in enumerate(cp)
+                    if isinstance(p, Shard) and p.dim == 1), None)
+    n_seq = mesh.size(seq_dim) if seq_dim is not None else 1
+    seq_rank = mesh.get_local_rank(seq_dim) if seq_dim is not None else 0
+
+    def local(q_l, slots_l, lens_l, *rest):
+        rows_l, caches_l = rest[:len(rows)], rest[len(rows):]
+        c0 = caches_l[0]
+        B_l, S_l = c0.shape[:2]
+        idx = torch.arange(B_l, device=c0.device)
+        loc = slots_l.long() - seq_rank * S_l
+        mine = (loc >= 0) & (loc < S_l)
+        at = loc.clamp(0, S_l - 1)
+        for c, r in zip(caches_l, rows_l):
+            keep = mine.view(-1, *([1] * (c.dim() - 2)))
+            c[idx, at] = torch.where(keep, r.to(c.dtype), c[idx, at])
+        lens_loc = (lens_l.long() - seq_rank * S_l).clamp(0, S_l)
+        page = math.gcd(S_l, DECODE_PAGE)
+        pages = S_l // page
+        K, dk = c0.shape[2], c0.shape[3]
+        kp = c0.view(B_l * pages, page, K, dk)
+        vc = caches_l[-1]
+        vp = (kp[..., :hd_v] if len(caches_l) == 1 and hd_v is not None
+              else vc.view(B_l * pages, page, K, vc.shape[3]))
+        table = _slot_block_table(B_l, pages, c0.device)
+        m, l, o = combine_partials_ref(*paged_attention_partials(
+            q_l.to(c0.dtype).contiguous(), kp, vp, table,
+            lens_loc.to(torch.int32), scale=scale, impl=impl))
+        if n_seq > 1:      # every rank's state, in sequence order
+            st = torch.cat([o, m[..., None], l[..., None]], dim=-1)
+            g = all_gather(st.contiguous(), (mesh, seq_dim))
+            g = g.view(n_seq, *st.shape).movedim(0, 2).flatten(2, 3)
+            m, l, o = g[..., -2], g[..., -1], g[..., :-2]
+        return merge_partials_ref(m, l, o, dtype=c0.dtype)
+
+    args = [replicated(t, mesh) for t in (q, slots, lens, *rows)]
+    return local_map(local, out_placements=bp,
+                     in_placements=(bp,) * len(args) + (cp,) * len(caches),
+                     device_mesh=mesh, redistribute_inputs=True)(*args, *caches)
 
 
 def ring_cache_from_prefill(kv: dict, window: int, true_lens=None) -> dict:
@@ -332,34 +426,37 @@ def mla_forward(params, x, cfg: ModelConfig, *, positions,
     B, S, _ = x.shape
     H, hd = cfg.n_heads, cfg.head_dim
     r, rd, vd = cfg.kv_lora_rank, cfg.rope_head_dim, cfg.v_head_dim
-    q = (x @ params["wq"]).reshape(B, S, H, hd + rd)
+    q = head_reshape(x @ params["wq"], B, S, H, hd + rd, heads=H)
     c = rms_norm(x @ params["w_dkv"], params["kv_norm"], cfg.norm_eps)
     q_rope = apply_rope(q[..., hd:], positions, cfg.rope_theta)
     k_rope = apply_rope((x @ params["w_krope"]).reshape(B, S, 1, rd),
                         positions, cfg.rope_theta)
-    k_nope = (c @ params["w_uk"]).reshape(B, S, H, hd)
-    v = (c @ params["w_uv"]).reshape(B, S, H, vd)
+    k_nope = head_reshape(c @ params["w_uk"], B, S, H, hd, heads=H)
+    v = head_reshape(c @ params["w_uv"], B, S, H, vd, heads=H)
     if train and S <= BLOCKWISE_THRESHOLD:
-        scores = (torch.einsum("bshd,bthd->bhst", q[..., :hd], k_nope)
-                  + torch.einsum("bshd,btzd->bhst", q_rope, k_rope)
-                  ) * _mla_scale(cfg)
-        mask = attention_mask(S, S, causal=causal, window=window,
-                              device=x.device)
-        scores = torch.where(mask, scores.float(),
-                             torch.finfo(torch.float32).min)
-        probs = torch.softmax(scores, dim=-1).to(v.dtype)
-        out = torch.einsum("bhst,bthd->bshd", probs, v)
+        def attend(q_nope, k_nope, v, q_rope, k_rope):
+            scores = (torch.einsum("bshd,bthd->bhst", q_nope, k_nope)
+                      + torch.einsum("bshd,btzd->bhst", q_rope, k_rope)
+                      ) * _mla_scale(cfg)
+            mask = attention_mask(S, S, causal=causal, window=window,
+                                  device=q_nope.device)
+            scores = torch.where(mask, scores.float(),
+                                 torch.finfo(torch.float32).min)
+            probs = torch.softmax(scores, dim=-1).to(v.dtype)
+            return torch.einsum("bhst,bthd->bshd", probs, v)
+        out = _local(attend, q[..., :hd], k_nope, v, q_rope, k_rope,
+                     shared=(4,))
     else:
         q_full = torch.cat([q[..., :hd], q_rope], dim=-1)
         k_full = torch.cat([k_nope, k_rope.expand(B, S, H, rd)], dim=-1)
         if train:
-            out = blockwise_gqa_attend(q_full, k_full, v, causal=causal,
-                                       window=window, scale=_mla_scale(cfg))
+            out = _local(lambda q, k, v: blockwise_gqa_attend(
+                q, k, v, causal=causal, window=window,
+                scale=_mla_scale(cfg)), q_full, k_full, v)
         else:
-            out = flash_attention(q_full, k_full, v.contiguous(),
-                                  causal=causal, window=window,
-                                  scale=_mla_scale(cfg), impl=impl)
-    y = out.reshape(B, S, H * vd) @ params["wo"]
+            out = _flash(q_full, k_full, v, causal=causal, window=window,
+                         scale=_mla_scale(cfg), impl=impl)
+    y = head_reshape(out, B, S, H * vd, heads=H) @ params["wo"]
     if return_kv:
         return y, {MLA_CACHE: torch.cat([c, k_rope[:, :, 0]], dim=-1)[:, :, None]}
     return y
@@ -383,18 +480,24 @@ def mla_decode(params, x, cache: dict, cache_pos, cfg: ModelConfig,
     H, hd = cfg.n_heads, cfg.head_dim
     r, rd, vd = cfg.kv_lora_rank, cfg.rope_head_dim, cfg.v_head_dim
     posv = _pos_vec(cache_pos, B, x.device)
-    q = (x @ params["wq"]).reshape(B, 1, H, hd + rd)
+    q = head_reshape(x @ params["wq"], B, 1, H, hd + rd, heads=H)
     q_rope = apply_rope(q[..., hd:], posv[:, None], cfg.rope_theta)[:, 0]
     c_new = rms_norm(x @ params["w_dkv"], params["kv_norm"], cfg.norm_eps)
     k_rope_new = apply_rope((x @ params["w_krope"]).reshape(B, 1, 1, rd),
                             posv[:, None], cfg.rope_theta)
     ckv = cache[MLA_CACHE]
-    rows = torch.arange(B, device=x.device)
-    ckv[rows, posv, 0] = torch.cat([c_new[:, 0], k_rope_new[:, 0, 0]],
-                                   dim=-1).to(ckv.dtype)
+    row = torch.cat([c_new[:, 0], k_rope_new[:, 0, 0]], dim=-1)
     q_eff = torch.einsum("bhd,rhd->bhr", q[:, 0, :, :hd],
                          params["w_uk"].reshape(r, H, hd))
     q_cat = torch.cat([q_eff, q_rope], dim=-1).to(ckv.dtype)
+    if is_dtensor(ckv):
+        ctx = sharded_decode(q_cat, [row[:, None]], [ckv], posv, posv + 1,
+                             scale=_mla_scale(cfg), impl=impl, hd_v=r)
+        out = torch.einsum("bhr,rhd->bhd", ctx.to(x.dtype),
+                           params["w_uv"].reshape(r, H, vd))
+        return head_reshape(out, B, 1, H * vd, heads=H) @ params["wo"], cache
+    rows = torch.arange(B, device=x.device)
+    ckv[rows, posv, 0] = row.to(ckv.dtype)
     n_slots, s_max = ckv.shape[:2]
     page = math.gcd(s_max, DECODE_PAGE)
     pages = s_max // page

@@ -27,6 +27,7 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
+from ..distributed.spmd import embed_lookup, label_logits
 from .common import DtypePolicy, dense_init, embed_init, resolve_device, rms_norm
 from .transformer import (SEQ_CACHE_ENTRIES, check_supported, init_stack,
                           init_stack_cache, layer_kinds, stack_chunk,
@@ -92,7 +93,7 @@ def _embed_inputs(params: LMParams, batch: dict, cfg: ModelConfig,
                   compute_dtype) -> torch.Tensor:
     if cfg.input_mode == "embeddings":   # cast only: no √d scaling, as JAX
         return batch["embeddings"].to(compute_dtype)
-    x = params.embed[batch["tokens"].long()]
+    x = embed_lookup(batch["tokens"].long(), params.embed)
     if cfg.tie_embeddings:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32)
     return x.to(compute_dtype)
@@ -134,7 +135,7 @@ def chunked_cross_entropy(hidden, w_head, labels, *, chunk: int = 512,
         if softcap:
             logits = softcap * torch.tanh(logits / softcap)
         lse = torch.logsumexp(logits, dim=-1)
-        ll = logits.gather(-1, labels[:, c:c + chunk, None].long())[..., 0]
+        ll = label_logits(logits, labels[:, c:c + chunk].long())
         total = total + (lse - ll).sum()
     return total / (B * S)
 
@@ -228,7 +229,7 @@ def decode_step(params: LMParams, tokens, caches: list, cache_pos,
             raise ValueError(f"cache positions must lie in [0, {s_max})")
     # one host-to-device copy per step, not one per layer
     cache_pos = torch.as_tensor(cache_pos, device=tokens.device).long()
-    x = params.embed[tokens.long()].to(policy.compute)
+    x = embed_lookup(tokens.long(), params.embed).to(policy.compute)
     if cfg.tie_embeddings:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=policy.compute)
     h, caches = stack_decode(params.blocks, x, caches, cache_pos, cfg,
@@ -253,7 +254,7 @@ def chunk_step(params: LMParams, tokens, caches: list, pos0,
     with C=1 a decode step.  Requires
     ``transformer.supports_chunked_decode(cfg)``."""
     _check_decodes(params, cfg)
-    x = params.embed[tokens.long()].to(policy.compute)
+    x = embed_lookup(tokens.long(), params.embed).to(policy.compute)
     if cfg.tie_embeddings:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=policy.compute)
     h, caches = stack_chunk(params.blocks, x, caches, pos0, cfg, impl=impl,

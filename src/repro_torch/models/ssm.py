@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..distributed.spmd import is_dtensor, replicated
 from ..kernels.ssd_scan.ops import ssd
 from ..kernels.ssd_scan.ref import ssd_scan
 from .common import (causal_depthwise_conv, conv_decode_step, conv_tail,
@@ -120,6 +121,39 @@ def _split(xz, cfg: ModelConfig):
             xz[..., 2 * di + 2 * G * N:])
 
 
+def _prefill_scan(xs, dt, A_log, Bm, Cm, chunk: int, impl):
+    """``ops.ssd``; on DTensors through ``local_map``, each rank's kernel
+    over its own batch rows and, where the heads divide over "model", its
+    own heads (with their groups: all of them when G = 1)."""
+    if not is_dtensor(xs):
+        return ssd(xs, dt, A_log, Bm, Cm, chunk=chunk, impl=impl)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = xs.device_mesh
+    H, G = xs.shape[2], Bm.shape[2]
+    px, pd, pa, pg, py, ph = [], [], [], [], [], []
+    for i, p in enumerate(xs.placements):
+        n = mesh.size(i)
+        heads = (mesh.mesh_dim_names[i] == "model" and H % n == 0
+                 and (G == 1 or G % n == 0))
+        if isinstance(p, Shard) and p.dim == 0:
+            row = [Shard(0)] * 5 + [Shard(0)]
+            row[2] = Replicate()                       # A_log
+        elif heads:
+            row = [Shard(2), Shard(2), Shard(0),
+                   Replicate() if G == 1 else Shard(2), Shard(2), Shard(1)]
+        else:
+            row = [Replicate()] * 6
+        for lst, q in zip((px, pd, pa, pg, py, ph), row):
+            lst.append(q)
+    fn = local_map(lambda a, b, c, d, e: ssd(a, b, c, d, e, chunk=chunk,
+                                             impl=impl),
+                   out_placements=(py, ph),
+                   in_placements=(px, pd, pa, pg, pg), device_mesh=mesh,
+                   redistribute_inputs=True)
+    return fn(xs, dt, replicated(A_log, mesh), Bm, Cm)
+
+
 def ssm_forward(params, x, cfg: ModelConfig, *, true_lens=None,
                 return_state: bool = False, impl: str | None = None,
                 train: bool = False):
@@ -147,8 +181,8 @@ def ssm_forward(params, x, cfg: ModelConfig, *, true_lens=None,
         y, h_final = ssd_chunked(xs, dt, params["A_log"], Bm, Cm,
                                  cfg.ssm_chunk)
     else:
-        y, h_final = ssd(xs, dt, params["A_log"], Bm, Cm,
-                         chunk=cfg.ssm_chunk, impl=impl)
+        y, h_final = _prefill_scan(xs, dt, params["A_log"], Bm, Cm,
+                                   cfg.ssm_chunk, impl)
     y = y + xs * params["D"][None, None, :, None].to(y.dtype)
     y = y.reshape(B_, S, di) * F.silu(z)
     y = rms_norm(y, params["norm"], cfg.norm_eps)

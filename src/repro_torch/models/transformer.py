@@ -46,6 +46,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..distributed.spmd import hold_batch
 from .attention import (MLA_CACHE, attn_chunk_decode, attn_decode,
                         attn_forward, gqa_decode_ring, init_attention,
                         init_cache, ring_cache_from_prefill, window_for)
@@ -184,7 +185,7 @@ def _mlp_residual(bp, x, cfg: ModelConfig, moe_impl: str):
         y, routed = moe_forward(_moe_params(bp), h2, cfg, impl=moe_impl)
     else:
         y = mlp_forward(bp.mlp, h2)
-    return x + y.to(x.dtype), routed
+    return hold_batch(x + y.to(x.dtype)), routed
 
 
 def block_forward(bp: Block, x, cfg: ModelConfig, positions, *,
@@ -214,7 +215,7 @@ def block_forward(bp: Block, x, cfg: ModelConfig, positions, *,
                                             true_lens)
     else:
         mix = attn_forward(bp.mixer, h, cfg, bp.kind, positions, impl=impl)
-    x = x + mix.to(x.dtype)
+    x = hold_batch(x + mix.to(x.dtype))
     return _mlp_residual(bp, x, cfg, moe_impl)[0], cache
 
 
@@ -232,7 +233,8 @@ def block_train_forward(bp, x, cfg: ModelConfig, positions, *,
         mix = rglru_forward(bp.mixer, h, cfg, train=True)
     else:
         mix = attn_forward(bp.mixer, h, cfg, bp.kind, positions, train=True)
-    x, routed = _mlp_residual(bp, x + mix.to(x.dtype), cfg, moe_impl)
+    x, routed = _mlp_residual(bp, hold_batch(x + mix.to(x.dtype)), cfg,
+                              moe_impl)
     if routed is None:
         return x, torch.zeros((), dtype=torch.float32, device=x.device)
     probs, idx = routed
@@ -257,7 +259,7 @@ def block_decode(bp: Block, x, cache: dict, cache_pos, cfg: ModelConfig, *,
     else:
         mix, cache = attn_decode(bp.mixer, h, cache, cache_pos, cfg, bp.kind,
                                  impl=impl)
-    x = x + mix.to(x.dtype)
+    x = hold_batch(x + mix.to(x.dtype))
     return _mlp_residual(bp, x, cfg, moe_impl)[0], cache
 
 

@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from ..configs.base import ModelConfig
+from ..distributed.spmd import is_dtensor
 from ..models.common import DtypePolicy
 from ..models.model import LMParams, init_params, train_loss
 from .optimizer import AdamWConfig, AdamWState, adamw_init, adamw_update
@@ -20,6 +21,12 @@ def batch_to(batch: dict, device) -> dict:
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
+def _placed_as(g, p):
+    if is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                     moe_impl: str = "dropping", num_microbatches: int = 1,
                     remat: bool = True,
@@ -27,7 +34,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     """Returns ``train_step(params, opt_state, batch) -> (params,
     opt_state, metrics)``: batch tensors with a leading dim of the global
     batch, parameters and moments updated in place, metrics ``loss`` and
-    ``grad_norm`` (device tensors) and ``lr`` (a float)."""
+    ``grad_norm`` (device tensors) and ``lr`` (a float).
+    ``train_step.loss_and_grads(params, batch) -> (loss, grads)`` is the
+    step's gradient function, each DTensor gradient placed as its
+    weight."""
 
     def loss_and_grads(params: LMParams, batch: dict):
         weights = dict(params.named_parameters())
@@ -36,9 +46,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         grads = torch.autograd.grad(loss, list(weights.values()),
                                     allow_unused=True)
         # a weight the loss does not read (internvl2's table under
-        # embedding inputs) has a zero gradient, as in JAX
+        # embedding inputs) has a zero gradient, as in JAX; a DTensor
+        # gradient is reduced onto its weight's placements (reduce-scatter
+        # for a sharded weight), as GSPMD places it
         return loss.detach(), {
-            k: torch.zeros_like(p) if g is None else g
+            k: torch.zeros_like(p) if g is None else _placed_as(g, p)
             for (k, p), g in zip(weights.items(), grads)}
 
     def train_step(params: LMParams, opt_state: AdamWState, batch: dict):
@@ -65,6 +77,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         metrics["loss"] = loss
         return params, opt_state, metrics
 
+    train_step.loss_and_grads = loss_and_grads
     return train_step
 
 

@@ -1851,3 +1851,131 @@ def test_prefill_mixers_refuse_autograd_on_card(cuda, mixer):
     assert torch.isfinite(gw).all()
 
 
+
+
+# ---- paged partials and the sharded decode on a one-rank NCCL mesh --------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,K,hd,hd_v", [(8, 8, 128, 128), (8, 4, 64, 64),
+                                         (16, 1, 256, 256),
+                                         (16, 1, 576, 512)])
+def test_paged_partials_merge_to_the_kernel_output(cuda, dtype, H, K, hd,
+                                                   hd_v):
+    """``paged_attention_partials`` on the card (one launch, at least two
+    partitions' states) merged by ``merge_partials_ref`` against the plain
+    split version over the whole table merged alike, and against
+    ``paged_attention``: G = 1, 2 and 16, MLA's (576, 512), lens of 0 (an
+    empty shard), 1 and across partitions."""
+    from repro_torch.kernels.paged_attention.ref import merge_partials_ref
+    g = torch.Generator(device=cuda).manual_seed(5)
+    B, page, npg = 4, 16, 24
+    q = torch.randn((B, H, hd), generator=g, device=cuda).to(dtype)
+    kp = torch.randn((B * npg, page, K, hd), generator=g,
+                     device=cuda).to(dtype)
+    vp = (kp[..., :hd_v] if hd_v != hd else
+          torch.randn((B * npg, page, K, hd), generator=g,
+                      device=cuda).to(dtype))
+    table = torch.arange(B * npg, dtype=torch.int32,
+                         device=cuda).view(B, npg)
+    lens = torch.tensor([0, 1, 200, 384], dtype=torch.int32, device=cuda)
+    # a freed block of NaN, which the caching allocator hands back to the
+    # partials buffer: an empty partition's unwritten output must not leak
+    poison = torch.full((1 << 22,), float("nan"), device=cuda)
+    del poison
+    before = paged_ops.KERNEL.launches
+    m, l, o = paged_ops.paged_attention_partials(q, kp, vp, table, lens)
+    assert paged_ops.KERNEL.launches == before + 1
+    pm, pl, po = paged_ops.paged_attention_partials(q, kp, vp, table, lens,
+                                                    impl="plain")
+    tol = TOLS[dtype]
+    assert m.shape[2] >= 2 and pm.shape[2] == 1
+    assert bool((m[0] == -np.inf).all()) and bool((pm[0] == -np.inf).all())
+    assert float((l[0]).abs().max()) == 0.0 and bool(torch.isfinite(o).all())
+    got = merge_partials_ref(m, l, o)
+    want = merge_partials_ref(pm, pl, po)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= tol * scale
+    ref = paged_ops.paged_attention(q, kp, vp, table, lens).float()
+    assert float((got[1:] - ref[1:]).abs().max()) <= tol * scale
+
+
+def test_sharded_decode_on_one_rank_nccl_mesh_matches_plain(cuda):
+    """qwen3-4b's smoke config at hd 64 (4 query heads, 2 KV heads) in f32:
+    a prefill and 8 greedy decode steps on weights distributed under the
+    serve policy on a one-rank NCCL (1, 1) mesh, decode over caches whose
+    sequence is placed over "model" (the sharded decode: paged partials,
+    then their merge), against the same calls on the plain weights."""
+    from repro_torch.configs import get_smoke_config
+    _one_rank_sharded_decode(cuda,
+                             get_smoke_config("qwen3-4b").scaled(head_dim=64))
+
+
+def test_sharded_mla_decode_on_one_rank_nccl_mesh_matches_plain(cuda):
+    """The small MLA + MoE model at deepseek-v2-lite's kernel dims (paged
+    at (576, 512), G = 4) in f32, as the test above: the sharded decode
+    over its one latent cache ("ckv", values its first 512 columns) and
+    the sharded ``dropping`` against the plain calls, step by step."""
+    _one_rank_sharded_decode(cuda, _mla_moe_cfg())
+
+
+def _one_rank_sharded_decode(cuda, cfg):
+    """``cfg``'s prefill and 8 greedy decode steps, plain and sharded on a
+    one-rank NCCL (1, 1) mesh: one paged launch a layer a step, equal
+    greedy tokens and logits within 1e-4 of scale."""
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import (
+        ShardingPolicy, batch_axes_for, distribute_batch, distribute_caches,
+        distribute_params)
+    from repro_torch.distributed.spmd import spmd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import (decode_step, init_decode_caches,
+                                          prefill)
+    f32 = DtypePolicy(torch.float32, torch.float32, torch.float32)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         device=cuda)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (4, 40))).int().to(cuda)
+
+    def greedy(p, pol=None):
+        place = ((lambda t: distribute_batch({"t": t}, pol)["t"]) if pol
+                 else (lambda t: t))
+        whole = (lambda t: t.full_tensor()) if pol else (lambda t: t)
+        logits, caches = prefill(p, {"tokens": place(tokens)}, cfg,
+                                 policy=f32)
+        slot = init_decode_caches(cfg, 4, 64, dtype=torch.float32,
+                                  device=cuda)
+        for c, pc in zip(slot, caches):
+            for k in c:
+                c[k][:, :40] = whole(pc[k])
+        if pol:
+            slot = distribute_caches(slot, pol)
+        out = [whole(logits)[:, 0]]
+        for i in range(8):
+            tok = out[-1].argmax(-1, keepdim=True).int()
+            logits, slot = decode_step(p, place(tok), slot, 40 + i, cfg,
+                                       policy=f32)
+            out.append(whole(logits)[:, 0])
+        return torch.stack(out)
+
+    want = greedy(params)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_host_mesh(1, device_type="cuda")
+        pol = ShardingPolicy(mesh, "serve", cfg,
+                             batch_axes=batch_axes_for(mesh))
+        before = paged_ops.KERNEL.launches
+        with spmd():
+            got = greedy(distribute_params(params, pol), pol)
+        launches = paged_ops.KERNEL.launches - before
+    finally:
+        dist.destroy_process_group()
+    assert launches == 8 * cfg.n_layers
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())

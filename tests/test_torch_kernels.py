@@ -786,17 +786,26 @@ class TestWrappers:
         with pytest.raises(ValueError):
             paged_ops.paged_attention(q[:, 0], q, q, None, None, impl="ref")
 
-    def test_non_cpu_tensor_without_cuda_raises(self):
+    def test_non_cpu_tensor_without_cuda_raises(self, monkeypatch):
         """A tensor that is not on the CPU never takes the plain version:
-        a device the kernels do not serve is refused, not computed."""
+        meta tensors (the dry run's) get their outputs' shapes and launch
+        nothing, and the launch path refuses any device but CUDA."""
+        def plain(*a, **k):
+            raise AssertionError("the plain version ran on meta tensors")
+        monkeypatch.setattr(flash_ops, "flash_attention_ref", plain)
+        monkeypatch.setattr(paged_ops, "paged_attention_ref", plain)
         q = torch.empty((1, 4, 2, 64), device="meta")
-        with pytest.raises(ValueError):
-            flash_ops.flash_attention(q, q, q)
+        out = flash_ops.flash_attention(q, q, q)
+        assert out.device.type == "meta" and out.shape == q.shape
         kp = torch.empty((2, 8, 2, 64), device="meta")
         bt = torch.empty((1, 2), dtype=torch.int32, device="meta")
         sl = torch.empty((1,), dtype=torch.int32, device="meta")
-        with pytest.raises(ValueError):
-            paged_ops.paged_attention(q[:, 0], kp, kp, bt, sl)
+        out = paged_ops.paged_attention(q[:, 0], kp, kp, bt, sl)
+        assert out.device.type == "meta" and out.shape == (1, 2, 64)
+        with pytest.raises(ValueError, match="CPU or CUDA"):
+            flash_ops._check(q, q, q, 0)
+        with pytest.raises(ValueError, match="CPU or CUDA"):
+            paged_ops._check(q[:, 0], kp, kp, bt, sl)
         assert flash_ops.KERNEL.launches == 0
         assert paged_ops.KERNEL.launches == 0
 

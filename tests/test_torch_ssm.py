@@ -227,8 +227,14 @@ class TestSSDKernelPlain:
                 for a in (x.reshape(1, 2, 32, 2, 16), dt.reshape(1, 2, 32, 2),
                           A, B.reshape(1, 2, 32, 1, 16),
                           C.reshape(1, 2, 32, 1, 16))]
-        with pytest.raises(ValueError):
-            ssd_ops.ssd_chunk(*meta)
+        # meta tensors (the dry run's) get the outputs' shapes, computed by
+        # nothing; the launch path refuses any device but CUDA
+        outs = ssd_ops.ssd_chunk(*meta)
+        assert [tuple(t.shape) for t in outs] == [
+            (1, 2, 32, 2, 16), (1, 2, 2, 16, 16), (1, 2, 32, 2), (1, 2, 2)]
+        assert all(t.device.type == "meta" for t in outs)
+        with pytest.raises(ValueError, match="CPU or CUDA"):
+            ssd_ops._check(*meta)
         assert ssd_ops.KERNEL.launches == 0
 
     @pytest.mark.parametrize("G", [1, 4, 32])

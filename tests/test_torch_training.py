@@ -455,17 +455,12 @@ def test_grad_clip_bounds_update():
 
 
 # --------------------------------------------------------------------------
-# chip_smoke.py's model-FLOPs count
+# the model-FLOPs count (launch/op_count.py, which chip_smoke.py imports)
 # --------------------------------------------------------------------------
 
 def _chip_smoke():
-    import importlib.util
-    from pathlib import Path
-    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    return smoke
+    from repro_torch.launch import op_count
+    return op_count
 
 
 def _meta_params(arch):
@@ -524,8 +519,12 @@ def test_train_flops_counts_the_ssd_products_a_group():
         + d * cfg.vocab_size
     B, S = 8, 4096
     ssd = L * 2 * B * S * (Q * N * G + Q * H * P + 2 * H * P * N)
+    # executed: the recompute leaves out the head and each layer's out_proj
+    # (the checkpoint's early stop; launch/op_count.py::train_flops)
+    recomputed = n - d * cfg.vocab_size - L * di * d
     assert smoke.train_flops(params, cfg, B, S) == (
-        6 * n * B * S + 3 * ssd, 8 * n * B * S + 4 * ssd, n)
+        6 * n * B * S + 3 * ssd, 6 * n * B * S + 2 * recomputed * B * S
+        + 4 * ssd, n)
 
 
 def test_profile_train_runs_a_smoke_step_on_the_cpu():
