@@ -7,8 +7,9 @@ Phases, in order; any failure raises and exits non-zero:
 
 1. setup: print the card's name and power limit, build the three CUDA
    kernels from ``src/repro_torch/csrc`` (one ``nvcc`` each, in parallel);
-2. kernels: hold flash attention (bf16 on the tensor cores, f32 as three
-   TF32 products on the tensor cores), paged attention (split sequences,
+2. kernels: hold flash attention (bf16 as wgmma products fed by TMA, f32
+   as three TF32 products on the tensor cores; the host µs of a bf16 call's
+   tensor-map encodes printed), paged attention (split sequences,
    then merge) and the SSD
    chunk kernel against their plain PyTorch versions on the card at the
    main paths' shapes (the llama2 prefill buckets from B=8 S=128 to B=2
@@ -263,8 +264,12 @@ GQA_PARTITION_CASES = ("paged_attention_rg", "paged_attention_rg_ring",
 PROFILER_SESSIONS = 6
 # Main-case times of the designs the kernels replaced, as PERF.md section 6
 # records them, by the timer each was taken with (NVIDIA H100 80GB HBM3 at
-# 700 W): the attention kernels' by the eager timer of the chip_smoke.py
-# that added the SSD kernel; the CUDA-core bf16 SSD kernel's 0.9817 ms by
+# 700 W): the bf16 flash cases' mma.sync kernel (flash_fwd_mma_kernel, FA2's
+# shape, replaced by the wgmma kernel) by the graph timer of the trees that
+# added each case (main, offset, MLA, minicpm3, h2o-danube, gemma3 (32-key
+# tiles), recurrentgemma, phi3.5, hubert, internvl2); paged attention's by
+# the eager timer of the chip_smoke.py that added the SSD kernel; the
+# CUDA-core bf16 SSD kernel's 0.9817 ms by
 # that eager timer and 0.9765 ms by the graph timer of the chip_smoke.py
 # that redesigned attention; the CUDA-core bf16 MLA paged kernel's by both
 # timers of the first call of the chip_smoke.py that added it, the f32 one's
@@ -273,9 +278,7 @@ PROFILER_SESSIONS = 6
 # tree that redesigned bf16 SSD, the MLA case on the one that added
 # deepseek, the offset case the lowest of the calls of the one that added
 # the query offset, which read 0.769-0.780); the CUDA-core f32 SSD kernel's
-# by the graph timer (the tree that redesigned f32 flash); bf16 flash at
-# gemma3's (256, 256) with 64-key tiles (one block an SM) by both timers of
-# the first timed call of the tree that added it; the grouped paged cases
+# by the graph timer (the tree that redesigned f32 flash); the grouped paged cases
 # on the CUDA-core split kernel (G = 16 as two head tiles of 8) by the graph
 # timer, bf16 of the tree that added each (h2o-danube-1.8b and gemma3-4b;
 # recurrentgemma-9b and phi3.5-moe), f32 the lowest PERF.md records (the
@@ -283,7 +286,18 @@ PROFILER_SESSIONS = 6
 # line of their own,
 # labelled as recorded, each beside this run's time by the same timer, never
 # in the kernels line.
-RECORDED_EARLIER_MS = {"flash_attention": {"eager": 1.0194},
+RECORDED_EARLIER_MS = {"flash_attention": {"graph": 0.1053},
+                       "flash_attention_offset": {"graph": 0.0744},
+                       "flash_attention_mla": {"graph": 0.0696},
+                       "flash_attention_cpm": {"graph": 0.0882},
+                       "flash_attention_cpm_offset": {"graph": 0.0597},
+                       "flash_attention_danube": {"graph": 0.0749},
+                       "flash_attention_gemma3_local": {"graph": 0.1510},
+                       "flash_attention_gemma3_global": {"graph": 0.2069},
+                       "flash_attention_rg": {"graph": 0.3430},
+                       "flash_attention_phi35": {"graph": 0.0908},
+                       "flash_attention_hubert": {"graph": 0.2133},
+                       "flash_attention_internvl2": {"graph": 0.1572},
                        "paged_attention": {"eager": 0.3273},
                        "ssd_chunk": {"eager": 0.9817, "graph": 0.9765},
                        "paged_attention_mla": {"graph": 0.0503,
@@ -293,10 +307,6 @@ RECORDED_EARLIER_MS = {"flash_attention": {"eager": 1.0194},
                        "flash_attention_mla_f32": {"graph": 0.9554},
                        "flash_attention_offset_f32": {"graph": 0.769},
                        "ssd_chunk_f32": {"graph": 0.9642},
-                       "flash_attention_gemma3_local": {"graph": 0.1942,
-                                                        "eager": 0.1962},
-                       "flash_attention_gemma3_global": {"graph": 0.2585,
-                                                         "eager": 0.2619},
                        "paged_attention_rg": {"graph": 0.0689},
                        "paged_attention_rg_ring": {"graph": 0.0719},
                        "paged_attention_danube": {"graph": 0.0259},
@@ -999,6 +1009,12 @@ def phase_kernels(fa, pa) -> tuple:
                 f"B=1, C={C}, q_offset={off}, kv_len={kv_len}, T={T}, "
                 f"H=K={H}, hd={hd}, causal, {str(dt)[6:]}")
             calls[name] = call
+    # The host's share of a bf16 call: encoding its six TMA tensor maps.
+    q = torch.empty((2, 1024, 40, 128), dtype=torch.bfloat16, device="cuda")
+    enc = fa.map_encode_us(q, q, q)
+    print(f"[kernels] flash bf16 tensor-map encode at the main case: "
+          f"{enc:.3f} µs a call (six maps, mean of 1000; host clock)")
+    rows["flash_attention"]["map_encode_us"] = enc
     pcases = [(torch.bfloat16, False, None), (torch.float32, False, None),
               (torch.bfloat16, True, None), (torch.float32, True, None),
               (torch.bfloat16, False, LONG_AMONG_SHORT),
@@ -1416,7 +1432,7 @@ def paged_mla_row(dt, B, H, K, dk, dv, lens, err, tiled, kms, ems, pms,
 
 def phase_variants(calls: dict) -> dict:
     """Which device kernels each kernel's main case ran, read from the
-    profiler: bf16 flash must run the bf16 tensor-core kernel alone and f32
+    profiler: bf16 flash must run the wgmma kernel alone and f32
     flash the 3xTF32 one alone (main, offset and MLA cases), paged
     attention its split and merge kernels (for groups of 2 or more the
     grouped tensor-core split kernel, bf16 or 3xTF32, ``grouped_kernel``;
@@ -1425,9 +1441,9 @@ def phase_variants(calls: dict) -> dict:
     tensor-core kernels and f32 SSD its two 3xTF32 ones, and nothing
     else."""
     import torch
-    want = {"flash_attention": ("flash_fwd_mma_kernel",),
-            "flash_attention_offset": ("flash_fwd_mma_kernel",),
-            "flash_attention_mla": ("flash_fwd_mma_kernel",),
+    want = {"flash_attention": ("flash_fwd_wgmma_kernel",),
+            "flash_attention_offset": ("flash_fwd_wgmma_kernel",),
+            "flash_attention_mla": ("flash_fwd_wgmma_kernel",),
             "flash_attention_f32": ("flash_fwd_tf32x3_kernel",),
             "flash_attention_offset_f32": ("flash_fwd_tf32x3_kernel",),
             "flash_attention_mla_f32": ("flash_fwd_tf32x3_kernel",),
@@ -1436,9 +1452,9 @@ def phase_variants(calls: dict) -> dict:
                                     "paged_merge_kernel"),
             "paged_attention_mla_f32": ("paged_mla_tf32x3_kernel",
                                         "paged_merge_kernel"),
-            "flash_attention_cpm": ("flash_fwd_mma_kernel",),
+            "flash_attention_cpm": ("flash_fwd_wgmma_kernel",),
             "flash_attention_cpm_f32": ("flash_fwd_tf32x3_kernel",),
-            "flash_attention_cpm_offset": ("flash_fwd_mma_kernel",),
+            "flash_attention_cpm_offset": ("flash_fwd_wgmma_kernel",),
             "flash_attention_cpm_offset_f32": ("flash_fwd_tf32x3_kernel",),
             "paged_attention_cpm": ("paged_mla_mma_kernel",
                                     "paged_merge_kernel"),
@@ -1446,17 +1462,17 @@ def phase_variants(calls: dict) -> dict:
                                         "paged_merge_kernel"),
             **{f"flash_attention_{case}{sfx}": (kern,)
                for case in ("danube", "gemma3_local", "gemma3_global")
-               for sfx, kern in (("", "flash_fwd_mma_kernel"),
+               for sfx, kern in (("", "flash_fwd_wgmma_kernel"),
                                  ("_f32", "flash_fwd_tf32x3_kernel"))},
             **{f"{case}{sfx}": (grouped_kernel(hd, H // K, dt),
                                 "paged_merge_kernel")
                for case, (H, K, hd, *_) in GQA_CASES.items()
                for sfx, dt in (("", torch.bfloat16), ("_f32", torch.float32))},
-            "flash_attention_rg": ("flash_fwd_mma_kernel",),
+            "flash_attention_rg": ("flash_fwd_wgmma_kernel",),
             "flash_attention_rg_f32": ("flash_fwd_tf32x3_kernel",),
             **{f"flash_attention_{case}{sfx}": (kern,)
                for case in ("phi35", "hubert", "internvl2")
-               for sfx, kern in (("", "flash_fwd_mma_kernel"),
+               for sfx, kern in (("", "flash_fwd_wgmma_kernel"),
                                  ("_f32", "flash_fwd_tf32x3_kernel"))},
             "ssd_chunk": ("ssd_chunk_y_mma_kernel",
                           "ssd_chunk_state_mma_kernel"),

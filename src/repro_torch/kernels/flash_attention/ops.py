@@ -10,11 +10,16 @@ may differ in width: MLA prefill and chunks pass queries and keys of hd +
 rd and values of vd (deepseek-v2-lite: 192 and 128; minicpm3-4b: 96 and
 64).
 
-bf16 runs ``flash_fwd_mma_kernel`` (bf16 tensor-core products, P rounded to
-bf16); f32 runs ``flash_fwd_tf32x3_kernel``, whose every product is three
-TF32 tensor-core products of split operands, f32-accurate whatever
-``torch.backends.cuda.matmul.allow_tf32`` says.  ``ref.py::
-flash_attention_tiled_ref`` rounds as each does.
+bf16 runs ``flash_fwd_wgmma_kernel``, built on Hopper's own path: a
+producer warpgroup keeps Q and a ring of K / V tiles in flight by TMA, and
+two consumer warpgroups of 64 query rows each take S = Q·Kᵀ and O += P·V as
+``wgmma`` products (P rounded to bf16 in registers, V read as it lies).
+Each call encodes six TMA tensor maps on the host (:func:`map_encode_us`
+times them); the maps of k and v end at ``kv_len``, so the rows past it
+arrive as zeros and are never read.  f32 runs ``flash_fwd_tf32x3_kernel``,
+whose every product is three TF32 tensor-core products of split operands,
+f32-accurate whatever ``torch.backends.cuda.matmul.allow_tf32`` says.
+``ref.py::flash_attention_tiled_ref`` rounds as each does.
 """
 
 from __future__ import annotations
@@ -36,10 +41,11 @@ HEAD_DIMS = ((64, 64), (128, 128), (192, 128), (96, 64), (80, 80), (256, 256))
 # tf32x3::kKvTile): 16 above 128, so that two blocks fit an SM at 192 (one
 # at 256).
 F32_KV_TILE = {64: 32, 80: 32, 96: 32, 128: 32, 192: 16, 256: 16}
-# Keys a KV tile of the bf16 kernel (tensor_core::kKvTile): 64, and 32 at
-# 256 so that two blocks fit an SM.  P's rounding follows the tiles, so
-# ``flash_attention_tiled_ref`` takes the kernel's tile.
-BF16_KV_TILE = {64: 64, 80: 64, 96: 64, 128: 64, 192: 64, 256: 32}
+# Keys a KV tile of the bf16 kernel (wgmma_tc::kKvTile): 128, and 64 at 256,
+# where the output accumulator alone takes 128 registers a thread.  P's
+# rounding follows the tiles, so ``flash_attention_tiled_ref`` takes the
+# kernel's tile.
+BF16_KV_TILE = {64: 128, 80: 128, 96: 128, 128: 128, 192: 128, 256: 64}
 
 
 class FlashKernel(CudaKernel):
@@ -57,6 +63,24 @@ class FlashKernel(CudaKernel):
 
 
 KERNEL = FlashKernel()
+
+
+def map_encode_us(q, k, v, iters: int = 1000) -> float:
+    """Host µs that encoding one bf16 call's six TMA tensor maps takes at
+    these tensors' shapes (q (B,S,H,hd), k (B,T,K,hd), v (B,T,K,hd_v) on the
+    card), the mean over ``iters`` encodes (``csrc/flash_attention.cu::
+    flash_attention_map_encode_us``); the wrapper pays it on every call."""
+    KERNEL.load()
+    fn = KERNEL._lib.flash_attention_map_encode_us
+    fn.argtypes = [_P, _P, _P] + [_I] * 8
+    fn.restype = ctypes.c_double
+    B, S, H, hd = q.shape
+    us = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), B, S, k.shape[1], H,
+            k.shape[2], hd, v.shape[3], iters)
+    if us < 0:
+        raise RuntimeError(f"no bf16 tensor maps for head dims ({hd}, "
+                           f"{v.shape[3]})")
+    return us
 
 
 def visible_pairs(S: int, causal: bool, window: int, q_offset: int = 0,

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 NEG_INF = torch.finfo(torch.float32).min
@@ -101,8 +102,10 @@ def flash_attention_tiled_ref(q, k, v, *, causal: bool = True,
     """Same layout and semantics as :func:`flash_attention_ref`, computed as
     the tensor-core kernels do: walk the keys in ``tile``-key tiles keeping
     a running max and sum per row, scores left unscaled and then scaled by
-    ``scale · log2(e)`` and exponentiated with exp2, products accumulated in
-    f32.  The bf16 kernel: P rounded to bf16 before P·V when ``round_p``.
+    ``scale · log2(e)`` (the f32 product of the f32 scale and log2(e)) and
+    exponentiated with exp2, products accumulated in f32.  The bf16
+    kernel: P rounded to bf16 before P·V when ``round_p``; on CUDA bf16
+    inputs, the scores taken on the tensor cores as the kernel takes them.
     The f32 kernel (``tf32_products=3``, ``round_p=False``, the tile of
     ``ops.F32_KV_TILE``): Q·Kᵀ and P·V each as three TF32 products of split
     operands, the row sums taken on P unsplit; ``tf32_products=1`` is the
@@ -120,14 +123,30 @@ def flash_attention_tiled_ref(q, k, v, *, causal: bool = True,
     qf = q.float()
     kk = k.repeat_interleave(G, dim=1).float()
     vv = v.repeat_interleave(G, dim=1).float()
+    # bf16 on the card: the scores as the bf16 kernel takes them, a bf16
+    # tensor-core product with f32 accumulation.  A sum of f32 products on
+    # the CUDA cores parts from it by enough, now and then, to round a P of a
+    # row with few keys to the other bf16 neighbour (PERF.md section 6).
+    tc = (q.is_cuda and q.dtype == torch.bfloat16 and k.dtype == torch.bfloat16
+          and round_p and not tf32_products)
+    kb = k.repeat_interleave(G, dim=1) if tc else None
     q_pos = q_offset + torch.arange(S, device=q.device)[:, None]
     m = torch.full((B, H, S), -math.inf, device=q.device)
     l = torch.zeros((B, H, S), device=q.device)
     acc = torch.zeros((B, H, S, v.shape[-1]), device=q.device)
+    # scale · log2(e) as the kernels take it: the f32 product of the f32
+    # scale and the f32 log2(e)
+    c = float(np.float32(scale) * np.float32(math.log2(math.e)))
     for k0 in range(0, T, tile):
-        s = einsum_tf32("bhsd,bhtd->bhst", qf, kk[:, :, k0:k0 + tile],
-                        tf32_products)
-        s = s * (scale * math.log2(math.e))
+        if tc:
+            kt = kb[:, :, k0:k0 + tile]
+            s = torch.bmm(q.reshape(B * H, S, hd),
+                          kt.reshape(B * H, -1, hd).transpose(1, 2),
+                          out_dtype=torch.float32).view(B, H, S, -1)
+        else:
+            s = einsum_tf32("bhsd,bhtd->bhst", qf, kk[:, :, k0:k0 + tile],
+                            tf32_products)
+        s = s * c
         k_pos = torch.arange(k0, min(k0 + tile, T), device=q.device)[None, :]
         mask = torch.ones((S, k_pos.shape[1]), dtype=torch.bool,
                           device=q.device)

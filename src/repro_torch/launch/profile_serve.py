@@ -46,7 +46,7 @@ from .serve import (CARD_ENGINE_CONFIGS, card_config,
                     card_requests)
 
 # The port's own kernels match by the prefix every kernel of their source
-# shares (flash_fwd_mma_kernel / flash_fwd_tf32x3_kernel; paged_split_kernel,
+# shares (flash_fwd_wgmma_kernel / flash_fwd_tf32x3_kernel; paged_split_kernel,
 # paged_gqa_mma_kernel, paged_gqa_tf32x3_kernel, the MLA kernels and
 # paged_merge_kernel), so a new variant is counted under its class.  The
 # first class whose key a kernel's name holds takes it.

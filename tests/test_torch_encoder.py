@@ -175,6 +175,35 @@ def test_bidirectional_frames_see_later_frames(weights):
     assert _rel(outs[1] - outs[0], jouts[1] - jouts[0]) <= 1e-3
 
 
+def test_jax_and_port_attend_to_pad_frames_alike(weights):
+    """A reference fault the port copies: neither package masks key
+    padding in an encoder's prefill, so a clip right-padded to a longer
+    clip's length in one batch attends to its pad frames.  A 15-frame clip
+    beside a 24-frame one: its 15 positions' logits move from those it gets
+    alone, in both packages, by the same amount within 1e-3 of the move;
+    the 24-frame clip's are its own."""
+    jcfg, tcfg, jp, tp = weights
+    long_ = _frames(jcfg, 1, 24, seed=11)
+    short = _frames(jcfg, 1, 15, seed=12)
+    batch = np.zeros((2, 24, jcfg.d_model), np.float32)
+    batch[0], batch[1, :15] = long_[0], short[0]
+
+    def both(x):
+        jl, _ = jax_prefill(jp, {"embeddings": jnp.asarray(x)}, jcfg,
+                            policy=J32)
+        tl, _ = prefill(tp, {"embeddings": torch.from_numpy(x)}, tcfg,
+                        policy=T32)
+        return np.asarray(jl), tl.numpy()
+
+    jb, tb = both(batch)
+    js, ts = both(short)
+    jl_, tl_ = both(long_)
+    moved_j, moved_t = jb[1, :15] - js[0], tb[1, :15] - ts[0]
+    assert np.abs(moved_j).max() > 1e-2 * np.abs(js).max()
+    assert _rel(moved_t, moved_j) <= 1e-3
+    assert _rel(tb[0], jl_[0]) <= F32_TOL and _rel(tb[0], tl_[0]) <= F32_TOL
+
+
 def test_full_width_two_layers_match_jax():
     """hubert's published widths (d 1280, hd 80, d_ff 5120) at 2 of its 48
     layers: per-position logits against JAX ``prefill``."""

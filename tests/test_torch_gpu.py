@@ -153,7 +153,7 @@ def test_flash_routes_by_type(cuda, dk, dv):
     version."""
     g = torch.Generator(device=cuda).manual_seed(4)
     for dtype, want in ((torch.float32, {"flash_fwd_tf32x3_kernel"}),
-                        (torch.bfloat16, {"flash_fwd_mma_kernel"})):
+                        (torch.bfloat16, {"flash_fwd_wgmma_kernel"})):
         q, k = (torch.randn((1, 130, 4, dk), generator=g, device=cuda)
                 .to(dtype) for _ in range(2))
         v = torch.randn((1, 130, 4, dv), generator=g, device=cuda).to(dtype)
@@ -202,7 +202,8 @@ def test_flash_f32_propagates_nan(cuda, where, bits):
 def test_flash_bf16_tensor_core_kernel(cuda, B, S, T, H, K, hd, causal,
                                        window):
     """The bf16 tensor-core kernel at ragged lengths (a single row, one
-    either side of the 64-row tile), both head dims, GQA groups of 4 and 8,
+    either side of a 64-row warpgroup's rows), both head dims, GQA groups
+    of 4 and 8,
     a sliding window and T != S, against the dense and the tiled plain
     versions; one counted launch per call."""
     g = torch.Generator(device=cuda).manual_seed(1)
@@ -218,6 +219,143 @@ def test_flash_bf16_tensor_core_kernel(cuda, B, S, T, H, K, hd, causal,
     assert out.dtype == torch.bfloat16 and out.shape == q.shape
     torch.testing.assert_close(out.float(), ref.float(), atol=3e-2, rtol=3e-2)
     _assert_matches_tiled(out, q, k, v, causal, window)
+
+
+# ---- bf16 flash on wgmma fed by TMA: every (dk, dv), each case on three
+# seeds, per element against the tiled plain version at the kernel's tile --
+
+FLASH_SEEDS = (0, 1, 2)
+
+
+def _bf16_flash_inputs(cuda, seed, B, S, T, H, K, dk, dv):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn((B, S, H, dk), generator=g, device=cuda).bfloat16()
+    k = torch.randn((B, T, K, dk), generator=g, device=cuda).bfloat16()
+    v = torch.randn((B, T, K, dv), generator=g, device=cuda).bfloat16()
+    return q, k, v
+
+
+def _assert_bf16_flash(q, k, v, **kw):
+    """One counted launch of the bf16 kernel, within 3e-2 of the dense
+    plain version and, per element, within TILED_ATOL + TILED_RTOL·|ref| of
+    the tiled one at ``BF16_KV_TILE``; returns the kernel's output."""
+    before = flash_ops.KERNEL.launches
+    out = flash_ops.flash_attention(q, k, v, **kw)
+    assert flash_ops.KERNEL.launches == before + 1
+    assert out.dtype == torch.bfloat16
+    assert out.shape == q.shape[:3] + (v.shape[3],)
+    dense = flash_ops.flash_attention(q, k, v, impl="plain", **kw)
+    torch.testing.assert_close(out.float(), dense.float(), atol=3e-2,
+                               rtol=3e-2)
+    tiled = flash_attention_tiled_ref(
+        *(t.transpose(1, 2) for t in (q, k, v)), **kw,
+        tile=flash_ops.BF16_KV_TILE[q.shape[-1]]).transpose(1, 2)
+    torch.testing.assert_close(out.float(), tiled.float(), atol=TILED_ATOL,
+                               rtol=TILED_RTOL)
+    return out
+
+
+@pytest.mark.parametrize("G", [1, 4, 8, 16])
+@pytest.mark.parametrize("dk,dv", flash_ops.HEAD_DIMS)
+def test_flash_wgmma_groups(cuda, dk, dv, G):
+    """Every (dk, dv) at GQA groups of 1, 4, 8 and 16 (two KV heads),
+    causal, S = T = 300 (a ragged third query tile)."""
+    for seed in FLASH_SEEDS:
+        q, k, v = _bf16_flash_inputs(cuda, seed, 1, 300, 300, 2 * G, 2, dk,
+                                     dv)
+        _assert_bf16_flash(q, k, v)
+
+
+@pytest.mark.parametrize("mode", ["offset", "window", "bidirectional"])
+@pytest.mark.parametrize("S", [1, 130, 1000])
+@pytest.mark.parametrize("dk,dv", flash_ops.HEAD_DIMS)
+def test_flash_wgmma_lengths_and_masks(cuda, dk, dv, S, mode):
+    """Every (dk, dv) at S = 1, 130 and 1000 queries with T != S: a chunk at
+    a query offset over the first kv_len rows of a longer cache, a sliding
+    window at an offset, and bidirectional attention over more keys than
+    queries (G = 2)."""
+    kw, T = {
+        "offset": (dict(q_offset=77, kv_len=S + 77), S + 97),
+        "window": (dict(q_offset=30, window=100), S + 30),
+        "bidirectional": (dict(causal=False), S + 50),
+    }[mode]
+    for seed in FLASH_SEEDS:
+        q, k, v = _bf16_flash_inputs(cuda, seed, 2, S, T, 4, 2, dk, dv)
+        _assert_bf16_flash(q, k, v, **kw)
+
+
+@pytest.mark.parametrize("dk,dv", flash_ops.HEAD_DIMS)
+def test_flash_wgmma_fully_masked_rows_give_zero(cuda, dk, dv):
+    """Queries at positions 250..379 over the first 300 keys with a window
+    of 64: the rows at 363 and after (whose windows start at key 300) see no
+    key and give exactly 0, the others hold against the plain versions."""
+    kw = dict(q_offset=250, kv_len=300, window=64)
+    for seed in FLASH_SEEDS:
+        q, k, v = _bf16_flash_inputs(cuda, seed, 1, 130, 320, 4, 2, dk, dv)
+        out = _assert_bf16_flash(q, k, v, **kw)
+        assert torch.all(out[:, 113:] == 0)
+        assert torch.all(out[:, :113].abs().amax(-1) > 0)
+
+
+@pytest.mark.parametrize("dk,dv", flash_ops.HEAD_DIMS)
+def test_flash_wgmma_nan_stays_in_its_head(cuda, dk, dv):
+    """A NaN in one query row of query head 1 gives NaN in that row of that
+    head alone: every other row and head is finite and holds against the
+    tiled plain version."""
+    for seed in FLASH_SEEDS:
+        q, k, v = _bf16_flash_inputs(cuda, seed, 1, 150, 150, 4, 2, dk, dv)
+        q[0, 70, 1, 5] = float("nan")
+        out = flash_ops.flash_attention(q, k, v)
+        nan_rows = out.isnan().any(-1)
+        want = torch.zeros_like(nan_rows)
+        want[0, 70, 1] = True
+        assert torch.equal(nan_rows, want)
+        assert out[0, 70, 1].isnan().all()
+        tiled = flash_attention_tiled_ref(
+            *(t.transpose(1, 2) for t in (q, k, v)),
+            tile=flash_ops.BF16_KV_TILE[dk]).transpose(1, 2)
+        keep = ~want
+        torch.testing.assert_close(out.float()[keep], tiled.float()[keep],
+                                   atol=TILED_ATOL, rtol=TILED_RTOL)
+
+
+@pytest.mark.parametrize("case", ["chunk", "bidirectional"])
+@pytest.mark.parametrize("dk,dv", flash_ops.HEAD_DIMS)
+def test_flash_wgmma_reads_no_key_past_kv_len(cuda, dk, dv, case):
+    """The rows of k and v at and past kv_len filled with NaN: the output is
+    finite and equal to the output with those rows zeroed (the tensor maps
+    of k and v end at kv_len, so TMA fills those rows with zeros and never
+    reads them).  A chunk of 200 queries at offset 300 over 500 visible
+    rows of a 700-row cache, and a bidirectional call over 100 of 256."""
+    kw, S, T = {
+        "chunk": (dict(q_offset=300, kv_len=500), 200, 700),
+        "bidirectional": (dict(causal=False, kv_len=100), 130, 256),
+    }[case]
+    for seed in FLASH_SEEDS:
+        q, k, v = _bf16_flash_inputs(cuda, seed, 2, S, T, 4, 2, dk, dv)
+        k[:, kw["kv_len"]:] = 0
+        v[:, kw["kv_len"]:] = 0
+        zeroed = _assert_bf16_flash(q, k, v, **kw)
+        k[:, kw["kv_len"]:] = float("nan")
+        v[:, kw["kv_len"]:] = float("nan")
+        out = flash_ops.flash_attention(q, k, v, **kw)
+        assert bool(torch.isfinite(out).all())
+        assert torch.equal(out, zeroed)
+
+
+@pytest.mark.parametrize("dk,dv", flash_ops.HEAD_DIMS)
+def test_flash_wgmma_instances_do_not_spill(cuda, dk, dv):
+    """ptxas reports no spill store for any bf16 flash instance."""
+    assert _spill_bytes("flash_attention", "flash_fwd_wgmma_kernel", "",
+                        (dk, dv)) == 0
+
+
+def test_flash_tensor_map_encode_cost(cuda):
+    """The host cost of one bf16 call's six tensor-map encodes is a few
+    microseconds at the main case's shapes."""
+    q, k, v = _bf16_flash_inputs(cuda, 0, 2, 1024, 1024, 40, 40, 128, 128)
+    us = flash_ops.map_encode_us(q, k, v, iters=200)
+    assert 0 < us < 100
 
 
 def _paged_inputs(rng, g, dev, dtype, lens, H, K, hd, page, npg, shuffle):
@@ -419,7 +557,7 @@ def _internvl2_inputs(cuda, dtype):
 
 
 @pytest.mark.parametrize("dtype,flash_kernel,paged_kernel", [
-    (torch.bfloat16, "flash_fwd_mma_kernel", "paged_gqa_mma_kernel"),
+    (torch.bfloat16, "flash_fwd_wgmma_kernel", "paged_gqa_mma_kernel"),
     (torch.float32, "flash_fwd_tf32x3_kernel", "paged_gqa_tf32x3_kernel"),
 ])
 def test_internvl2_heads_route_by_type(cuda, dtype, flash_kernel,
@@ -634,7 +772,8 @@ def test_flash_offset_kernel_matches_plain(cuda, dtype, C, T, q_offset,
                                rtol=TOLS[dtype])
     if dtype == torch.bfloat16:
         tiled = flash_attention_tiled_ref(
-            *(t.transpose(1, 2) for t in (q, k, v)), **kw).transpose(1, 2)
+            *(t.transpose(1, 2) for t in (q, k, v)), **kw,
+            tile=flash_ops.BF16_KV_TILE[q.shape[-1]]).transpose(1, 2)
         torch.testing.assert_close(out.float(), tiled.float(),
                                    atol=TILED_ATOL, rtol=TILED_RTOL)
     else:
@@ -892,7 +1031,8 @@ def test_flash_mla_dims_kernel_matches_plain(cuda, dtype, B, S, H, q_offset,
                                rtol=TOLS[dtype])
     if dtype == torch.bfloat16:
         tiled = flash_attention_tiled_ref(
-            *(t.transpose(1, 2) for t in (q, k, v)), **kw).transpose(1, 2)
+            *(t.transpose(1, 2) for t in (q, k, v)), **kw,
+            tile=flash_ops.BF16_KV_TILE[q.shape[-1]]).transpose(1, 2)
         torch.testing.assert_close(out.float(), tiled.float(),
                                    atol=TILED_ATOL, rtol=TILED_RTOL)
     else:
@@ -1163,7 +1303,8 @@ def test_flash_minicpm3_dims_kernel_matches_plain(cuda, dtype, B, S, H,
                                rtol=TOLS[dtype])
     if dtype == torch.bfloat16:
         tiled = flash_attention_tiled_ref(
-            *(t.transpose(1, 2) for t in (q, k, v)), **kw).transpose(1, 2)
+            *(t.transpose(1, 2) for t in (q, k, v)), **kw,
+            tile=flash_ops.BF16_KV_TILE[q.shape[-1]]).transpose(1, 2)
         torch.testing.assert_close(out.float(), tiled.float(),
                                    atol=TILED_ATOL, rtol=TILED_RTOL)
     else:
@@ -1451,8 +1592,8 @@ def _spill_bytes(lib: str, kernel: str, type_tag: str, ints: tuple) -> int:
 
 
 @pytest.mark.parametrize("lib,kernel,type_tag,ints", [
-    ("flash_attention", "flash_fwd_mma_kernel", "", (80, 80)),
-    ("flash_attention", "flash_fwd_mma_kernel", "", (256, 256)),
+    ("flash_attention", "flash_fwd_wgmma_kernel", "", (80, 80)),
+    ("flash_attention", "flash_fwd_wgmma_kernel", "", (256, 256)),
     ("flash_attention", "flash_fwd_tf32x3_kernel", "", (80, 80)),
     ("flash_attention", "flash_fwd_tf32x3_kernel", "", (256, 256)),
     ("paged_attention", "paged_gqa_tf32x3_kernel", "", (80, 4)),
@@ -1464,10 +1605,10 @@ def _spill_bytes(lib: str, kernel: str, type_tag: str, ints: tuple) -> int:
 ])
 def test_ring_dims_instances_do_not_spill(cuda, lib, kernel, type_tag, ints):
     """The sliding-window families' kernel instances keep every register
-    (ptxas reports no spill store): bf16 flash at (256, 256) only since
-    its 32-key tiles (64-key ones spilled 64 bytes beside the
-    128-register accumulator); grouped paged decode runs the tensor-core
-    kernels in both types, recurrentgemma's G = 16 at hd 256 too."""
+    (ptxas reports no spill store): bf16 flash at (256, 256) beside its
+    128-register output accumulator; grouped paged decode runs the
+    tensor-core kernels in both types, recurrentgemma's G = 16 at hd 256
+    too."""
     assert _spill_bytes(lib, kernel, type_tag, ints) == 0
 
 

@@ -90,35 +90,109 @@ class TestFlashAttention:
                                    atol=F32_TOL, rtol=F32_TOL)
 
 
-class TestFlashTiled:
-    """The bf16 kernel's arithmetic (64-key tiles, exp2 online softmax, P
-    rounded to bf16 before P·V) against the JAX oracle."""
+_TILED_DTYPES = [
+    ("bfloat16", True, BF16_TOL),   # the kernel's rounding of P
+    ("float32", False, F32_TOL),    # the tiling alone is exact
+]
+_TILED_CASES = [
+    (1, 192, 2, 2, True, 0),        # causal
+    (1, 256, 2, 2, True, 100),      # window
+    (2, 128, 8, 2, True, 0),        # GQA
+    (2, 77, 4, 2, True, 30),        # ragged S
+    (1, 130, 2, 2, False, 0),       # bidirectional
+]
 
-    @pytest.mark.parametrize("dtype,round_p,tol", [
-        ("bfloat16", True, BF16_TOL),   # the kernel's rounding of P
-        ("float32", False, F32_TOL),    # the tiling alone is exact
-    ])
-    @pytest.mark.parametrize("B,S,H,K,causal,window", [
-        (1, 192, 2, 2, True, 0),        # causal
-        (1, 256, 2, 2, True, 100),      # window
-        (2, 128, 8, 2, True, 0),        # GQA
-        (2, 77, 4, 2, True, 30),        # ragged S
-        (1, 130, 2, 2, False, 0),       # bidirectional
-    ])
+
+def _pad_values(v, dk):
+    """v (..., dv) with zero columns up to dk: the JAX kernel and its oracle
+    take one head width, and the first dv columns of their output are
+    attention over v itself."""
+    return np.concatenate(
+        [v, np.zeros(v.shape[:-1] + (dk - v.shape[-1],), v.dtype)], -1)
+
+
+class TestFlashTiled:
+    """The bf16 kernel's arithmetic (``ops.BF16_KV_TILE``-key tiles of each
+    (dk, dv), exp2 online softmax, P rounded to bf16 before P·V) against the
+    JAX oracle and the Pallas kernel in interpret mode."""
+
+    @pytest.mark.parametrize("dtype,round_p,tol", _TILED_DTYPES)
+    @pytest.mark.parametrize("B,S,H,K,causal,window", _TILED_CASES)
     def test_tiled_matches_jax_ref(self, dtype, round_p, tol, B, S, H, K,
                                    causal, window):
+        self._check_jax_ref(dtype, round_p, tol, B, S, H, K, causal, window,
+                            64, 64)
+
+    @pytest.mark.parametrize("dk,dv", [d for d in flash_ops.HEAD_DIMS
+                                       if d != (64, 64)])
+    @pytest.mark.parametrize("dtype,round_p,tol", _TILED_DTYPES)
+    @pytest.mark.parametrize("B,S,H,K,causal,window", _TILED_CASES)
+    def test_tiled_matches_jax_ref_at_every_width(self, dtype, round_p, tol,
+                                                  B, S, H, K, causal, window,
+                                                  dk, dv):
+        """The cases above at every other (dk, dv) of the kernel."""
+        self._check_jax_ref(dtype, round_p, tol, B, S, H, K, causal, window,
+                            dk, dv)
+
+    @staticmethod
+    def _check_jax_ref(dtype, round_p, tol, B, S, H, K, causal, window, dk,
+                       dv):
         rng = np.random.default_rng(5)
-        q, k, v = (_normal(rng, (B, S, n, 64)) for n in (H, K, K))
+        q, k = (_normal(rng, (B, S, n, dk)) for n in (H, K))
+        v = _normal(rng, (B, S, K, dv))
         jd, td = getattr(jnp, dtype), getattr(torch, dtype)
-        want = jax_flash(*(jnp.asarray(a).astype(jd) for a in (q, k, v)),
+        want = jax_flash(*(jnp.asarray(a).astype(jd)
+                           for a in (q, k, _pad_values(v, dk))),
                          causal=causal, window=window, impl="ref")
         got = flash_attention_tiled_ref(
             *(torch.from_numpy(a).to(td).transpose(1, 2) for a in (q, k, v)),
-            causal=causal, window=window, round_p=round_p).transpose(1, 2)
+            causal=causal, window=window, round_p=round_p,
+            tile=flash_ops.BF16_KV_TILE[dk]).transpose(1, 2)
         assert got.dtype == td
         np.testing.assert_allclose(got.float().numpy(),
-                                   np.asarray(want.astype(jnp.float32)),
-                                   atol=tol, rtol=tol)
+                                   np.asarray(want.astype(jnp.float32))
+                                   [..., :dv], atol=tol, rtol=tol)
+
+    @pytest.mark.parametrize("dk,dv", flash_ops.HEAD_DIMS)
+    @pytest.mark.parametrize("B,C,H,K,causal,window,q_offset,T", [
+        (1, 256, 2, 2, True, 0, 0, 256),        # causal, two tiles of 128
+        (1, 256, 2, 2, True, 100, 0, 256),      # window
+        (2, 128, 8, 2, True, 0, 0, 128),        # GQA
+        (1, 256, 2, 2, False, 0, 0, 256),       # bidirectional
+        # a chunk of 72 queries at offset 120 (across the tile edge at 128)
+        # over the first 192 keys of a 224-row cache, NaN past them
+        (1, 72, 2, 2, True, 0, 120, 224),
+    ])
+    def test_bf16_tiled_matches_pallas_interpret(self, dk, dv, B, C, H, K,
+                                                 causal, window, q_offset,
+                                                 T):
+        """bf16 inputs through the tiled plain version at the kernel's tile
+        and the Pallas kernel in interpret mode, within BF16_TOL (the
+        Pallas kernel keeps P in f32).  The Pallas kernel has no query
+        offset or visible-key count: it runs all kv_len rows over the
+        visible keys, and the chunk's rows are kept."""
+        rng = np.random.default_rng(dk + dv + C)
+        kv_len = q_offset + C
+        bf = (lambda a: torch.from_numpy(a).bfloat16())
+        q = bf(_normal(rng, (B, kv_len, H, dk)))
+        k = bf(_normal(rng, (B, T, K, dk)))
+        v = bf(_normal(rng, (B, T, K, dv)))
+        k[:, kv_len:] = float("nan")           # never read
+        v[:, kv_len:] = float("nan")
+        j = (lambda t: jnp.asarray(t[:, :kv_len].float().numpy())
+             .astype(jnp.bfloat16).transpose(0, 2, 1, 3))
+        want = flash_attention_bhsd(
+            j(q), j(k), j(torch.from_numpy(_pad_values(
+                v.float().numpy(), dk)).bfloat16()),
+            causal=causal, window=window, interpret=True)
+        want = np.asarray(want.astype(jnp.float32))[:, :, q_offset:, :dv]
+        got = flash_attention_tiled_ref(
+            q[:, q_offset:].transpose(1, 2), k.transpose(1, 2),
+            v.transpose(1, 2), causal=causal, window=window,
+            q_offset=q_offset, kv_len=kv_len,
+            tile=flash_ops.BF16_KV_TILE[dk]).float().numpy()
+        assert got.shape == want.shape == (B, H, C, dv)
+        np.testing.assert_allclose(got, want, atol=BF16_TOL, rtol=BF16_TOL)
 
 
 class TestFlashTF32x3:
@@ -821,6 +895,12 @@ class TestWrappers:
     ("void (anonymous namespace)::paged_merge_kernel<__nv_bfloat16, 128>",
      "paged_attention"),
     ("void (anonymous namespace)::tensor_core::flash_fwd_mma_kernel<192, 128>"
+     "(...)", "flash_attention"),
+    ("void (anonymous namespace)::wgmma_tc::flash_fwd_wgmma_kernel<128, 128>"
+     "(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, __nv_bfloat16*, int, int, int, int, "
+     "int, float, int, int)", "flash_attention"),
+    ("void (anonymous namespace)::wgmma_tc::flash_fwd_wgmma_kernel<80, 80>"
      "(...)", "flash_attention"),
     ("void (anonymous namespace)::mla::paged_mla_tf32x3_kernel<576, 512, 16>"
      "(float const*, float const*, int const*, int const*, float*, float*, "
